@@ -1,0 +1,45 @@
+# gpmp_tpu_torch/__init__.py
+"""gpmp_tpu_torch: the PyTorch / CUDA port of gpmp_tpu.
+
+Same public layout as gpmp_tpu: ``Model`` at the root plus lazily-loaded
+submodules.  The Matern gram matrix and its parameter gradient run as
+hand-written CUDA kernels on the card (``ops.gram``); the factorizations
+go to ``torch.linalg``.  Select the card with ``config.set_device("cuda")``
+or ``GPMP_DEVICE=cuda``.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Final
+
+from . import config as config  # eager: sets up dtype/device before num import
+from .core import Model
+
+__all__ = [
+    "Model",
+    "__version__",
+    "config",
+    "num",
+    "kernel",
+    "core",
+    "misc",
+    "ops",
+    "interop",
+]
+
+__version__ = "0.1.0"
+
+_LAZY_SUBMODULES: Final[set] = {"num", "kernel", "misc", "ops", "interop"}
+
+
+def __getattr__(name: str):
+    if name in _LAZY_SUBMODULES:
+        module = importlib.import_module(f"{__name__}.{name}")
+        globals()[name] = module
+        return module
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals().keys()) | _LAZY_SUBMODULES)

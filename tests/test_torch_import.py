@@ -1,0 +1,142 @@
+# tests/test_torch_import.py
+"""gpmp_tpu_torch imports alone (no JAX), pins TF32 off, and picks its
+device and Cholesky engine as configured."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import gpmp_tpu_torch
+from gpmp_tpu_torch import config, interop
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SUBMODULES = (
+    "gpmp_tpu_torch.config",
+    "gpmp_tpu_torch.num",
+    "gpmp_tpu_torch.ops",
+    "gpmp_tpu_torch.ops.gram",
+    "gpmp_tpu_torch.ops._build",
+    "gpmp_tpu_torch.kernel",
+    "gpmp_tpu_torch.kernel.matern",
+    "gpmp_tpu_torch.kernel.exponential",
+    "gpmp_tpu_torch.kernel.init",
+    "gpmp_tpu_torch.kernel.utils",
+    "gpmp_tpu_torch.kernel.parameter_selection",
+    "gpmp_tpu_torch.core",
+    "gpmp_tpu_torch.core.model",
+    "gpmp_tpu_torch.core.kriging",
+    "gpmp_tpu_torch.core.likelihood",
+    "gpmp_tpu_torch.core.linalg",
+    "gpmp_tpu_torch.core.utils",
+    "gpmp_tpu_torch.misc",
+    "gpmp_tpu_torch.misc.designs",
+    "gpmp_tpu_torch.misc.testfunctions",
+    "gpmp_tpu_torch.interop",
+)
+
+
+def _run(code, **env):
+    full_env = {k: v for k, v in os.environ.items() if not k.startswith("GPMP_")}
+    full_env.update(env)
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=full_env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_import_pulls_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {SUBMODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import gpmp_tpu_torch as gp\n"
+        "assert gp.Model is gp.core.Model\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'gpmp_tpu.')) or m == 'gpmp_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_tf32_pins_hold():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_default_device_is_cpu_and_cuda_needs_a_card():
+    assert config.get_device() == torch.device("cpu")
+    if torch.cuda.is_available():
+        config.set_device("cuda")
+        try:
+            assert config.get_device().type == "cuda"
+        finally:
+            config.set_device("cpu")
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            config.set_device("cuda")
+        assert config.get_device() == torch.device("cpu")
+
+
+def test_env_device_cuda_without_card_raises_at_import():
+    proc = _run("import torch, gpmp_tpu_torch\n"
+                "print(torch.cuda.is_available())", GPMP_DEVICE="cuda")
+    if proc.returncode == 0:
+        assert proc.stdout.strip() == "True"  # a card is there
+    else:
+        assert "torch.cuda.is_available() is False" in proc.stderr
+
+
+def test_set_chol_engine():
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        config.set_chol_engine("mixed")
+    with pytest.raises(ValueError):
+        config.set_chol_engine("bogus")
+    for name in ("f64", "auto"):
+        config.set_chol_engine(name)
+        assert config.get_chol_engine() == name
+
+
+def test_dtype_is_float64_by_default():
+    import gpmp_tpu_torch.num as gnp
+
+    assert gnp.get_dtype() == torch.float64
+    assert gnp.eps == float(np.finfo(np.float64).eps)
+    with pytest.raises(RuntimeError):
+        config.set_dtype("float32")
+
+
+def test_params_from_numpy():
+    cp, mp = interop.params_from_numpy(np.array([0.5, -1.0, 2.0]), None,
+                                       device="cpu", dtype=torch.float64)
+    assert mp is None
+    assert cp.dtype == torch.float64 and cp.device.type == "cpu"
+    np.testing.assert_array_equal(cp.numpy(), [0.5, -1.0, 2.0])
+    cp, mp = interop.params_from_numpy(np.array([[1.0, 2.0]]), np.array(3.0),
+                                       device="cpu", dtype=torch.float32)
+    assert cp.shape == (2,) and mp.shape == (1,) and mp.dtype == torch.float32
+    with pytest.raises(TypeError):
+        interop.params_from_numpy(torch.zeros(2), device="cpu", dtype=torch.float64)
+
+
+def test_unported_options_raise():
+    gp = gpmp_tpu_torch
+    model = gp.Model(lambda x, p: torch.ones((x.shape[0], 1), dtype=torch.float64),
+                     lambda x, y, c, pairwise=False: None)
+    xi = np.zeros((3, 1))
+    zi = np.zeros(3)
+    with pytest.raises(NotImplementedError, match="lbfgs-device"):
+        gp.kernel.select_parameters_with_reml(model, xi, zi, covparam0=np.zeros(2),
+                                              method="lbfgs-device")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        gp.kernel.select_parameters_with_reml(model, xi, zi, covparam0=np.zeros(2),
+                                              mesh=object())
+    with pytest.raises(NotImplementedError, match="dataloader"):
+        gp.kernel.select_parameters_with_reml(model, dataloader=object(),
+                                              covparam0=np.zeros(2))
