@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of gpmp_tpu_torch on one CUDA card: REML fit + predict.
+"""Smoke test of gpmp_tpu_torch on one CUDA card: REML fit + predict, and
+noisy REML fit + LOO + predict on the mixed Cholesky engine.
 
 Run from the repository root with no arguments:
 
@@ -10,13 +11,18 @@ neither JAX nor gpmp_tpu.  Phases (each prints lines; any failure exits
 non-zero):
 
 1. Device and build: the card's name and power limit (nvidia-smi), the
-   time to build gpmp_tpu_torch/csrc with nvcc, ptxas register/spill lines.
-2. Kernels vs plain versions on the card: K1 (Matern gram) and K2 (its
+   time to build gpmp_tpu_torch/csrc with nvcc (one nvcc per source, in
+   parallel), ptxas register/spill lines.
+2. K1/K2 vs plain versions on the card: K1 (Matern gram) and K2 (its
    parameter pullback) in float64 and float32 against the plain PyTorch
    versions on the same CUDA tensors, (n, m, d) in {(1000, 1000, 6) same,
    (1000, 1000, 6) cross, (997, 503, 3) cross}, p in {0, 1, 2, 3}, with
    duplicated rows.  Errors are max|kernel - plain| / max|plain|;
    tolerances K1 1e-12 (f64) / 1e-5 (f32), K2 1e-9 (f64) / 1e-3 (f32).
+2b. K3/K4/K5/K7 vs plain versions on the card, on noisy-Matern SPD
+   matrices K (n in {1000, 1024, 4099}, cond(K) ~1e3 and ~1e6, set by the
+   noise variance from the gram's largest eigenvalue), with the
+   tolerances and reasons given at TOL_MIXED.
 3. The main path: Hartmann6, n = 1000, d = 6, Matern p = 2, constant
    mean; select_parameters_with_reml then predict at nt = 1000 points, on
    the card, with the launch counters reset just before and the plain
@@ -24,14 +30,42 @@ non-zero):
    finite covparam and predictions, and the port on the CPU (plain
    versions) at the card's covparam agrees to rel 1e-8 on the REML value
    and on the predicted mean and variance.
+3b. The noisy-regression slice on the mixed engine: bench.py's data
+   (n = 1000, d = 6, seed 7, noise 0.1), its user kernel (Matern p = 2
+   plus a noise variance) and its p0; under set_chol_engine("mixed"):
+   autoselect_parameters on REML, Model.loo, then predict at nt = 1000
+   seeded uniform points, with the K3/K4/K5/K7 counters reset just before
+   and every plain version made to raise on CUDA tensors.  Checks: each
+   kernel launched; at the fitted covparam, mixed vs the card's f64
+   engine: REML rel 1e-6 (bench.py's gate), gradient within the class
+   envelope of BENCHMARKS.md (1e-3 log s2, 1e-4 the others; relative at
+   p0, and at the optimum, where the gradient is ~0, relative to the
+   larger of the trace and quadratic terms it is the difference of,
+   computed in the same run), LOO within TOL_SLICE, predictions within
+   twice the error that the residual of predict's refined solve implies
+   (_refine_probe); the port on the CPU (mixed engine, plain versions):
+   REML rel 1e-8 at p0, and bench.py's 1e-6 at the card's covparam
+   (cond(K) ~3e6 there; see phase_slice).
 4. Times on the card (CUDA events / synchronised host clock): K1 and K2 vs
    their plain versions at the main path's shapes; REML value+grad evals/s
    at n = 1000 and 8192 (kernels and plain gram); fit+predict wall-clock.
+4b. K3/K4/K5/K7: kernel, plain and library-call ms at the slice's shapes
+   (n = 1000); the noisy model's REML value+grad evals/s at n = 1000 and
+   8192 on the mixed and f64 engines in turns; fit+LOO+predict wall-clock
+   (first and warm); the rise of torch.cuda.max_memory_allocated over
+   what was held before at n = 8192, per engine, for one value+grad and
+   for the engine alone (solve_and_logdet and its backward on a fixed K).
+5. Where the time goes: torch.profiler over the noisy model's REML
+   value+grad at n = 1000 and 8192, mixed and f64 engines, device time per
+   evaluation by kernel group.
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]}, with each kernel's
+least time on the card (bound_ms) computed from this run's shapes against
+the H100 SXM's data-sheet peaks (PEAK_*); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import gc
 import json
 import math
 import os
@@ -48,6 +82,46 @@ TOL_K1 = {"float64": 1e-12, "float32": 1e-5}
 TOL_K2 = {"float64": 1e-9, "float32": 1e-3}
 TOL_PATH = 1e-8
 EVAL_SIZES = ((1000, 30), (8192, 10))  # (n, evaluations) for the evals/s rates
+
+# H100 SXM data-sheet peaks (NVIDIA; dense, at the 700 W power limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F64_FLOPS = 34e12         # f64 on the vector units
+PEAK_F64_TENSOR_FLOPS = 67e12  # f64 on the tensor cores (matrix products)
+PEAK_F32_FLOPS = 67e12         # f32 outside the tensor cores
+
+# phase 2b: kernel vs plain on the card, max|kernel - plain| / max|plain|
+TOL_MIXED = {
+    # f64 sums over n <= 4099 terms in another order: <= n eps64 relative
+    "K3": 1e-12,
+    # R = K - L L^T ~ eps32 |K|; the f64 sums in another order differ by up
+    # to ~n eps64 |K| ~ 5e-13 |K|, then one f32 rounding
+    "K4": 1e-5,
+    # f32 forward substitution in another order than the plain version's
+    # batched products: each is off by ~eps32 cond(L) <= 6e-8 * 1e3 = 6e-5
+    # (cond(L) = cond(K)^(1/2) <= 1e3)
+    "K5": 1e-4,
+    # f64 sums of exact products of f32 values, in another order
+    "K7": 1e-12,
+}
+MIXED_SIZES = (1000, 1024, 4099)  # 4099: a ragged last block for K5
+MIXED_CONDS = (1e3, 1e6)          # the series and the two-level logdet branches
+# phase 3b: mixed vs the card's f64 engine at the fitted covparam
+TOL_SLICE = {
+    "reml": 1e-6,  # bench.py's gate, |v_mixed - v_f64| / max(|v_f64|, 1)
+    # BENCHMARKS.md class envelope per component: log s2, log noise, log 1/rho
+    "grad": (1e-3, 1e-4),
+    # LOO (n_refine sweeps, no early exit): at the fitted covparam cond(K)
+    # ~3e6, near the f32 range; measured 1.7e-6 (zloo) on the card
+    "loo": 1e-5,
+}
+# predictions: predict's refined solve keeps the reference's stagnation
+# exit (r2 < r2_prev / 4), so at cond(K) ~3e6 it may stop with a residual
+# R = B - K X well above f64 roundoff.  Predict's mean and variance are held
+# to the error that this R implies to first order (_refine_probe), times
+# PREDICT_SLACK for the second-order terms, plus TOL_PATH for f64 roundoff.
+PREDICT_SLACK = 2.0
+SLICE_N, SLICE_NT, SLICE_D, SLICE_SEED, SLICE_NOISE = 1000, 1000, 6, 7, 0.1
+NOISY_EVAL_SIZES = ((1000, 20), (8192, 3))  # (n, evaluations per window)
 
 
 def fail(msg):
@@ -187,26 +261,33 @@ def _fit_predict(gp, gnp, torch, xi, zi, xt):
 class _PlainGuard:
     """Makes the plain versions raise on CUDA tensors while active."""
 
-    def __init__(self, gram):
-        self.gram = gram
-        self.saved = {}
+    PLAIN = {
+        "gram": ("matern_gram_plain", "matern_gram_pullback_plain"),
+        "mixed": ("residual_plain", "factorization_residual_plain",
+                  "diag_block_inv_plain", "trace_sums_plain", "series_sums_plain"),
+    }
+
+    def __init__(self, *modules):
+        self.modules = modules
+        self.saved = []
 
     def __enter__(self):
-        for name in ("matern_gram_plain", "matern_gram_pullback_plain"):
-            orig = getattr(self.gram, name)
-            self.saved[name] = orig
+        for mod in self.modules:
+            for name in self.PLAIN[mod.__name__.rsplit(".", 1)[-1]]:
+                orig = getattr(mod, name)
+                self.saved.append((mod, name, orig))
 
-            def guarded(*args, _orig=orig, _name=name, **kw):
-                if any(getattr(a, "is_cuda", False) for a in args):
-                    raise AssertionError(f"{_name} reached with CUDA tensors")
-                return _orig(*args, **kw)
+                def guarded(*args, _orig=orig, _name=name, **kw):
+                    if any(getattr(a, "is_cuda", False) for a in args):
+                        raise AssertionError(f"{_name} reached with CUDA tensors")
+                    return _orig(*args, **kw)
 
-            setattr(self.gram, name, guarded)
+                setattr(mod, name, guarded)
         return self
 
     def __exit__(self, *exc):
-        for name, orig in self.saved.items():
-            setattr(self.gram, name, orig)
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
 
 
 def phase_main_path(gp, gnp, gram, torch):
@@ -323,6 +404,554 @@ def phase_times(gp, gnp, gram, torch, main_data):
     return times, rates, t_fp
 
 
+# ----------------------------------------------------------------------------
+# the mixed engine: kernels K3/K4/K5/K7 and the noisy-regression slice
+# ----------------------------------------------------------------------------
+def _noisy_matern_spd(torch, gram, n, cond, seed):
+    """Matern p=2 gram on n uniform points in [0, 1]^6 (s2 = 1, rho = 1.5)
+    plus tau I, tau set from the gram's eigenvalues so that cond(K) = cond
+    (or as near as the gram allows).  Returns (K, its condition number)."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.uniform(size=(n, 6)), device=DEVICE)
+    theta = torch.tensor([0.0] + [math.log(1 / 1.5)] * 6, dtype=torch.float64,
+                         device=DEVICE)
+    G = gram.matern_gram_plain(x, x, 2, theta)
+    G = (G + G.T) / 2
+    lam = torch.linalg.eigvalsh(G)
+    lo, hi = max(float(lam[0]), 0.0), float(lam[-1])
+    tau = max((hi - cond * lo) / (cond - 1.0), hi / cond * 1e-3)
+    K = G + tau * torch.eye(n, dtype=torch.float64, device=DEVICE)
+    return K, (hi + tau) / (float(lam[0]) + tau)
+
+
+def phase_mixed_kernels_vs_plain(torch, gram, mixed):
+    worst, main_abs, branches = {}, {}, set()
+    for n in MIXED_SIZES:
+        for ci, cond in enumerate(MIXED_CONDS):
+            K, cond_k = _noisy_matern_spd(torch, gram, n, cond, 31 * n + ci)
+            gen = torch.Generator(device=DEVICE).manual_seed(n + ci)
+            L32, M32 = mixed._f32_preconditioner(K)
+            errs = {}
+            for k in (2, 8):
+                X = torch.randn(n, k, dtype=torch.float64, device=DEVICE, generator=gen)
+                B = torch.randn(n, k, dtype=torch.float64, device=DEVICE, generator=gen)
+                R, nr = mixed.residual_cuda(K, X, B)
+                Rp, nrp = mixed.residual_plain(K, X, B)
+                R2, nr2 = mixed.residual_cuda(K, X, B)
+                check(torch.equal(R, R2) and torch.equal(nr, nr2), "K3 not reproducible")
+                errs["K3"] = max(errs.get("K3", 0.0), rel_err(R, Rp), rel_err(nr, nrp))
+                if k == 2 and n == SLICE_N and ci == 0:
+                    main_abs["K3"] = float((R - Rp).abs().max())
+            F = mixed.factorization_residual_cuda(K, L32)
+            Fp = mixed.factorization_residual_plain(K, L32)
+            check(torch.equal(F, F.T), f"K4 not symmetric at n={n}")
+            errs["K4"] = rel_err(F, Fp)
+            base = mixed.TRI_INV_BASE
+            Bk = mixed.diag_block_inv_cuda(L32, base)
+            Bp = mixed.diag_block_inv_plain(L32, base)
+            check(bool((torch.triu(Bk, 1) == 0).all()), "K5 not lower triangular")
+            errs["K5"] = rel_err(Bk, Bp)
+            H = M32 @ (Fp @ M32.T)
+            H2 = H @ H
+            t, tp = mixed.trace_sums_cuda(H), mixed.trace_sums_plain(H)
+            u, up = mixed.series_sums_cuda(H, H2), mixed.series_sums_plain(H, H2)
+            check(torch.equal(t, mixed.trace_sums_cuda(H)), "K7 not reproducible")
+            errs["K7"] = float(torch.max(torch.abs(torch.cat([t - tp, u - up]))
+                                         / torch.abs(torch.cat([tp, up]))))
+            if n == SLICE_N and ci == 0:
+                # the float32 builds of K3/K4 (GPMP_DTYPE=float32), against the
+                # plain versions in f64 on the same f32 inputs: the kernels
+                # accumulate in f64, so K3 is within an f32 rounding of R and
+                # K4 within K4's own tolerance
+                K32 = K.float()
+                X32, B32 = X.float(), B.float()
+                e3 = rel_err(mixed.residual_cuda(K32, X32, B32)[0].double(),
+                             mixed.residual_plain(K32.double(), X32.double(), B32.double())[0])
+                e4 = rel_err(mixed.factorization_residual_cuda(K32, L32),
+                             mixed.factorization_residual_plain(K32.double(), L32))
+                say(f"[phase 2b] float32 K3 {e3:.2e} (tol 1e-6), K4 {e4:.2e}")
+                check(e3 <= 1e-6 and e4 <= TOL_MIXED["K4"], "float32 K3/K4 vs plain")
+                main_abs["K4"] = float((F - Fp).abs().max())
+                main_abs["K5"] = float((Bk - Bp).abs().max())
+                main_abs["K7"] = float(torch.max(torch.abs(torch.cat([t - tp, u - up]))))
+            # the engine end to end on the card, against the f64 Cholesky
+            z = torch.randn(n, dtype=torch.float64, device=DEVICE, generator=gen)
+            x, ld = mixed.mp_solve_and_logdet(K, z)
+            C = torch.linalg.cholesky(K)
+            ld64 = float(2.0 * torch.sum(torch.log(torch.diagonal(C))))
+            x64 = torch.cholesky_solve(z[:, None], C)[:, 0]
+            branch = "series" if float(t[1]) < mixed._SERIES_TAU else "two-level"
+            branches.add(branch)
+            e_ld = abs(float(ld) - ld64) / abs(ld64)
+            e_x = rel_err(x, x64)
+            say(f"[phase 2b] n={n} cond={cond_k:.2e} ({branch}): "
+                + " ".join(f"{key} {val:.2e}" for key, val in errs.items())
+                + f"; engine logdet rel {e_ld:.2e}, solve rel {e_x:.2e}")
+            for key, val in errs.items():
+                check(val <= TOL_MIXED[key], f"{key} n={n} cond={cond:.0e}: "
+                      f"{val:.3e} > {TOL_MIXED[key]}")
+                worst[key] = max(worst.get(key, 0.0), val)
+            check(e_ld <= 1e-6 and e_x <= 1e-4, f"engine vs f64 at n={n} cond={cond:.0e}")
+    check(branches == {"series", "two-level"}, f"logdet branches run: {sorted(branches)}")
+    for key, val in sorted(worst.items()):
+        say(f"[phase 2b] worst {key} rel err {val:.3e} (tol {TOL_MIXED[key]})")
+    return main_abs
+
+
+def _bench_data(n, seed=SLICE_SEED, d=SLICE_D):
+    """bench.py's data and p0 (bench.py:250-287)."""
+    rng = np.random.default_rng(seed)
+    xi = rng.uniform(size=(n, d))
+    zi = (np.sin(3 * xi[:, 0]) + 0.5 * np.cos(5 * xi[:, 1])
+          + SLICE_NOISE * rng.normal(size=n))
+    p0 = np.concatenate([[np.log(np.var(zi))], [2 * np.log(0.1) + np.log(np.var(zi))],
+                         -np.log(np.std(xi, axis=0))])
+    return xi, zi, p0
+
+
+def _bench_model(gp, gnp, covparam=None):
+    """bench.py's user kernel: Matern p=2 plus a noise variance, constant mean."""
+    def constant_mean(x, param):
+        return gnp.ones((x.shape[0], 1))
+
+    def kernel(x, y, param, pairwise=False):
+        sigma2 = gnp.exp(param[0])
+        loginvrho = param[2:]
+        if y is x or y is None:
+            noise_variance = gnp.exp(param[1])
+            if pairwise:
+                return sigma2 * gnp.ones((x.shape[0],))
+            K = gnp.scaled_distance(loginvrho, x, x)
+            return sigma2 * gp.kernel.maternp_kernel(2, K) + (
+                noise_variance * gnp.eye(K.shape[0]))
+        if pairwise:
+            K = gnp.scaled_distance_elementwise(loginvrho, x, y)
+        else:
+            K = gnp.scaled_distance(loginvrho, x, y)
+        return sigma2 * gp.kernel.maternp_kernel(2, K)
+
+    return gp.Model(constant_mean, kernel, covparam=covparam)
+
+
+def _reml_vg(gp, model, xi, zi, p):
+    crit = gp.kernel.make_selection_criterion_with_gradient(
+        model, gp.kernel.negative_log_restricted_likelihood, xi, zi)
+    return crit[1](p), crit[3](p)
+
+
+def _fit_loo_predict(gp, gnp, torch, xi, zi, xt, p0):
+    model = _bench_model(gp, gnp)
+    t0 = time.perf_counter()
+    crit, crit_pre, _crit_ng, grad = gp.kernel.make_selection_criterion_with_gradient(
+        model, gp.kernel.negative_log_restricted_likelihood, xi, zi)
+    covparam, info = gp.kernel.autoselect_parameters(p0, crit_pre, grad, info=True)
+    model.covparam = gnp.asarray(covparam)
+    loo = model.loo(xi, zi)
+    zpm, zpv = model.predict(xi, zi, xt)
+    torch.cuda.synchronize()
+    return model, info, loo, (zpm, zpv), time.perf_counter() - t0
+
+
+def _refine_probe(gp, gnp, mixed, torch, covparam, xi, zi, xt, zpm64, zpv64, sweeps=5):
+    """Predict's refined solve K X = B = [K_it, P] at covparam (constant
+    mean: P = 1, P_t = 1), on the configured device.  Returns
+
+    - cond(K);
+    - for the engine's f32 inverse M of the f32 factor and for the library
+      triangular solve's: M's relative error against the f64 inverse, and
+      r2 = |R|^2 / |B|^2 after each of `sweeps` sweeps without early exit;
+    - the relative errors of predict's mean and variance (against zpm64,
+      zpv64 from the f64 engine) that the residual R = B - K X of the
+      engine's own solve (refined_solve: early exit and all) implies, to
+      first order.  With a = K^{-1} K_it, b = K^{-1} P and alpha = K^{-1} z
+      exact (f64 Cholesky), the engine's X = [a + da, b + db] has
+      K da = -R_a and K db = -R_b, so that per test point
+        c = P'b, s = P'a - 1, mu = s / c, dmu = (mu b'R_b - b'R_a) / c,
+        d mean = -alpha'R_a + mu alpha'R_b - (z'b) dmu,
+        d var  = a'R_a - mu a'R_b + s dmu;
+    - r2 of the engine's solve."""
+    m = _bench_model(gp, gnp, covparam=gnp.asarray(covparam))
+    x_i, x_t, c = gnp.asarray(xi), gnp.asarray(xt), gnp.asarray(covparam)
+    z = gnp.asarray(zi)
+    K = m.covariance(x_i, x_i, c)
+    Kit = m.covariance(x_i, x_t, c)
+    nt = Kit.shape[1]
+    B = torch.cat([Kit, gnp.ones((x_i.shape[0], 1))], dim=1)
+    lam = torch.linalg.eigvalsh(K)
+    L32, M32 = mixed._f32_preconditioner(K)
+    eye = torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
+    Minv = torch.linalg.solve_triangular(L32.double(), eye, upper=False)
+    out = {}
+    for name, M in (("engine", M32),
+                    ("trsm", torch.linalg.solve_triangular(L32, eye.float(), upper=False))):
+        X, r2 = mixed._apply(M, B), []
+        for _ in range(sweeps):
+            R, norms = mixed.residual(K, X, B)
+            r2.append(mixed._rel2(norms, K.dtype))
+            X = X + mixed._apply(M, R)
+        out[name] = (rel_err(M.double(), Minv), r2)
+
+    X = mixed.refined_solve(K, B)
+    R = B - K @ X
+    C = torch.linalg.cholesky(K)
+    X64 = torch.cholesky_solve(B, C)
+    alpha = torch.cholesky_solve(z[:, None], C)[:, 0]
+    a, b, Ra, Rb = X64[:, :nt], X64[:, nt], R[:, :nt], R[:, nt]
+    s = a.sum(0) - 1.0
+    mu = s / b.sum()
+    dmu = (mu * (b @ Rb) - b @ Ra) / b.sum()
+    d_mean = -(alpha @ Ra) + mu * (alpha @ Rb) - (z @ b) * dmu
+    d_var = (a * Ra).sum(0) - mu * (a.T @ Rb) + s * dmu
+    implied = (float(d_mean.abs().max()) / float(np.max(np.abs(zpm64))),
+               float(d_var.abs().max()) / float(np.max(np.abs(zpv64))))
+    r2_engine = float((R * R).sum() / (B * B).sum())
+    return float(lam[-1] / lam[0]), out, implied, r2_engine
+
+
+def _reml_grad_terms(gp, gnp, torch, covparam, xi, zi):
+    """The two parts of the REML gradient at covparam, in plain f64 on the
+    configured device (constant mean): the trace term 1/2 d(log|K| +
+    log|P'K^{-1}P|), which is 1/2 tr(W dK) with W the REML projection, and
+    the quadratic term 1/2 d(z'W z), which is -1/2 (Wz)' dK (Wz).  Near
+    the optimum they cancel, and each gradient component is a difference of
+    two numbers of this size."""
+    c = gnp.asarray(covparam).clone().requires_grad_(True)
+    x, z = gnp.asarray(xi), gnp.asarray(zi)
+    K = _bench_model(gp, gnp).covariance(x, x, c)
+    P = gnp.ones((x.shape[0], 1))
+    C = torch.linalg.cholesky(K)
+    X = torch.cholesky_solve(torch.cat([z[:, None], P], dim=1), C)
+    Cm = torch.linalg.cholesky(P.T @ X[:, 1:])
+    u = torch.linalg.solve_triangular(Cm, (P.T @ X[:, 0])[:, None], upper=False)
+    ld = 2.0 * (torch.log(torch.diagonal(C)).sum() + torch.log(torch.diagonal(Cm)).sum())
+    quad = z @ X[:, 0] - (u * u).sum()
+    g_tr = torch.autograd.grad(0.5 * ld, c, retain_graph=True)[0]
+    g_q = torch.autograd.grad(0.5 * quad, c)[0]
+    return gnp.to_np(g_tr), gnp.to_np(g_q)
+
+
+def phase_slice(gp, gnp, gram, mixed, torch):
+    xi, zi, p0 = _bench_data(SLICE_N)
+    xt = np.random.default_rng(SLICE_SEED + 1).uniform(size=(SLICE_NT, SLICE_D))
+    zt = np.sin(3 * xt[:, 0]) + 0.5 * np.cos(5 * xt[:, 1])
+    gp.config.set_device(DEVICE)
+    gp.config.set_chol_engine("mixed")
+    for name in ("K3", "K4", "K5", "K7"):
+        setattr(mixed, f"{name}_LAUNCHES", 0)
+    with _PlainGuard(gram, mixed):
+        model, info, loo, (zpm, zpv), t_first = _fit_loo_predict(
+            gp, gnp, torch, xi, zi, xt, p0)
+    launches = {name: getattr(mixed, f"{name}_LAUNCHES") for name in ("K3", "K4", "K5", "K7")}
+    say(f"[phase 3b] slice launches {launches}; fit+LOO+predict (first) {t_first:.3f} s; "
+        f"nfev {info.nfev}; REML {info.fun!r}")
+    for name, count in launches.items():
+        check(count > 0, f"{name} was not launched on the slice's path")
+    covparam = np.asarray(info.x)
+    say(f"[phase 3b] covparam {covparam.tolist()}")
+    check(np.all(np.isfinite(covparam)), "covparam not finite")
+    zloo, s2loo, eloo = (gnp.to_np(a) for a in loo)
+    check(all(a.shape == (SLICE_N,) and np.all(np.isfinite(a)) for a in (zloo, s2loo, eloo)),
+          "LOO outputs not finite or of the wrong shape")
+    check(np.all(s2loo > 0), "LOO variances not positive")
+    check(zpm.shape == (SLICE_NT,) and np.all(np.isfinite(zpm)) and np.all(np.isfinite(zpv)),
+          "predictions not finite or of the wrong shape")
+    rmse = float(np.sqrt(np.mean((zpm - zt) ** 2)))
+    loo_rmse = float(np.sqrt(np.mean(eloo ** 2)))
+    say(f"[phase 3b] test RMSE {rmse:.4e} (std {float(np.std(zt)):.4e}); LOO RMSE {loo_rmse:.4e}")
+    check(rmse < np.std(zt), "RMSE is not below the spread of the test values")
+
+    # mixed vs the card's f64 engine, at the fitted covparam (and at p0)
+    xi_c, zi_c = gnp.asarray(xi), gnp.asarray(zi)
+    res = {}
+    for engine in ("mixed", "f64"):
+        gp.config.set_chol_engine(engine)
+        m = _bench_model(gp, gnp, covparam=gnp.asarray(covparam))
+        res[engine] = (_reml_vg(gp, m, xi_c, zi_c, covparam), _reml_vg(gp, m, xi_c, zi_c, p0),
+                       [gnp.to_np(a) for a in m.loo(xi_c, zi_c)], m.predict(xi, zi, xt))
+    (vm, gm), (vm0, gm0), loo_m, pred_m = res["mixed"]
+    (vf, gf), (vf0, gf0), loo_f, pred_f = res["f64"]
+    env = np.array([TOL_SLICE["grad"][0]] + [TOL_SLICE["grad"][1]] * (len(covparam) - 1))
+    e_v = abs(vm - vf) / max(abs(vf), 1.0)
+    # near the optimum each gradient component is a difference of a trace
+    # term and a quadratic term that cancel: its error is held relative to
+    # the larger of the two, taken from this run (plain f64 on the card)
+    g_tr, g_q = _reml_grad_terms(gp, gnp, torch, covparam, xi, zi)
+    floor = np.maximum(np.abs(g_tr), np.abs(g_q))
+    e_split = np.max(np.abs(g_tr + g_q - gf) / floor)
+    e_g = np.abs(gm - gf) / np.maximum(np.abs(gf), floor)
+    e_g0 = np.abs(gm0 - gf0) / np.abs(gf0)
+    e_loo = [rel_err_np(a, b) for a, b in zip(loo_m, loo_f)]
+    e_pred = [rel_err_np(a, b) for a, b in zip(pred_m, pred_f)]
+    say(f"[phase 3b] REML gradient terms at the fit: trace "
+        f"{np.array2string(g_tr, precision=3, max_line_width=200)}, quadratic "
+        f"{np.array2string(g_q, precision=3, max_line_width=200)}; "
+        f"their sum vs the f64 engine's gradient {e_split:.2e} (tol {TOL_PATH})")
+    say(f"[phase 3b] mixed vs f64 on the card: REML rel {e_v:.3e}; grad at the fit "
+        f"{np.array2string(e_g, precision=2)} (rel to the larger term), at p0 "
+        f"{np.array2string(e_g0, precision=2)} (rel); LOO zloo/sigma2loo/eloo "
+        f"{e_loo[0]:.2e}/{e_loo[1]:.2e}/{e_loo[2]:.2e}; predict mean/var "
+        f"{e_pred[0]:.2e}/{e_pred[1]:.2e}")
+    check(e_v <= TOL_SLICE["reml"], f"REML mixed vs f64 rel {e_v:.3e}")
+    check(e_split <= TOL_PATH, f"REML gradient terms do not add up: {e_split:.3e}")
+    check(np.all(e_g <= env) and np.all(e_g0 <= env), "gradient outside the class envelope")
+    check(max(e_loo[:2]) <= TOL_SLICE["loo"], f"LOO mixed vs f64 {e_loo}")
+    # predict: held to the error that its refined solve's residual implies
+    # (on the card); the CPU's run is printed beside it
+    for dev in (DEVICE, "cpu"):
+        gp.config.set_device(dev)
+        try:
+            cond, probe, implied, r2_engine = _refine_probe(
+                gp, gnp, mixed, torch, covparam, xi, zi, xt, *pred_f)
+        finally:
+            gp.config.set_device(DEVICE)
+        for name, (e_m, r2) in probe.items():
+            say(f"[phase 3b] predict's refined solve on {dev} at the fit, cond(K) {cond:.3e}: "
+                f"f32 inverse from the {name}, rel err {e_m:.2e}, r2 by sweep "
+                + " ".join(f"{v:.1e}" for v in r2))
+        say(f"[phase 3b] on {dev}: the engine's solve leaves r2 {r2_engine:.2e}, which "
+            f"implies predict mean/var errors {implied[0]:.2e}/{implied[1]:.2e}")
+        if dev == DEVICE:
+            tol_pred = [PREDICT_SLACK * e + TOL_PATH for e in implied]
+            say(f"[phase 3b] predict mixed vs f64 over what the residual implies: mean "
+                f"{e_pred[0] / implied[0]:.3f}, var {e_pred[1] / implied[1]:.3f} "
+                f"(tol {PREDICT_SLACK} + {TOL_PATH} / implied)")
+            check(e_pred[0] <= tol_pred[0] and e_pred[1] <= tol_pred[1],
+                  f"predict mixed vs f64 {e_pred} above what the residual implies {implied}")
+
+    # the card vs the port on the CPU (mixed engine, plain versions): at p0,
+    # where cond(K) is moderate and both are exact to f64 roundoff, rel 1e-8;
+    # at the fitted covparam (cond(K) ~3e6) bench.py's gate, since there the
+    # card's engine is itself only ~1.6e-7 from the exact f64 value (the
+    # CPU's f64 engine is printed beside it as the witness)
+    gp.config.set_device("cpu")
+    try:
+        v_cpu = {}
+        for engine in ("mixed", "f64"):
+            gp.config.set_chol_engine(engine)
+            m = _bench_model(gp, gnp, covparam=gnp.asarray(covparam))
+            v_cpu[engine] = [float(m.negative_log_restricted_likelihood(
+                gnp.asarray(p), gnp.asarray(xi), gnp.asarray(zi))) for p in (covparam, p0)]
+    finally:
+        gp.config.set_device(DEVICE)
+    (v_cpu, v_cpu0), v_cpu64 = v_cpu["mixed"], v_cpu["f64"][0]
+    e_c, e_c0 = abs(vm - v_cpu) / abs(v_cpu), abs(vm0 - v_cpu0) / abs(v_cpu0)
+    say(f"[phase 3b] card vs CPU (mixed): REML rel {e_c0:.3e} at p0 (tol {TOL_PATH}), "
+        f"{e_c:.3e} at the card's covparam (tol {TOL_SLICE['reml']}); at the latter, "
+        f"CPU mixed vs CPU f64 {abs(v_cpu - v_cpu64) / abs(v_cpu64):.3e}, "
+        f"card f64 vs CPU f64 {abs(vf - v_cpu64) / abs(v_cpu64):.3e}")
+    check(e_c0 <= TOL_PATH, f"REML card vs CPU at p0 rel {e_c0:.3e}")
+    check(e_c <= TOL_SLICE["reml"], f"REML card vs CPU at the fit rel {e_c:.3e}")
+    gp.config.set_chol_engine("auto")
+    return launches, (xi, zi, xt, p0), t_first
+
+
+def rel_err_np(a, b):
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+def _kernel_bounds(n, k=2, base=128, d=6, p=2):
+    """(bound_ms, bound_by) of each kernel at these shapes: the larger of
+    bytes (each input read once, each output written once) over the memory
+    rate and operations over the peak rate for their type."""
+    def bound(nbytes, flops, peak):
+        t_b, t_o = nbytes / PEAK_BYTES_PER_S, flops / peak
+        return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+    nb = -(-n // base)
+    sizes = [base] * (nb - 1) + [n - base * (nb - 1)]
+    fma_k4 = sum((n - j) * (j + 1) for j in range(n))
+    tri = n * (n + 1) // 2  # the lower triangle: K4 and K5 read no more of K and L
+    # K4 reads K (f64) and L (f32) over the lower triangle and writes the
+    # full f32 R; K5 reads the lower triangles of L's diagonal blocks and
+    # writes nb base x base f32 inverses
+    return {
+        # gram: ~3d (distance) + 2(p+1) (Horner) + 4 (sqrt, exp, scalings) per entry
+        "K1": bound(8 * (n * n + 2 * n * d + d + 1), n * n * (3 * d + 2 * (p + 1) + 4),
+                    PEAK_F64_FLOPS),
+        # pullback: K1's work plus ~2d + 2(p+1) + 4 for the derivative terms
+        "K2": bound(8 * (n * n + 2 * n * d + d + 1 + d + 1),
+                    n * n * (5 * d + 4 * (p + 1) + 8), PEAK_F64_FLOPS),
+        "K3": bound(8 * (n * n + 3 * n * k) + 16, 2 * n * n * k + 4 * n * k,
+                    PEAK_F64_FLOPS),
+        "K4": bound(8 * tri + 4 * tri + 4 * n * n, 2 * fma_k4 + tri, PEAK_F64_TENSOR_FLOPS),
+        "K5": bound(4 * sum(b * (b + 1) // 2 for b in sizes) + 4 * nb * base * base,
+                    sum(b ** 3 // 3 + b * b for b in sizes), PEAK_F32_FLOPS),
+        "K7": bound(8 * n * n + 32, 6 * n * n + n, PEAK_F64_FLOPS),
+    }
+
+
+def _noisy_evals_per_s(gp, gnp, torch, n, reps):
+    xi, zi, p0 = _bench_data(n)
+    model = _bench_model(gp, gnp)
+    crit, _, _, _ = gp.kernel.make_selection_criterion_with_gradient(
+        model, gp.kernel.negative_log_restricted_likelihood, xi, zi)
+    crit(p0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        if not math.isfinite(crit(p0 + 1e-3 * i)):
+            fail(f"noisy REML not finite at n={n} on {gp.config.get_chol_engine()}")
+    return reps / (time.perf_counter() - t0)
+
+
+def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
+    n = SLICE_N
+    K, _ = _noisy_matern_spd(torch, gram, n, 1e3, 7)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    X = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+    B = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+    L32, M32 = mixed._f32_preconditioner(K)
+    L64 = L32.double()
+    base = mixed.TRI_INV_BASE
+    blocks = mixed._diag_blocks(L32, base)
+    eye_b = torch.eye(base, device=DEVICE).expand(blocks.shape).contiguous()
+    H = M32 @ (mixed.factorization_residual_plain(K, L32) @ M32.T)
+    H2 = H @ H
+    times = {
+        "K3": (_time_cuda(torch, lambda: mixed.residual_cuda(K, X, B), 200),
+               _time_cuda(torch, lambda: mixed.residual_plain(K, X, B), 50),
+               _time_cuda(torch, lambda: torch.addmm(B, K, X, alpha=-1), 200)),
+        "K4": (_time_cuda(torch, lambda: mixed.factorization_residual_cuda(K, L32), 50),
+               _time_cuda(torch, lambda: mixed.factorization_residual_plain(K, L32), 50),
+               _time_cuda(torch, lambda: torch.addmm(K, L64, L64.T, alpha=-1), 50)),
+        "K5": (_time_cuda(torch, lambda: mixed.diag_block_inv_cuda(L32, base), 50),
+               _time_cuda(torch, lambda: mixed.diag_block_inv_plain(L32, base), 5),
+               _time_cuda(torch, lambda: torch.linalg.solve_triangular(
+                   blocks, eye_b, upper=False), 50)),
+        "K7": (_time_cuda(torch, lambda: (mixed.trace_sums_cuda(H),
+                                          mixed.series_sums_cuda(H, H2)), 200),
+               _time_cuda(torch, lambda: (mixed.trace_sums_plain(H),
+                                          mixed.series_sums_plain(H, H2)), 50),
+               None),
+    }
+    for key, (t_k, t_p, t_l) in times.items():
+        lib = "none" if t_l is None else f"{t_l:.4f} ms"
+        say(f"[phase 4b] {key} n={n}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library {lib}")
+
+    rates = {}
+    for n_e, reps in NOISY_EVAL_SIZES:
+        for engine in ("mixed", "f64", "f64", "mixed"):
+            gp.config.set_chol_engine(engine)
+            rates.setdefault((n_e, engine), []).append(
+                _noisy_evals_per_s(gp, gnp, torch, n_e, reps))
+        say(f"[phase 4b] noisy REML value+grad n={n_e} d=6 f64 data: "
+            + ", ".join(f"{e} {rates[(n_e, e)]}" for e in ("mixed", "f64")) + " evals/s")
+
+    # peak memory above what was held before: one REML value+grad, and the
+    # engine alone (solve_and_logdet and its backward on a fixed K)
+    from gpmp_tpu_torch.core import linalg
+
+    def peak(fn):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before
+
+    def engine_alone():
+        x, ld = linalg.solve_and_logdet(K8, rhs8)
+        torch.autograd.grad(ld + x.sum(), K8)
+
+    n8 = NOISY_EVAL_SIZES[-1][0]
+    xi, zi, p0 = _bench_data(n8)
+    x8 = gnp.asarray(xi)
+    K8 = _bench_model(gp, gnp).covariance(x8, x8, gnp.asarray(p0)).requires_grad_(True)
+    rhs8 = torch.cat([gnp.asarray(zi)[:, None], gnp.ones((n8, 1))], dim=1)
+    mem = {}
+    for engine in ("mixed", "f64"):
+        gp.config.set_chol_engine(engine)
+        model = _bench_model(gp, gnp)
+        mem[engine] = peak(lambda: _reml_vg(gp, model, xi, zi, p0))
+        mem[f"{engine} engine alone"] = peak(engine_alone)
+    del K8, rhs8
+    say(f"[phase 4b] max_memory_allocated above what was held before, n={n8}: "
+        + ", ".join(f"{e} {v / 2**30:.3f} GiB" for e, v in mem.items()))
+
+    gp.config.set_chol_engine("mixed")
+    xi, zi, xt, p0 = slice_data
+    _, info, _, _, t_warm = _fit_loo_predict(gp, gnp, torch, xi, zi, xt, p0)
+    say(f"[phase 4b] fit+LOO+predict n={SLICE_N} nt={SLICE_NT} mixed (warm) {t_warm:.3f} s, "
+        f"nfev {info.nfev}")
+    gp.config.set_chol_engine("auto")
+    return times, rates, mem, t_warm
+
+
+_GROUPS = (  # the first group whose key is in a kernel's name takes it
+    ("K1/K2 gram", ("matern",)),
+    ("K4 factorization residual", ("fact_residual",)),
+    ("K3 residual", ("residual_kernel",)),
+    ("K5 diag-block inverse", ("diag_block_inv",)),
+    ("K7 trace sums", ("trace_sums", "series_sums")),
+    ("K3/K7 partial reduction", ("reduce_pairs",)),
+    ("Cholesky (cuSOLVER potrf: getrf_wo_pivot)", ("potrf", "getrf", "cholesky")),
+    ("triangular solves (trsm)", ("trsm", "trsv")),
+    ("matrix products (gemm)", ("gemm", "gemv", "xmma", "cutlass", "dot_kernel",
+                                "splitkreduce")),
+)
+
+
+PROFILE_SIZES = ((1000, 10), (8192, 3))  # (n, profiled evaluations)
+
+
+def phase_profile(gp, gnp, torch):
+    from torch.profiler import ProfilerActivity, profile
+
+    summary = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=DEVICE).sum().item()  # the profiler's own start-up
+    for n, reps in PROFILE_SIZES:
+        summary.update(_profile_engines(gp, gnp, torch, n, reps, profile, ProfilerActivity))
+    gp.config.set_chol_engine("auto")
+    return summary
+
+
+def _profile_engines(gp, gnp, torch, n, reps, profile, ProfilerActivity):
+    xi, zi, p0 = _bench_data(n)
+    summary = {}
+    for engine in ("mixed", "f64"):
+        gp.config.set_chol_engine(engine)
+        model = _bench_model(gp, gnp)
+        crit = gp.kernel.make_selection_criterion_with_gradient(
+            model, gp.kernel.negative_log_restricted_likelihood, xi, zi)[0]
+        for i in range(3):
+            crit(p0 + 1e-3 * i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                crit(p0 + 1e-3 * i)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        per_kernel = {}
+        for evt in prof.key_averages():
+            if "cuda" not in str(getattr(evt, "device_type", "")).lower():
+                continue
+            t_us = getattr(evt, "self_device_time_total", None)
+            if t_us is None:
+                t_us = getattr(evt, "self_cuda_time_total", 0.0)
+            per_kernel[evt.key] = per_kernel.get(evt.key, 0.0) + t_us / 1e3 / reps
+        device_ms = sum(per_kernel.values())
+        groups = {}
+        for name, ms in per_kernel.items():
+            low = name.lower()
+            label = next((g for g, keys in _GROUPS if any(k in low for k in keys)),
+                         "elementwise, copies, other")
+            groups[label] = groups.get(label, 0.0) + ms
+        say(f"[phase 5] {engine} n={n}: wall per eval (profiled) {wall_ms:.3f} ms, "
+            f"device {device_ms:.3f} ms, busy {100 * device_ms / wall_ms:.1f}%")
+        for label, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            say(f"[phase 5]   {label}: {ms:.4f} ms ({100 * ms / device_ms:.1f}%)")
+        for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
+            say(f"[phase 5]     {ms:.4f} ms  {name[:90]}")
+        if device_ms <= 0:
+            say(f"[phase 5] the profiler saw no device time on {engine}: not measured")
+        summary[f"n={n} {engine}"] = {"wall_ms": wall_ms, "device_ms": device_ms}
+    return summary
+
+
 def main():
     import torch
 
@@ -335,7 +964,7 @@ def main():
         import gpmp_tpu_torch.misc  # noqa: F401
         import gpmp_tpu_torch.num as gnp
         from gpmp_tpu_torch.ops import _build as build
-        from gpmp_tpu_torch.ops import gram
+        from gpmp_tpu_torch.ops import gram, mixed
     except ImportError as exc:
         fail(f"cannot import gpmp_tpu_torch next to this script: {exc}")
     check("jax" not in sys.modules, "jax was imported")
@@ -343,24 +972,45 @@ def main():
     t_start = time.perf_counter()
     card = phase_device_and_build(torch, build)
     main_abs = phase_kernels_vs_plain(torch, gram)
+    main_abs.update(phase_mixed_kernels_vs_plain(torch, gram, mixed))
     launches, main_data, t_first = phase_main_path(gp, gnp, gram, torch)
+    slice_launches, slice_data, t_slice_first = phase_slice(gp, gnp, gram, mixed, torch)
+    launches.update(slice_launches)
     times, rates, t_warm = phase_times(gp, gnp, gram, torch, main_data)
+    mtimes, mrates, mem, t_slice_warm = phase_mixed_times(gp, gnp, gram, mixed, torch,
+                                                          slice_data)
+    times.update({k: v[:2] for k, v in mtimes.items()})
+    profile = phase_profile(gp, gnp, torch)
     check("jax" not in sys.modules, "jax was imported")
 
     say(json.dumps({
         "card": card,
         "fit_predict_s": {"first": t_first, "warm": t_warm},
         "reml_value_grad_evals_per_s": {f"n={n} {k}": v for (n, k), v in rates.items()},
+        "noisy_fit_loo_predict_s": {"mixed first": t_slice_first, "mixed warm": t_slice_warm},
+        "noisy_reml_value_grad_evals_per_s": {f"n={n} {e}": v for (n, e), v in mrates.items()},
+        "max_memory_allocated_bytes_n8192": mem,
+        "profile_ms_per_eval": {e: {"wall": v["wall_ms"], "device": v["device_ms"]}
+                                for e, v in profile.items()},
         "total_s": time.perf_counter() - t_start,
     }))
-    src = "gpmp_tpu_torch/csrc/matern_gram.cu"
+    bounds = _kernel_bounds(SLICE_N)
+    library = {k: v[2] for k, v in mtimes.items()}
+    gram_src, mixed_src = "gpmp_tpu_torch/csrc/matern_gram.cu", "gpmp_tpu_torch/csrc/mixed.cu"
+    rows = [
+        ("K1", "matern_gram", gram_src, "gpmp_tpu/kernel/matern.py:69"),
+        ("K2", "matern_gram_pullback", gram_src, "gpmp_tpu/parallel/likelihood.py:225"),
+        ("K3", "residual", mixed_src, "gpmp_tpu/ops/mixed.py:173"),
+        ("K4", "factorization_residual", mixed_src, "gpmp_tpu/ops/mixed.py:191"),
+        ("K5", "diag_block_inv", mixed_src, "gpmp_tpu/ops/mixed.py:94"),
+        ("K7", "trace_sums+series_sums", mixed_src, "gpmp_tpu/ops/mixed.py:378"),
+    ]
     say(json.dumps({"kernels": [
-        {"name": "K1 matern_gram", "route": "cuda", "source": src,
-         "replaces": "gpmp_tpu/kernel/matern.py:69", "launches": launches["K1"],
-         "max_abs_err": main_abs["K1"], "ms": times["K1"][0], "plain_ms": times["K1"][1]},
-        {"name": "K2 matern_gram_pullback", "route": "cuda", "source": src,
-         "replaces": "gpmp_tpu/parallel/likelihood.py:225", "launches": launches["K2"],
-         "max_abs_err": main_abs["K2"], "ms": times["K2"][0], "plain_ms": times["K2"][1]},
+        {"name": f"{key} {name}", "route": "cuda", "source": src, "replaces": where,
+         "launches": launches[key], "max_abs_err": main_abs[key], "ms": times[key][0],
+         "plain_ms": times[key][1], "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+         "library_ms": library.get(key)}
+        for key, name, src, where in rows
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@
 Same public layout as gpmp_tpu: ``Model`` at the root plus lazily-loaded
 submodules.  The Matern gram matrix and its parameter gradient run as
 hand-written CUDA kernels on the card (``ops.gram``); the factorizations
-go to ``torch.linalg``.  Select the card with ``config.set_device("cuda")``
-or ``GPMP_DEVICE=cuda``.
+go to ``torch.linalg``, or, with ``config.set_chol_engine("mixed")``, to
+the mixed-precision engine and its kernels (``ops.mixed``).  Everything
+runs on the card unless the CPU is asked for (``config.set_device("cpu")``
+or ``GPMP_DEVICE=cpu``).
 """
 
 from __future__ import annotations

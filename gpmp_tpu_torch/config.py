@@ -3,17 +3,20 @@
 
 Counterpart of gpmp_tpu/config.py.  Differences, by design:
 
-- device: "cpu" by default (PyTorch's own default).  ``set_device("cuda")``
-  or ``GPMP_DEVICE=cuda`` selects the card; asking for a CUDA device when
-  none is available raises.  There is no silent CPU fallback.
-- Cholesky engine: only the exact f64 engine is ported ("auto" = "f64");
-  "mixed" raises NotImplementedError (ROADMAP queue 1 item 8).
+- device: the card ("cuda") by default.  A computation that was not told
+  to use the CPU (``set_device("cpu")`` or ``GPMP_DEVICE=cpu``) runs on the
+  card; on a host without one, the first tensor the port creates raises.
+  There is no fallback to the CPU.  Importing the package needs no card.
+- Cholesky engine: "auto" (= "f64", exact double-precision
+  factorizations) or "mixed" (f32 factorization + f64 refinement,
+  gpmp_tpu_torch.ops.mixed), as in the JAX package.
 
 Environment variables read at import:
   GPMP_DTYPE        "float64" (default) or "float32"
-  GPMP_DEVICE       "cpu" (default), "cuda" or "cuda:<k>"
+  GPMP_DEVICE       "cuda" (default), "cuda:<k>" or "cpu"; an explicit
+                    "cuda" on a host without a card raises at import
   GPMP_LOG_LEVEL    standard logging level name
-  GPMP_CHOL_ENGINE  "auto" (default) / "f64"
+  GPMP_CHOL_ENGINE  "auto" (default) / "f64" / "mixed"
 
 At import, TF32 is switched off for float32 matmuls and cuDNN and the
 float32 matmul precision is pinned to "highest": the analogue of the JAX
@@ -30,7 +33,7 @@ from typing import Any, Optional
 import torch
 
 _VALID_DTYPES = ("float64", "float32")
-_VALID_CHOL_ENGINES = ("auto", "f64")
+_VALID_CHOL_ENGINES = ("auto", "f64", "mixed")
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -50,14 +53,19 @@ def _normalize_dtype_spec(spec: Any) -> str:
     )
 
 
-def _validate_device(spec: Any) -> str:
-    dev = torch.device(spec)
+def _check_card(dev: torch.device) -> None:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"device {str(dev)!r} requested but torch.cuda.is_available() is False"
+            f"device {str(dev)!r} requested but torch.cuda.is_available() is "
+            "False; ask for the CPU with set_device('cpu') or GPMP_DEVICE=cpu"
         )
+
+
+def _validate_device(spec: Any) -> str:
+    dev = torch.device(spec)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"Unsupported device {str(dev)!r}; expected cpu or cuda.")
+    _check_card(dev)
     return str(dev)
 
 
@@ -65,7 +73,7 @@ def _validate_device(spec: Any) -> str:
 class _GPmpTorchConfig:
     dtype: str = "float64"
     dtype_resolved: Any = None  # set by gpmp_tpu_torch.num at import
-    device: str = "cpu"
+    device: str = "cuda"  # checked when the first tensor is made, not at import
     chol_engine: str = "auto"
     logger: Optional[logging.Logger] = None
 
@@ -96,15 +104,14 @@ def set_device(device: Any) -> None:
 
 
 def get_device() -> torch.device:
-    return torch.device(_config.device)
+    """The device on which gnp creates tensors; raises if it is the card and
+    there is none."""
+    dev = torch.device(_config.device)
+    _check_card(dev)
+    return dev
 
 
 def _check_chol_engine(name: str) -> str:
-    if name == "mixed":
-        raise NotImplementedError(
-            "The 'mixed' Cholesky engine is not ported yet "
-            "(ROADMAP queue 1 item 8); use 'auto' or 'f64'."
-        )
     if name not in _VALID_CHOL_ENGINES:
         raise ValueError(
             f"Unknown Cholesky engine {name!r}; expected one of {_VALID_CHOL_ENGINES}."
@@ -113,7 +120,12 @@ def _check_chol_engine(name: str) -> str:
 
 
 def set_chol_engine(name: str) -> None:
-    """Select the Cholesky engine for hot-path SPD solves ('auto' = 'f64')."""
+    """Select the Cholesky engine for hot-path SPD solves.
+
+    'auto' (= 'f64'): exact double-precision factorizations.
+    'mixed': f32 factorization + f64 refinement (gpmp_tpu_torch.ops.mixed),
+    engaged for n >= 192 (core.linalg.chol_engine).
+    """
     _config.chol_engine = _check_chol_engine(name)
 
 

@@ -1,15 +1,21 @@
 # gpmp_tpu_torch/core/linalg.py
 """Linear-algebra helpers shared across gpmp_tpu_torch.core.
 
-Counterpart of gpmp_tpu/core/linalg.py with the exact f64 engine only:
-the Cholesky factorization and triangular solves go to ``torch.linalg``
-(cuSOLVER/cuBLAS on the card).  The 'mixed' engine is not ported
-(config.set_chol_engine('mixed') raises).
+Counterpart of gpmp_tpu/core/linalg.py.  The 'f64' engine (default) is
+the exact Cholesky factorization and triangular solves of
+``torch.linalg`` (cuSOLVER/cuBLAS on the card); the opt-in 'mixed' engine
+(``config.set_chol_engine('mixed')``) is gpmp_tpu_torch.ops.mixed: an f32
+factorization refined in f64 through the K3/K4/K5/K7 kernels.
 """
 
 import torch
 
 import gpmp_tpu_torch.num as gnp
+from gpmp_tpu_torch.config import get_chol_engine
+from gpmp_tpu_torch.ops import mixed
+
+# below this size the f64 factorization is already cheap
+_MIXED_MIN_N = 192
 
 
 def _dot0(a, b):
@@ -17,16 +23,47 @@ def _dot0(a, b):
     return torch.sum(a * b, dim=0)
 
 
+def chol_engine(n=None):
+    """Cholesky engine for SPD solves on the hot paths: 'f64' (default,
+    also for 'auto') or 'mixed' (opt-in; close to f64 for moderate cond(K),
+    less so near the f32 range: at cond(K) ~3e6 its predictions on the
+    H100 are ~5e-4 from f64 (PERF.md); NaN -> +inf beyond ~1e7).  Given
+    the problem size n, 'mixed' engages only for n >= 192."""
+    eng = get_chol_engine()
+    eng = "f64" if eng == "auto" else eng
+    if eng == "mixed" and n is not None and n < _MIXED_MIN_N:
+        return "f64"
+    return eng
+
+
+def _engine_for(K):
+    return chol_engine(K.shape[0])
+
+
 def solve_and_logdet(K, rhs):
-    """(K^{-1} rhs, log det K) via Cholesky; NaN-propagating."""
+    """(K^{-1} rhs, log det K) via the configured engine; NaN-propagating."""
+    if _engine_for(K) == "mixed":
+        return mixed.mp_solve_and_logdet(K, rhs)
     X, C = gnp.cholesky_solve(K, rhs)
     return X, 2.0 * torch.sum(torch.log(torch.diagonal(C)))
 
 
 def engine_cholesky_solve(K, rhs):
-    """K^{-1} rhs via Cholesky (no logdet)."""
+    """K^{-1} rhs via the configured engine (no logdet)."""
+    if _engine_for(K) == "mixed":
+        return mixed.refined_solve(K, rhs)
     X, _C = gnp.cholesky_solve(K, rhs)
     return X
+
+
+def engine_solve_and_inv_diag(K, rhs):
+    """(K^{-1} rhs, diag(K^{-1})) via the configured engine: the mixed
+    engine takes the diagonal from its series expansion
+    (ops.mixed.mp_solve_and_inv_diag)."""
+    if _engine_for(K) == "mixed":
+        return mixed.mp_solve_and_inv_diag(K, rhs)
+    X, C = gnp.cholesky_solve(K, rhs)
+    return X, diag_Kinv_from_chol(C)
 
 
 def diag_Kinv_from_chol(C, lower: bool = True):
@@ -83,10 +120,20 @@ def k_inverses(model, xi, zi, covparam):
 
 
 def norm_k_sqrd(model, xi, zi, covparam):
-    """(Wz)^T (W^T K W)^{-1} (Wz) for linear_predictor models (CPD-safe
-    contrast formulation)."""
+    """(Wz)^T (W^T K W)^{-1} (Wz) for linear_predictor models.
+
+    Mixed engine: z^T Qinv z with Qinv = K^{-1} - K^{-1}P (P'K^{-1}P)^{-1}
+    P'K^{-1} (K PD), from one engine solve with 1+q right-hand sides; the
+    f64 path keeps the CPD-safe contrast formulation.
+    """
     K = model.covariance(xi, xi, covparam)
     P = model.mean(xi, model.meanparam)
+    if _engine_for(K) == "mixed":
+        A = engine_cholesky_solve(K, torch.cat([zi.reshape(-1, 1), P], dim=1))
+        a, U = A[:, 0], A[:, 1:]  # K^{-1}z, K^{-1}P
+        Fc = gnp.cholesky(P.T @ U)
+        w = gnp.solve_triangular(Fc, P.T @ a.reshape(-1, 1), lower=True)
+        return (zi.reshape(-1) @ a - torch.sum(w * w)).reshape(())
     W = compute_contrast_matrix(P)
     Wzi = W.T @ zi
     G = compute_contrast_covariance(W, K)

@@ -3,8 +3,8 @@
 
 Counterpart of gpmp_tpu/core/model.py.  PyTorch runs eagerly, so there is
 no per-instance jit cache; each method calls the pure routines of
-``kriging``, ``likelihood`` and ``linalg`` directly.  Not ported yet
-(ROADMAP queue 1 item 7): ``loo``, ``fisher_*``, ``sample_paths*``.
+``kriging``, ``likelihood``, ``linalg`` and ``loo`` directly.  Not
+ported yet (ROADMAP queue 1 item 7): ``fisher_*``, ``sample_paths*``.
 """
 
 import warnings
@@ -13,7 +13,7 @@ import torch
 
 import gpmp_tpu_torch.num as gnp
 
-from . import kriging, likelihood, linalg, utils
+from . import kriging, likelihood, linalg, loo, utils
 
 
 class _BoundParams:
@@ -119,6 +119,15 @@ class Model:
         if return_lambdas:
             return zpm, zpv, lambda_t
         return zpm, zpv
+
+    def loo(self, xi, zi, convert_in=True, convert_out=False):
+        """Leave-one-out predictions via virtual cross-validation:
+        (zloo, sigma2loo, eloo)."""
+        xi_, zi_, _ = utils.ensure_shapes_and_type(xi=xi, zi=zi, convert=convert_in)
+        zloo, sigma2loo, eloo = loo.loo(self._bound(), xi_, zi_)
+        if convert_out:
+            zloo, sigma2loo, eloo = map(gnp.to_np, (zloo, sigma2loo, eloo))
+        return zloo, sigma2loo, eloo
 
     # ------------------------------------------------------------------
     # Likelihoods and norms

@@ -1,8 +1,9 @@
 # gpmp_tpu_torch/ops/_build.py
 """Build the CUDA sources under gpmp_tpu_torch/csrc at first use.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` compiles every ``csrc/*.cu`` into one shared library
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+-fPIC -c`` compiles each ``csrc/*.cu`` to an object, one nvcc per source,
+all started together, and ``nvcc -shared`` links them into one library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
 the build takes seconds).  The library goes to ``build/gpmp_tpu_torch/``
 at the repository root, in a directory named after a hash of the sources
@@ -26,14 +27,17 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _CSRC = _PKG_DIR / "csrc"
 BUILD_ROOT = _PKG_DIR.parent / "build" / "gpmp_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _lock = threading.Lock()
 _lib = None
@@ -56,11 +60,16 @@ def _nvcc():
 
 
 def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _run_nvcc(args):
+    return subprocess.Popen([_nvcc(), *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
 
 
 def _compile(out_dir: Path) -> Path:
@@ -68,41 +77,59 @@ def _compile(out_dir: Path) -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    # build into a temporary name, then rename: a concurrent or interrupted
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    # build into temporary names, then rename: a concurrent or interrupted
     # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
+    tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, f"-I{_CSRC}", "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
+    objs = [tmp_dir / (src.stem + ".o") for src in cu]
+    # one nvcc per source, all started together
+    procs = [_run_nvcc([*NVCC_FLAGS, "-c", f"-I{_CSRC}",
+                        "-o", str(obj), str(src)])
+             for src, obj in zip(cu, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(src.name, p.returncode) for src, p in zip(cu, procs) if p.returncode]
+    if not failed:
+        link = _run_nvcc([*LINK_FLAGS, "-o", str(tmp_dir / lib_path.name),
+                          *map(str, objs)])
+        logs.append(link.communicate()[0])
+        if link.returncode:
+            failed.append(("link", link.returncode))
     global build_seconds
     build_seconds = time.perf_counter() - t0
-    (out_dir / "ptxas.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
+    (out_dir / "ptxas.log").write_text("\n".join(logs))
+    if failed:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed {failed}:\n" + "\n".join(logs))
+    os.replace(tmp_dir / lib_path.name, lib_path)
+    shutil.rmtree(tmp_dir, ignore_errors=True)
     return lib_path
 
 
 def _declare(lib):
     vp, ll, i32, f64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
-    lib.gpmp_matern_max_d.argtypes = []
-    lib.gpmp_matern_max_d.restype = i32
-    lib.gpmp_matern_pullback_blocks.argtypes = [ll, ll]
-    lib.gpmp_matern_pullback_blocks.restype = ll
+    signatures = {
+        # ops/gram.py: K1, K2
+        "gpmp_matern_max_d": ([], i32),
+        "gpmp_matern_pullback_blocks": ([ll, ll], ll),
+        # ops/mixed.py: K3, K4, K5, K7
+        "gpmp_residual_blocks": ([ll], ll),
+        "gpmp_diag_block_inv_max_base": ([], i32),
+        "gpmp_diag_block_inv": ([vp, vp, ll, i32, vp], i32),
+        "gpmp_trace_sums_blocks": ([ll], ll),
+        "gpmp_trace_sums": ([vp, vp, vp, ll, vp], i32),
+        "gpmp_series_sums": ([vp, vp, vp, vp, ll, vp], i32),
+    }
     for suffix in ("f64", "f32"):
-        fn = getattr(lib, f"gpmp_matern_gram_{suffix}")
-        fn.argtypes = [vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp]
-        fn.restype = i32
-        fn = getattr(lib, f"gpmp_matern_pullback_{suffix}")
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp]
-        fn.restype = i32
+        signatures[f"gpmp_matern_gram_{suffix}"] = (
+            [vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp], i32)
+        signatures[f"gpmp_matern_pullback_{suffix}"] = (
+            [vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp], i32)
+        signatures[f"gpmp_residual_{suffix}"] = ([vp, vp, vp, vp, vp, vp, ll, i32, vp], i32)
+        signatures[f"gpmp_fact_residual_{suffix}"] = ([vp, vp, vp, ll, vp], i32)
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
@@ -113,3 +140,11 @@ def load():
         if _lib is None:
             _lib = _declare(ctypes.CDLL(str(_compile(build_dir()))))
         return _lib
+
+
+def launch(name, fn, device, *args):
+    """Call a C entry on the current stream; raise on its cudaGetLastError()."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

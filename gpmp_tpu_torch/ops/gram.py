@@ -186,14 +186,6 @@ def _load_for(d):
     return lib
 
 
-def _launch(name, fn, device, *args):
-    """Call a C entry on the current stream; raise on its cudaGetLastError()."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def matern_gram_cuda(x, y, p, theta, same=False):
     """K1: the gram matrix on the card (launches one kernel)."""
     global K1_LAUNCHES
@@ -204,7 +196,7 @@ def matern_gram_cuda(x, y, p, theta, same=False):
         return out
     fn = lib.gpmp_matern_gram_f64 if x.dtype == torch.float64 else lib.gpmp_matern_gram_f32
     coef = _coef_tensor(p, x.device)
-    _launch("K1 matern_gram", fn, x.device, x.data_ptr(), y.data_ptr(), theta.data_ptr(),
+    _build.launch("K1 matern_gram", fn, x.device, x.data_ptr(), y.data_ptr(), theta.data_ptr(),
             coef.data_ptr(), out.data_ptr(), n, m, d, p, int(same),
             torch.finfo(x.dtype).eps)
     K1_LAUNCHES += 1
@@ -228,7 +220,7 @@ def matern_gram_pullback_cuda(kbar, x, y, p, theta, same=False):
     fn = (lib.gpmp_matern_pullback_f64 if x.dtype == torch.float64
           else lib.gpmp_matern_pullback_f32)
     coef = _coef_tensor(p, x.device)
-    _launch("K2 matern_gram_pullback", fn, x.device, kbar.data_ptr(), x.data_ptr(),
+    _build.launch("K2 matern_gram_pullback", fn, x.device, kbar.data_ptr(), x.data_ptr(),
             y.data_ptr(), theta.data_ptr(), coef.data_ptr(), partial.data_ptr(),
             out.data_ptr(), n, m, d, p, int(same), torch.finfo(x.dtype).eps)
     K2_LAUNCHES += 1

@@ -8,7 +8,15 @@ rel 1e-10, gradients rel 1e-8 (max |diff| / max |grad|), norms rel 1e-10,
 predicted mean and variance rel 1e-8 (max |diff| / max |value|).  The
 'contrast' REML goes through a complete QR, which torch cannot
 differentiate, so it is compared by value only.
+
+LOO (zloo, sigma2loo, eloo) is compared for the three mean types on both
+Cholesky engines, with a noise-variance kernel (bench.py's) at n=200 (above
+the mixed engine's n >= 192 gate): rel 1e-10 on the f64 engine, rel 1e-8 on
+the mixed engine (refined solves and an f32-corrected diagonal on both
+sides, ~1e-12 apart in practice).
 """
+
+import contextlib
 
 import functools
 
@@ -21,9 +29,18 @@ import gpmp_tpu as jgp
 import gpmp_tpu.num as jgnp
 import gpmp_tpu_torch as tgp
 import gpmp_tpu_torch.num as tgnp
+from gpmp_tpu.config import set_chol_engine as jax_set_chol_engine
 from gpmp_tpu_torch.interop import params_from_numpy
+from gpmp_tpu_torch import config
 
-torch.set_num_threads(2)
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port computes on the card unless told otherwise: these tests ask
+    for the CPU.  torch keeps to few threads beside the suite's other
+    workers."""
+    config.set_device("cpu")
+    torch.set_num_threads(2)
 
 SIZES = [6, 200, 1000]
 P = 2
@@ -93,8 +110,8 @@ def test_nll_zero_mean_value_and_grad(n):
     jm, tm = _jax_model("zero", cp, None), _torch_model("zero", cp, None)
     xj, zj = jgnp.asarray(xi), jgnp.asarray(zi)
     xt_, zt_ = tgnp.asarray(xi), tgnp.asarray(zi)
-    jv, jg = jax.value_and_grad(
-        lambda c: jm.negative_log_likelihood_zero_mean(c, xj, zj))(jgnp.asarray(cp))
+    jv, jg = jax.jit(jax.value_and_grad(
+        lambda c: jm.negative_log_likelihood_zero_mean(c, xj, zj)))(jgnp.asarray(cp))
     tv, tg = _torch_value_grad(
         lambda c: tm.negative_log_likelihood_zero_mean(c, xt_, zt_), cp)
     _check_value_grad(tv, tg, float(jv), np.asarray(jg))
@@ -107,8 +124,8 @@ def test_nll_parameterized_mean_value_and_grad(n):
     xj, zj = jgnp.asarray(xi), jgnp.asarray(zi)
     xt_, zt_ = tgnp.asarray(xi), tgnp.asarray(zi)
     theta = np.concatenate([mp, cp])
-    jv, jg = jax.value_and_grad(
-        lambda t: jm.negative_log_likelihood(t[:1], t[1:], xj, zj))(jgnp.asarray(theta))
+    jv, jg = jax.jit(jax.value_and_grad(
+        lambda t: jm.negative_log_likelihood(t[:1], t[1:], xj, zj)))(jgnp.asarray(theta))
     tv, tg = _torch_value_grad(
         lambda t: tm.negative_log_likelihood(t[:1], t[1:], xt_, zt_), theta)
     _check_value_grad(tv, tg, float(jv), np.asarray(jg))
@@ -120,8 +137,8 @@ def test_reml_profiled_value_and_grad(n):
     jm, tm = _jax_model("linear_predictor", cp, None), _torch_model("linear_predictor", cp, None)
     xj, zj = jgnp.asarray(xi), jgnp.asarray(zi)
     xt_, zt_ = tgnp.asarray(xi), tgnp.asarray(zi)
-    jv, jg = jax.value_and_grad(
-        lambda c: jm.negative_log_restricted_likelihood(c, xj, zj))(jgnp.asarray(cp))
+    jv, jg = jax.jit(jax.value_and_grad(
+        lambda c: jm.negative_log_restricted_likelihood(c, xj, zj)))(jgnp.asarray(cp))
     tv, tg = _torch_value_grad(
         lambda c: tm.negative_log_restricted_likelihood(c, xt_, zt_), cp)
     _check_value_grad(tv, tg, float(jv), np.asarray(jg))
@@ -131,8 +148,9 @@ def test_reml_profiled_value_and_grad(n):
 def test_reml_contrast_value(n):
     xi, zi, _, cp, _ = _data(n)
     jm, tm = _jax_model("linear_predictor", cp, None), _torch_model("linear_predictor", cp, None)
-    jv = float(jm.negative_log_restricted_likelihood(
-        jgnp.asarray(cp), jgnp.asarray(xi), jgnp.asarray(zi), impl="contrast"))
+    xj, zj = jgnp.asarray(xi), jgnp.asarray(zi)
+    jv = float(jax.jit(lambda c: jm.negative_log_restricted_likelihood(
+        c, xj, zj, impl="contrast"))(jgnp.asarray(cp)))
     tv = float(tm.negative_log_restricted_likelihood(
         tgnp.asarray(cp), tgnp.asarray(xi), tgnp.asarray(zi), impl="contrast"))
     assert np.isfinite(tv) and abs(tv - jv) <= 1e-10 * abs(jv)
@@ -148,12 +166,12 @@ def test_norms_match_jax(n):
     jm, tm = _jax_model("linear_predictor", cp, None), _torch_model("linear_predictor", cp, None)
     xj, zj, cj = jgnp.asarray(xi), jgnp.asarray(zi), jgnp.asarray(cp)
     xt_, zt_, ct = tgnp.asarray(xi), tgnp.asarray(zi), tgnp.asarray(cp)
-    pairs = [
-        (tm.norm_k_sqrd(xt_, zt_, ct), jm.norm_k_sqrd(xj, zj, cj)),
-        (tm.norm_k_sqrd(xt_, zt_.reshape(-1, 1), ct), jm.norm_k_sqrd(xj, zj.reshape(-1, 1), cj)),
-        (tm.norm_k_sqrd_with_zero_mean(xt_, zt_, ct), jm.norm_k_sqrd_with_zero_mean(xj, zj, cj)),
-    ]
-    pairs += list(zip(tm.k_inverses(xt_, zt_, ct), jm.k_inverses(xj, zj, cj)))
+    jax_norms = jax.jit(lambda c: (
+        jm.norm_k_sqrd(xj, zj, c), jm.norm_k_sqrd(xj, zj.reshape(-1, 1), c),
+        jm.norm_k_sqrd_with_zero_mean(xj, zj, c), *jm.k_inverses(xj, zj, c)))(cj)
+    torch_norms = (tm.norm_k_sqrd(xt_, zt_, ct), tm.norm_k_sqrd(xt_, zt_.reshape(-1, 1), ct),
+                   tm.norm_k_sqrd_with_zero_mean(xt_, zt_, ct), *tm.k_inverses(xt_, zt_, ct))
+    pairs = list(zip(torch_norms, jax_norms))
     for t, j in pairs:
         assert tuple(t.shape) == tuple(j.shape)
         assert _relmax(t.numpy(), np.asarray(j)) <= 1e-10
@@ -186,3 +204,64 @@ def test_universal_kriging_routes_agree(method):
         lam2, var2 = kriging.kriging_predictor(tm, xi_t, xt_t, method="nullspace")
     assert _relmax(lam2.numpy(), lam.numpy()) <= 1e-7
     assert _relmax(var2.numpy(), var.numpy()) <= 1e-7
+
+
+def _noisy_kernel(gp, gnp):
+    """bench.py's user kernel: covparam [log s2, log noise, log 1/rho_1..d]."""
+
+    def kernel(x, y, c, pairwise=False):
+        sigma2 = gnp.exp(c[0])
+        if y is x or y is None:
+            if pairwise:
+                return sigma2 * gnp.ones((x.shape[0],))
+            K = gnp.scaled_distance(c[2:], x, x)
+            return sigma2 * gp.kernel.maternp_kernel(P, K) + gnp.exp(c[1]) * gnp.eye(
+                K.shape[0])
+        if pairwise:
+            return sigma2 * gp.kernel.maternp_kernel(
+                P, gnp.scaled_distance_elementwise(c[2:], x, y))
+        return sigma2 * gp.kernel.maternp_kernel(P, gnp.scaled_distance(c[2:], x, y))
+
+    return kernel
+
+
+@contextlib.contextmanager
+def _engine(name):
+    jax_set_chol_engine(name)
+    config.set_chol_engine(name)
+    try:
+        yield
+    finally:
+        jax_set_chol_engine("auto")
+        config.set_chol_engine("auto")
+
+
+@pytest.mark.parametrize("engine", ["f64", "mixed"])
+@pytest.mark.parametrize("meantype", ["zero", "parameterized", "linear_predictor"])
+def test_loo_matches_jax(meantype, engine):
+    xi, zi, _, cp, mp = _data(200)
+    cp = np.concatenate([cp[:1], [np.log(1e-2)], cp[1:]])
+    mp_ = mp if meantype == "parameterized" else None
+
+    def mean(gnp):
+        def m(x, param):
+            if meantype == "parameterized":
+                return param * gnp.ones((x.shape[0], 1))
+            return gnp.ones((x.shape[0], 1))
+        return None if meantype == "zero" else m
+
+    jm = jgp.Model(mean(jgnp), _noisy_kernel(jgp, jgnp),
+                   meanparam=None if mp_ is None else jgnp.asarray(mp_),
+                   covparam=jgnp.asarray(cp), meantype=meantype)
+    tcp, tmp = params_from_numpy(cp, mp_, device="cpu", dtype=torch.float64)
+    tm = tgp.Model(mean(tgnp), _noisy_kernel(tgp, tgnp), meanparam=tmp, covparam=tcp,
+                   meantype=meantype)
+    with _engine(engine):
+        jl = jm.loo(xi, zi)
+        tl = tm.loo(xi, zi)
+    tol = 1e-10 if engine == "f64" else 1e-8
+    for t, j in zip(tl, jl):
+        assert isinstance(t, torch.Tensor) and tuple(t.shape) == (200,)
+        assert _relmax(t.numpy(), np.asarray(j)) <= tol
+    zloo, sigma2loo, eloo = tm.loo(xi, zi, convert_out=True)
+    assert isinstance(zloo, np.ndarray) and np.all(sigma2loo > 0)

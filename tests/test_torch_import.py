@@ -13,7 +13,14 @@ import torch
 import gpmp_tpu_torch
 from gpmp_tpu_torch import config, interop
 
-torch.set_num_threads(2)
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port computes on the card unless told otherwise: these tests ask
+    for the CPU.  torch keeps to few threads beside the suite's other
+    workers."""
+    config.set_device("cpu")
+    torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBMODULES = (
@@ -21,6 +28,7 @@ SUBMODULES = (
     "gpmp_tpu_torch.num",
     "gpmp_tpu_torch.ops",
     "gpmp_tpu_torch.ops.gram",
+    "gpmp_tpu_torch.ops.mixed",
     "gpmp_tpu_torch.ops._build",
     "gpmp_tpu_torch.kernel",
     "gpmp_tpu_torch.kernel.matern",
@@ -33,6 +41,7 @@ SUBMODULES = (
     "gpmp_tpu_torch.core.kriging",
     "gpmp_tpu_torch.core.likelihood",
     "gpmp_tpu_torch.core.linalg",
+    "gpmp_tpu_torch.core.loo",
     "gpmp_tpu_torch.core.utils",
     "gpmp_tpu_torch.misc",
     "gpmp_tpu_torch.misc.designs",
@@ -43,6 +52,7 @@ SUBMODULES = (
 
 def _run(code, **env):
     full_env = {k: v for k, v in os.environ.items() if not k.startswith("GPMP_")}
+    full_env["GPMP_DEVICE"] = "cpu"
     full_env.update(env)
     return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=full_env,
                           capture_output=True, text=True, timeout=120)
@@ -70,18 +80,25 @@ def test_tf32_pins_hold():
     assert torch.get_float32_matmul_precision() == "highest"
 
 
-def test_default_device_is_cpu_and_cuda_needs_a_card():
-    assert config.get_device() == torch.device("cpu")
+def test_default_device_is_cpu_and_cuda_needs_a_card(monkeypatch):
+    """The default device is the card; without one, the first tensor raises
+    unless the CPU was asked for (name kept from when the CPU was the
+    default)."""
+    import gpmp_tpu_torch.num as gnp
+
+    assert config._GPmpTorchConfig().device == "cuda"
+    monkeypatch.setattr(config.get_config(), "device", "cuda")
     if torch.cuda.is_available():
-        config.set_device("cuda")
-        try:
-            assert config.get_device().type == "cuda"
-        finally:
-            config.set_device("cpu")
+        assert config.get_device().type == "cuda"
+        assert gnp.zeros(3).is_cuda
     else:
+        with pytest.raises(RuntimeError, match="set_device\\('cpu'\\)"):
+            gnp.zeros(3)
         with pytest.raises(RuntimeError, match="cuda"):
             config.set_device("cuda")
-        assert config.get_device() == torch.device("cpu")
+    config.set_device("cpu")
+    assert config.get_device() == torch.device("cpu")
+    assert gnp.zeros(3).device.type == "cpu"
 
 
 def test_env_device_cuda_without_card_raises_at_import():
@@ -94,11 +111,9 @@ def test_env_device_cuda_without_card_raises_at_import():
 
 
 def test_set_chol_engine():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        config.set_chol_engine("mixed")
     with pytest.raises(ValueError):
         config.set_chol_engine("bogus")
-    for name in ("f64", "auto"):
+    for name in ("mixed", "f64", "auto"):
         config.set_chol_engine(name)
         assert config.get_chol_engine() == name
 

@@ -12,8 +12,16 @@ import torch
 
 import gpmp_tpu.num as jgnp
 import gpmp_tpu_torch.num as gnp
+from gpmp_tpu_torch import config
 
-torch.set_num_threads(2)
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port computes on the card unless told otherwise: these tests ask
+    for the CPU.  torch keeps to few threads beside the suite's other
+    workers."""
+    config.set_device("cpu")
+    torch.set_num_threads(2)
 
 
 def _spd(n, seed):
