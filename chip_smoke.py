@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke test of gpmp_tpu_torch on one CUDA card: REML fit + predict, and
-noisy REML fit + LOO + predict on the mixed Cholesky engine.
+"""Smoke test of gpmp_tpu_torch on one CUDA card: REML fit + predict, noisy
+REML fit + LOO + predict on the mixed Cholesky engine, and conditional
+sample paths.
 
 Run from the repository root with no arguments:
 
@@ -23,6 +24,13 @@ non-zero):
    matrices K (n in {1000, 1024, 4099}, cond(K) ~1e3 and ~1e6, set by the
    noise variance from the gram's largest eigenvalue), with the
    tolerances and reasons given at TOL_MIXED.
+2c. K1d (scaled distance and its pullback, full and elementwise), K1m (the
+   Matern polynomial and its backward), K7b (the LOO diagonal series, both
+   branches) and K8s (the f64 sampling residual) vs their plain versions
+   on the card: K1d/K1m at n in {1000, 4099}, d in {1, 6}, p in {0, 2, 3},
+   with coincident points, in f64 and f32; K7b on phase 2b's inputs; K8s
+   at n in {1000, 4099, 8192}, cond(K) ~1e3 and ~1e6; tolerances at
+   TOL_2C.
 3. The main path: Hartmann6, n = 1000, d = 6, Matern p = 2, constant
    mean; select_parameters_with_reml then predict at nt = 1000 points, on
    the card, with the launch counters reset just before and the plain
@@ -34,9 +42,10 @@ non-zero):
    (n = 1000, d = 6, seed 7, noise 0.1), its user kernel (Matern p = 2
    plus a noise variance) and its p0; under set_chol_engine("mixed"):
    autoselect_parameters on REML, Model.loo, then predict at nt = 1000
-   seeded uniform points, with the K3/K4/K5/K7 counters reset just before
-   and every plain version made to raise on CUDA tensors.  Checks: each
-   kernel launched; at the fitted covparam, mixed vs the card's f64
+   seeded uniform points, with the K1d/K1m/K3/K4/K5/K7/K7b counters reset
+   just before and every plain version made to raise on CUDA tensors (the
+   user kernel's gram runs through K1d/K1m, the LOO diagonal through
+   K7b).  Checks: each kernel launched; at the fitted covparam, mixed vs the card's f64
    engine: REML rel 1e-6 (bench.py's gate), gradient within the class
    envelope of BENCHMARKS.md (1e-3 log s2, 1e-4 the others; relative at
    p0, and at the optimum, where the gradient is ~0, relative to the
@@ -46,6 +55,19 @@ non-zero):
    (_refine_probe); the port on the CPU (mixed engine, plain versions):
    REML rel 1e-8 at p0, and bench.py's 1e-6 at the card's covparam
    (cond(K) ~3e6 there; see phase_slice).
+3c. Conditional sample paths at full width: phase 3b's model and data,
+   xt = xi plus 7192 uniform points (seed 8), nt = 8192; on each engine at
+   p0 and at the fitted covparam: 1024 paths (Model.sample_paths),
+   predict(return_lambdas=True), conditional_sample_paths, with the
+   counters reset and every plain version raising.  Checks: the branch
+   sample_paths took (the mixed engine at p0 must take sampling_sqrt, K5
+   and K8s launched), |C C^T - K|_F / |K|_F < 1e-8, the mean of the
+   conditioned paths within 5.5 standard errors (from the paths' own
+   variance) of predict's mean at every point, the card against the port
+   on the CPU with the same normals (f64 engine: 1e-8 at p0; printed, not
+   gated, at the fit, where cond(K) is far larger); examples 10 and 11 at
+   nt = 200 on both engines: conditioned paths interpolate the noise-free
+   observations to 1e-6.
 4. Times on the card (CUDA events / synchronised host clock): K1 and K2 vs
    their plain versions at the main path's shapes; REML value+grad evals/s
    at n = 1000 and 8192 (kernels and plain gram); fit+predict wall-clock.
@@ -55,6 +77,10 @@ non-zero):
    (first and warm); the rise of torch.cuda.max_memory_allocated over
    what was held before at n = 8192, per engine, for one value+grad and
    for the engine alone (solve_and_logdet and its backward on a fixed K).
+4c. K1d, K1m, K7b, K8s and the two products that stand in for K6:
+   kernel, plain and library-call ms at the slice's shapes (n = 1000, and
+   K8s at 8192), with bound and share; the full-width sample-paths call
+   (nt = 8192, 1024 paths) per engine, first (phase 3c) and warm.
 5. Where the time goes: torch.profiler over the noisy model's REML
    value+grad at n = 1000 and 8192, mixed and f64 engines, device time per
    evaluation by kernel group.
@@ -122,6 +148,27 @@ TOL_SLICE = {
 PREDICT_SLACK = 2.0
 SLICE_N, SLICE_NT, SLICE_D, SLICE_SEED, SLICE_NOISE = 1000, 1000, 6, 7, 0.1
 NOISY_EVAL_SIZES = ((1000, 20), (8192, 3))  # (n, evaluations per window)
+# phase 2c: kernel vs plain on the card, max|kernel - plain| / max|plain|
+TOL_2C = {
+    # forward: ~3d f64 operations and a sqrt or exp per entry, in another
+    # order (FMA contraction) than torch's; f32 within a few ulps
+    ("K1d", "float64"): 1e-14, ("K1d", "float32"): 1e-5,
+    ("K1m", "float64"): 1e-14, ("K1m", "float32"): 1e-5,
+    # pullbacks: f64 sums of n^2 terms in another order (K1d); elementwise (K1m)
+    ("K1d pullback", "float64"): 1e-12, ("K1d pullback", "float32"): 1e-5,
+    ("K1m backward", "float64"): 1e-12, ("K1m backward", "float32"): 1e-5,
+    # the kernel sums the series correction in f64 where the plain version
+    # keeps the JAX package's f32 sum: held on diag(K^-1) to the LOO bar
+    ("K7b", "float64"): 1e-8,
+    # E = K - L L^T in f64, sums in another order: max|dE| <= 1e-12 max|K|
+    ("K8s", "float64"): 1e-12,
+}
+DIST_SIZES, DIST_DIMS, DIST_P = (1000, 4099), (1, 6), (0, 2, 3)
+K8S_SIZES = (1000, 4099, 8192)
+# phase 3c: conditional sample paths at full width
+PATHS_NT, PATHS_COUNT, PATHS_SEED = 8192, 1024, 8
+PATHS_SE = 5.5  # conditioned mean vs predict, in standard errors
+TOL_SQRT = 1e-8  # |C C^T - K|_F / |K|_F, tests/test_ops.py's bar
 
 
 def fail(msg):
@@ -262,9 +309,15 @@ class _PlainGuard:
     """Makes the plain versions raise on CUDA tensors while active."""
 
     PLAIN = {
-        "gram": ("matern_gram_plain", "matern_gram_pullback_plain"),
+        "gram": ("matern_gram_plain", "matern_gram_pullback_plain",
+                 "maternp_kernel_plain", "maternp_kernel_backward_plain"),
+        "distance": ("scaled_distance_plain", "scaled_distance_pullback_plain",
+                     "scaled_distance_elementwise_plain",
+                     "scaled_distance_elementwise_pullback_plain"),
         "mixed": ("residual_plain", "factorization_residual_plain",
-                  "diag_block_inv_plain", "trace_sums_plain", "series_sums_plain"),
+                  "diag_block_inv_plain", "trace_sums_plain", "series_sums_plain",
+                  "loo_diag_series_plain", "loo_diag_pairs_plain"),
+        "refine": ("sampling_residual_plain",),
     }
 
     def __init__(self, *modules):
@@ -407,10 +460,11 @@ def phase_times(gp, gnp, gram, torch, main_data):
 # ----------------------------------------------------------------------------
 # the mixed engine: kernels K3/K4/K5/K7 and the noisy-regression slice
 # ----------------------------------------------------------------------------
-def _noisy_matern_spd(torch, gram, n, cond, seed):
+def _noisy_matern_family(torch, gram, n, conds, seed):
     """Matern p=2 gram on n uniform points in [0, 1]^6 (s2 = 1, rho = 1.5)
     plus tau I, tau set from the gram's eigenvalues so that cond(K) = cond
-    (or as near as the gram allows).  Returns (K, its condition number)."""
+    (or as near as the gram allows), for each cond in conds from one
+    eigendecomposition.  Returns [(K, its condition number)]."""
     rng = np.random.default_rng(seed)
     x = torch.as_tensor(rng.uniform(size=(n, 6)), device=DEVICE)
     theta = torch.tensor([0.0] + [math.log(1 / 1.5)] * 6, dtype=torch.float64,
@@ -419,13 +473,35 @@ def _noisy_matern_spd(torch, gram, n, cond, seed):
     G = (G + G.T) / 2
     lam = torch.linalg.eigvalsh(G)
     lo, hi = max(float(lam[0]), 0.0), float(lam[-1])
-    tau = max((hi - cond * lo) / (cond - 1.0), hi / cond * 1e-3)
-    K = G + tau * torch.eye(n, dtype=torch.float64, device=DEVICE)
-    return K, (hi + tau) / (float(lam[0]) + tau)
+    out = []
+    for cond in conds:
+        tau = max((hi - cond * lo) / (cond - 1.0), hi / cond * 1e-3)
+        K = G + tau * torch.eye(n, dtype=torch.float64, device=DEVICE)
+        out.append((K, (hi + tau) / (float(lam[0]) + tau)))
+    return out
+
+
+def _noisy_matern_spd(torch, gram, n, cond, seed):
+    return _noisy_matern_family(torch, gram, n, (cond,), seed)[0]
+
+
+def _k7b_inputs(torch, mixed, K, M32):
+    """The series (M32, B32 = (D - D^2) M32) and two-level (G, W) inputs of
+    K7b for K, as mixed._inv_diag builds them, and whether the LOO block
+    takes the series branch there."""
+    n = K.shape[0]
+    eye = torch.eye(n, dtype=K.dtype, device=K.device)
+    M = M32.double()
+    D = M @ (K @ M.T) - eye
+    D32 = D.float()
+    G, W, _DL = mixed._kinv_two_level(D + eye, M)
+    series = float(torch.sum(D * D)) < mixed._SERIES_TAU
+    return (M32.contiguous(), (D32 - D32 @ D32) @ M32), (G, W), series
 
 
 def phase_mixed_kernels_vs_plain(torch, gram, mixed):
     worst, main_abs, branches = {}, {}, set()
+    worst_7b = {}
     for n in MIXED_SIZES:
         for ci, cond in enumerate(MIXED_CONDS):
             K, cond_k = _noisy_matern_spd(torch, gram, n, cond, 31 * n + ci)
@@ -458,6 +534,26 @@ def phase_mixed_kernels_vs_plain(torch, gram, mixed):
             check(torch.equal(t, mixed.trace_sums_cuda(H)), "K7 not reproducible")
             errs["K7"] = float(torch.max(torch.abs(torch.cat([t - tp, u - up]))
                                          / torch.abs(torch.cat([tp, up]))))
+            # K7b (phase 2c) on the same inputs: the series sums, held where the
+            # LOO block takes that branch and printed elsewhere, and the
+            # two-level sums, held everywhere (f64 on both sides)
+            (Ms, Bs), (G, W), series_here = _k7b_inputs(torch, mixed, K, M32)
+            d_s = mixed.loo_diag_series_cuda(Ms, Bs, torch.float64)
+            d_sp = mixed.loo_diag_series_plain(Ms, Bs, torch.float64)
+            d_p, d_pp = mixed.loo_diag_pairs_cuda(G, W), mixed.loo_diag_pairs_plain(G, W)
+            check(torch.equal(d_s, mixed.loo_diag_series_cuda(Ms, Bs, torch.float64)),
+                  "K7b not reproducible")
+            e7s, e7p = rel_err(d_s, d_sp), rel_err(d_p, d_pp)
+            tol7 = TOL_2C[("K7b", "float64")]
+            say(f"[phase 2c] K7b n={n} cond={cond_k:.2e}: series {e7s:.2e}"
+                f"{'' if series_here else ' (branch not taken here, not held)'}, "
+                f"two-level {e7p:.2e} (tol {tol7})")
+            check(e7p <= tol7 and (e7s <= tol7 or not series_here),
+                  f"K7b n={n} cond={cond:.0e}: series {e7s:.3e}, two-level {e7p:.3e}")
+            for key, val in (("series", e7s if series_here else 0.0), ("two-level", e7p)):
+                worst_7b[key] = max(worst_7b.get(key, 0.0), val)
+            if n == SLICE_N and ci == 0:
+                main_abs["K7b"] = float((d_s - d_sp).abs().max())
             if n == SLICE_N and ci == 0:
                 # the float32 builds of K3/K4 (GPMP_DTYPE=float32), against the
                 # plain versions in f64 on the same f32 inputs: the kernels
@@ -495,6 +591,92 @@ def phase_mixed_kernels_vs_plain(torch, gram, mixed):
     check(branches == {"series", "two-level"}, f"logdet branches run: {sorted(branches)}")
     for key, val in sorted(worst.items()):
         say(f"[phase 2b] worst {key} rel err {val:.3e} (tol {TOL_MIXED[key]})")
+    say(f"[phase 2c] worst K7b rel err, where held: {worst_7b}")
+    return main_abs
+
+
+def _dist_inputs(torch, n, d, dtype, seed):
+    """(loginvrho, x, y, dbar) on the card: x with duplicated rows (x[10:20]
+    = x[:10]), y with points coincident with x (y[:5] = x[:5])."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n, d))
+    x[10:20] = x[0:10]
+    y = rng.uniform(size=(n, d))
+    y[:5] = x[:5]
+    vals = (rng.uniform(-0.5, 1.5, size=d), x, y, rng.normal(size=(n, n)))
+    return [torch.as_tensor(a, dtype=dtype, device=DEVICE) for a in vals]
+
+
+def phase_new_kernels_vs_plain(torch, gram, distance, mixed, refine):
+    """Phase 2c: K1d, K1m and K8s against their plain versions (K7b runs in
+    phase 2b's loop, on its inputs)."""
+    worst, main_abs = {}, {}
+
+    def held(key, dname, err, tag):
+        tol = TOL_2C[(key, dname)]
+        check(math.isfinite(err) and err <= tol, f"{key} {tag}: {err:.3e} > {tol}")
+        worst[(key, dname)] = max(worst.get((key, dname), 0.0), err)
+        return err
+
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for n in DIST_SIZES:
+            for d in DIST_DIMS:
+                l, x, y, dbar = _dist_inputs(torch, n, d, dtype, 1000 + n + d)
+                tag = f"{dname} n={n} d={d}"
+                D = distance.scaled_distance_cuda(l, x, y)
+                Dp = distance.scaled_distance_plain(l, x, y)
+                g = distance.scaled_distance_pullback_cuda(dbar, l, x, y)
+                gp_ = distance.scaled_distance_pullback_plain(dbar, l, x, y)
+                check(torch.equal(g, distance.scaled_distance_pullback_cuda(dbar, l, x, y)),
+                      "K1d pullback is not bitwise reproducible")
+                db1 = dbar[:, 0].contiguous()
+                De = distance.scaled_distance_elementwise_cuda(l, x, y)
+                Dep = distance.scaled_distance_elementwise_plain(l, x, y)
+                ge = distance.scaled_distance_elementwise_pullback_cuda(db1, l, x, y)
+                gep = distance.scaled_distance_elementwise_pullback_plain(db1, l, x, y)
+                torch.cuda.synchronize()
+                check(bool((D.diagonal()[:5] == 0).all() and (D[10:15, :5].diagonal() == 0).all()
+                           and (De[:5] == 0).all()),
+                      f"K1d {tag}: coincident points do not give 0")
+                errs = [held("K1d", dname, rel_err(D, Dp), tag),
+                        held("K1d pullback", dname, rel_err(g, gp_), tag),
+                        held("K1d", dname, rel_err(De, Dep), tag + " elementwise"),
+                        held("K1d pullback", dname, rel_err(ge, gep), tag + " elementwise")]
+                line = (f"[phase 2c] {tag}: K1d {errs[0]:.2e} pullback {errs[1]:.2e} "
+                        f"elementwise {errs[2]:.2e}/{errs[3]:.2e}; K1m")
+                if dname == "float64" and n == SLICE_N and d == SLICE_D:
+                    main_abs["K1d"] = float((D - Dp).abs().max())
+                    main_abs["K1d pullback"] = float((g - gp_).abs().max())
+                for p in DIST_P:
+                    K = gram.maternp_kernel_cuda(p, D)
+                    Kp = gram.maternp_kernel_plain(p, D)
+                    b = gram.maternp_kernel_backward_cuda(p, D, dbar)
+                    bp = gram.maternp_kernel_backward_plain(p, D, dbar)
+                    e_f = held("K1m", dname, rel_err(K, Kp), f"{tag} p={p}")
+                    e_b = held("K1m backward", dname, rel_err(b, bp), f"{tag} p={p}")
+                    line += f" p={p} {e_f:.2e}/{e_b:.2e}"
+                    if dname == "float64" and n == SLICE_N and d == SLICE_D and p == 2:
+                        main_abs["K1m"] = float((K - Kp).abs().max())
+                        main_abs["K1m backward"] = float((b - bp).abs().max())
+                say(line)
+                del D, Dp, dbar
+
+    for n in K8S_SIZES:
+        fam = _noisy_matern_family(torch, gram, n, MIXED_CONDS, 77 + n)
+        for ci, (K, cond_k) in enumerate(fam):
+            L32, _M32 = mixed._f32_preconditioner(K)
+            E = refine.sampling_residual_cuda(K, L32)
+            Ep = refine.sampling_residual_plain(K, L32)
+            check(torch.equal(E, E.T), f"K8s not symmetric at n={n}")
+            err = float((E - Ep).abs().max()) / float(K.abs().max())
+            say(f"[phase 2c] K8s n={n} cond={cond_k:.2e}: max|dE|/max|K| {err:.2e}")
+            held("K8s", "float64", err, f"n={n} cond={cond_k:.2e}")
+            if n == SLICE_N and ci == 0:
+                main_abs["K8s"] = float((E - Ep).abs().max())
+        del fam, K, E, Ep
+    for (key, dname), val in sorted(worst.items()):
+        say(f"[phase 2c] worst {key} {dname} {val:.3e} (tol {TOL_2C[(key, dname)]})")
     return main_abs
 
 
@@ -630,18 +812,36 @@ def _reml_grad_terms(gp, gnp, torch, covparam, xi, zi):
     return gnp.to_np(g_tr), gnp.to_np(g_q)
 
 
-def phase_slice(gp, gnp, gram, mixed, torch):
+def _counters(gram, distance, mixed, refine):
+    """name -> (module, attribute) of each launch counter."""
+    return {"K1d": (distance, "K1D_LAUNCHES"), "K1d pullback": (distance, "K1D_PULLBACK_LAUNCHES"),
+            "K1m": (gram, "K1M_LAUNCHES"), "K1m backward": (gram, "K1M_BACKWARD_LAUNCHES"),
+            "K3": (mixed, "K3_LAUNCHES"), "K4": (mixed, "K4_LAUNCHES"),
+            "K5": (mixed, "K5_LAUNCHES"), "K7": (mixed, "K7_LAUNCHES"),
+            "K7b": (mixed, "K7B_LAUNCHES"), "K8s": (refine, "K8S_LAUNCHES")}
+
+
+def _reset(counters):
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def _read(counters):
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+
+def phase_slice(gp, gnp, gram, distance, mixed, refine, torch):
     xi, zi, p0 = _bench_data(SLICE_N)
     xt = np.random.default_rng(SLICE_SEED + 1).uniform(size=(SLICE_NT, SLICE_D))
     zt = np.sin(3 * xt[:, 0]) + 0.5 * np.cos(5 * xt[:, 1])
     gp.config.set_device(DEVICE)
     gp.config.set_chol_engine("mixed")
-    for name in ("K3", "K4", "K5", "K7"):
-        setattr(mixed, f"{name}_LAUNCHES", 0)
-    with _PlainGuard(gram, mixed):
+    counters = {k: v for k, v in _counters(gram, distance, mixed, refine).items() if k != "K8s"}
+    _reset(counters)
+    with _PlainGuard(gram, distance, mixed, refine):
         model, info, loo, (zpm, zpv), t_first = _fit_loo_predict(
             gp, gnp, torch, xi, zi, xt, p0)
-    launches = {name: getattr(mixed, f"{name}_LAUNCHES") for name in ("K3", "K4", "K5", "K7")}
+    launches = _read(counters)
     say(f"[phase 3b] slice launches {launches}; fit+LOO+predict (first) {t_first:.3f} s; "
         f"nfev {info.nfev}; REML {info.fun!r}")
     for name, count in launches.items():
@@ -660,8 +860,17 @@ def phase_slice(gp, gnp, gram, mixed, torch):
     say(f"[phase 3b] test RMSE {rmse:.4e} (std {float(np.std(zt)):.4e}); LOO RMSE {loo_rmse:.4e}")
     check(rmse < np.std(zt), "RMSE is not below the spread of the test values")
 
-    # mixed vs the card's f64 engine, at the fitted covparam (and at p0)
+    # the preconditioner applications that K6 will fuse, per REML value+grad
     xi_c, zi_c = gnp.asarray(xi), gnp.asarray(zi)
+    k6 = {}
+    for name, p in (("p0", p0), ("fit", covparam)):
+        m = _bench_model(gp, gnp, covparam=gnp.asarray(covparam))
+        mixed.K6_APPLIES = 0
+        _reml_vg(gp, m, xi_c, zi_c, p)
+        k6[name] = mixed.K6_APPLIES
+    say(f"[phase 3b] K6 stand-in (two f32 torch.matmul) calls per REML value+grad: {k6}")
+
+    # mixed vs the card's f64 engine, at the fitted covparam (and at p0)
     res = {}
     for engine in ("mixed", "f64"):
         gp.config.set_chol_engine(engine)
@@ -742,7 +951,187 @@ def phase_slice(gp, gnp, gram, mixed, torch):
     check(e_c0 <= TOL_PATH, f"REML card vs CPU at p0 rel {e_c0:.3e}")
     check(e_c <= TOL_SLICE["reml"], f"REML card vs CPU at the fit rel {e_c:.3e}")
     gp.config.set_chol_engine("auto")
-    return launches, (xi, zi, xt, p0), t_first
+    return launches, (xi, zi, xt, p0, covparam), t_first, k6
+
+
+def _paths_design(xi):
+    """xi plus PATHS_NT - n uniform points in [0, 1]^d (seed PATHS_SEED)."""
+    extra = np.random.default_rng(PATHS_SEED).uniform(size=(PATHS_NT - xi.shape[0], xi.shape[1]))
+    return np.vstack([xi, extra])
+
+
+def _conditional_paths(gp, gnp, torch, covparam, xi, zi, xt):
+    """The slice at covparam: PATHS_COUNT paths on xt, predict's kriging
+    weights, the conditioned paths.  Returns (paths, conditioned paths,
+    predict's mean, seconds of the sample_paths call)."""
+    model = _bench_model(gp, gnp, covparam=gnp.asarray(covparam))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zsim = model.sample_paths(xt, PATHS_COUNT)
+    torch.cuda.synchronize()
+    t_paths = time.perf_counter() - t0
+    zpm, _zpv, lam = model.predict(xi, zi, xt, return_lambdas=True)
+    zc = model.conditional_sample_paths(zsim, np.arange(xi.shape[0]), zi,
+                                        np.arange(xt.shape[0]), lam, convert_out=False)
+    torch.cuda.synchronize()
+    return zsim, zc, zpm, t_paths
+
+
+class _FixedNormals:
+    """gnp.randn hands out the given normals (on the configured device)."""
+
+    def __init__(self, gnp, eps):
+        self.gnp, self.eps = gnp, eps
+
+    def __enter__(self):
+        self.orig = self.gnp.randn
+        self.gnp.randn = lambda *shape, generator=None: self.eps.to(self.gnp.get_device())
+        return self
+
+    def __exit__(self, *exc):
+        self.gnp.randn = self.orig
+
+
+def phase_paths(gp, gnp, gram, distance, mixed, refine, torch, slice_data):
+    from gpmp_tpu_torch.core import sample_paths as sp
+
+    xi, zi, _xt, p0, fit = slice_data
+    xt = _paths_design(xi)
+    gp.config.set_device(DEVICE)
+    counters = {k: v for k, v in _counters(gram, distance, mixed, refine).items()
+                if k in ("K1d", "K1d pullback", "K1m", "K1m backward", "K5", "K8s")}
+    x_c = gnp.asarray(xt)
+    launches_p0, t_first, card = None, {}, {}
+    for engine in ("mixed", "f64"):
+        gp.config.set_chol_engine(engine)
+        for name, cp in (("p0", p0), ("fit", fit)):
+            _reset(counters)
+            before = dict(sp.BRANCHES)
+            gnp.set_seed(PATHS_SEED)
+            with _PlainGuard(gram, distance, mixed, refine):
+                zsim, zc, zpm, t_paths = _conditional_paths(gp, gnp, torch, cp, xi, zi, xt)
+            launches = _read(counters)
+            branch = "+".join(k for k, v in sp.BRANCHES.items() if v != before[k])
+            tag = f"{engine} at {name}"
+            check(tuple(zsim.shape) == (PATHS_NT, PATHS_COUNT) and zsim.is_cuda,
+                  f"paths {tag}: shape {tuple(zsim.shape)}")
+            check(bool(torch.isfinite(zc).all()), f"conditioned paths {tag} not finite")
+            check(launches["K1d"] > 0 and launches["K1m"] > 0,
+                  f"the gram of {tag} did not go through K1d/K1m: {launches}")
+            # the factor the path used, and how well it reproduces K
+            K = _bench_model(gp, gnp).covariance(x_c, x_c, gnp.asarray(cp))
+            C = sp.sampling_factor(K)
+            e_sqrt = float(torch.linalg.norm(C @ C.T - K) / torch.linalg.norm(K))
+            del C
+            # the conditioned mean against predict, in standard errors
+            zpm_t = torch.as_tensor(zpm, device=DEVICE)
+            se = zc.std(dim=1) / math.sqrt(PATHS_COUNT)
+            dev = (zc.mean(dim=1) - zpm_t).abs()
+            z = float((dev / se.clamp_min(1e-300)).max())
+            say(f"[phase 3c] {tag}: branch {branch}; launches {launches}; "
+                f"sample_paths {t_paths:.3f} s (first); |CC'-K|/|K| {e_sqrt:.2e} "
+                f"(tol {TOL_SQRT}); conditioned mean vs predict, max {z:.2f} standard errors "
+                f"(tol {PATHS_SE})")
+            check(e_sqrt < TOL_SQRT, f"|CC'-K|/|K| {e_sqrt:.3e} {tag}")
+            check(z <= PATHS_SE, f"conditioned mean {z:.2f} standard errors from predict, {tag}")
+            if (engine, name) == ("mixed", "p0"):
+                check(branch == "sampling_sqrt",
+                      f"the mixed engine at p0 took {branch!r}, not sampling_sqrt")
+                check(launches["K5"] > 0 and launches["K8s"] > 0,
+                      f"K5/K8s not launched on the mixed engine at p0: {launches}")
+                launches_p0 = launches
+            if name == "p0":
+                t_first[engine] = t_paths
+            if engine == "f64":
+                lam = torch.linalg.eigvalsh(K)
+                card[name] = (zsim, zc, float(lam[-1] / lam[0]))
+            del K, zsim, zc
+
+    # the card against the port on the CPU, f64 engine, the same normals
+    gp.config.set_chol_engine("f64")
+    for name, cp in (("p0", p0), ("fit", fit)):
+        gnp.set_seed(PATHS_SEED)
+        eps = gnp.randn(PATHS_NT, PATHS_COUNT).cpu()  # the normals the card drew
+        gp.config.set_device("cpu")
+        try:
+            with _FixedNormals(gnp, eps):
+                zsim_h, zc_h, _zpm, _t = _conditional_paths(gp, gnp, torch, cp, xi, zi, xt)
+        finally:
+            gp.config.set_device(DEVICE)
+        zsim, zc, cond = card[name]
+        e_p, e_c = rel_err(zsim.cpu(), zsim_h), rel_err(zc.cpu(), zc_h)
+        say(f"[phase 3c] card vs CPU, f64 engine at {name} (cond(K) {cond:.3e}): paths rel "
+            f"{e_p:.2e}, conditioned paths rel {e_c:.2e}"
+            + (f" (tol {TOL_PATH})" if name == "p0" else " (not held at the fit)"))
+        if name == "p0":
+            check(e_p <= TOL_PATH and e_c <= TOL_PATH, f"paths card vs CPU at p0: {e_p}, {e_c}")
+    del card
+
+    _example_flows(gp, gnp, torch, sp)
+    gp.config.set_chol_engine("auto")
+    return launches_p0, t_first, xt
+
+
+def _example11_kernel(gp, gnp):
+    """examples/gpmp_tpu_example11's kernel through the port: the per-point
+    noise variance travels as the last input column and is added on the
+    same-set diagonal."""
+    def kernel(x, y, covparam, pairwise=False):
+        sigma2, loginvrho = gnp.exp(covparam[0]), covparam[1:]
+        if y is x or y is None:
+            xc, nv = x[:, :-1], x[:, -1].reshape(-1)
+            if pairwise:
+                return sigma2 * gnp.ones((xc.shape[0],)) + nv
+            D = gnp.scaled_distance(loginvrho, xc, xc)
+            return sigma2 * gp.kernel.maternp_kernel(2, D) + gnp.diag(nv)
+        xc, yc = x[:, :-1], y[:, :-1]
+        D = (gnp.scaled_distance_elementwise(loginvrho, xc, yc) if pairwise
+             else gnp.scaled_distance(loginvrho, xc, yc))
+        return sigma2 * gp.kernel.maternp_kernel(2, D)
+
+    return kernel
+
+
+def _example_flows(gp, gnp, torch, sp):
+    """Examples 10 and 11 through the port on the card (nt = 200, 5
+    observations, 6 paths), on both engines: prior paths, kriging weights,
+    conditioned paths, which interpolate the noise-free observations."""
+    xt = np.linspace(-1, 1, 200).reshape(-1, 1)
+    zt = gp.misc.testfunctions.twobumps(xt)
+    ind = [10, 45, 100, 130, 155]
+    covparam = np.array([math.log(0.5**2), math.log(1 / 0.7)])
+    noise_var = np.array([0.0, 0.02, 0.005, 0.0, 0.01])
+    z11 = zt[ind].reshape(-1) + np.sqrt(noise_var) * np.random.default_rng(0).normal(size=5)
+
+    def constant_mean(x, param):
+        return gnp.ones((x.shape[0], 1))
+
+    def builtin(x, y, c, pairwise=False):
+        return gp.kernel.maternp_covariance(x, y, 2, c, pairwise)
+
+    flows = {
+        10: (gp.Model(constant_mean, builtin, None, covparam), xt, xt[ind],
+             zt[ind].reshape(-1), [0, 1, 2, 3, 4]),
+        11: (gp.Model(constant_mean, _example11_kernel(gp, gnp), None, covparam),
+             np.hstack([xt, np.zeros((200, 1))]),
+             np.hstack([xt[ind], noise_var[:, None]]), z11, [0, 3]),
+    }
+    for engine in ("mixed", "f64"):
+        gp.config.set_chol_engine(engine)
+        for ex, (model, xt_f, xi_f, zi, exact) in flows.items():
+            before = dict(sp.BRANCHES)
+            gnp.set_seed(0)
+            ztsim = model.sample_paths(xt_f, 6)
+            _zpm, _zpv, lam = model.predict(xi_f, zi, xt_f, return_lambdas=True)
+            ztsimc = model.conditional_sample_paths(ztsim, np.asarray(ind), zi,
+                                                    np.arange(200), lam)
+            branch = "+".join(k for k, v in sp.BRANCHES.items() if v != before[k])
+            err = float(np.max(np.abs(ztsimc[np.asarray(ind)[exact]] - zi[exact][:, None])))
+            say(f"[phase 3c] example {ex} on {engine} (nt = 200): branch {branch}; "
+                f"conditioned paths at the noise-free observations {err:.2e} (tol 1e-6)")
+            check(ztsimc.shape == (200, 6) and np.all(np.isfinite(ztsimc)),
+                  f"example {ex} on {engine}: conditioned paths")
+            check(err <= 1e-6, f"example {ex} on {engine}: interpolation error {err:.3e}")
 
 
 def rel_err_np(a, b):
@@ -765,10 +1154,28 @@ def _kernel_bounds(n, k=2, base=128, d=6, p=2):
     # K4 reads K (f64) and L (f32) over the lower triangle and writes the
     # full f32 R; K5 reads the lower triangles of L's diagonal blocks and
     # writes nb base x base f32 inverses
+    fp64 = PEAK_F64_FLOPS
     return {
         # gram: ~3d (distance) + 2(p+1) (Horner) + 4 (sqrt, exp, scalings) per entry
         "K1": bound(8 * (n * n + 2 * n * d + d + 1), n * n * (3 * d + 2 * (p + 1) + 4),
                     PEAK_F64_FLOPS),
+        # distance: reads x, y, l, writes D; ~3d + 1 (sqrt) per entry
+        "K1d": bound(8 * (n * n + 2 * n * d + d), n * n * (3 * d + 1), fp64),
+        # its pullback: reads Dbar, x, y, l, writes d values; the distance,
+        # a division and ~3d for the terms
+        "K1d pullback": bound(8 * (n * n + 2 * n * d + 2 * d), n * n * (6 * d + 2), fp64),
+        # Matern polynomial: reads D, writes K; Horner 2p, exp, 3 products
+        "K1m": bound(16 * n * n, n * n * (2 * p + 4), fp64),
+        # its backward: reads D and Kbar, writes Dbar
+        "K1m backward": bound(24 * n * n, n * n * (2 * p + 5), fp64),
+        # LOO diagonal, series branch: reads M32 and B32 (f32), writes n f64;
+        # a square, a product, a difference and a sum per entry
+        "K7b": bound(8 * n * n + 8 * n, 4 * n * n, fp64),
+        # sampling residual: K4's work with an f64 output
+        "K8s": bound(8 * tri + 4 * tri + 8 * n * n, 2 * fma_k4 + tri, PEAK_F64_TENSOR_FLOPS),
+        # M^T (M r): the lower triangle of M32 read once, r (f64, k columns)
+        # read and the result written; two triangular products in f32
+        "K6": bound(4 * tri + 16 * n * k, 4 * tri * k, PEAK_F32_FLOPS),
         # pullback: K1's work plus ~2d + 2(p+1) + 4 for the derivative terms
         "K2": bound(8 * (n * n + 2 * n * d + d + 1 + d + 1),
                     n * n * (5 * d + 4 * (p + 1) + 8), PEAK_F64_FLOPS),
@@ -779,6 +1186,26 @@ def _kernel_bounds(n, k=2, base=128, d=6, p=2):
                     sum(b ** 3 // 3 + b * b for b in sizes), PEAK_F32_FLOPS),
         "K7": bound(8 * n * n + 32, 6 * n * n + n, PEAK_F64_FLOPS),
     }
+
+
+def _device_ms(torch, fn, reps):
+    """Device time per call of everything fn launches, from torch.profiler:
+    the kernels' own time, without the host's launch gaps that CUDA events
+    around a loop of short launches also count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if "cuda" in str(getattr(evt, "device_type", "")).lower():
+            t_us = getattr(evt, "self_device_time_total", None)
+            total_us += t_us if t_us is not None else getattr(evt, "self_cuda_time_total", 0.0)
+    return total_us / 1e3 / reps
 
 
 def _noisy_evals_per_s(gp, gnp, torch, n, reps):
@@ -871,7 +1298,7 @@ def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
         + ", ".join(f"{e} {v / 2**30:.3f} GiB" for e, v in mem.items()))
 
     gp.config.set_chol_engine("mixed")
-    xi, zi, xt, p0 = slice_data
+    xi, zi, xt, p0, _fit = slice_data
     _, info, _, _, t_warm = _fit_loo_predict(gp, gnp, torch, xi, zi, xt, p0)
     say(f"[phase 4b] fit+LOO+predict n={SLICE_N} nt={SLICE_NT} mixed (warm) {t_warm:.3f} s, "
         f"nfev {info.nfev}")
@@ -879,8 +1306,109 @@ def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
     return times, rates, mem, t_warm
 
 
+def _time_sqrt_inputs(torch, gram, n):
+    """A noisy Matern K at n (no eigendecomposition: the kernels' times do
+    not depend on cond(K))."""
+    x = torch.as_tensor(np.random.default_rng(n).uniform(size=(n, 6)), device=DEVICE)
+    theta = torch.tensor([0.0] + [math.log(1 / 1.5)] * 6, dtype=torch.float64, device=DEVICE)
+    K = gram.matern_gram_cuda(x, x, 2, theta, True)
+    K.diagonal().add_(1e-2)
+    return K
+
+
+def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, slice_data,
+                    t_paths_first):
+    """Phase 4c: (kernel, plain, library) ms of K1d, K1m, K7b, K8s and of the
+    two products that stand in for K6; the full-width sample-paths call."""
+    n = SLICE_N
+    l, x, _y, dbar = _dist_inputs(torch, n, SLICE_D, torch.float64, 7)
+    db = (dbar + dbar.T) / 2
+    D = distance.scaled_distance_cuda(l, x, x)
+    xs = torch.exp(l) * x
+    K = _time_sqrt_inputs(torch, gram, n)
+    L32, M32 = mixed._f32_preconditioner(K)
+    L64 = L32.double()
+    (Ms, Bs), (G, W), _series = _k7b_inputs(torch, mixed, K, M32)
+    R = torch.randn(n, 2, dtype=torch.float64, device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(4))
+    K8 = _time_sqrt_inputs(torch, gram, PATHS_NT)
+    L8, _M8 = mixed._f32_preconditioner(K8)
+    L8_64 = L8.double()
+    t = lambda fn, reps: _time_cuda(torch, fn, reps)  # noqa: E731
+    theta = torch.cat([torch.zeros(1, dtype=torch.float64, device=DEVICE), l])
+    device = {
+        "K1": _device_ms(torch, lambda: gram.matern_gram_cuda(x, x, 2, theta, True), 50),
+        "K1d": _device_ms(torch, lambda: distance.scaled_distance_cuda(l, x, x), 50),
+        "K1d pullback": _device_ms(
+            torch, lambda: distance.scaled_distance_pullback_cuda(db, l, x, x), 50),
+        "K1m": _device_ms(torch, lambda: gram.maternp_kernel_cuda(2, D), 50),
+        "K1m backward": _device_ms(torch, lambda: gram.maternp_kernel_backward_cuda(2, D, db), 50),
+        "K7b": _device_ms(torch, lambda: mixed.loo_diag_series_cuda(Ms, Bs, torch.float64), 50),
+        "K7b two-level": _device_ms(torch, lambda: mixed.loo_diag_pairs_cuda(G, W), 50),
+        "K8s": _device_ms(torch, lambda: refine.sampling_residual_cuda(K, L32), 50),
+        "K8s n=8192": _device_ms(torch, lambda: refine.sampling_residual_cuda(K8, L8), 5),
+        "K6": _device_ms(torch, lambda: mixed._apply(M32, R), 50),
+    }
+    say("[phase 4c] device time per call (torch.profiler, all kernels the call launches), "
+        "ms: " + ", ".join(f"{k} {v:.4f}" for k, v in device.items()))
+    times = {
+        "K1d": (t(lambda: distance.scaled_distance_cuda(l, x, x), 200),
+                t(lambda: distance.scaled_distance_plain(l, x, x), 50),
+                t(lambda: torch.cdist(xs, xs), 200)),
+        "K1d pullback": (t(lambda: distance.scaled_distance_pullback_cuda(db, l, x, x), 200),
+                         t(lambda: distance.scaled_distance_pullback_plain(db, l, x, x), 20),
+                         None),
+        "K1m": (t(lambda: gram.maternp_kernel_cuda(2, D), 200),
+                t(lambda: gram.maternp_kernel_plain(2, D), 50), None),
+        "K1m backward": (t(lambda: gram.maternp_kernel_backward_cuda(2, D, db), 200),
+                         t(lambda: gram.maternp_kernel_backward_plain(2, D, db), 50), None),
+        "K7b": (t(lambda: mixed.loo_diag_series_cuda(Ms, Bs, torch.float64), 200),
+                t(lambda: mixed.loo_diag_series_plain(Ms, Bs, torch.float64), 50), None),
+        "K7b two-level": (t(lambda: mixed.loo_diag_pairs_cuda(G, W), 200),
+                          t(lambda: mixed.loo_diag_pairs_plain(G, W), 50), None),
+        "K8s": (t(lambda: refine.sampling_residual_cuda(K, L32), 50),
+                t(lambda: refine.sampling_residual_plain(K, L32), 50),
+                t(lambda: torch.addmm(K, L64, L64.T, alpha=-1), 50)),
+        "K8s n=8192": (t(lambda: refine.sampling_residual_cuda(K8, L8), 5),
+                       t(lambda: refine.sampling_residual_plain(K8, L8), 5),
+                       t(lambda: torch.addmm(K8, L8_64, L8_64.T, alpha=-1), 5)),
+        # no kernel yet: the two torch.matmul of mixed._apply are the "plain" time
+        "K6": (None, t(lambda: mixed._apply(M32, R), 200), None),
+    }
+    del K8, L8, L8_64
+    bounds = _kernel_bounds(n)
+    bounds["K7b two-level"] = (max(16 * n * n / PEAK_BYTES_PER_S,
+                                   2 * n * n / PEAK_F64_FLOPS) * 1e3, "bytes")
+    bounds["K8s n=8192"] = _kernel_bounds(PATHS_NT)["K8s"]
+    for key, (t_k, t_p, t_l) in times.items():
+        b_ms, b_by = bounds[key]
+        kern = "none" if t_k is None else f"{t_k:.4f} ms (device {device[key]:.4f} ms)"
+        lib = "none" if t_l is None else f"{t_l:.4f} ms"
+        share = "" if t_k is None else f", share {100 * b_ms / t_k:.1f}%"
+        say(f"[phase 4c] {key} (n={n if 'n=' not in key else PATHS_NT}): kernel {kern}, "
+            f"plain {t_p:.4f} ms, library {lib}, bound {b_ms * 1e3:.2f} us ({b_by}){share}")
+
+    xi, zi, _xt, p0, _fit = slice_data
+    t_warm = {}
+    for engine in ("mixed", "f64"):
+        gp.config.set_chol_engine(engine)
+        model = _bench_model(gp, gnp, covparam=gnp.asarray(p0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.sample_paths(xt_paths, PATHS_COUNT)
+        torch.cuda.synchronize()
+        t_warm[engine] = time.perf_counter() - t0
+        say(f"[phase 4c] sample_paths nt={PATHS_NT} x {PATHS_COUNT} paths at p0 on {engine}: "
+            f"first {t_paths_first[engine]:.3f} s, warm {t_warm[engine]:.3f} s")
+    gp.config.set_chol_engine("auto")
+    return times, bounds, t_warm, device
+
+
 _GROUPS = (  # the first group whose key is in a kernel's name takes it
+    ("K1m Matern elementwise", ("maternp_elem",)),
+    ("K1d scaled distance", ("distance",)),
     ("K1/K2 gram", ("matern",)),
+    ("K7b LOO diagonal", ("loo_diag",)),
     ("K4 factorization residual", ("fact_residual",)),
     ("K3 residual", ("residual_kernel",)),
     ("K5 diag-block inverse", ("diag_block_inv",)),
@@ -964,7 +1492,7 @@ def main():
         import gpmp_tpu_torch.misc  # noqa: F401
         import gpmp_tpu_torch.num as gnp
         from gpmp_tpu_torch.ops import _build as build
-        from gpmp_tpu_torch.ops import gram, mixed
+        from gpmp_tpu_torch.ops import distance, gram, mixed, refine
     except ImportError as exc:
         fail(f"cannot import gpmp_tpu_torch next to this script: {exc}")
     check("jax" not in sys.modules, "jax was imported")
@@ -973,13 +1501,21 @@ def main():
     card = phase_device_and_build(torch, build)
     main_abs = phase_kernels_vs_plain(torch, gram)
     main_abs.update(phase_mixed_kernels_vs_plain(torch, gram, mixed))
+    main_abs.update(phase_new_kernels_vs_plain(torch, gram, distance, mixed, refine))
     launches, main_data, t_first = phase_main_path(gp, gnp, gram, torch)
-    slice_launches, slice_data, t_slice_first = phase_slice(gp, gnp, gram, mixed, torch)
+    slice_launches, slice_data, t_slice_first, k6 = phase_slice(
+        gp, gnp, gram, distance, mixed, refine, torch)
     launches.update(slice_launches)
+    paths_launches, t_paths_first, xt_paths = phase_paths(
+        gp, gnp, gram, distance, mixed, refine, torch, slice_data)
+    launches["K8s"] = paths_launches["K8s"]
     times, rates, t_warm = phase_times(gp, gnp, gram, torch, main_data)
     mtimes, mrates, mem, t_slice_warm = phase_mixed_times(gp, gnp, gram, mixed, torch,
                                                           slice_data)
-    times.update({k: v[:2] for k, v in mtimes.items()})
+    ntimes, bounds, t_paths_warm, device_ms = phase_new_times(gp, gnp, gram, distance, mixed, refine,
+                                                   torch, xt_paths, slice_data, t_paths_first)
+    library = {k: v[2] for k, v in (*mtimes.items(), *ntimes.items())}
+    times.update({k: v[:2] for k, v in (*mtimes.items(), *ntimes.items())})
     profile = phase_profile(gp, gnp, torch)
     check("jax" not in sys.modules, "jax was imported")
 
@@ -990,13 +1526,17 @@ def main():
         "noisy_fit_loo_predict_s": {"mixed first": t_slice_first, "mixed warm": t_slice_warm},
         "noisy_reml_value_grad_evals_per_s": {f"n={n} {e}": v for (n, e), v in mrates.items()},
         "max_memory_allocated_bytes_n8192": mem,
+        "k6_applies_per_reml_value_grad": k6,
+        "device_ms_per_call_n1000": device_ms,
+        "sample_paths_nt8192_1024_s": {f"{e} {w}": v for w, d in (("first", t_paths_first),
+                                                                  ("warm", t_paths_warm))
+                                       for e, v in d.items()},
         "profile_ms_per_eval": {e: {"wall": v["wall_ms"], "device": v["device_ms"]}
                                 for e, v in profile.items()},
         "total_s": time.perf_counter() - t_start,
     }))
-    bounds = _kernel_bounds(SLICE_N)
-    library = {k: v[2] for k, v in mtimes.items()}
     gram_src, mixed_src = "gpmp_tpu_torch/csrc/matern_gram.cu", "gpmp_tpu_torch/csrc/mixed.cu"
+    dist_src = "gpmp_tpu_torch/csrc/distance.cu"
     rows = [
         ("K1", "matern_gram", gram_src, "gpmp_tpu/kernel/matern.py:69"),
         ("K2", "matern_gram_pullback", gram_src, "gpmp_tpu/parallel/likelihood.py:225"),
@@ -1004,6 +1544,12 @@ def main():
         ("K4", "factorization_residual", mixed_src, "gpmp_tpu/ops/mixed.py:191"),
         ("K5", "diag_block_inv", mixed_src, "gpmp_tpu/ops/mixed.py:94"),
         ("K7", "trace_sums+series_sums", mixed_src, "gpmp_tpu/ops/mixed.py:378"),
+        ("K7b", "loo_diag_series", mixed_src, "gpmp_tpu/ops/mixed.py:637"),
+        ("K1d", "scaled_distance", dist_src, "gpmp_tpu/num/__init__.py:428"),
+        ("K1d pullback", "scaled_distance_pullback", dist_src, "gpmp_tpu/num/__init__.py:389"),
+        ("K1m", "maternp_kernel", gram_src, "gpmp_tpu/kernel/matern.py:49"),
+        ("K1m backward", "maternp_kernel_backward", gram_src, "gpmp_tpu/kernel/matern.py:49"),
+        ("K8s", "sampling_residual", mixed_src, "gpmp_tpu/ops/refine.py:114"),
     ]
     say(json.dumps({"kernels": [
         {"name": f"{key} {name}", "route": "cuda", "source": src, "replaces": where,

@@ -2,10 +2,12 @@
 """gpmp_tpu_torch: the PyTorch / CUDA port of gpmp_tpu.
 
 Same public layout as gpmp_tpu: ``Model`` at the root plus lazily-loaded
-submodules.  The Matern gram matrix and its parameter gradient run as
-hand-written CUDA kernels on the card (``ops.gram``); the factorizations
-go to ``torch.linalg``, or, with ``config.set_chol_engine("mixed")``, to
-the mixed-precision engine and its kernels (``ops.mixed``).  Everything
+submodules.  The Matern gram matrix and its parameter gradient, and the
+scaled distance and Matern polynomial that user covariances compose, run
+as hand-written CUDA kernels on the card (``ops.gram``, ``ops.distance``);
+the factorizations go to ``torch.linalg``, or, with
+``config.set_chol_engine("mixed")``, to the mixed-precision engine and its
+kernels (``ops.mixed``, and ``ops.refine`` for the sampling root).  Everything
 runs on the card unless the CPU is asked for (``config.set_device("cpu")``
 or ``GPMP_DEVICE=cpu``).
 """

@@ -5,7 +5,7 @@ Counterpart of gpmp_tpu/core/linalg.py.  The 'f64' engine (default) is
 the exact Cholesky factorization and triangular solves of
 ``torch.linalg`` (cuSOLVER/cuBLAS on the card); the opt-in 'mixed' engine
 (``config.set_chol_engine('mixed')``) is gpmp_tpu_torch.ops.mixed: an f32
-factorization refined in f64 through the K3/K4/K5/K7 kernels.
+factorization refined in f64 through the K3/K4/K5/K7/K7b kernels.
 """
 
 import torch

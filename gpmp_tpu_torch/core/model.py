@@ -3,8 +3,8 @@
 
 Counterpart of gpmp_tpu/core/model.py.  PyTorch runs eagerly, so there is
 no per-instance jit cache; each method calls the pure routines of
-``kriging``, ``likelihood``, ``linalg`` and ``loo`` directly.  Not
-ported yet (ROADMAP queue 1 item 7): ``fisher_*``, ``sample_paths*``.
+``kriging``, ``likelihood``, ``linalg``, ``loo`` and ``sample_paths``
+directly.  Not ported yet (ROADMAP queue 1 item 7): ``fisher_*``.
 """
 
 import warnings
@@ -14,6 +14,7 @@ import torch
 import gpmp_tpu_torch.num as gnp
 
 from . import kriging, likelihood, linalg, loo, utils
+from . import sample_paths as sample_paths_mod
 
 
 class _BoundParams:
@@ -151,6 +152,29 @@ class Model:
 
     def norm_k_sqrd(self, xi, zi, covparam):
         return linalg.norm_k_sqrd(self, xi, zi, covparam)
+
+    # ------------------------------------------------------------------
+    # Sampling
+    # ------------------------------------------------------------------
+    def sample_paths(self, xt, nb_paths, method="chol", check_result=True, generator=None):
+        return sample_paths_mod.sample_paths(
+            self._bound(), xt, nb_paths, method=method, check_result=check_result,
+            generator=generator,
+        )
+
+    def conditional_sample_paths(self, ztsim, xi_ind, zi, xt_ind, lambda_t,
+                                 convert_out=True):
+        return sample_paths_mod.conditional_sample_paths(
+            self._bound(), ztsim, xi_ind, zi, xt_ind, lambda_t, convert_out=convert_out
+        )
+
+    def conditional_sample_paths_parameterized_mean(
+        self, ztsim, xi, xi_ind, zi, xt, xt_ind, lambda_t, convert_out=True
+    ):
+        return sample_paths_mod.conditional_sample_paths_parameterized_mean(
+            self._bound(), ztsim, xi, xi_ind, zi, xt, xt_ind, lambda_t,
+            convert_out=convert_out,
+        )
 
     # ------------------------------------------------------------------
     # Helpers

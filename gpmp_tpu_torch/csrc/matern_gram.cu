@@ -1,8 +1,9 @@
 // gpmp_tpu_torch/csrc/matern_gram.cu
 //
-// K1 (Matern gram forward) and K2 (its parameter pullback) for Hopper,
-// sm_90a, in float and double.  Plain C entry points, loaded with ctypes by
-// gpmp_tpu_torch/ops/_build.py and wrapped in gpmp_tpu_torch/ops/gram.py.
+// K1 (Matern gram forward), K2 (its parameter pullback) and K1m (the
+// Matern polynomial, elementwise) for Hopper, sm_90a, in float and double.
+// Plain C entry points, loaded with ctypes by gpmp_tpu_torch/ops/_build.py
+// and wrapped in gpmp_tpu_torch/ops/gram.py.
 //
 // What they replace (JAX package, fused there by XLA):
 //   K1: gpmp_tpu/num/__init__.py  _safe_sqrt, _cdist_diff, cdist,
@@ -18,7 +19,18 @@
 //       g_k = sum_ij Kbar_ij s2 k_p'(h)/h (e^l_k x_ik - e^l_k y_jk)^2,
 //       with the term 0 at h = 0 (the zero subgradient of _safe_sqrt).
 //
-// What bounds them on the H100: at the main path's n = 1000, d = 6 each
+// K1m (Matern polynomial, elementwise, forward and backward), for user
+// covariances that compose gnp.scaled_distance (K1d, distance.cu) with
+// kernel.maternp_kernel, as bench.py's noisy model does:
+//   replaces gpmp_tpu/kernel/matern.py  maternp_kernel and its autodiff
+//   pullback:  K = k_p(D) (0 at D = inf),  Dbar = Kbar * k_p'(D).
+//   Bound: one pass over D (and Kbar) writing K (or Dbar): 16 (24) bytes
+//   per f64 entry against an exp and 2(p+1) flops: memory traffic.  Design:
+//   a grid-stride loop, one entry per thread per step, consecutive threads
+//   on consecutive entries; the Horner coefficients come from the same
+//   host-computed coef array as K1/K2.
+//
+// What bounds K1/K2 on the H100: at the main path's n = 1000, d = 6 each
 // output costs ~2d flops for the distance plus an exp, a sqrt and two
 // Horner recurrences, all in f64, against 8 bytes written (K1) or read
 // (K2) per element.  That is ~10-20x more f64 operations per byte than
@@ -52,6 +64,8 @@ constexpr int ROWS_PER_THREAD = TILE / THREADS_Y;
 constexpr int MAX_D = 32;                   // largest input dimension d
 constexpr int PULLBACK_COL_GROUPS = 32;     // K2 column-tile groups per row tile
 constexpr int REDUCE_THREADS = 256;
+constexpr int EW_THREADS = 256;            // K1m
+constexpr long long EW_MAX_BLOCKS = 2112;  // 16 per SM of the H100
 
 template <typename T> struct M;
 template <> struct M<double> {
@@ -231,6 +245,58 @@ reduce_partials_kernel(const double* __restrict__ partial, double* __restrict__ 
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(EW_THREADS)
+maternp_elem_kernel(const T* __restrict__ h_in, const double* __restrict__ coef,
+                    T* __restrict__ out, long long count, int p) {
+  const T c = static_cast<T>(coef[0]);
+  const T twoc = static_cast<T>(2.0 * coef[0]);
+  const double* a = coef + 1;
+  for (long long i = static_cast<long long>(blockIdx.x) * EW_THREADS + threadIdx.x; i < count;
+       i += static_cast<long long>(gridDim.x) * EW_THREADS) {
+    const T h = h_in[i];
+    const T kv = M<T>::exp(-c * h) * horner<T>(a, p, twoc * h);
+    out[i] = isinf(h) ? T(0) : kv;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(EW_THREADS)
+maternp_elem_backward_kernel(const T* __restrict__ h_in, const T* __restrict__ kbar,
+                             const double* __restrict__ coef, T* __restrict__ out,
+                             long long count, int p) {
+  const T c = static_cast<T>(coef[0]);
+  const T twoc = static_cast<T>(2.0 * coef[0]);
+  const double* b = coef + 2 + p;
+  for (long long i = static_cast<long long>(blockIdx.x) * EW_THREADS + threadIdx.x; i < count;
+       i += static_cast<long long>(gridDim.x) * EW_THREADS) {
+    const T h = h_in[i];
+    const T dk = c * M<T>::exp(-c * h) * horner<T>(b, p, twoc * h);  // k_p'(h)
+    out[i] = isinf(h) ? T(0) : kbar[i] * dk;
+  }
+}
+
+unsigned ew_blocks(long long count) {
+  const long long b = (count + EW_THREADS - 1) / EW_THREADS;
+  return static_cast<unsigned>(b < EW_MAX_BLOCKS ? b : EW_MAX_BLOCKS);
+}
+
+template <typename T>
+int launch_maternp(const void* h, const void* kbar, const void* coef, void* out,
+                   long long count, int p, void* stream) {
+  if (count <= 0 || p < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kbar == nullptr)
+    maternp_elem_kernel<T><<<ew_blocks(count), EW_THREADS, 0, s>>>(
+        static_cast<const T*>(h), static_cast<const double*>(coef), static_cast<T*>(out),
+        count, p);
+  else
+    maternp_elem_backward_kernel<T><<<ew_blocks(count), EW_THREADS, 0, s>>>(
+        static_cast<const T*>(h), static_cast<const T*>(kbar),
+        static_cast<const double*>(coef), static_cast<T*>(out), count, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 dim3 gram_grid(long long n, long long m) {
   return dim3(static_cast<unsigned>((m + TILE - 1) / TILE),
               static_cast<unsigned>((n + TILE - 1) / TILE));
@@ -327,6 +393,26 @@ int gpmp_matern_pullback_f32(const void* kbar, const void* x, const void* y,
                              void* stream) {
   return launch_pullback<float>(kbar, x, y, theta, coef, partial, out, n, m, d, p, same,
                                 eps, stream);
+}
+
+int gpmp_maternp_f64(const void* h, const void* coef, void* out, long long count, int p,
+                     void* stream) {
+  return launch_maternp<double>(h, nullptr, coef, out, count, p, stream);
+}
+
+int gpmp_maternp_f32(const void* h, const void* coef, void* out, long long count, int p,
+                     void* stream) {
+  return launch_maternp<float>(h, nullptr, coef, out, count, p, stream);
+}
+
+int gpmp_maternp_backward_f64(const void* h, const void* kbar, const void* coef, void* out,
+                              long long count, int p, void* stream) {
+  return launch_maternp<double>(h, kbar, coef, out, count, p, stream);
+}
+
+int gpmp_maternp_backward_f32(const void* h, const void* kbar, const void* coef, void* out,
+                              long long count, int p, void* stream) {
+  return launch_maternp<float>(h, kbar, coef, out, count, p, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // gpmp_tpu_torch/csrc/mixed.cu
 //
-// K3, K4, K5 and K7: the hand-written kernels of the mixed-precision
-// Cholesky engine (gpmp_tpu_torch/ops/mixed.py) for Hopper, sm_90a.  Plain C
-// entry points, loaded with ctypes by gpmp_tpu_torch/ops/_build.py.
+// K3, K4, K5, K7 and K7b: the hand-written kernels of the mixed-precision
+// Cholesky engine (gpmp_tpu_torch/ops/mixed.py), and K8s, the residual of
+// its sampling root (gpmp_tpu_torch/ops/refine.py), for Hopper, sm_90a.
+// Plain C entry points, loaded with ctypes by gpmp_tpu_torch/ops/_build.py.
 //
 // K3 residual (replaces gpmp_tpu/ops/mixed.py _f64_matvec and the residual
 //    norms of refined_cholesky_solve):
@@ -26,6 +27,13 @@
 //    triangular; L (f32 in device memory) is promoted to f64 while staged
 //    in shared memory.  Plain f64 FMAs on the vector units, no DMMA.
 //
+// K8s sampling residual (replaces E = K - L L^T of gpmp_tpu/ops/refine.py
+//    sampling_sqrt): K4's kernel with an output in K's dtype instead of
+//    f32, so E keeps f64 for the sampling root C = L + L (M E M^T) / 2.
+//    Same bound (n^3/6 FMAs, 5.0 us at n = 1000, 2.7 ms at n = 8192 at
+//    67 TFLOP/s) and design; E is exactly symmetric, where the JAX
+//    package's dense product is symmetric only up to roundoff.
+//
 // K5 diagonal-block triangular inverse (replaces the base case of
 //    _block_tri_inv, a batched triangular solve):
 //      for each base x base diagonal block A of lower-triangular L32,
@@ -48,6 +56,19 @@
 //    f64 accumulators, block tree reduction, per-block partials, and the
 //    fixed-order second pass shared with K3.  Launch 1 alone lets the host
 //    choose the branch before launch 2 reads H^2.
+//
+// K7b LOO diagonal series (replaces the column sums of
+//    gpmp_tpu/ops/mixed.py mp_solve_and_inv_diag):
+//      series:    d_j = sum_i M_ij^2 - sum_i M_ij B_ij, M = M32, B (f32),
+//                 B = (D - D^2) M, reading M once for both sums;
+//      two-level: d_j = sum_i G_ij W_ij (K's dtype).
+//    Products and sums in f64 (squares and products of f32 values are exact
+//    there).  Bound: reading M and B once (8 n^2 bytes in f32, ~2.4 us at
+//    n = 1000): memory-bound.  Design: a block owns 32 consecutive columns
+//    (a warp reads 32 consecutive words of a row) and a chunk of rows, 8 rows
+//    in flight; the chunks are sized so that ~2 blocks per SM run; each
+//    block writes per-column partials, and a second launch sums the chunks
+//    of each column in a fixed order (no atomics, bitwise reproducible).
 //
 // Tensor cores, TMA and wgmma are not used: these kernels are simple and
 // right first; making them fast is later work.
@@ -197,10 +218,10 @@ constexpr int FR_TILE = 32;
 constexpr int FR_TY = 8;  // block (32, 8): each thread owns 4 rows of a column
 constexpr int FR_ROWS = FR_TILE / FR_TY;
 
-template <typename T>
+template <typename T, typename TOut>
 __global__ void __launch_bounds__(FR_TILE * FR_TY)
 fact_residual_kernel(const T* __restrict__ K, const float* __restrict__ L,
-                     float* __restrict__ R, long long n) {
+                     TOut* __restrict__ R, long long n) {
   // blockIdx.x -> lower-triangular tile (bi, bj), bi >= bj
   const long long b = blockIdx.x;
   long long bi = static_cast<long long>((sqrt(8.0 * static_cast<double>(b) + 1.0) - 1.0) / 2.0);
@@ -239,22 +260,22 @@ fact_residual_kernel(const T* __restrict__ K, const float* __restrict__ L,
   for (int q = 0; q < FR_ROWS; ++q) {
     const long long gi = i0 + ty + FR_TY * q, gj = j0 + tx;
     if (gi < n && gj < n && gi >= gj) {
-      const float v = static_cast<float>(static_cast<double>(K[gi * n + gj]) - acc[q]);
+      const TOut v = static_cast<TOut>(static_cast<double>(K[gi * n + gj]) - acc[q]);
       R[gi * n + gj] = v;
       R[gj * n + gi] = v;
     }
   }
 }
 
-template <typename T>
+template <typename T, typename TOut>
 int launch_fact_residual(const void* K, const void* L, void* R, long long n, void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long nt = (n + FR_TILE - 1) / FR_TILE;
   const long long tiles = nt * (nt + 1) / 2;
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  fact_residual_kernel<T><<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(K), static_cast<const float*>(L), static_cast<float*>(R), n);
+  fact_residual_kernel<T, TOut><<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(K), static_cast<const float*>(L), static_cast<TOut*>(R), n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -341,6 +362,78 @@ series_sums_kernel(const float* __restrict__ H, const float* __restrict__ H2,
   block_pair_to_partial(s3, s4, partial);
 }
 
+// ---------------------------------------------------------------- K7b
+constexpr int LD_COLS = 32;
+constexpr int LD_TY = 8;
+constexpr long long LD_TARGET_BLOCKS = 264;  // two per SM of the H100
+
+long long loo_diag_chunks(long long n) {
+  const long long col_blocks = (n + LD_COLS - 1) / LD_COLS;
+  long long ch = (LD_TARGET_BLOCKS + col_blocks - 1) / col_blocks;
+  const long long max_ch = (n + LD_TY - 1) / LD_TY;  // at least LD_TY rows a chunk
+  if (ch > max_ch) ch = max_ch;
+  return ch < 1 ? 1 : ch;
+}
+
+// SERIES: partial[c, j] = sum over the chunk's rows of A_ij^2 - A_ij B_ij;
+// else sum of A_ij B_ij.  A, B (n, n) row-major.
+template <typename T, bool SERIES>
+__global__ void __launch_bounds__(LD_COLS * LD_TY)
+loo_diag_kernel(const T* __restrict__ A, const T* __restrict__ B, double* __restrict__ partial,
+                long long n, long long rows_per_chunk) {
+  __shared__ double red[LD_TY][LD_COLS];
+  const long long j = static_cast<long long>(blockIdx.x) * LD_COLS + threadIdx.x;
+  const long long r0 = static_cast<long long>(blockIdx.y) * rows_per_chunk;
+  const long long r1 = r0 + rows_per_chunk < n ? r0 + rows_per_chunk : n;
+  double s = 0.0;
+  if (j < n) {
+    for (long long i = r0 + threadIdx.y; i < r1; i += LD_TY) {
+      const double a = static_cast<double>(A[i * n + j]);
+      const double b = static_cast<double>(B[i * n + j]);
+      s += SERIES ? a * a - a * b : a * b;
+    }
+  }
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < n) {
+    double t = 0.0;
+    for (int q = 0; q < LD_TY; ++q) t += red[q][threadIdx.x];
+    partial[blockIdx.y * n + j] = t;
+  }
+}
+
+// out[j] = sum_c partial[c, j], chunks in order.
+__global__ void __launch_bounds__(RED_THREADS)
+loo_diag_reduce_kernel(const double* __restrict__ partial, long long chunks, long long n,
+                       double* __restrict__ out) {
+  const long long j = static_cast<long long>(blockIdx.x) * RED_THREADS + threadIdx.x;
+  if (j >= n) return;
+  double t = 0.0;
+  for (long long c = 0; c < chunks; ++c) t += partial[c * n + j];
+  out[j] = t;
+}
+
+template <typename T, bool SERIES>
+int launch_loo_diag(const void* A, const void* B, void* partial, void* out, long long n,
+                    void* stream) {
+  if (n <= 0 || (n + LD_COLS - 1) / LD_COLS > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long chunks = loo_diag_chunks(n);
+  const long long rows = (n + chunks - 1) / chunks;
+  loo_diag_kernel<T, SERIES><<<dim3(static_cast<unsigned>((n + LD_COLS - 1) / LD_COLS),
+                                    static_cast<unsigned>(chunks)),
+                               dim3(LD_COLS, LD_TY), 0, s>>>(
+      static_cast<const T*>(A), static_cast<const T*>(B), static_cast<double*>(partial), n,
+      rows);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  loo_diag_reduce_kernel<<<static_cast<unsigned>((n + RED_THREADS - 1) / RED_THREADS),
+                           RED_THREADS, 0, s>>>(static_cast<const double*>(partial), chunks,
+                                                n, static_cast<double*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -358,11 +451,38 @@ int gpmp_residual_f32(const void* K, const void* X, const void* B, void* R, void
 }
 
 int gpmp_fact_residual_f64(const void* K, const void* L, void* R, long long n, void* stream) {
-  return launch_fact_residual<double>(K, L, R, n, stream);
+  return launch_fact_residual<double, float>(K, L, R, n, stream);
 }
 
 int gpmp_fact_residual_f32(const void* K, const void* L, void* R, long long n, void* stream) {
-  return launch_fact_residual<float>(K, L, R, n, stream);
+  return launch_fact_residual<float, float>(K, L, R, n, stream);
+}
+
+int gpmp_sampling_residual_f64(const void* K, const void* L, void* R, long long n,
+                               void* stream) {
+  return launch_fact_residual<double, double>(K, L, R, n, stream);
+}
+
+int gpmp_sampling_residual_f32(const void* K, const void* L, void* R, long long n,
+                               void* stream) {
+  return launch_fact_residual<float, float>(K, L, R, n, stream);
+}
+
+long long gpmp_loo_diag_chunks(long long n) { return loo_diag_chunks(n); }
+
+int gpmp_loo_diag_series(const void* M32, const void* B32, void* partial, void* out,
+                         long long n, void* stream) {
+  return launch_loo_diag<float, true>(M32, B32, partial, out, n, stream);
+}
+
+int gpmp_loo_diag_pairs_f64(const void* G, const void* W, void* partial, void* out,
+                            long long n, void* stream) {
+  return launch_loo_diag<double, false>(G, W, partial, out, n, stream);
+}
+
+int gpmp_loo_diag_pairs_f32(const void* G, const void* W, void* partial, void* out,
+                            long long n, void* stream) {
+  return launch_loo_diag<float, false>(G, W, partial, out, n, stream);
 }
 
 int gpmp_diag_block_inv_max_base() { return TI_MAX_BASE; }

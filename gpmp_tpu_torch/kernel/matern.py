@@ -4,7 +4,8 @@
 Counterpart of gpmp_tpu/kernel/matern.py.  The full (non-pairwise) gram
 matrices go through ``ops.gram.matern_gram``: the hand-written K1/K2 CUDA
 kernels on CUDA tensors, the plain torch composition on CPU tensors.  The
-pairwise branches are O(n) and stay plain torch.
+pairwise cross branch composes ``gnp.scaled_distance_elementwise`` (K1d)
+with ``maternp_kernel`` (K1m), as user covariances do.
 """
 
 import math

@@ -1,11 +1,13 @@
 # gpmp_tpu_torch/num/__init__.py
 """PyTorch numerical namespace (`gnp`) for gpmp_tpu_torch.
 
-Counterpart of gpmp_tpu/num/__init__.py, limited to what the REML fit and
-kriging predict path and user model code need: array creation on the
-configured device and dtype, a few elementwise ops and reductions,
-Cholesky/QR linear algebra, distances, and the criterion wrapper that
-hands (value, gradient) to SciPy.
+Counterpart of gpmp_tpu/num/__init__.py, limited to what the REML fit,
+kriging predict, LOO and sample-path paths and user model code need: array
+creation on the configured device and dtype, a few elementwise ops and
+reductions, Cholesky/QR linear algebra, distances (``scaled_distance`` and
+``scaled_distance_elementwise`` run the K1d kernel on CUDA tensors,
+ops/distance.py), the RNG shim, and the criterion wrapper that hands
+(value, gradient) to SciPy.
 
 - Autodiff is ``torch.autograd``.
 - Linalg failures do not raise: a failed Cholesky yields NaNs
@@ -14,7 +16,12 @@ hands (value, gradient) to SciPy.
 - Every tensor created here gets an explicit device (``config.get_device``,
   read at call time) and dtype (``GPMP_DTYPE``, fixed at import).
 
-Not ported yet (ROADMAP): the RNG shim, ``normal``/``multivariate_normal``,
+- Random numbers come from a module-level ``torch.Generator`` on the
+  configured device (``set_seed``); every draw also takes an explicit
+  ``generator=``, where the JAX package takes ``key=``.  torch and JAX give
+  different numbers from the same seed.
+
+Not ported yet (ROADMAP): ``normal``/``multivariate_normal``,
 ``BatchDifferentiableSelectionCriterion`` and
 ``SecondOrderDifferentiableFunction``.
 """
@@ -97,6 +104,11 @@ def full(shape, fill_value, dtype=None):
     return torch.full(
         _shape(shape), fill_value, dtype=dtype or _dtype, device=get_device()
     )
+
+
+def arange(*args, dtype=None):
+    """torch.arange on the configured device; integers stay int64."""
+    return torch.arange(*args, dtype=dtype, device=get_device())
 
 
 def eye(n, m=None, dtype=None):
@@ -240,16 +252,22 @@ def cdist(x, y):
 
 
 def scaled_distance(loginvrho, x, y):
-    """Anisotropic scaled distance: cdist(exp(loginvrho)*x, exp(loginvrho)*y)."""
-    invrho = torch.exp(loginvrho)
-    return cdist(invrho * x, invrho * y)
+    """Anisotropic scaled distance cdist(exp(loginvrho)*x, exp(loginvrho)*y),
+    differentiable in loginvrho: the K1d kernel on CUDA tensors, the plain
+    composition on CPU tensors (ops.distance)."""
+    from gpmp_tpu_torch.ops import distance  # ops imports this module
+
+    return distance.scaled_distance(loginvrho, x, y)
 
 
 def scaled_distance_elementwise(loginvrho, x, y):
+    """||exp(loginvrho) * (x_i - y_i)|| row by row (K1d on CUDA tensors);
+    zeros when y is x or None."""
     if x is y or y is None:
         return torch.zeros((x.shape[0],), dtype=_dtype, device=x.device)
-    invrho = torch.exp(loginvrho)
-    return _safe_sqrt(torch.sum((invrho * (x - y)) ** 2, dim=1))
+    from gpmp_tpu_torch.ops import distance  # ops imports this module
+
+    return distance.scaled_distance_elementwise(loginvrho, x, y)
 
 
 # ----------------------------------------------------------------------------
@@ -322,6 +340,76 @@ def cholesky_solve(A, b):
     y = solve_triangular(L, b, lower=True)
     x = solve_triangular(L.mT, y, lower=False)
     return x, L
+
+
+# ----------------------------------------------------------------------------
+# RNG: a module-level generator with global-seed UX
+# ----------------------------------------------------------------------------
+_DEFAULT_SEED = 1234  # gpmp_tpu/config.py's default seed
+_rng = {"seed": _DEFAULT_SEED, "device": None, "generator": None}
+
+
+def set_seed(seed: int) -> None:
+    """Reset the module-level generator (UX parity with the reference)."""
+    _rng.update(seed=int(seed), device=None, generator=None)
+
+
+def _generator(generator=None):
+    """The given generator, or the module-level one on the configured device
+    (made there from the current seed when first used or when the device
+    has changed since)."""
+    if generator is not None:
+        return generator
+    dev = get_device()
+    if _rng["device"] != dev:
+        _rng.update(device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(_rng["seed"]))
+    return _rng["generator"]
+
+
+def _draw_shape(shape):
+    return tuple(shape[0]) if len(shape) == 1 and not isinstance(shape[0], int) else shape
+
+
+def rand(*shape, generator=None):
+    """Uniform [0, 1) draws in the working dtype on the configured device."""
+    gen = _generator(generator)
+    return torch.rand(_draw_shape(shape), generator=gen, dtype=_dtype, device=gen.device)
+
+
+def randn(*shape, generator=None):
+    """Standard normal draws in the working dtype on the configured device."""
+    gen = _generator(generator)
+    return torch.randn(_draw_shape(shape), generator=gen, dtype=_dtype, device=gen.device)
+
+
+def choice(a, size=None, replace=True, p=None, generator=None):
+    """Draws from a (an int n stands for arange(n)), with or without
+    replacement, optionally with probabilities p."""
+    gen = _generator(generator)
+    pool = torch.arange(a, device=gen.device) if isinstance(a, int) else asarray(a)
+    shape = () if size is None else (size if isinstance(size, tuple) else (size,))
+    k = math.prod(shape)
+    n = pool.shape[0]
+    if p is not None:
+        w = torch.as_tensor(p, dtype=torch.float64, device=gen.device)
+        idx = torch.multinomial(w, k, replacement=replace, generator=gen)
+    elif replace:
+        idx = torch.randint(n, (k,), generator=gen, device=gen.device)
+    else:
+        if k > n:
+            raise ValueError(f"cannot take {k} samples from {n} without replacement")
+        idx = torch.randperm(n, generator=gen, device=gen.device)[:k]
+    return pool[idx].reshape(shape + pool.shape[1:])
+
+
+def permutation(x, generator=None):
+    """A random permutation of range(x) (int x) or of the rows of x."""
+    gen = _generator(generator)
+    if isinstance(x, int):
+        return torch.randperm(x, generator=gen, device=gen.device)
+    x = asarray(x)
+    return x[torch.randperm(x.shape[0], generator=gen, device=gen.device)]
 
 
 # ----------------------------------------------------------------------------

@@ -109,18 +109,34 @@ def _compile(out_dir: Path) -> Path:
 def _declare(lib):
     vp, ll, i32, f64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
     signatures = {
-        # ops/gram.py: K1, K2
+        # ops/gram.py: K1, K2, K1m
         "gpmp_matern_max_d": ([], i32),
         "gpmp_matern_pullback_blocks": ([ll, ll], ll),
-        # ops/mixed.py: K3, K4, K5, K7
+        # ops/mixed.py: K3, K4, K5, K7, K7b; ops/refine.py: K8s
         "gpmp_residual_blocks": ([ll], ll),
         "gpmp_diag_block_inv_max_base": ([], i32),
         "gpmp_diag_block_inv": ([vp, vp, ll, i32, vp], i32),
         "gpmp_trace_sums_blocks": ([ll], ll),
         "gpmp_trace_sums": ([vp, vp, vp, ll, vp], i32),
         "gpmp_series_sums": ([vp, vp, vp, vp, ll, vp], i32),
+        "gpmp_loo_diag_chunks": ([ll], ll),
+        "gpmp_loo_diag_series": ([vp, vp, vp, vp, ll, vp], i32),
+        # ops/distance.py: K1d
+        "gpmp_distance_max_d": ([], i32),
+        "gpmp_distance_pullback_blocks": ([ll, ll], ll),
+        "gpmp_distance_elementwise_blocks": ([ll], ll),
     }
     for suffix in ("f64", "f32"):
+        signatures[f"gpmp_distance_{suffix}"] = ([vp, vp, vp, vp, ll, ll, i32, vp], i32)
+        signatures[f"gpmp_distance_pullback_{suffix}"] = (
+            [vp, vp, vp, vp, vp, vp, ll, ll, i32, vp], i32)
+        signatures[f"gpmp_distance_elementwise_{suffix}"] = ([vp, vp, vp, vp, ll, i32, vp], i32)
+        signatures[f"gpmp_distance_elementwise_pullback_{suffix}"] = (
+            [vp, vp, vp, vp, vp, vp, ll, i32, vp], i32)
+        signatures[f"gpmp_maternp_{suffix}"] = ([vp, vp, vp, ll, i32, vp], i32)
+        signatures[f"gpmp_maternp_backward_{suffix}"] = ([vp, vp, vp, vp, ll, i32, vp], i32)
+        signatures[f"gpmp_sampling_residual_{suffix}"] = ([vp, vp, vp, ll, vp], i32)
+        signatures[f"gpmp_loo_diag_pairs_{suffix}"] = ([vp, vp, vp, vp, ll, vp], i32)
         signatures[f"gpmp_matern_gram_{suffix}"] = (
             [vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp], i32)
         signatures[f"gpmp_matern_pullback_{suffix}"] = (

@@ -5,18 +5,25 @@ K1 (``matern_gram_cuda``) computes
     K_ij = s2 * k_p(||e^l * x_i - e^l * y_j||)  (+ 10 * s2 * eps on the
     diagonal when ``same``), theta = [log s2, l_1..l_d],
 and K2 (``matern_gram_pullback_cuda``) computes grad_theta <Kbar, K(theta)>
-without forming dK/dtheta.  Both are hand-written CUDA
-(gpmp_tpu_torch/csrc/matern_gram.cu).  They replace the gram construction
-that the JAX package composes from gpmp_tpu/num cdist/scaled_distance and
-gpmp_tpu/kernel/matern.py, and its autodiff pullback.
+without forming dK/dtheta.  K1m (``maternp_kernel_cuda``,
+``maternp_kernel_backward_cuda``) is the Matern polynomial alone, for
+covariances that compose it with ``gnp.scaled_distance`` (K1d,
+ops/distance.py): K = k_p(D) and Dbar = Kbar k_p'(D), one elementwise pass
+each.  All are hand-written CUDA (gpmp_tpu_torch/csrc/matern_gram.cu).
+They replace the gram construction that the JAX package composes from
+gpmp_tpu/num cdist/scaled_distance and gpmp_tpu/kernel/matern.py, and its
+autodiff pullback.
 
-``matern_gram`` dispatches on the tensors' device: CPU tensors take the
-plain PyTorch versions (``matern_gram_plain``,
-``matern_gram_pullback_plain``), CUDA tensors launch the kernels or raise.
-There is no fallback from one to the other.
+``matern_gram`` and ``maternp_kernel`` dispatch on the tensors' device: CPU
+tensors take the plain PyTorch versions (``matern_gram_plain``,
+``matern_gram_pullback_plain``, ``maternp_kernel_plain``,
+``maternp_kernel_backward_plain``), CUDA tensors launch the kernels or
+raise.  There is no fallback from one to the other, and the plain versions
+call only plain versions.
 
-``K1_LAUNCHES`` and ``K2_LAUNCHES`` count kernel launches (one per
-wrapper call that launched); the plain versions count nothing.
+``K1_LAUNCHES``, ``K2_LAUNCHES``, ``K1M_LAUNCHES`` and
+``K1M_BACKWARD_LAUNCHES`` count kernel launches (one per wrapper call that
+launched); the plain versions count nothing.
 
 eps in the nugget is the machine epsilon of the tensors' dtype (the
 working dtype when the tensors come from ``gnp``).
@@ -30,10 +37,13 @@ import torch
 from torch.autograd.function import once_differentiable
 
 import gpmp_tpu_torch.num as gnp
-from . import _build
+from . import _build, distance
+from .mixed import _on_card
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
+K1M_LAUNCHES = 0
+K1M_BACKWARD_LAUNCHES = 0
 
 
 # ----------------------------------------------------------------------------
@@ -70,8 +80,11 @@ def _horner(coeffs, t):
     return poly
 
 
-def maternp_kernel(p: int, h):
-    """Matern kernel with half-integer regularity nu = p + 1/2 (plain torch).
+# ----------------------------------------------------------------------------
+# Plain versions (CPU path, and the reference the kernels are held to)
+# ----------------------------------------------------------------------------
+def maternp_kernel_plain(p: int, h):
+    """Matern kernel with half-integer regularity nu = p + 1/2 (torch ops).
 
     Polynomial form evaluated by Horner's rule; K(inf) = 0.
     """
@@ -83,13 +96,17 @@ def maternp_kernel(p: int, h):
     return torch.where(torch.isinf(h), torch.zeros_like(out), out)
 
 
-# ----------------------------------------------------------------------------
-# Plain versions (CPU path, and the reference the kernels are held to)
-# ----------------------------------------------------------------------------
+def maternp_kernel_backward_plain(p: int, h, kbar):
+    """Hbar = Kbar k_p'(h), k_p'(h) = c e^{-ch} sum_k b_k (2ch)^k; 0 at h = inf."""
+    c = 2.0 * math.sqrt(int(p) + 0.5)
+    dk = c * torch.exp(-c * h) * _horner(_maternp_dpoly_coeffs(int(p)), 2.0 * c * h)
+    return torch.where(torch.isinf(h), 0.0, kbar * dk)
+
+
 def matern_gram_plain(x, y, p, theta, same=False):
     """K(x, y; theta) from torch ops: the JAX package's composition."""
     sigma2 = torch.exp(theta[0])
-    K = sigma2 * maternp_kernel(p, gnp.scaled_distance(theta[1:], x, y))
+    K = sigma2 * maternp_kernel_plain(p, distance.scaled_distance_plain(theta[1:], x, y))
     if same:
         nugget = 10.0 * sigma2 * torch.finfo(x.dtype).eps
         K = K + nugget * torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
@@ -227,9 +244,81 @@ def matern_gram_pullback_cuda(kbar, x, y, p, theta, same=False):
     return out
 
 
+def _check_maternp_args(p, h, kbar=None):
+    for t in (h,) if kbar is None else (h, kbar):
+        if not t.is_cuda or t.device != h.device:
+            raise ValueError("K1m maternp kernels take CUDA tensors on one device")
+        if t.dtype not in (torch.float64, torch.float32) or t.dtype != h.dtype:
+            raise ValueError("K1m maternp kernels take float64 or float32 tensors of one dtype")
+        if not t.is_contiguous():
+            raise ValueError("K1m maternp kernels take contiguous tensors")
+    if kbar is not None and kbar.shape != h.shape:
+        raise ValueError(f"kbar must be {tuple(h.shape)}; got {tuple(kbar.shape)}")
+    if p < 0:
+        raise ValueError(f"p must be >= 0; got {p}")
+    return _build.load()
+
+
+def maternp_kernel_cuda(p, h):
+    """K1m on the card: k_p(h) elementwise, any shape (one launch)."""
+    global K1M_LAUNCHES
+    lib = _check_maternp_args(p, h)
+    out = torch.empty_like(h)
+    if h.numel() == 0:
+        return out
+    fn = lib.gpmp_maternp_f64 if h.dtype == torch.float64 else lib.gpmp_maternp_f32
+    _build.launch("K1m maternp", fn, h.device, h.data_ptr(), _coef_tensor(p, h.device).data_ptr(),
+                  out.data_ptr(), h.numel(), p)
+    K1M_LAUNCHES += 1
+    return out
+
+
+def maternp_kernel_backward_cuda(p, h, kbar):
+    """K1m backward on the card: kbar * k_p'(h) elementwise (one launch)."""
+    global K1M_BACKWARD_LAUNCHES
+    lib = _check_maternp_args(p, h, kbar)
+    out = torch.empty_like(h)
+    if h.numel() == 0:
+        return out
+    fn = (lib.gpmp_maternp_backward_f64 if h.dtype == torch.float64
+          else lib.gpmp_maternp_backward_f32)
+    _build.launch("K1m maternp backward", fn, h.device, h.data_ptr(), kbar.data_ptr(),
+                  _coef_tensor(p, h.device).data_ptr(), out.data_ptr(), h.numel(), p)
+    K1M_BACKWARD_LAUNCHES += 1
+    return out
+
+
 # ----------------------------------------------------------------------------
 # Autograd and dispatch
 # ----------------------------------------------------------------------------
+class _MaternpKernel(torch.autograd.Function):
+    """k_p(h) elementwise: K1m forward and backward on CUDA tensors, the
+    plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, h, p):
+        card = _on_card(h)
+        if card:
+            h = h.contiguous()
+        ctx.save_for_backward(h)
+        ctx.p = p
+        return maternp_kernel_cuda(p, h) if card else maternp_kernel_plain(p, h)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, kbar):
+        (h,) = ctx.saved_tensors
+        if _on_card(h):
+            return maternp_kernel_backward_cuda(ctx.p, h, kbar.contiguous()), None
+        return maternp_kernel_backward_plain(ctx.p, h, kbar), None
+
+
+def maternp_kernel(p: int, h):
+    """Matern kernel with half-integer regularity nu = p + 1/2, elementwise
+    on a tensor of distances h; K(inf) = 0; differentiable in h."""
+    return _MaternpKernel.apply(h, int(p))
+
+
 class MaternGram(torch.autograd.Function):
     """K(x, y; theta) with a gradient for theta only: K1 forward, K2 backward
     on CUDA tensors; the plain versions on CPU tensors."""

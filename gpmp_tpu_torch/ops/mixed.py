@@ -13,9 +13,12 @@ Counterpart of gpmp_tpu/ops/mixed.py (the 'mixed' engine of
    by a quartic trace series (or a second f32 factorization of I + H when
    |H|_F^2 >= 1e-4);
 4. an analytic backward: Kbar = ldbar K^{-1} - S X^T, Bbar = S, with
-   S = K^{-1} Xbar one refined solve on the saved preconditioner.
+   S = K^{-1} Xbar one refined solve on the saved preconditioner;
+5. the LOO block (K^{-1} B, diag K^{-1}) from the series
+   K^{-1} ~= M^T (I - D + D^2) M, with the analytic backward
+   Kbar = -K^{-1} diag(dbar) K^{-1} - S X^T, Bbar = S.
 
-Four pieces are hand-written CUDA kernels (gpmp_tpu_torch/csrc/mixed.cu),
+Five pieces are hand-written CUDA kernels (gpmp_tpu_torch/csrc/mixed.cu),
 each with a plain PyTorch version here and a launch counter:
 
 - K3 ``residual``: R = B - K X and (sum R^2, sum B^2) for k <= 8 columns
@@ -26,14 +29,18 @@ each with a plain PyTorch version here and a launch counter:
   (the base case of ``_block_tri_inv``);
 - K7 ``trace_sums`` / ``series_sums``: (tr H, sum H^2) and
   (sum H^2 o H, sum (H^2)^2) accumulated in f64 from f32 H and H^2 (the
-  trace series of ``_mp_solve_and_logdet_core``).
+  trace series of ``_mp_solve_and_logdet_core``);
+- K7b ``loo_diag_series`` / ``loo_diag_pairs``: the column sums
+  diag K^{-1} = sum_i M_ij^2 - sum_i M_ij B_ij (series) or sum_i G_ij W_ij
+  (two-level) in f64 (``mp_solve_and_inv_diag``).
 
 Each dispatcher takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors (or raises); there is no fallback between them.
 The matrix products around the kernels (the preconditioner applications
 M^T (M r), H = M R M^T, H @ H, the recursion levels of the triangular
 inverse, and K X for more than 8 columns) are ``torch.matmul``, as the JAX
-package left them to XLA's dot.
+package left them to XLA's dot.  ``K6_APPLIES`` counts the preconditioner
+applications, the two products that the K6 kernel will fuse.
 
 JAX's ``lax.while_loop`` and ``lax.cond`` become host branches: a refined
 solve reads its residual norm once per sweep (1 + sweeps reads), and the
@@ -44,7 +51,6 @@ plus the criterion's own one; s is 1 or 2 sweeps for a well-conditioned K.
 The forward-mode twins of the JAX module (``mp_solve_and_logdet_fwdmode``,
 ``refined_solve_fwdmode``, ``is_fwd_mode_error``) are not ported: the
 autograd Functions here have no ``jvp`` (ROADMAP queue 1 item 8).
-``mp_solve_and_inv_diag`` gives values only.
 """
 
 from __future__ import annotations
@@ -75,6 +81,8 @@ K3_LAUNCHES = 0
 K4_LAUNCHES = 0
 K5_LAUNCHES = 0
 K7_LAUNCHES = 0
+K7B_LAUNCHES = 0
+K6_APPLIES = 0  # calls of _apply: two torch.matmul until K6 is a kernel
 
 _F32 = torch.float32
 
@@ -137,6 +145,19 @@ def series_sums_plain(H, H2):
     """K7 plain, second launch: [sum H^2 o H, sum (H^2)^2] in f64."""
     H64, H2_64 = H.double(), H2.double()
     return torch.stack([torch.sum(H2_64 * H64), torch.sum(H2_64 * H2_64)])
+
+
+def loo_diag_series_plain(M32, B32, dtype):
+    """K7b plain, series branch: sum_i M_ij^2 - sum_i M_ij B_ij in ``dtype``,
+    with the JAX package's arithmetic: the squares of M (M32 promoted) in
+    ``dtype``, the correction summed in f32."""
+    M = M32.to(dtype)
+    return torch.sum(M * M, dim=0) - torch.sum(M32 * B32, dim=0).to(dtype)
+
+
+def loo_diag_pairs_plain(G, W):
+    """K7b plain, two-level branch: sum_i G_ij W_ij."""
+    return torch.sum(G * W, dim=0)
 
 
 # ----------------------------------------------------------------------------
@@ -249,6 +270,42 @@ def series_sums_cuda(H, H2):
     return out
 
 
+def _loo_diag_launch(name, fn, dev, A, B):
+    global K7B_LAUNCHES
+    n = A.shape[0]
+    lib = _build.load()
+    partial = torch.empty((lib.gpmp_loo_diag_chunks(n), n), dtype=torch.float64, device=dev)
+    out = torch.empty(n, dtype=torch.float64, device=dev)
+    _build.launch(name, fn, dev, A.data_ptr(), B.data_ptr(), partial.data_ptr(),
+                  out.data_ptr(), n)
+    K7B_LAUNCHES += 1
+    return out
+
+
+def loo_diag_series_cuda(M32, B32, dtype):
+    """K7b on the card, series branch: sum_i M_ij^2 - sum_i M_ij B_ij, the
+    products and sums in f64, M read once for both; cast to ``dtype``."""
+    dev = _check_cuda("K7b loo_diag_series", (M32, B32), ((_F32,), (_F32,)))
+    n = _square("K7b loo_diag_series", M32)
+    if B32.shape != M32.shape:
+        raise ValueError(f"K7b: B must be {tuple(M32.shape)}; got {tuple(B32.shape)}")
+    lib = _build.load()
+    return _loo_diag_launch("K7b loo_diag_series", lib.gpmp_loo_diag_series, dev, M32,
+                            B32).to(dtype)
+
+
+def loo_diag_pairs_cuda(G, W):
+    """K7b on the card, two-level branch: sum_i G_ij W_ij in f64, cast to G's dtype."""
+    fp = (torch.float64, torch.float32)
+    dev = _check_cuda("K7b loo_diag_pairs", (G, W), (fp, (G.dtype,)))
+    n = _square("K7b loo_diag_pairs", G)
+    if W.shape != G.shape:
+        raise ValueError(f"K7b: W must be {tuple(G.shape)}; got {tuple(W.shape)}")
+    lib = _build.load()
+    fn = lib.gpmp_loo_diag_pairs_f64 if G.dtype == torch.float64 else lib.gpmp_loo_diag_pairs_f32
+    return _loo_diag_launch("K7b loo_diag_pairs", fn, dev, G, W).to(G.dtype)
+
+
 # ----------------------------------------------------------------------------
 # Dispatch on the tensors' device
 # ----------------------------------------------------------------------------
@@ -295,6 +352,18 @@ def series_sums(H, H2):
     if _on_card(H):
         return series_sums_cuda(H.contiguous(), H2.contiguous())
     return series_sums_plain(H, H2)
+
+
+def loo_diag_series(M32, B32, dtype):
+    if _on_card(M32):
+        return loo_diag_series_cuda(M32.contiguous(), B32.contiguous(), dtype)
+    return loo_diag_series_plain(M32, B32, dtype)
+
+
+def loo_diag_pairs(G, W):
+    if _on_card(G):
+        return loo_diag_pairs_cuda(G.contiguous(), W.contiguous())
+    return loo_diag_pairs_plain(G, W)
 
 
 # ----------------------------------------------------------------------------
@@ -353,6 +422,8 @@ def _f32_preconditioner(K):
 
 def _apply(M32, R):
     """Preconditioner application M^T (M R) in f32."""
+    global K6_APPLIES
+    K6_APPLIES += 1
     r32 = R.to(_F32)
     return (M32.T @ (M32 @ r32)).to(R.dtype)
 
@@ -517,27 +588,58 @@ def refined_solve(K, B, n_refine=DEFAULT_REFINE_ITERS):
     return _RefinedSolve.apply(K, B, n_refine)
 
 
-def mp_solve_and_inv_diag(K, B, n_refine=DEFAULT_REFINE_ITERS):
-    """(K^{-1} B to ~f64, diag(K^{-1}) to ~1e-7 relative): the LOO block.
-
-    n_refine sweeps without early exit.  diag(K^{-1}) comes from the
-    series K^{-1} ~= M^T (I - D + D^2) M with D = M K M^T - I (two f64
-    products, since each diagonal entry is consumed on its own), the
-    correction in f32; |D|_F^2 >= 1e-4 takes the two-level expansion.  A
-    non-PD K gives NaN.  Values only: raises when a gradient is asked for.
-    """
-    if torch.is_grad_enabled() and (K.requires_grad or B.requires_grad):
-        raise NotImplementedError(
-            "mp_solve_and_inv_diag gives values only (ROADMAP queue 1 item 8)")
-    X, (_L32, M32) = refined_cholesky_solve(K, B, n_refine=n_refine)
+def _inv_diag(K, M32):
+    """diag(K^{-1}) from the series K^{-1} ~= M^T (I - D + D^2) M with
+    D = M K M^T - I (two f64 products, since each diagonal entry is
+    consumed on its own), the correction in f32 (K7b, series);
+    |D|_F^2 >= 1e-4 takes the two-level expansion (K7b, pairs), NaN unless
+    its |E2 - I|_F^2 < 1e-8."""
     n = K.shape[0]
     M = M32.to(K.dtype)
     eye = torch.eye(n, dtype=K.dtype, device=K.device)
     D = M @ (K @ M.T) - eye
     if float(torch.sum(D * D)) < _SERIES_TAU:
         D32 = D.to(_F32)
-        corr = torch.sum(M32 * ((D32 - D32 @ D32) @ M32), dim=0).to(K.dtype)
-        return X, torch.sum(M * M, dim=0) - corr
+        return loo_diag_series(M32, (D32 - D32 @ D32) @ M32, K.dtype)
     G, W, DL = _kinv_two_level(D + eye, M)
-    d = torch.sum(G * W, dim=0)
-    return X, torch.where(torch.sum(DL * DL) < _LOGDET_FTOL2, d, torch.nan)
+    d = loo_diag_pairs(G, W)
+    return torch.where(torch.sum(DL * DL) < _LOGDET_FTOL2, d, torch.nan)
+
+
+class _MpSolveAndInvDiag(torch.autograd.Function):
+    """(K^{-1} B, diag K^{-1}) with the analytic backward
+    Kbar = -K^{-1} diag(dbar) K^{-1} - S X^T, Bbar = S, S = K^{-1} Xbar: one
+    refined solve of K [S, K^{-1}] = [Xbar, I] on the saved preconditioner.
+    (The JAX package differentiates its own unrolled sweeps and f32 series
+    instead; both tend to the exact gradient.)"""
+
+    @staticmethod
+    def forward(ctx, K, B, n_refine):
+        X, (_L32, M32) = refined_cholesky_solve(K, B, n_refine=n_refine)
+        ctx.save_for_backward(K, M32, X)
+        ctx.n_refine = n_refine
+        return X, _inv_diag(K, M32)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, Xbar, dbar):
+        K, M32, X = ctx.saved_tensors
+        Xb = _as_matrix(Xbar)
+        k = Xb.shape[1]
+        eye = torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
+        Y, _ = refined_cholesky_solve(K, torch.cat([Xb, eye], dim=1), precond=(None, M32),
+                                      n_refine=ctx.n_refine, early_exit=True)
+        S, Kinv = Y[:, :k], Y[:, k:]
+        Kbar = None
+        if ctx.needs_input_grad[0]:
+            Kbar = -(Kinv * dbar) @ Kinv - S @ _as_matrix(X).T
+        return Kbar, S.reshape(Xbar.shape), None
+
+
+def mp_solve_and_inv_diag(K, B, n_refine=DEFAULT_REFINE_ITERS):
+    """(K^{-1} B to ~f64, diag(K^{-1}) to ~1e-7 relative): the LOO block.
+
+    n_refine sweeps without early exit; diag(K^{-1}) from the trace series
+    (``_inv_diag``).  A non-PD K gives NaN.  Differentiable (reverse mode)
+    through an analytic backward."""
+    return _MpSolveAndInvDiag.apply(K, B, n_refine)

@@ -30,6 +30,8 @@ SUBMODULES = (
     "gpmp_tpu_torch.ops.gram",
     "gpmp_tpu_torch.ops.mixed",
     "gpmp_tpu_torch.ops._build",
+    "gpmp_tpu_torch.ops.distance",
+    "gpmp_tpu_torch.ops.refine",
     "gpmp_tpu_torch.kernel",
     "gpmp_tpu_torch.kernel.matern",
     "gpmp_tpu_torch.kernel.exponential",
@@ -42,6 +44,7 @@ SUBMODULES = (
     "gpmp_tpu_torch.core.likelihood",
     "gpmp_tpu_torch.core.linalg",
     "gpmp_tpu_torch.core.loo",
+    "gpmp_tpu_torch.core.sample_paths",
     "gpmp_tpu_torch.core.utils",
     "gpmp_tpu_torch.misc",
     "gpmp_tpu_torch.misc.designs",

@@ -12,11 +12,14 @@ card.  Tolerances, each with its reason:
 - K5 triangular inverse: rel 1e-5 at cond 1e4 (f32 substitution in another
   order than XLA's triangular solve; error ~ eps32 cond(L));
 - K7 trace sums: rel 1e-13 (f64 sums of products of f32 values);
+- K7b LOO diagonal series: rel 1e-7 on the series branch (its correction is
+  summed in f32, in another order than XLA's), 1e-13 on the two-level one;
 - refined solve and logdet: the JAX package's own bars (tests/test_ops.py)
   against numpy, and port vs JAX within the same bars;
 - gradients: port vs JAX's custom VJP and vs an f64 autograd oracle, rel
   1e-8 (series branch) / 1e-4 (two-level branch, O(eps cond) in the
-  quadratic form), as tests/test_ops.py holds the JAX package.
+  quadratic form), as tests/test_ops.py holds the JAX package; the LOO
+  block's against numpy's exact gradient (1e-9 / 1e-6) and jax.grad (1e-10).
 """
 
 import jax
@@ -254,7 +257,71 @@ def test_mixed_engine_gate_below_192():
     assert tlinalg.chol_engine(10000) == "f64"
 
 
-def test_values_only_diag_refuses_gradients():
-    K = torch.as_tensor(_spd(64, 1e2, 0)).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="values only"):
-        mixed.mp_solve_and_inv_diag(K, torch.ones(64, dtype=torch.float64))
+def test_k7b_loo_diag_plain_matches_jax():
+    """The column sums of gpmp_tpu.ops.mixed.mp_solve_and_inv_diag, series
+    (f32 correction) and two-level (f64) branches, written out with jnp."""
+    rng = np.random.default_rng(12)
+    n = 250
+    M32 = np.tril(rng.normal(size=(n, n))).astype(np.float32)
+    B32 = (1e-3 * rng.normal(size=(n, n))).astype(np.float32)
+    G, W = rng.normal(size=(n, n)), rng.normal(size=(n, n))
+    ref_s = jax.jit(lambda M, B: jnp.sum(M.astype(jnp.float64) ** 2, axis=0)
+                    - jnp.sum(M * B, axis=0).astype(jnp.float64))(M32, B32)
+    ref_p = jax.jit(lambda G, W: jnp.sum(G * W, axis=0))(G, W)
+    d_s = mixed.loo_diag_series(torch.as_tensor(M32), torch.as_tensor(B32), torch.float64)
+    d_p = mixed.loo_diag_pairs(torch.as_tensor(G), torch.as_tensor(W))
+    assert d_s.dtype == d_p.dtype == torch.float64 and mixed.K7B_LAUNCHES == 0
+    assert _rel(d_s.numpy(), np.asarray(ref_s)) <= 1e-7  # f32 sums in another order
+    assert _rel(d_p.numpy(), np.asarray(ref_p)) <= 1e-13
+
+
+def _loo_loss_inputs(n, cond, seed):
+    """K(theta) = e^t0 K0 + e^t1 I, B = t2 b; loss = w'X + v'diag(K^{-1})."""
+    rng = np.random.default_rng(seed)
+    K0 = _spd(n, cond, seed)
+    b, w, v = rng.normal(size=n), rng.normal(size=n), rng.normal(size=n)
+    return K0, b, w, v, np.array([0.1, np.log(1.0 / cond), 1.3])
+
+
+def _loo_loss_port(theta, K0, b, w, v):
+    th = torch.tensor(theta, requires_grad=True)
+    K = torch.exp(th[0]) * torch.as_tensor(K0) + torch.exp(th[1]) * torch.eye(K0.shape[0],
+                                                                             dtype=torch.float64)
+    X, d = mixed.mp_solve_and_inv_diag(K, th[2] * torch.as_tensor(b))
+    (g,) = torch.autograd.grad(torch.as_tensor(w) @ X + torch.as_tensor(v) @ d, th)
+    return g.numpy()
+
+
+@pytest.mark.parametrize("cond,rtol", [(1e2, 1e-9), (1e6, 1e-6)], ids=["series", "two_level"])
+def test_loo_block_gradient_matches_exact_f64(cond, rtol):
+    """The analytic backward of mp_solve_and_inv_diag against the exact
+    gradient from numpy's f64 inverse: Kbar = -K^{-1} diag(v) K^{-1} - S X^T,
+    Bbar = S = K^{-1} w.  Envelope per component: the accuracy of the
+    refined solve behind K^{-1} and S, rel 1e-9 at cond 1e2 (measured 1e-14)
+    and 1e-6 at cond 1e6, where its stagnation exit leaves ~cond * 1e-13
+    (measured 2.1e-7; the logdet backward's envelope there is 1e-4)."""
+    n = 200
+    K0, b, w, v, theta = _loo_loss_inputs(n, cond, seed=13)
+    K = np.exp(theta[0]) * K0 + np.exp(theta[1]) * np.eye(n)
+    Ki = np.linalg.inv(K)
+    S, X = Ki @ w, Ki @ (theta[2] * b)
+    Kbar = -Ki @ np.diag(v) @ Ki - np.outer(S, X)
+    exact = np.array([np.sum(Kbar * np.exp(theta[0]) * K0), np.exp(theta[1]) * np.trace(Kbar),
+                      S @ b])
+    np.testing.assert_allclose(_loo_loss_port(theta, K0, b, w, v), exact, rtol=rtol)
+
+
+def test_loo_block_gradient_matches_jax():
+    """Against jax.grad of gpmp_tpu's mp_solve_and_inv_diag (jitted), which
+    differentiates its unrolled sweeps and f32 series: rel 1e-10 per
+    component (measured 3e-12 at n = 200, cond 1e2..1e5)."""
+    n = 200
+    K0, b, w, v, theta = _loo_loss_inputs(n, 1e3, seed=14)
+
+    def loss(th):
+        K = jnp.exp(th[0]) * jnp.asarray(K0) + jnp.exp(th[1]) * jnp.eye(n)
+        X, d = jmixed.mp_solve_and_inv_diag(K, th[2] * jnp.asarray(b))
+        return jnp.asarray(w) @ X + jnp.asarray(v) @ d
+
+    gj = np.asarray(jax.jit(jax.grad(loss))(jnp.asarray(theta)))
+    np.testing.assert_allclose(_loo_loss_port(theta, K0, b, w, v), gj, rtol=1e-10)
