@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of gpmp_tpu_torch on one CUDA card: REML fit + predict, noisy
-REML fit + LOO + predict on the mixed Cholesky engine, and conditional
-sample paths.
+REML fit + LOO + predict on the mixed Cholesky engine, conditional sample
+paths, and large-n REML on the streamed engine through a one-card mesh.
 
 Run from the repository root with no arguments:
 
@@ -31,6 +31,12 @@ non-zero):
    with coincident points, in f64 and f32; K7b on phase 2b's inputs; K8s
    at n in {1000, 4099, 8192}, cond(K) ~1e3 and ~1e6; tolerances at
    TOL_2C.
+2d. K6 (the preconditioner apply), K10b (row-chunk split into the f32
+   pair), K10r (factorization residual from the pair and from f64 panels),
+   K10m (residual against the pair) and K10t (chunked trace sums) vs their
+   plain versions on the card: at n in {1000, 4099, 8192}, cond(K) ~1e3 and
+   ~1e6, panels and chunks of 512; and all five once more at n = 32768 on the
+   engine's own residents at bench_large_n.py's p0; tolerances at TOL_2D.
 3. The main path: Hartmann6, n = 1000, d = 6, Matern p = 2, constant
    mean; select_parameters_with_reml then predict at nt = 1000 points, on
    the card, with the launch counters reset just before and the plain
@@ -68,6 +74,23 @@ non-zero):
    gated, at the fit, where cond(K) is far larger); examples 10 and 11 at
    nt = 200 on both engines: conditioned paths interpolate the noise-free
    observations to 1e-6.
+3d. Large-n REML: bench_large_n.py's data and model (copied; d = 3, seed
+   20260817, Matern p = 2 plus a noise variance, p0 from the data) at
+   n = 32768, set_chol_engine("mixed"), a one-card mesh, no GPMP_STREAM_N;
+   the dispatcher's numbers (the resident engines' bytes against 0.85 of the
+   card, the mode) must send it to the streamed engine in ff mode.  (a) one
+   REML value+grad at p0 through the sharded criterion with every counter of
+   the path reset and the plain versions raising: K6, K10b, K10r, K10m,
+   K10t, K5, K1d/K1m and their f32 backwards each launch; (b)
+   select_parameters_with_reml(mesh=..., L-BFGS-B, maxiter 2), ending finite
+   and no higher than at p0; (c) recompute mode, one value+grad, against ff.
+   Gates: at n = 32768 the REML value matches the port's f64 engine (core
+   path, value only) to 1e-8; at n = 16384 (GPMP_STREAM_N forced) the
+   gradient is within the class envelope of the f64 engine's; at n = 2048
+   the card matches the port on the CPU to 1e-8.  (d) At n = 51200 the
+   dispatcher takes recompute mode by itself: one value+grad.  The rise of
+   max_memory_allocated for one value+grad per streamed mode (and with the
+   robust branch forced) and per resident engine, at n = 16384 and 32768.
 4. Times on the card (CUDA events / synchronised host clock): K1 and K2 vs
    their plain versions at the main path's shapes; REML value+grad evals/s
    at n = 1000 and 8192 (kernels and plain gram); fit+predict wall-clock.
@@ -77,13 +100,18 @@ non-zero):
    (first and warm); the rise of torch.cuda.max_memory_allocated over
    what was held before at n = 8192, per engine, for one value+grad and
    for the engine alone (solve_and_logdet and its backward on a fixed K).
-4c. K1d, K1m, K7b, K8s and the two products that stand in for K6:
-   kernel, plain and library-call ms at the slice's shapes (n = 1000, and
-   K8s at 8192), with bound and share; the full-width sample-paths call
-   (nt = 8192, 1024 paths) per engine, first (phase 3c) and warm.
+4c. K1d, K1m, K7b, K8s and K6: kernel, plain and library-call ms at the
+   slice's shapes (n = 1000, and K8s at 8192), with bound and share; the
+   full-width sample-paths call (nt = 8192, 1024 paths) per engine, first
+   (phase 3c) and warm.
+4d. K6, K10b, K10r, K10m and K10t at n = 32768 (per 512-row chunk for K10b
+   and K10t): kernel (events and profiler device time), plain, library call
+   (K6: multi_dot of the two products; K10r: a dense f64 addmm; K10m: an f64
+   addmm), bound; the value and value+grad wall per mode (phase 3d).
 5. Where the time goes: torch.profiler over the noisy model's REML
-   value+grad at n = 1000 and 8192, mixed and f64 engines, device time per
-   evaluation by kernel group.
+   value+grad at n = 1000 and 8192, mixed and f64 engines, and over one
+   streamed ff value+grad at n = 32768, device time per evaluation by
+   kernel group.
 
 The line before the last is {"kernels": [...]}, with each kernel's
 least time on the card (bound_ms) computed from this run's shapes against
@@ -169,6 +197,48 @@ K8S_SIZES = (1000, 4099, 8192)
 PATHS_NT, PATHS_COUNT, PATHS_SEED = 8192, 1024, 8
 PATHS_SE = 5.5  # conditioned mean vs predict, in standard errors
 TOL_SQRT = 1e-8  # |C C^T - K|_F / |K|_F, tests/test_ops.py's bar
+# phase 2d: the streamed engine's kernels vs their plain versions on the card
+EPS32 = float(np.finfo(np.float32).eps)
+STREAM_SIZES = (1000, 4099, 8192)  # cond(K) ~1e3 and ~1e6 each (MIXED_CONDS)
+STREAM_PANEL = 512                 # K10r's panels and K10b/K10t's row chunks
+K6_WIDTHS = (2, 8, 9, 1001)        # K6's narrow and wide variants
+TOL_2D = {
+    # y = M r32 and M^T y in f32, summed in another order than cuBLAS's: two
+    # sums of <= n products, so |kernel - plain| <= 2 n eps32 (|M|^T |M| |r|)_ij
+    # in the worst case; held entrywise, in units of n eps32, at about ten
+    # times the largest value measured on an H100 80GB HBM3 (700 W) over
+    # phase 2d's inputs, 4.7e-3 (n = 1000, k = 9), rather than at that worst
+    # case, so that a dropped row block or tile shows
+    "K6": 0.05,
+    # both round the same f64 values to f32 (hi) and the remainder (lo)
+    "K10b": 0.0,
+    # K4's tolerance: f64 sums in another order (~n eps64 |K|), one f32
+    # rounding of R ~ eps32 |K|; relative to max|R|
+    "K10r": 1e-5,
+    # K3's: f64 sums of n products in another order, relative
+    "K10m": 1e-12,
+    # f64 sums of exact products of f32 values in another order, relative to
+    # the sums of the absolute terms
+    "K10t": 1e-12,
+}
+# phase 3d: bench_large_n.py's workload (make_data :47, _build_model :154),
+# copied here: that script imports gpmp_tpu
+LARGE_N, LARGE_D, LARGE_SEED = 32768, 3, 20260817
+LARGE_GRAD_N = 16384  # the gradient gate against the f64 engine (GPMP_STREAM_N forced)
+LARGE_CPU_N = 2048    # the card against the port on the CPU (value)
+LARGE_RC_N = 51200    # past ff's reach on one 80 GB card: recompute mode
+# the REML value against the f64 engine (tests/test_parallel_streamed.py:157's
+# bar); the robust branch's, forced on a healthy K (its two-level logdet,
+# test_parallel_streamed.py:175's bar); the gradient's class envelope
+# (bench_large_n.py:315-316): log s2, the others
+TOL_LARGE = {"value": 1e-8, "robust": 1e-6, "grad": (1e-3, 1e-4)}
+# ff against recompute, value: ff reads K as K32 + E32 (2^-48 relative per
+# entry), recompute the f64 kernel; the ridges differ by an f32 rounding (ff
+# takes mean(diag K32), recompute the f64 self-branch diagonal's mean), so
+# the two preconditioners' series truncations (each <= c4^1.25 ~ 4e-9
+# absolute) differ too; held at 1e-9 relative, ten times under the f64 gate
+TOL_FF_RC = 1e-9
+LARGE_FIT_MAXITER = 2  # L-BFGS-B iterations of the fit (1 if a value+grad takes > 20 s)
 
 
 def fail(msg):
@@ -314,10 +384,12 @@ class _PlainGuard:
         "distance": ("scaled_distance_plain", "scaled_distance_pullback_plain",
                      "scaled_distance_elementwise_plain",
                      "scaled_distance_elementwise_pullback_plain"),
-        "mixed": ("residual_plain", "factorization_residual_plain",
+        "mixed": ("residual_plain", "precond_apply_plain", "factorization_residual_plain",
                   "diag_block_inv_plain", "trace_sums_plain", "series_sums_plain",
                   "loo_diag_series_plain", "loo_diag_pairs_plain"),
         "refine": ("sampling_residual_plain",),
+        "streamed": ("split_rows_plain", "residual_panel_plain", "streamed_residual_ff_plain",
+                     "ff_residual_plain", "h_traces_chunk_plain"),
     }
 
     def __init__(self, *modules):
@@ -817,7 +889,7 @@ def _counters(gram, distance, mixed, refine):
     return {"K1d": (distance, "K1D_LAUNCHES"), "K1d pullback": (distance, "K1D_PULLBACK_LAUNCHES"),
             "K1m": (gram, "K1M_LAUNCHES"), "K1m backward": (gram, "K1M_BACKWARD_LAUNCHES"),
             "K3": (mixed, "K3_LAUNCHES"), "K4": (mixed, "K4_LAUNCHES"),
-            "K5": (mixed, "K5_LAUNCHES"), "K7": (mixed, "K7_LAUNCHES"),
+            "K5": (mixed, "K5_LAUNCHES"), "K6": (mixed, "K6_LAUNCHES"), "K7": (mixed, "K7_LAUNCHES"),
             "K7b": (mixed, "K7B_LAUNCHES"), "K8s": (refine, "K8S_LAUNCHES")}
 
 
@@ -860,15 +932,23 @@ def phase_slice(gp, gnp, gram, distance, mixed, refine, torch):
     say(f"[phase 3b] test RMSE {rmse:.4e} (std {float(np.std(zt)):.4e}); LOO RMSE {loo_rmse:.4e}")
     check(rmse < np.std(zt), "RMSE is not below the spread of the test values")
 
-    # the preconditioner applications that K6 will fuse, per REML value+grad
+    # the preconditioner applications (K6 launches) per REML value+grad
     xi_c, zi_c = gnp.asarray(xi), gnp.asarray(zi)
     k6 = {}
     for name, p in (("p0", p0), ("fit", covparam)):
         m = _bench_model(gp, gnp, covparam=gnp.asarray(covparam))
-        mixed.K6_APPLIES = 0
+        mixed.K6_LAUNCHES = 0
         _reml_vg(gp, m, xi_c, zi_c, p)
-        k6[name] = mixed.K6_APPLIES
-    say(f"[phase 3b] K6 stand-in (two f32 torch.matmul) calls per REML value+grad: {k6}")
+        k6[name] = mixed.K6_LAUNCHES
+    # and per LOO and predict call at the fit (predict's SLICE_NT
+    # right-hand sides take K6's wide variant)
+    m = _bench_model(gp, gnp, covparam=gnp.asarray(covparam))
+    for name, fn in (("loo", lambda: m.loo(xi_c, zi_c)),
+                     ("predict", lambda: m.predict(xi, zi, xt))):
+        mixed.K6_LAUNCHES = 0
+        fn()
+        k6[name] = mixed.K6_LAUNCHES
+    say(f"[phase 3b] K6 launches per REML value+grad (p0, fit), per LOO and predict call: {k6}")
 
     # mixed vs the card's f64 engine, at the fitted covparam (and at p0)
     res = {}
@@ -1188,6 +1268,494 @@ def _kernel_bounds(n, k=2, base=128, d=6, p=2):
     }
 
 
+def _stream_bounds(n, k=2, c=STREAM_PANEL):
+    """(bound_ms, bound_by) of the streamed engine's kernels at the large-n
+    path's shapes, as _kernel_bounds: K6 at n, K10b and K10t per row chunk of
+    c rows, K10r over the whole lower triangle (ff), K10m at n."""
+    def bound(nbytes, flops, peak):
+        t_b, t_o = nbytes / PEAK_BYTES_PER_S, flops / peak
+        return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+    tri = n * (n + 1) // 2
+    fma = sum((n - j) * (j + 1) for j in range(n))  # sum over i >= j of (j + 1)
+    return {
+        "K6": _kernel_bounds(n, k=k)["K6"],
+        # reads the f64 chunk and corr, writes hi and lo (f32); add, two
+        # roundings and a difference per entry
+        "K10b": bound(8 * c * n + 8 * c + 8 * c * n, 3 * c * n, PEAK_F64_FLOPS),
+        # reads the pair and L over the lower triangle, writes the full f32 R;
+        # sum_{i >= j} (j + 1) f64 multiply-adds at the f64 tensor peak (K4's)
+        "K10r": bound(8 * tri + 4 * tri + 4 * n * n, 2 * fma + tri, PEAK_F64_TENSOR_FLOPS),
+        # reads the pair, X and B (f64), writes R; two products per entry and column
+        "K10m": bound(8 * n * n + 24 * n * k + 16, 4 * n * n * k, PEAK_F64_FLOPS),
+        # reads Hr, H2r and the column block Hc (f32); ~6 f64 operations per entry
+        "K10t": bound(12 * c * n + 32, 6 * c * n + c, PEAK_F64_FLOPS),
+    }
+
+
+def _stream_counters(distance, gram, mixed, ops):
+    """name -> (module, attribute) of every kernel counter of the large-n path."""
+    return {"K6": (mixed, "K6_LAUNCHES"), "K10b": (ops, "K10B_LAUNCHES"),
+            "K10r": (ops, "K10R_LAUNCHES"), "K10m": (ops, "K10M_LAUNCHES"),
+            "K10t": (ops, "K10T_LAUNCHES"), "K5": (mixed, "K5_LAUNCHES"),
+            "K1d": (distance, "K1D_LAUNCHES"), "K1d pullback": (distance, "K1D_PULLBACK_LAUNCHES"),
+            "K1m": (gram, "K1M_LAUNCHES"), "K1m backward": (gram, "K1M_BACKWARD_LAUNCHES")}
+
+
+def _k6_err(torch, mixed, M32, R):
+    """max over the entries of |K6 - plain| / (|M|^T |M| |r32|), in units of
+    n eps32, and max|diff|."""
+    out = mixed.precond_apply_cuda(M32, R)
+    check(torch.equal(out, mixed.precond_apply_cuda(M32, R)), "K6 is not bitwise reproducible")
+    diff = (out - mixed.precond_apply_plain(M32, R)).abs().double()
+    Ma = M32.abs()
+    scale = (Ma.T @ (Ma @ R.float().abs())).double().clamp_min(1e-300)
+    return float((diff / scale).max()) / (M32.shape[0] * EPS32), float(diff.max())
+
+
+def _k10t_err(torch, ops, H, chunk):
+    """K10t over every row chunk of H against its plain version: max |diff|
+    over the sums of the absolute terms, and max|diff|."""
+    acc_k, acc_p, acc_a = (torch.zeros(4, dtype=torch.float64, device=DEVICE) for _ in range(3))
+    Habs = H.abs()
+    for r0 in range(0, H.shape[0], chunk):
+        H2r = H[r0:r0 + chunk] @ H
+        ops.h_traces_chunk_cuda(H, H2r, r0, acc_k)
+        ops.h_traces_chunk_plain(H, H2r, r0, acc_p)
+        ops.h_traces_chunk_plain(Habs, H2r.abs(), r0, acc_a)
+    diff = (acc_k - acc_p).abs()
+    return float((diff / acc_a.clamp_min(1e-300)).max()), float(diff.max())
+
+
+def phase_streamed_kernels_vs_plain(torch, gram, mixed, ops):
+    """Phase 2d: K6, K10b, K10r (both sources), K10m and K10t against their
+    plain versions on noisy-Matern K at n in STREAM_SIZES, cond ~1e3 and ~1e6."""
+    worst = {}
+
+    def held(key, err, tag):
+        check(math.isfinite(err) and err <= TOL_2D[key], f"{key} {tag}: {err:.3e} > {TOL_2D[key]}")
+        worst[key] = max(worst.get(key, 0.0), err)
+        return err
+
+    c = STREAM_PANEL
+    for n in STREAM_SIZES:
+        for ci, (K, cond_k) in enumerate(_noisy_matern_family(torch, gram, n, MIXED_CONDS,
+                                                              55 + n)):
+            tag = f"n={n} cond={cond_k:.2e}"
+            gen = torch.Generator(device=DEVICE).manual_seed(7 * n + ci)
+            L32, M32 = mixed._f32_preconditioner(K)
+            K32 = K.float()
+            E32 = (K - K32.double()).float()
+            # K6 narrow (k <= 8) and wide (9, and predict's / the LOO
+            # backward's width at n = 1000)
+            k6 = {k: _k6_err(torch, mixed, M32, torch.randn(
+                n, k, dtype=torch.float64, device=DEVICE, generator=gen))[0] for k in K6_WIDTHS}
+            say(f"[phase 2d] {tag}: K6 by width (n eps32): "
+                + " ".join(f"k={k} {v:.2e}" for k, v in k6.items()))
+            e = {"K6": max(k6.values())}
+            # K10b: every row chunk of K (+ corr) into the pair, then into K32
+            # with a ridge, kernel and plain into separate buffers
+            corr = 1e-2 * torch.rand(n, dtype=torch.float64, device=DEVICE, generator=gen)
+            bufs = [torch.empty((n, n), dtype=torch.float32, device=DEVICE) for _ in range(4)]
+            same = True
+            for lo_k, lo_p, ridge in ((bufs[1], bufs[3], 0.0), (None, None, 3e-5)):
+                for r0 in range(0, n, c):
+                    rows, cr = K[r0:r0 + c], corr[r0:r0 + c]
+                    ops.split_rows_cuda(rows, cr, r0, bufs[0], lo_k, ridge)
+                    ops.split_rows_plain(rows, cr, r0, bufs[2], lo_p, ridge)
+                same &= torch.equal(bufs[0], bufs[2]) and (lo_k is None or torch.equal(lo_k, lo_p))
+            e["K10b"] = 0.0 if same else float("inf")
+            del bufs
+            # K10r from the pair (one launch) and from f64 panels of K (one per panel)
+            Rk = ops.streamed_residual_ff_cuda(K32, E32, L32)
+            Rp = ops.streamed_residual_ff_plain(K32, E32, L32, c)
+            Rk2, Rp2 = torch.empty_like(Rk), torch.empty_like(Rk)
+            for c0 in range(0, n, c):
+                P = K[c0:, c0:c0 + c].contiguous()
+                ops.residual_panel_cuda(P, L32, c0, Rk2)
+                ops.residual_panel_plain(P, L32, c0, Rp2)
+            check(torch.equal(Rk, Rk.T) and torch.equal(Rk2, Rk2.T), f"K10r not symmetric, {tag}")
+            e["K10r"] = max(rel_err(Rk, Rp), rel_err(Rk2, Rp2))
+            # K10m
+            X = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+            B = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+            (R, nr), (Rq, nrq) = ops.ff_residual_cuda(K32, E32, X, B), ops.ff_residual_plain(
+                K32, E32, X, B)
+            check(torch.equal(R, ops.ff_residual_cuda(K32, E32, X, B)[0]), "K10m not reproducible")
+            e["K10m"] = max(rel_err(R, Rq), rel_err(nr, nrq))
+            # K10t on H = M R M^T of this K
+            H = M32 @ (Rp @ M32.T)
+            e["K10t"] = _k10t_err(torch, ops, H, c)[0]
+            say(f"[phase 2d] {tag}: " + " ".join(
+                f"{k} {held(k, v, tag):.2e}" for k, v in e.items()) + " (K6 in n eps32)")
+            del K, L32, M32, K32, E32, Rk, Rp, Rk2, Rp2, H
+    for key, val in worst.items():
+        say(f"[phase 2d] worst {key} {val:.3e} (tol {TOL_2D[key]})")
+
+
+def _large_data(n, d=LARGE_D, seed=LARGE_SEED):
+    """bench_large_n.py make_data (:47-56): xi, zi and p0 (its xt, drawn
+    after zi, is not used here)."""
+    rng = np.random.default_rng(seed)
+    xi = rng.uniform(size=(n, d))
+    zi = (np.sin(3.0 * xi[:, 0]) + 0.5 * xi[:, 1] + 0.25 * xi[:, 2] ** 2
+          + 0.05 * rng.normal(size=n))
+    p0 = np.concatenate([[np.log(np.var(zi))], [np.log(1e-2)], -np.log(np.std(xi, axis=0))])
+    return xi, zi, p0
+
+
+def _large_model(gp, gnp):
+    """bench_large_n.py _build_model (:154-178): Matern p=2 plus a noise
+    variance, constant mean; covparam [log s2, log noise, log 1/rho_1..d]."""
+    def mean(x, param):
+        return gnp.ones((x.shape[0], 1))
+
+    def kernel(x, y, param, pairwise=False):
+        sigma2, noise, loginvrho = gnp.exp(param[0]), gnp.exp(param[1]), param[2:]
+        if y is x or y is None:
+            if pairwise:
+                return (sigma2 + noise) * gnp.ones((x.shape[0],))
+            Dm = gnp.scaled_distance(loginvrho, x, x)
+            return sigma2 * gp.kernel.maternp_kernel(2, Dm) + noise * gnp.eye(Dm.shape[0])
+        Dm = (gnp.scaled_distance_elementwise if pairwise
+              else gnp.scaled_distance)(loginvrho, x, y)
+        return sigma2 * gp.kernel.maternp_kernel(2, Dm)
+
+    return gp.Model(mean, kernel)
+
+
+def phase_streamed_large(gp, gnp, torch, mixed, ops, st, plik):
+    """Phase 2d at n = LARGE_N, on the engine's own residents at bench_large_n's
+    p0 (K10b's pair, the f32 factor, M, H): K6, K10b, K10r, K10m and K10t
+    against their plain versions; then phase 4d's kernel times there (CUDA
+    events, profiler device time, plain, library call)."""
+    n, c = LARGE_N, STREAM_PANEL
+    xi, _zi, p0 = _large_data(n)
+    gp.config.set_device(DEVICE)
+    model = _large_model(gp, gnp)
+    x, p = gnp.asarray(xi), gnp.asarray(p0)
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    corr = plik._diag_correction(model, p, x)
+    K32, E32 = st._build_pair(model, p, x, corr, c, pair=True)
+    L32, info = st._cholesky_f32(K32, 10 * EPS32 * (torch.trace(K32) / n))
+    check(int(info) == 0, "the f32 factor failed at bench_large_n's p0")
+    errs, absd, times, device = {}, {}, {}, {}
+    # K10b on the first row chunk, into copies of its rows
+    k64 = model.covariance(x[:c], x, p)
+    hi_k, lo_k, hi_p, lo_p = (torch.empty((n, n), dtype=torch.float32, device=DEVICE)
+                              for _ in range(4))
+    ops.split_rows_cuda(k64, corr[:c], 0, hi_k, lo_k)
+    ops.split_rows_plain(k64, corr[:c], 0, hi_p, lo_p)
+    same = torch.equal(hi_k[:c], hi_p[:c]) and torch.equal(lo_k[:c], lo_p[:c])
+    errs["K10b"] = 0.0 if same else float("inf")
+    absd["K10b"] = float(torch.max((hi_k[:c] - hi_p[:c]).abs().max(), (lo_k[:c] - lo_p[:c]).abs().max()))
+    t = lambda fn, reps: _time_cuda(torch, fn, reps, warmup=1)  # noqa: E731
+    times["K10b"] = (t(lambda: ops.split_rows_cuda(k64, corr[:c], 0, hi_k, lo_k), 20),
+                     t(lambda: ops.split_rows_plain(k64, corr[:c], 0, hi_p, lo_p), 5), None)
+    device["K10b"] = _device_ms(torch, lambda: ops.split_rows_cuda(k64, corr[:c], 0, hi_k, lo_k), 10)
+    del hi_k, lo_k, hi_p, lo_p
+    # K10r, one launch over the pair
+    Rk = ops.streamed_residual_ff_cuda(K32, E32, L32)
+    Rp = ops.streamed_residual_ff_plain(K32, E32, L32, c)
+    check(torch.equal(Rk, Rk.T), "K10r not symmetric at the large n")
+    errs["K10r"], absd["K10r"] = rel_err(Rk, Rp), float((Rk - Rp).abs().max())
+    del Rp
+    M32 = mixed._block_tri_inv(L32, base=mixed.TRI_INV_BASE)
+    H = st._h_from_residual(M32, Rk, c)
+    del Rk
+    # K6 and K10m at the engine's k = 2 right-hand sides
+    r = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+    errs["K6"], absd["K6"] = _k6_err(torch, mixed, M32, r)
+    X = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+    B = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+    (R, nr), (Rq, nrq) = ops.ff_residual_cuda(K32, E32, X, B), ops.ff_residual_plain(K32, E32, X, B)
+    errs["K10m"] = max(rel_err(R, Rq), rel_err(nr, nrq))
+    absd["K10m"] = float((R - Rq).abs().max())
+    # K10t over every row chunk of H (one value+grad's worth)
+    errs["K10t"], absd["K10t"] = _k10t_err(torch, ops, H, c)
+    for key, val in errs.items():
+        check(math.isfinite(val) and val <= TOL_2D[key], f"{key} at n={n}: {val:.3e}")
+    say(f"[phase 2d] n={n} (bench_large_n's p0, the engine's own residents): "
+        + " ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " (K6 in n eps32); max|diff| "
+        + " ".join(f"{k} {v:.2e}" for k, v in absd.items()))
+
+    r32 = r.float()
+    H2r = H[:c] @ H
+    acc = torch.zeros(4, dtype=torch.float64, device=DEVICE)
+    times["K6"] = (t(lambda: mixed.precond_apply_cuda(M32, r), 20),
+                   t(lambda: mixed.precond_apply_plain(M32, r), 20),
+                   t(lambda: torch.linalg.multi_dot((M32.T, M32, r32)), 20))
+    device["K6"] = _device_ms(torch, lambda: mixed.precond_apply_cuda(M32, r), 10)
+    times["K10t"] = (t(lambda: ops.h_traces_chunk_cuda(H, H2r, 0, acc), 20),
+                     t(lambda: ops.h_traces_chunk_plain(H, H2r, 0, acc), 5), None)
+    device["K10t"] = _device_ms(torch, lambda: ops.h_traces_chunk_cuda(H, H2r, 0, acc), 10)
+    del H, H2r, M32
+    K64 = K32.double() + E32.double()
+    times["K10m"] = (t(lambda: ops.ff_residual_cuda(K32, E32, X, B), 20),
+                     t(lambda: ops.ff_residual_plain(K32, E32, X, B), 3),
+                     t(lambda: torch.addmm(B, K64, X, alpha=-1), 5))
+    device["K10m"] = _device_ms(torch, lambda: ops.ff_residual_cuda(K32, E32, X, B), 10)
+    # K10r's panel variant (recompute mode), its widest panel
+    P = K64[:, :c].contiguous()
+    Rpan = torch.empty((n, n), dtype=torch.float32, device=DEVICE)
+    t_panel = (t(lambda: ops.residual_panel_cuda(P, L32, 0, Rpan), 3),
+               t(lambda: ops.residual_panel_plain(P, L32, 0, Rpan), 2))
+    del Rpan, P
+    times["K10r"] = (t(lambda: ops.streamed_residual_ff_cuda(K32, E32, L32), 2),
+                     t(lambda: ops.streamed_residual_ff_plain(K32, E32, L32, c), 1), None)
+    device["K10r"] = _device_ms(torch, lambda: ops.streamed_residual_ff_cuda(K32, E32, L32), 1)
+    del K32, E32
+    L64 = L32.double()
+    times["K10r"] = times["K10r"][:2] + (t(lambda: torch.addmm(K64, L64, L64.T, alpha=-1), 1),)
+    del K64, L64, L32
+    bounds = _stream_bounds(n)
+    for key, (t_k, t_p, t_l) in times.items():
+        b_ms, b_by = bounds[key]
+        lib = "none" if t_l is None else f"{t_l:.4f} ms"
+        say(f"[phase 4d] {key} n={n}: kernel {t_k:.4f} ms (device {device[key]:.4f} ms), "
+            f"plain {t_p:.4f} ms, library {lib}, bound {b_ms:.4f} ms ({b_by}), "
+            f"share {100 * b_ms / t_k:.1f}%")
+    say(f"[phase 4d] K10r panel variant (rows [0, n) x columns [0, {c})): kernel "
+        f"{t_panel[0]:.4f} ms, plain {t_panel[1]:.4f} ms")
+    return errs, absd, times, bounds, device
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _peak_rise(torch, fn):
+    """(fn(), rise of max_memory_allocated over what was held before)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+def _criterion(gp, model, xi, zi, mesh=None):
+    """(value+grad, value-only) REML callables, through the model view on
+    ``mesh`` (the sharded criterion) or on the model itself (the core path)."""
+    from gpmp_tpu_torch.parallel import ShardedModelView
+
+    m = model if mesh is None else ShardedModelView(model, mesh)
+    crit, _pre, no_grad, grad = gp.kernel.make_selection_criterion_with_gradient(
+        m, gp.kernel.negative_log_restricted_likelihood, xi, zi)
+    return (lambda p: (crit(p), grad(p))), no_grad
+
+
+class _Patched:
+    """Sets module attributes while active (the engine's cutover, mode, gate)."""
+
+    def __init__(self, mod, **values):
+        self.mod, self.values = mod, values
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.mod, k) for k in self.values}
+        for k, v in self.values.items():
+            setattr(self.mod, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.mod, k, v)
+
+
+def phase_large_n(gp, gnp, torch, gram, distance, mixed, refine, ops, st):
+    """Phase 3d: REML on bench_large_n's workload at n = LARGE_N through the
+    one-card mesh, on the streamed engine the dispatcher picks by itself."""
+    from gpmp_tpu_torch import parallel
+
+    t_phase = time.perf_counter()
+    n = LARGE_N
+    xi, zi, p0 = _large_data(n)
+    gp.config.set_device(DEVICE)
+    gp.config.set_chol_engine("mixed")
+    check(st.STREAM_MIN_N is None, "GPMP_STREAM_N is set: phase 3d needs the dispatcher's cutover")
+    unit = 4 * n * n
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = st._device_bytes_cap()
+    mode = st.choose_mode(n)
+    say(f"[phase 3d] n={n} d={LARGE_D}: card total_memory {total} B, cap 0.85 x that "
+        f"{cap} B = {cap / unit:.2f} units of 4n^2 B; resident model "
+        f"{st._RESIDENT_PEAK_UNITS} units = {st._RESIDENT_PEAK_UNITS * unit / 2**30:.1f} GiB "
+        f"(fits: {st._resident_fits(n)}); ff {st._FF_PEAK_UNITS}, recompute "
+        f"{st._RECOMPUTE_PEAK_UNITS}, robust {st._ROBUST_PEAK_UNITS} units; mode chosen {mode}, "
+        f"robust branch {st._robust_fits(n)}")
+    check(not st._resident_fits(n) and mode == "ff",
+          f"the dispatcher did not pick the streamed ff engine at n={n}")
+    model = _large_model(gp, gnp)
+    mesh = parallel.make_mesh(1, axis_name="shard")
+    counters = _stream_counters(distance, gram, mixed, ops)
+    res, mem, walls = {}, {}, {}
+
+    # (a) one REML value+grad at p0 through the sharded criterion
+    vg, value = _criterion(gp, model, xi, zi, mesh)
+    _reset(counters)
+    with _PlainGuard(gram, distance, mixed, refine, ops):
+        ((v_ff, g_ff), walls["ff value+grad (first)"]), mem[("ff", n)] = _peak_rise(
+            torch, lambda: _timed(torch, lambda: vg(p0)))
+    launches = _read(counters)
+    say(f"[phase 3d] (a) ff value+grad at p0: {walls['ff value+grad (first)']:.3f} s, REML "
+        f"{v_ff!r}, grad {np.array2string(g_ff, precision=6)}; launches {launches}")
+    for name, count in launches.items():
+        check(count > 0, f"{name} was not launched on the large-n path")
+    check(np.isfinite(v_ff) and np.all(np.isfinite(g_ff)), "REML value+grad not finite at p0")
+    res["ff"] = (v_ff, g_ff)
+    _, walls["ff value"] = _timed(torch, lambda: value(p0))
+
+    # (b) the fit of example 40 on the mesh
+    maxiter = 1 if walls["ff value+grad (first)"] > 20.0 else LARGE_FIT_MAXITER
+    fit_model = _large_model(gp, gnp)
+    (fit_model, info), walls["fit"] = _timed(torch, lambda: gp.kernel.select_parameters_with_reml(
+        fit_model, xi, zi, covparam0=p0, mesh=mesh, method="L-BFGS-B",
+        method_options={"maxiter": maxiter}, info=True))
+    say(f"[phase 3d] (b) select_parameters_with_reml(mesh=..., L-BFGS-B, maxiter={maxiter}): "
+        f"nfev {info.nfev}, {walls['fit']:.3f} s, REML {info.history_criterion[0]!r} at p0 -> "
+        f"{info.fun!r}, covparam {np.array2string(np.asarray(info.x), precision=4)}")
+    check(np.isfinite(info.fun) and info.fun <= info.history_criterion[0],
+          "the fit ended above its start or not finite")
+
+    # (c) recompute mode at the same n
+    with _Patched(st, choose_mode=lambda n_, cap_bytes=None: "recompute"):
+        vg_rc, value_rc = _criterion(gp, model, xi, zi, mesh)
+        ((v_rc, g_rc), walls["recompute value+grad"]), mem[("recompute", n)] = _peak_rise(
+            torch, lambda: _timed(torch, lambda: vg_rc(p0)))
+        _, walls["recompute value"] = _timed(torch, lambda: value_rc(p0))
+    res["recompute"] = (v_rc, g_rc)
+    env = np.array([TOL_LARGE["grad"][0]] + [TOL_LARGE["grad"][1]] * (len(p0) - 1))
+    e_rc = abs(v_rc - v_ff) / abs(v_ff)
+    eg_rc = np.abs(g_rc - g_ff) / np.abs(g_ff)
+    say(f"[phase 3d] (c) recompute value+grad {walls['recompute value+grad']:.3f} s: REML "
+        f"{v_rc!r}, vs ff rel {e_rc:.2e} (tol {TOL_FF_RC}), grad vs ff "
+        f"{np.array2string(eg_rc, precision=2)} (envelope {env.tolist()})")
+    check(e_rc <= TOL_FF_RC and np.all(eg_rc <= env), "recompute vs ff")
+
+    # the gate at n: the port's f64 engine (core path, value only)
+    gp.config.set_chol_engine("f64")
+    with torch.no_grad():
+        v64, walls["f64 engine value (core)"] = _timed(torch, lambda: float(
+            model.negative_log_restricted_likelihood(gnp.asarray(p0), gnp.asarray(xi),
+                                                     gnp.asarray(zi))))
+    gp.config.set_chol_engine("mixed")
+    e64 = {m: abs(v - v64) / abs(v64) for m, (v, _g) in res.items()}
+    say(f"[phase 3d] n={n} REML vs the f64 engine {v64!r}: "
+        + ", ".join(f"{m} {e:.2e}" for m, e in e64.items()) + f" (tol {TOL_LARGE['value']})")
+    check(all(e <= TOL_LARGE["value"] for e in e64.values()), "REML vs the f64 engine at n")
+
+    # the gradient gate at LARGE_GRAD_N (the cutover forced), and each mode's
+    # and each resident engine's peak there
+    n2 = LARGE_GRAD_N
+    xi2, zi2, p2 = _large_data(n2)
+    with _Patched(st, STREAM_MIN_N=n2):
+        vg2, _ = _criterion(gp, model, xi2, zi2, mesh)
+        (v2, g2), mem[("ff", n2)] = _peak_rise(torch, lambda: vg2(p2))
+        with _Patched(st, choose_mode=lambda n_, cap_bytes=None: "recompute"):
+            vg2r, _ = _criterion(gp, model, xi2, zi2, mesh)
+            _, mem[("recompute", n2)] = _peak_rise(torch, lambda: vg2r(p2))
+        with _Patched(st, _SERIES_C4_TAU=0.0):  # the series gate shut: the robust branch
+            vg2b, _ = _criterion(gp, model, xi2, zi2, mesh)
+            (v2b, _g2b), mem[("ff robust branch", n2)] = _peak_rise(torch, lambda: vg2b(p2))
+    for engine in ("mixed", "f64"):
+        gp.config.set_chol_engine(engine)
+        vg_core, _ = _criterion(gp, model, xi2, zi2)
+        (v_core, g_core), mem[(f"resident {engine}", n2)] = _peak_rise(torch, lambda: vg_core(p2))
+        res[f"resident {engine} n={n2}"] = (v_core, g_core)
+    gp.config.set_chol_engine("mixed")
+    v64b, g64 = res[f"resident f64 n={n2}"]
+    e_v2, e_v2b = abs(v2 - v64b) / abs(v64b), abs(v2b - v64b) / abs(v64b)
+    e_g2 = np.abs(g2 - g64) / np.abs(g64)
+    say(f"[phase 3d] n={n2} (GPMP_STREAM_N forced), ff vs the f64 engine: REML rel {e_v2:.2e} "
+        f"(robust branch forced {e_v2b:.2e}, tol {TOL_LARGE['robust']}), grad "
+        f"{np.array2string(e_g2, precision=2)} "
+        f"(envelope {env.tolist()})")
+    check(e_v2 <= TOL_LARGE["value"] and e_v2b <= TOL_LARGE["robust"] and np.all(e_g2 <= env),
+          f"streamed vs f64 engine at n={n2}")
+
+    # the card against the port on the CPU at LARGE_CPU_N (value; plain versions there)
+    n3 = LARGE_CPU_N
+    xi3, zi3, p3 = _large_data(n3)
+    with _Patched(st, STREAM_MIN_N=n3):
+        v_card = _criterion(gp, model, xi3, zi3, mesh)[1](p3)
+        gp.config.set_device("cpu")
+        try:
+            v_cpu = _criterion(gp, _large_model(gp, gnp), xi3, zi3,
+                               parallel.make_mesh(1, axis_name="shard"))[1](p3)
+        finally:
+            gp.config.set_device(DEVICE)
+    e_cpu = abs(v_card - v_cpu) / abs(v_cpu)
+    say(f"[phase 3d] n={n3} streamed REML card vs CPU: {v_card!r} vs {v_cpu!r}, rel {e_cpu:.2e} "
+        f"(tol {TOL_LARGE['value']})")
+    check(e_cpu <= TOL_LARGE["value"], "card vs CPU at the small n")
+
+    # (d) past ff's reach: the dispatcher takes recompute mode by itself
+    n4 = LARGE_RC_N
+    xi4, zi4, p4 = _large_data(n4)
+    mode4 = st.choose_mode(n4)
+    check(mode4 == "recompute" and not st._resident_fits(n4),
+          f"the dispatcher did not pick recompute at n={n4}: {mode4}")
+    vg4, _ = _criterion(gp, model, xi4, zi4, mesh)
+    ((v4, g4), walls[f"recompute value+grad n={n4}"]), mem[("recompute", n4)] = _peak_rise(
+        torch, lambda: _timed(torch, lambda: vg4(p4)))
+    say(f"[phase 3d] (d) n={n4}: mode {mode4}; value+grad "
+        f"{walls[f'recompute value+grad n={n4}']:.3f} s, REML {v4!r}, grad "
+        f"{np.array2string(g4, precision=6)}")
+    check(np.isfinite(v4) and np.all(np.isfinite(g4)), f"REML value+grad not finite at n={n4}")
+    del vg4
+
+    # the resident engines at n, where the model says they do not fit
+    for engine in ("mixed", "f64"):
+        gp.config.set_chol_engine(engine)
+        vg_core, _ = _criterion(gp, model, xi, zi)
+        try:
+            _, mem[(f"resident {engine}", n)] = _peak_rise(torch, lambda: vg_core(p0))
+        except RuntimeError as exc:  # torch's OutOfMemoryError, or cuSOLVER's allocation
+            if "memory" not in str(exc).lower() and "alloc" not in str(exc).lower():
+                raise
+            mem[(f"resident {engine}", n)] = None
+            say(f"[phase 3d] resident {engine} value+grad at n={n}: out of memory "
+                f"({str(exc).splitlines()[0][:160]})")
+        del vg_core
+        gc.collect()
+        torch.cuda.empty_cache()
+    gp.config.set_chol_engine("mixed")
+    for (what, nn), b in mem.items():
+        say(f"[phase 3d] peak rise, one REML value+grad, {what} n={nn}: "
+            + ("out of memory" if b is None else
+               f"{b / 2**30:.3f} GiB = {b / (4 * nn * nn):.2f} units of 4n^2 B"))
+    say(f"[phase 4d] n={n} wall: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
+    say(f"[phase 3d] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, walls, mem, info
+
+
+def phase_profile_large(gp, gnp, torch):
+    """Phase 5, large n: torch.profiler over one ff REML value+grad at
+    LARGE_N, device time by kernel group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpmp_tpu_torch import parallel
+
+    xi, zi, p0 = _large_data(LARGE_N)
+    gp.config.set_device(DEVICE)
+    gp.config.set_chol_engine("mixed")
+    vg, _ = _criterion(gp, _large_model(gp, gnp), xi, zi, parallel.make_mesh(1, axis_name="shard"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        vg(p0 + 1e-3)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    summary = _profile_groups(prof, wall_ms, f"ff n={LARGE_N}")
+    gp.config.set_chol_engine("auto")
+    return summary
+
+
 def _device_ms(torch, fn, reps):
     """Device time per call of everything fn launches, from torch.profiler:
     the kernels' own time, without the host's launch gaps that CUDA events
@@ -1269,15 +1837,6 @@ def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
     # engine alone (solve_and_logdet and its backward on a fixed K)
     from gpmp_tpu_torch.core import linalg
 
-    def peak(fn):
-        gc.collect()
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        return torch.cuda.max_memory_allocated() - before
-
     def engine_alone():
         x, ld = linalg.solve_and_logdet(K8, rhs8)
         torch.autograd.grad(ld + x.sum(), K8)
@@ -1291,8 +1850,8 @@ def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
     for engine in ("mixed", "f64"):
         gp.config.set_chol_engine(engine)
         model = _bench_model(gp, gnp)
-        mem[engine] = peak(lambda: _reml_vg(gp, model, xi, zi, p0))
-        mem[f"{engine} engine alone"] = peak(engine_alone)
+        mem[engine] = _peak_rise(torch, lambda: _reml_vg(gp, model, xi, zi, p0))[1]
+        mem[f"{engine} engine alone"] = _peak_rise(torch, engine_alone)[1]
     del K8, rhs8
     say(f"[phase 4b] max_memory_allocated above what was held before, n={n8}: "
         + ", ".join(f"{e} {v / 2**30:.3f} GiB" for e, v in mem.items()))
@@ -1318,8 +1877,8 @@ def _time_sqrt_inputs(torch, gram, n):
 
 def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, slice_data,
                     t_paths_first):
-    """Phase 4c: (kernel, plain, library) ms of K1d, K1m, K7b, K8s and of the
-    two products that stand in for K6; the full-width sample-paths call."""
+    """Phase 4c: (kernel, plain, library) ms of K1d, K1m, K7b, K8s and K6 at
+    the slice's shapes; the full-width sample-paths call."""
     n = SLICE_N
     l, x, _y, dbar = _dist_inputs(torch, n, SLICE_D, torch.float64, 7)
     db = (dbar + dbar.T) / 2
@@ -1331,6 +1890,12 @@ def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, sli
     (Ms, Bs), (G, W), _series = _k7b_inputs(torch, mixed, K, M32)
     R = torch.randn(n, 2, dtype=torch.float64, device=DEVICE,
                     generator=torch.Generator(device=DEVICE).manual_seed(4))
+    R32 = R.float()
+    # K6's wide variant at predict's width (SLICE_NT right-hand sides)
+    k6w = f"K6 wide k={SLICE_NT}"
+    Rw = torch.randn(n, SLICE_NT, dtype=torch.float64, device=DEVICE,
+                     generator=torch.Generator(device=DEVICE).manual_seed(5))
+    Rw32 = Rw.float()
     K8 = _time_sqrt_inputs(torch, gram, PATHS_NT)
     L8, _M8 = mixed._f32_preconditioner(K8)
     L8_64 = L8.double()
@@ -1347,7 +1912,8 @@ def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, sli
         "K7b two-level": _device_ms(torch, lambda: mixed.loo_diag_pairs_cuda(G, W), 50),
         "K8s": _device_ms(torch, lambda: refine.sampling_residual_cuda(K, L32), 50),
         "K8s n=8192": _device_ms(torch, lambda: refine.sampling_residual_cuda(K8, L8), 5),
-        "K6": _device_ms(torch, lambda: mixed._apply(M32, R), 50),
+        "K6": _device_ms(torch, lambda: mixed.precond_apply_cuda(M32, R), 50),
+        k6w: _device_ms(torch, lambda: mixed.precond_apply_cuda(M32, Rw), 20),
     }
     say("[phase 4c] device time per call (torch.profiler, all kernels the call launches), "
         "ms: " + ", ".join(f"{k} {v:.4f}" for k, v in device.items()))
@@ -1372,11 +1938,16 @@ def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, sli
         "K8s n=8192": (t(lambda: refine.sampling_residual_cuda(K8, L8), 5),
                        t(lambda: refine.sampling_residual_plain(K8, L8), 5),
                        t(lambda: torch.addmm(K8, L8_64, L8_64.T, alpha=-1), 5)),
-        # no kernel yet: the two torch.matmul of mixed._apply are the "plain" time
-        "K6": (None, t(lambda: mixed._apply(M32, R), 200), None),
+        "K6": (t(lambda: mixed.precond_apply_cuda(M32, R), 200),
+               t(lambda: mixed.precond_apply_plain(M32, R), 200),
+               t(lambda: torch.linalg.multi_dot((M32.T, M32, R32)), 200)),
+        k6w: (t(lambda: mixed.precond_apply_cuda(M32, Rw), 50),
+              t(lambda: mixed.precond_apply_plain(M32, Rw), 50),
+              t(lambda: torch.linalg.multi_dot((M32.T, M32, Rw32)), 50)),
     }
     del K8, L8, L8_64
     bounds = _kernel_bounds(n)
+    bounds[k6w] = _kernel_bounds(n, k=SLICE_NT)["K6"]
     bounds["K7b two-level"] = (max(16 * n * n / PEAK_BYTES_PER_S,
                                    2 * n * n / PEAK_F64_FLOPS) * 1e3, "bytes")
     bounds["K8s n=8192"] = _kernel_bounds(PATHS_NT)["K8s"]
@@ -1405,6 +1976,13 @@ def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, sli
 
 
 _GROUPS = (  # the first group whose key is in a kernel's name takes it
+    ("K10r streamed factorization residual",
+     ("fact_residual_kernel<(anonymous namespace)::pairk", "fact_residual_kernel<(anonymous "
+      "namespace)::panelk")),
+    ("K10m streamed residual", ("residual_kernel<(anonymous namespace)::pairk",)),
+    ("K10b row split", ("split_rows",)),
+    ("K10t chunked traces", ("h_traces",)),
+    ("K6 preconditioner apply", ("precond_",)),
     ("K1m Matern elementwise", ("maternp_elem",)),
     ("K1d scaled distance", ("distance",)),
     ("K1/K2 gram", ("matern",)),
@@ -1453,31 +2031,37 @@ def _profile_engines(gp, gnp, torch, n, reps, profile, ProfilerActivity):
                 crit(p0 + 1e-3 * i)
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-        per_kernel = {}
-        for evt in prof.key_averages():
-            if "cuda" not in str(getattr(evt, "device_type", "")).lower():
-                continue
-            t_us = getattr(evt, "self_device_time_total", None)
-            if t_us is None:
-                t_us = getattr(evt, "self_cuda_time_total", 0.0)
-            per_kernel[evt.key] = per_kernel.get(evt.key, 0.0) + t_us / 1e3 / reps
-        device_ms = sum(per_kernel.values())
-        groups = {}
-        for name, ms in per_kernel.items():
-            low = name.lower()
-            label = next((g for g, keys in _GROUPS if any(k in low for k in keys)),
-                         "elementwise, copies, other")
-            groups[label] = groups.get(label, 0.0) + ms
-        say(f"[phase 5] {engine} n={n}: wall per eval (profiled) {wall_ms:.3f} ms, "
-            f"device {device_ms:.3f} ms, busy {100 * device_ms / wall_ms:.1f}%")
-        for label, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-            say(f"[phase 5]   {label}: {ms:.4f} ms ({100 * ms / device_ms:.1f}%)")
-        for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
-            say(f"[phase 5]     {ms:.4f} ms  {name[:90]}")
-        if device_ms <= 0:
-            say(f"[phase 5] the profiler saw no device time on {engine}: not measured")
-        summary[f"n={n} {engine}"] = {"wall_ms": wall_ms, "device_ms": device_ms}
+        summary.update(_profile_groups(prof, wall_ms, f"{engine} n={n}", reps))
     return summary
+
+
+def _profile_groups(prof, wall_ms, label, reps=1):
+    """Prints the profiled device time per evaluation by kernel group (and the
+    six largest kernels); {label: {"wall_ms", "device_ms", groups...}}."""
+    per_kernel = {}
+    for evt in prof.key_averages():
+        if "cuda" not in str(getattr(evt, "device_type", "")).lower():
+            continue
+        t_us = getattr(evt, "self_device_time_total", None)
+        if t_us is None:
+            t_us = getattr(evt, "self_cuda_time_total", 0.0)
+        per_kernel[evt.key] = per_kernel.get(evt.key, 0.0) + t_us / 1e3 / reps
+    device_ms = sum(per_kernel.values())
+    groups = {}
+    for name, ms in per_kernel.items():
+        low = name.lower()
+        group = next((g for g, keys in _GROUPS if any(k in low for k in keys)),
+                     "elementwise, copies, other")
+        groups[group] = groups.get(group, 0.0) + ms
+    say(f"[phase 5] {label}: wall per eval (profiled) {wall_ms:.3f} ms, "
+        f"device {device_ms:.3f} ms, busy {100 * device_ms / wall_ms:.1f}%")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        say(f"[phase 5]   {group}: {ms:.4f} ms ({100 * ms / max(device_ms, 1e-300):.1f}%)")
+    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        say(f"[phase 5]     {ms:.4f} ms  {name[:90]}")
+    if device_ms <= 0:
+        say(f"[phase 5] the profiler saw no device time on {label}: not measured")
+    return {label: {"wall_ms": wall_ms, "device_ms": device_ms, "groups": groups}}
 
 
 def main():
@@ -1493,6 +2077,9 @@ def main():
         import gpmp_tpu_torch.num as gnp
         from gpmp_tpu_torch.ops import _build as build
         from gpmp_tpu_torch.ops import distance, gram, mixed, refine
+        from gpmp_tpu_torch.ops import streamed as ops
+        from gpmp_tpu_torch.parallel import likelihood as plik
+        from gpmp_tpu_torch.parallel import streamed as st
     except ImportError as exc:
         fail(f"cannot import gpmp_tpu_torch next to this script: {exc}")
     check("jax" not in sys.modules, "jax was imported")
@@ -1502,6 +2089,9 @@ def main():
     main_abs = phase_kernels_vs_plain(torch, gram)
     main_abs.update(phase_mixed_kernels_vs_plain(torch, gram, mixed))
     main_abs.update(phase_new_kernels_vs_plain(torch, gram, distance, mixed, refine))
+    phase_streamed_kernels_vs_plain(torch, gram, mixed, ops)
+    _errs, large_abs, large_times, large_bounds, large_device = phase_streamed_large(
+        gp, gnp, torch, mixed, ops, st, plik)
     launches, main_data, t_first = phase_main_path(gp, gnp, gram, torch)
     slice_launches, slice_data, t_slice_first, k6 = phase_slice(
         gp, gnp, gram, distance, mixed, refine, torch)
@@ -1509,6 +2099,9 @@ def main():
     paths_launches, t_paths_first, xt_paths = phase_paths(
         gp, gnp, gram, distance, mixed, refine, torch, slice_data)
     launches["K8s"] = paths_launches["K8s"]
+    large_launches, large_walls, large_mem, large_info = phase_large_n(
+        gp, gnp, torch, gram, distance, mixed, refine, ops, st)
+    launches.update({k: large_launches[k] for k in ("K6", "K10b", "K10r", "K10m", "K10t")})
     times, rates, t_warm = phase_times(gp, gnp, gram, torch, main_data)
     mtimes, mrates, mem, t_slice_warm = phase_mixed_times(gp, gnp, gram, mixed, torch,
                                                           slice_data)
@@ -1517,7 +2110,14 @@ def main():
     library = {k: v[2] for k, v in (*mtimes.items(), *ntimes.items())}
     times.update({k: v[:2] for k, v in (*mtimes.items(), *ntimes.items())})
     profile = phase_profile(gp, gnp, torch)
+    profile.update(phase_profile_large(gp, gnp, torch))
     check("jax" not in sys.modules, "jax was imported")
+    # the streamed engine's kernels (K6 included) at the large-n path's shapes
+    main_abs.update(large_abs)
+    library.update({k: v[2] for k, v in large_times.items()})
+    times.update({k: v[:2] for k, v in large_times.items()})
+    bounds.update(large_bounds)
+    device_ms.update({f"{k} n={LARGE_N}": v for k, v in large_device.items()})
 
     say(json.dumps({
         "card": card,
@@ -1526,17 +2126,21 @@ def main():
         "noisy_fit_loo_predict_s": {"mixed first": t_slice_first, "mixed warm": t_slice_warm},
         "noisy_reml_value_grad_evals_per_s": {f"n={n} {e}": v for (n, e), v in mrates.items()},
         "max_memory_allocated_bytes_n8192": mem,
-        "k6_applies_per_reml_value_grad": k6,
+        "k6_launches_n1000": k6,
+        "large_n": {"n": LARGE_N, "wall_s": large_walls, "fit_nfev": int(large_info.nfev),
+                    "fit_reml": [float(large_info.history_criterion[0]), float(large_info.fun)],
+                    "peak_rise_bytes": {f"{w} n={nn}": b for (w, nn), b in large_mem.items()},
+                    "launches_per_value_grad": large_launches},
         "device_ms_per_call_n1000": device_ms,
         "sample_paths_nt8192_1024_s": {f"{e} {w}": v for w, d in (("first", t_paths_first),
                                                                   ("warm", t_paths_warm))
                                        for e, v in d.items()},
-        "profile_ms_per_eval": {e: {"wall": v["wall_ms"], "device": v["device_ms"]}
-                                for e, v in profile.items()},
+        "profile_ms_per_eval": {e: {"wall": v["wall_ms"], "device": v["device_ms"],
+                                    "groups": v["groups"]} for e, v in profile.items()},
         "total_s": time.perf_counter() - t_start,
     }))
     gram_src, mixed_src = "gpmp_tpu_torch/csrc/matern_gram.cu", "gpmp_tpu_torch/csrc/mixed.cu"
-    dist_src = "gpmp_tpu_torch/csrc/distance.cu"
+    dist_src, stream_src = "gpmp_tpu_torch/csrc/distance.cu", "gpmp_tpu_torch/csrc/streamed.cu"
     rows = [
         ("K1", "matern_gram", gram_src, "gpmp_tpu/kernel/matern.py:69"),
         ("K2", "matern_gram_pullback", gram_src, "gpmp_tpu/parallel/likelihood.py:225"),
@@ -1550,6 +2154,11 @@ def main():
         ("K1m", "maternp_kernel", gram_src, "gpmp_tpu/kernel/matern.py:49"),
         ("K1m backward", "maternp_kernel_backward", gram_src, "gpmp_tpu/kernel/matern.py:49"),
         ("K8s", "sampling_residual", mixed_src, "gpmp_tpu/ops/refine.py:114"),
+        ("K6", "precond_apply", mixed_src, "gpmp_tpu/ops/mixed.py:236"),
+        ("K10b", "split_rows", stream_src, "gpmp_tpu/parallel/streamed.py:259"),
+        ("K10r", "streamed_residual_ff", mixed_src, "gpmp_tpu/parallel/streamed.py:322"),
+        ("K10m", "ff_residual", mixed_src, "gpmp_tpu/parallel/streamed.py:481"),
+        ("K10t", "h_traces", stream_src, "gpmp_tpu/parallel/streamed.py:394"),
     ]
     say(json.dumps({"kernels": [
         {"name": f"{key} {name}", "route": "cuda", "source": src, "replaces": where,

@@ -7,7 +7,9 @@ scaled distance and Matern polynomial that user covariances compose, run
 as hand-written CUDA kernels on the card (``ops.gram``, ``ops.distance``);
 the factorizations go to ``torch.linalg``, or, with
 ``config.set_chol_engine("mixed")``, to the mixed-precision engine and its
-kernels (``ops.mixed``, and ``ops.refine`` for the sampling root).  Everything
+kernels (``ops.mixed``, and ``ops.refine`` for the sampling root); past the
+resident engines' memory, ``parallel`` runs REML on one card through the
+streamed engine and its kernels (``ops.streamed``).  Everything
 runs on the card unless the CPU is asked for (``config.set_device("cpu")``
 or ``GPMP_DEVICE=cpu``).
 """
@@ -30,11 +32,12 @@ __all__ = [
     "misc",
     "ops",
     "interop",
+    "parallel",
 ]
 
 __version__ = "0.1.0"
 
-_LAZY_SUBMODULES: Final[set] = {"num", "kernel", "misc", "ops", "interop"}
+_LAZY_SUBMODULES: Final[set] = {"num", "kernel", "misc", "ops", "interop", "parallel"}
 
 
 def __getattr__(name: str):

@@ -1,8 +1,10 @@
 // gpmp_tpu_torch/csrc/mixed.cu
 //
-// K3, K4, K5, K7 and K7b: the hand-written kernels of the mixed-precision
-// Cholesky engine (gpmp_tpu_torch/ops/mixed.py), and K8s, the residual of
-// its sampling root (gpmp_tpu_torch/ops/refine.py), for Hopper, sm_90a.
+// K3, K4, K5, K6, K7 and K7b: the hand-written kernels of the
+// mixed-precision Cholesky engine (gpmp_tpu_torch/ops/mixed.py); K8s, the
+// residual of its sampling root (gpmp_tpu_torch/ops/refine.py); K10m and
+// K10r, K3's and K4's kernels on the streamed engine's sources of K
+// (gpmp_tpu_torch/ops/streamed.py); for Hopper, sm_90a.
 // Plain C entry points, loaded with ctypes by gpmp_tpu_torch/ops/_build.py.
 //
 // K3 residual (replaces gpmp_tpu/ops/mixed.py _f64_matvec and the residual
@@ -16,6 +18,15 @@
 //    sums in f64 in registers, warp shuffles, per-block partials, and a
 //    second launch reduces the partials in a fixed order (no atomics:
 //    bitwise reproducible, so SLSQP sees the same numbers every run).
+//
+// K10m streamed residual (replaces gpmp_tpu/parallel/streamed.py _matvec_ff
+//    and the residual of _refined_solve_streamed):
+//      R = B - (K32 + E32) X, and (sum R^2, sum B^2), with K held as the
+//      float-float pair of the streamed engine (gpmp_tpu_torch/parallel/
+//      streamed.py), X and B (n, k <= 8) in f64.
+//    K3's kernel with a two-float source of K: each entry is promoted and
+//    summed in f64 in registers (hi + lo is exact in f64).  Bound: reading
+//    the pair once, 8 n^2 bytes (2.6 ms at n = 32768): memory-bound.
 //
 // K4 factorization residual (replaces _factorization_residual_f32):
 //      R = K - L L^T, computed in f64 on the lower-triangular tiles only,
@@ -33,6 +44,48 @@
 //    Same bound (n^3/6 FMAs, 5.0 us at n = 1000, 2.7 ms at n = 8192 at
 //    67 TFLOP/s) and design; E is exactly symmetric, where the JAX
 //    package's dense product is symmetric only up to roundoff.
+//
+// K10r streamed factorization residual (replaces gpmp_tpu/parallel/
+//    streamed.py _streamed_residual_f32): K4's kernel, with K read from a
+//    source given as a template parameter:
+//      ff:        the float-float pair (K32 + E32), summed in f64 in
+//                 registers, over every lower tile in one launch (the card
+//                 never holds K in f64, so the JAX package's column panels,
+//                 which only bounded XLA's temporaries, are not needed);
+//      recompute: an f64 column panel (n - c0, width) of K at (c0, c0),
+//                 one launch per panel, over the lower tiles of rows
+//                 [c0, n) x columns [c0, c0 + width).
+//    R is f32 and written at (i, j) and (j, i) from one value: exactly
+//    symmetric, the diagonal sub-blocks of the panels included.  Bound:
+//    ~n^3/6 f64 FMAs over all panels (1.17e13 at n = 32768: 0.35 s at the
+//    67 TFLOP/s f64 tensor peak); K8s's 21 ms at n = 8192 puts the kernel
+//    near 1.35 s there.
+//
+// K6 preconditioner apply (replaces gpmp_tpu/ops/mixed.py _apply and
+//    gpmp_tpu/parallel/streamed.py _apply_precond):
+//      out = M^T (M r32), M (n, n) lower-triangular f32, r32 = f32(r) for
+//      r (n, k) f64 (or f32), the products and sums in f32 (the JAX
+//      package's rounding), out cast to r's type.
+//    Bound: the lower triangle of M read once plus r and out, (n^2/2 +
+//    2 n k) 4 bytes (0.64 ms at n = 32768): memory-bound for k <= 8.
+//    Design for k <= 8: two passes over the lower triangle, as the
+//    one-pass form needs the whole
+//    row i of M twice (once for y_i = m_i r, once for m_i^T y_i) and a row
+//    of 128 KB at n = 32768 does not stay on chip across many rows:
+//      launch 1: y = M r32, one warp per row, reading columns j <= i with
+//                consecutive lanes on consecutive words, r32 staged in
+//                shared memory in 256-row tiles;
+//      launch 2: per (32-column block, 512-row chunk) partial sums of
+//                M^T y over the chunk's rows i >= j (a warp reads 32
+//                consecutive words of a row; y_i is broadcast);
+//      launch 3: the chunks of each column summed in a fixed order (no
+//                atomics: bitwise reproducible) and cast to r's type.
+//    Wider r (predict's right-hand sides, the LOO backward's [Xbar, I]):
+//    two tiled triangular products, Y = M r32 then out = M^T Y, each a
+//    64 x 64 output tile per block (4 x 4 per thread, 16-deep k steps
+//    through shared memory) that visits only the k tiles of the lower
+//    triangle: n^2 k f32 FMAs in all, compute-bound past k ~ 20.  The sums
+//    run in one fixed order (bitwise reproducible).
 //
 // K5 diagonal-block triangular inverse (replaces the base case of
 //    _block_tri_inv, a batched triangular solve):
@@ -127,15 +180,45 @@ __device__ void block_pair_to_partial(double a, double b, double* __restrict__ p
   }
 }
 
+// ------------------------------------------------- sources of K(i, j)
+// K3/K4 read K through one of these (K10m/K10r are the same kernels on the
+// streamed engine's sources); each returns the entry promoted to f64.
+template <typename T>
+struct DenseK {  // K (n, n) in T, row-major
+  const T* __restrict__ K;
+  long long ld;
+  __device__ double operator()(long long i, long long j) const {
+    return static_cast<double>(K[i * ld + j]);
+  }
+};
+
+struct PairK {  // the float-float pair K = hi + lo, (n, n) each, row-major
+  const float* __restrict__ hi;
+  const float* __restrict__ lo;
+  long long ld;
+  __device__ double operator()(long long i, long long j) const {
+    const long long t = i * ld + j;
+    return static_cast<double>(hi[t]) + static_cast<double>(lo[t]);
+  }
+};
+
+struct PanelK {  // an f64 column panel (n - c0, width) of K whose (0, 0) is K(c0, c0)
+  const double* __restrict__ P;
+  long long c0, width;
+  __device__ double operator()(long long i, long long j) const {
+    return P[(i - c0) * width + (j - c0)];
+  }
+};
+
 // ---------------------------------------------------------------- K3
 constexpr int RES_ROWS = 8;  // rows per block, one warp each
 constexpr int RES_THREADS = 32 * RES_ROWS;
 constexpr int RES_TILE = 256;  // rows of X staged per step
 constexpr int RES_MAX_K = 8;
 
-template <typename T>
+template <typename Src, typename T>
 __global__ void __launch_bounds__(RES_THREADS)
-residual_kernel(const T* __restrict__ K, const T* __restrict__ X, const T* __restrict__ B,
+residual_kernel(Src K, const T* __restrict__ X, const T* __restrict__ B,
                 T* __restrict__ R, double* __restrict__ partial, long long n, int k) {
   __shared__ double xs[RES_TILE * RES_MAX_K];
   __shared__ double rows[RES_ROWS][2];
@@ -153,9 +236,8 @@ residual_kernel(const T* __restrict__ K, const T* __restrict__ X, const T* __res
       xs[t] = static_cast<double>(X[c0 * k + t]);  // X is row-major (n, k)
     __syncthreads();
     if (row < n) {
-      const T* Krow = K + row * n + c0;
       for (int j = lane; j < w; j += 32) {
-        const double kv = static_cast<double>(Krow[j]);
+        const double kv = K(row, c0 + j);
 #pragma unroll
         for (int c = 0; c < RES_MAX_K; ++c)
           if (c < k) acc[c] += kv * xs[j * k + c];
@@ -196,15 +278,15 @@ residual_kernel(const T* __restrict__ K, const T* __restrict__ X, const T* __res
 
 long long residual_blocks(long long n) { return (n + RES_ROWS - 1) / RES_ROWS; }
 
-template <typename T>
-int launch_residual(const void* K, const void* X, const void* B, void* R, void* partial,
+template <typename Src, typename T>
+int launch_residual(Src K, const void* X, const void* B, void* R, void* partial,
                     void* norms, long long n, int k, void* stream) {
   if (n <= 0 || k < 1 || k > RES_MAX_K || residual_blocks(n) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long nb = residual_blocks(n);
-  residual_kernel<T><<<static_cast<unsigned>(nb), RES_THREADS, 0, s>>>(
-      static_cast<const T*>(K), static_cast<const T*>(X), static_cast<const T*>(B),
+  residual_kernel<Src, T><<<static_cast<unsigned>(nb), RES_THREADS, 0, s>>>(
+      K, static_cast<const T*>(X), static_cast<const T*>(B),
       static_cast<T*>(R), static_cast<double*>(partial), n, k);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
@@ -218,21 +300,34 @@ constexpr int FR_TILE = 32;
 constexpr int FR_TY = 8;  // block (32, 8): each thread owns 4 rows of a column
 constexpr int FR_ROWS = FR_TILE / FR_TY;
 
-template <typename T, typename TOut>
+// R(i, j) = K(i, j) - sum_k L(i, k) L(j, k) for rows i in [c0, n), columns
+// j in [c0, c0 + width), i >= j, written at (i, j) and (j, i).
+// PANEL = false: the whole lower triangle (c0 = 0, width = n), blockIdx.x
+// the linear index of the lower tile (bi, bj); PANEL = true: blockIdx.x the
+// row tile and blockIdx.y the column tile, both counted from c0, and the
+// tiles above the diagonal return at once.
+template <typename Src, typename TOut, bool PANEL>
 __global__ void __launch_bounds__(FR_TILE * FR_TY)
-fact_residual_kernel(const T* __restrict__ K, const float* __restrict__ L,
-                     TOut* __restrict__ R, long long n) {
-  // blockIdx.x -> lower-triangular tile (bi, bj), bi >= bj
-  const long long b = blockIdx.x;
-  long long bi = static_cast<long long>((sqrt(8.0 * static_cast<double>(b) + 1.0) - 1.0) / 2.0);
-  while (bi * (bi + 1) / 2 > b) --bi;
-  while ((bi + 1) * (bi + 2) / 2 <= b) ++bi;
-  const long long bj = b - bi * (bi + 1) / 2;
+fact_residual_kernel(Src K, const float* __restrict__ L, TOut* __restrict__ R, long long n,
+                     long long c0, long long width) {
+  long long bi, bj;
+  if (PANEL) {
+    bi = blockIdx.x;
+    bj = blockIdx.y;
+    if (bi < bj) return;
+  } else {
+    const long long b = blockIdx.x;
+    bi = static_cast<long long>((sqrt(8.0 * static_cast<double>(b) + 1.0) - 1.0) / 2.0);
+    while (bi * (bi + 1) / 2 > b) --bi;
+    while ((bi + 1) * (bi + 2) / 2 <= b) ++bi;
+    bj = b - bi * (bi + 1) / 2;
+  }
 
   __shared__ double As[FR_TILE][FR_TILE + 1];  // L[i0 + r, k0 + c]
   __shared__ double Bs[FR_TILE][FR_TILE + 1];  // L[j0 + r, k0 + c]
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const long long i0 = bi * FR_TILE, j0 = bj * FR_TILE;
+  const long long i0 = c0 + bi * FR_TILE, j0 = c0 + bj * FR_TILE;
+  const long long jend = c0 + width;  // columns of this launch: [c0, jend)
   double acc[FR_ROWS];
 #pragma unroll
   for (int q = 0; q < FR_ROWS; ++q) acc[q] = 0.0;
@@ -259,23 +354,40 @@ fact_residual_kernel(const T* __restrict__ K, const float* __restrict__ L,
 #pragma unroll
   for (int q = 0; q < FR_ROWS; ++q) {
     const long long gi = i0 + ty + FR_TY * q, gj = j0 + tx;
-    if (gi < n && gj < n && gi >= gj) {
-      const TOut v = static_cast<TOut>(static_cast<double>(K[gi * n + gj]) - acc[q]);
+    if (gi < n && gj < jend && gi >= gj) {
+      const TOut v = static_cast<TOut>(K(gi, gj) - acc[q]);
       R[gi * n + gj] = v;
       R[gj * n + gi] = v;
     }
   }
 }
 
-template <typename T, typename TOut>
-int launch_fact_residual(const void* K, const void* L, void* R, long long n, void* stream) {
+// every lower tile of the (n, n) residual, one launch
+template <typename Src, typename TOut>
+int launch_fact_residual(Src K, const void* L, void* R, long long n, void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long nt = (n + FR_TILE - 1) / FR_TILE;
   const long long tiles = nt * (nt + 1) / 2;
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  fact_residual_kernel<T, TOut><<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(K), static_cast<const float*>(L), static_cast<TOut*>(R), n);
+  fact_residual_kernel<Src, TOut, false><<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0,
+                                           static_cast<cudaStream_t>(stream)>>>(
+      K, static_cast<const float*>(L), static_cast<TOut*>(R), n, 0, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the lower tiles of rows [c0, n) x columns [c0, c0 + width), one launch
+// per column panel (K10r, recompute mode)
+int launch_fact_residual_panel(const void* P, const void* L, void* R, long long n, long long c0,
+                               long long width, void* stream) {
+  if (n <= 0 || c0 < 0 || width <= 0 || c0 + width > n) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rt = (n - c0 + FR_TILE - 1) / FR_TILE;
+  const long long ct = (width + FR_TILE - 1) / FR_TILE;
+  if (rt > 0x7fffffffLL || ct > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  fact_residual_kernel<PanelK, float, true>
+      <<<dim3(static_cast<unsigned>(rt), static_cast<unsigned>(ct)), dim3(FR_TILE, FR_TY), 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          PanelK{static_cast<const double*>(P), c0, width}, static_cast<const float*>(L),
+          static_cast<float*>(R), n, c0, width);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -434,6 +546,229 @@ int launch_loo_diag(const void* A, const void* B, void* partial, void* out, long
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- K6
+constexpr int PA_ROWS = 8;  // launch 1: rows per block, one warp each
+constexpr int PA_THREADS = 32 * PA_ROWS;
+constexpr int PA_TILE = 256;  // rows of r32 staged per step
+constexpr int PA_MAX_K = 8;
+constexpr int PA_COLS = 32;  // launch 2: columns per block
+constexpr int PA_TY = 8;     // launch 2: rows in flight per block
+constexpr long long PA_CHUNK = 512;  // launch 2: rows per chunk
+
+long long precond_chunks(long long n) { return (n + PA_CHUNK - 1) / PA_CHUNK; }
+
+// y = M r32 over the lower triangle: y_i = sum_{j <= i} M_ij f32(r_j), f32
+template <typename T>
+__global__ void __launch_bounds__(PA_THREADS)
+precond_rows_kernel(const float* __restrict__ M, const T* __restrict__ r,
+                    float* __restrict__ y, long long n, int k) {
+  __shared__ float rs[PA_TILE * PA_MAX_K];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long row0 = static_cast<long long>(blockIdx.x) * PA_ROWS;
+  const long long row = row0 + warp;
+  long long last = row0 + PA_ROWS - 1;  // the block's last row: its columns end there
+  if (last > n - 1) last = n - 1;
+  float acc[PA_MAX_K];
+#pragma unroll
+  for (int c = 0; c < PA_MAX_K; ++c) acc[c] = 0.0f;
+
+  for (long long c0 = 0; c0 <= last; c0 += PA_TILE) {
+    const int w = static_cast<int>(last + 1 - c0 < PA_TILE ? last + 1 - c0 : PA_TILE);
+    __syncthreads();  // the previous tile is no longer read
+    for (int t = threadIdx.x; t < w * k; t += PA_THREADS)
+      rs[t] = static_cast<float>(r[c0 * k + t]);  // r is row-major (n, k)
+    __syncthreads();
+    if (row < n) {
+      const float* Mrow = M + row * n + c0;
+      const int wr = static_cast<int>(row + 1 - c0 < w ? row + 1 - c0 : w);  // j <= row
+#pragma unroll 4
+      for (int j = lane; j < wr; j += 32) {
+        const float mv = Mrow[j];
+#pragma unroll
+        for (int c = 0; c < PA_MAX_K; ++c)
+          if (c < k) acc[c] = fmaf(mv, rs[j * k + c], acc[c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < PA_MAX_K; ++c) {
+    if (c < k) {
+      float v = acc[c];
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0 && row < n) y[row * k + c] = v;
+    }
+  }
+}
+
+// partial[ch, j, c] = sum over the chunk's rows i >= j of M_ij y_ic, f32
+__global__ void __launch_bounds__(PA_COLS * PA_TY)
+precond_cols_kernel(const float* __restrict__ M, const float* __restrict__ y,
+                    float* __restrict__ partial, long long n, int k) {
+  __shared__ float red[PA_TY][PA_COLS][PA_MAX_K];
+  const long long j0 = static_cast<long long>(blockIdx.x) * PA_COLS;
+  const long long j = j0 + threadIdx.x;
+  const long long ch = blockIdx.y;
+  long long r0 = ch * PA_CHUNK;
+  const long long r1 = r0 + PA_CHUNK < n ? r0 + PA_CHUNK : n;
+  if (r0 < j0) r0 = j0;  // rows above the block's first column hold zeros of M
+  float acc[PA_MAX_K];
+#pragma unroll
+  for (int c = 0; c < PA_MAX_K; ++c) acc[c] = 0.0f;
+  if (j < n) {
+    for (long long i = r0 + threadIdx.y; i < r1; i += PA_TY) {
+      if (i < j) continue;  // M_ij = 0 above the diagonal
+      const float mv = M[i * n + j];
+#pragma unroll
+      for (int c = 0; c < PA_MAX_K; ++c)
+        if (c < k) acc[c] = fmaf(mv, y[i * k + c], acc[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < PA_MAX_K; ++c) red[threadIdx.y][threadIdx.x][c] = acc[c];
+  __syncthreads();
+  if (threadIdx.y == 0 && j < n) {
+    for (int c = 0; c < k; ++c) {
+      float t = 0.0f;
+      for (int q = 0; q < PA_TY; ++q) t += red[q][threadIdx.x][c];
+      partial[(ch * n + j) * k + c] = t;
+    }
+  }
+}
+
+// out[j, c] = T(sum over the chunks in order of partial[ch, j, c])
+template <typename T>
+__global__ void __launch_bounds__(RED_THREADS)
+precond_reduce_kernel(const float* __restrict__ partial, long long chunks, long long n, int k,
+                      T* __restrict__ out) {
+  const long long t = static_cast<long long>(blockIdx.x) * RED_THREADS + threadIdx.x;
+  if (t >= n * k) return;
+  float s = 0.0f;
+  for (long long ch = 0; ch < chunks; ++ch) s += partial[ch * n * k + t];
+  out[t] = static_cast<T>(s);
+}
+
+template <typename T>
+int launch_precond_apply(const void* M, const void* r, void* y, void* partial, void* out,
+                         long long n, int k, void* stream) {
+  const long long row_blocks = (n + PA_ROWS - 1) / PA_ROWS;
+  const long long col_blocks = (n + PA_COLS - 1) / PA_COLS;
+  const long long chunks = precond_chunks(n);
+  if (n <= 0 || k < 1 || k > PA_MAX_K || row_blocks > 0x7fffffffLL ||
+      col_blocks > 0x7fffffffLL || chunks > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  precond_rows_kernel<T><<<static_cast<unsigned>(row_blocks), PA_THREADS, 0, s>>>(
+      static_cast<const float*>(M), static_cast<const T*>(r), static_cast<float*>(y), n, k);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  precond_cols_kernel<<<dim3(static_cast<unsigned>(col_blocks), static_cast<unsigned>(chunks)),
+                        dim3(PA_COLS, PA_TY), 0, s>>>(
+      static_cast<const float*>(M), static_cast<const float*>(y),
+      static_cast<float*>(partial), n, k);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  precond_reduce_kernel<T><<<static_cast<unsigned>((n * k + RED_THREADS - 1) / RED_THREADS),
+                             RED_THREADS, 0, s>>>(static_cast<const float*>(partial), chunks, n,
+                                                  k, static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6 for wide r: C = op(M) B, op(M) = M (lower, TRANS false) or M^T
+// (TRANS true), B (n, k) read as f32, f32 FMAs, C written as Tout.
+constexpr int PW_TILE = 64;  // output tile, rows and columns
+constexpr int PW_K = 16;     // k step through shared memory
+constexpr int PW_SIDE = 16;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int PW_THREADS = PW_SIDE * PW_SIDE;
+constexpr int PW_PER = PW_TILE / PW_SIDE;
+
+template <bool TRANS, typename Tin, typename Tout>
+__global__ void __launch_bounds__(PW_THREADS)
+precond_wide_kernel(const float* __restrict__ M, const Tin* __restrict__ B,
+                    Tout* __restrict__ C, long long n, long long k) {
+  __shared__ float As[PW_K][PW_TILE + 4];  // As[kk][ii] = op(M)[i0 + ii, k0 + kk]
+  __shared__ float Bs[PW_K][PW_TILE];
+  const int tx = threadIdx.x % PW_SIDE;
+  const int ty = threadIdx.x / PW_SIDE;
+  const long long i0 = static_cast<long long>(blockIdx.y) * PW_TILE;
+  const long long c0 = static_cast<long long>(blockIdx.x) * PW_TILE;
+  // only the k tiles that meet the triangle: j <= i (M), j >= i (M^T)
+  const long long kbeg = TRANS ? i0 : 0;
+  const long long kend = TRANS ? n : (i0 + PW_TILE < n ? i0 + PW_TILE : n);
+  float acc[PW_PER][PW_PER];
+#pragma unroll
+  for (int a = 0; a < PW_PER; ++a)
+#pragma unroll
+    for (int b = 0; b < PW_PER; ++b) acc[a][b] = 0.0f;
+
+  for (long long k0 = kbeg; k0 < kend; k0 += PW_K) {
+    for (int t = threadIdx.x; t < PW_TILE * PW_K; t += PW_THREADS) {
+      float v = 0.0f;
+      int ii, kk;
+      if (TRANS) {  // M[j, i0 + ii]: consecutive threads on consecutive words of row j
+        kk = t / PW_TILE;
+        ii = t % PW_TILE;
+        const long long i = i0 + ii, j = k0 + kk;
+        if (j < n && i <= j) v = M[j * n + i];
+      } else {      // M[i0 + ii, j]: 16 consecutive words of row i
+        ii = t / PW_K;
+        kk = t % PW_K;
+        const long long i = i0 + ii, j = k0 + kk;
+        if (i < n && j <= i) v = M[i * n + j];
+      }
+      As[kk][ii] = v;
+    }
+    for (int t = threadIdx.x; t < PW_TILE * PW_K; t += PW_THREADS) {
+      const int kk = t / PW_TILE, cc = t % PW_TILE;
+      const long long j = k0 + kk, c = c0 + cc;
+      Bs[kk][cc] = (j < n && c < k) ? static_cast<float>(B[j * k + c]) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < PW_K; ++kk) {
+      float a[PW_PER], b[PW_PER];
+#pragma unroll
+      for (int q = 0; q < PW_PER; ++q) {
+        a[q] = As[kk][ty + PW_SIDE * q];
+        b[q] = Bs[kk][tx + PW_SIDE * q];
+      }
+#pragma unroll
+      for (int p = 0; p < PW_PER; ++p)
+#pragma unroll
+        for (int q = 0; q < PW_PER; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
+    }
+    __syncthreads();  // the tiles are refilled next step
+  }
+#pragma unroll
+  for (int p = 0; p < PW_PER; ++p) {
+    const long long i = i0 + ty + PW_SIDE * p;
+    if (i >= n) continue;
+#pragma unroll
+    for (int q = 0; q < PW_PER; ++q) {
+      const long long c = c0 + tx + PW_SIDE * q;
+      if (c < k) C[i * k + c] = static_cast<Tout>(acc[p][q]);
+    }
+  }
+}
+
+template <typename T>
+int launch_precond_wide(const void* M, const void* r, void* y, void* out, long long n,
+                        long long k, void* stream) {
+  const long long row_tiles = (n + PW_TILE - 1) / PW_TILE;
+  const long long col_tiles = (k + PW_TILE - 1) / PW_TILE;
+  if (n <= 0 || k < 1 || row_tiles > 65535 || col_tiles > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(col_tiles), static_cast<unsigned>(row_tiles));
+  precond_wide_kernel<false, T, float><<<grid, PW_THREADS, 0, s>>>(
+      static_cast<const float*>(M), static_cast<const T*>(r), static_cast<float*>(y), n, k);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  precond_wide_kernel<true, float, T><<<grid, PW_THREADS, 0, s>>>(
+      static_cast<const float*>(M), static_cast<const float*>(y), static_cast<T*>(out), n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -442,30 +777,76 @@ long long gpmp_residual_blocks(long long n) { return residual_blocks(n); }
 
 int gpmp_residual_f64(const void* K, const void* X, const void* B, void* R, void* partial,
                       void* norms, long long n, int k, void* stream) {
-  return launch_residual<double>(K, X, B, R, partial, norms, n, k, stream);
+  return launch_residual<DenseK<double>, double>(
+      DenseK<double>{static_cast<const double*>(K), n}, X, B, R, partial, norms, n, k, stream);
 }
 
 int gpmp_residual_f32(const void* K, const void* X, const void* B, void* R, void* partial,
                       void* norms, long long n, int k, void* stream) {
-  return launch_residual<float>(K, X, B, R, partial, norms, n, k, stream);
+  return launch_residual<DenseK<float>, float>(
+      DenseK<float>{static_cast<const float*>(K), n}, X, B, R, partial, norms, n, k, stream);
+}
+
+int gpmp_ff_residual(const void* hi, const void* lo, const void* X, const void* B, void* R,
+                     void* partial, void* norms, long long n, int k, void* stream) {
+  return launch_residual<PairK, double>(
+      PairK{static_cast<const float*>(hi), static_cast<const float*>(lo), n}, X, B, R, partial,
+      norms, n, k, stream);
 }
 
 int gpmp_fact_residual_f64(const void* K, const void* L, void* R, long long n, void* stream) {
-  return launch_fact_residual<double, float>(K, L, R, n, stream);
+  return launch_fact_residual<DenseK<double>, float>(
+      DenseK<double>{static_cast<const double*>(K), n}, L, R, n, stream);
 }
 
 int gpmp_fact_residual_f32(const void* K, const void* L, void* R, long long n, void* stream) {
-  return launch_fact_residual<float, float>(K, L, R, n, stream);
+  return launch_fact_residual<DenseK<float>, float>(
+      DenseK<float>{static_cast<const float*>(K), n}, L, R, n, stream);
 }
 
 int gpmp_sampling_residual_f64(const void* K, const void* L, void* R, long long n,
                                void* stream) {
-  return launch_fact_residual<double, double>(K, L, R, n, stream);
+  return launch_fact_residual<DenseK<double>, double>(
+      DenseK<double>{static_cast<const double*>(K), n}, L, R, n, stream);
 }
 
 int gpmp_sampling_residual_f32(const void* K, const void* L, void* R, long long n,
                                void* stream) {
-  return launch_fact_residual<float, float>(K, L, R, n, stream);
+  return launch_fact_residual<DenseK<float>, float>(
+      DenseK<float>{static_cast<const float*>(K), n}, L, R, n, stream);
+}
+
+int gpmp_streamed_residual_ff(const void* hi, const void* lo, const void* L, void* R,
+                              long long n, void* stream) {
+  return launch_fact_residual<PairK, float>(
+      PairK{static_cast<const float*>(hi), static_cast<const float*>(lo), n}, L, R, n, stream);
+}
+
+int gpmp_streamed_residual_panel(const void* P, const void* L, void* R, long long n,
+                                 long long c0, long long width, void* stream) {
+  return launch_fact_residual_panel(P, L, R, n, c0, width, stream);
+}
+
+long long gpmp_precond_chunks(long long n) { return precond_chunks(n); }
+
+int gpmp_precond_apply_f64(const void* M, const void* r, void* y, void* partial, void* out,
+                           long long n, int k, void* stream) {
+  return launch_precond_apply<double>(M, r, y, partial, out, n, k, stream);
+}
+
+int gpmp_precond_apply_f32(const void* M, const void* r, void* y, void* partial, void* out,
+                           long long n, int k, void* stream) {
+  return launch_precond_apply<float>(M, r, y, partial, out, n, k, stream);
+}
+
+int gpmp_precond_apply_wide_f64(const void* M, const void* r, void* y, void* out, long long n,
+                                long long k, void* stream) {
+  return launch_precond_wide<double>(M, r, y, out, n, k, stream);
+}
+
+int gpmp_precond_apply_wide_f32(const void* M, const void* r, void* y, void* out, long long n,
+                                long long k, void* stream) {
+  return launch_precond_wide<float>(M, r, y, out, n, k, stream);
 }
 
 long long gpmp_loo_diag_chunks(long long n) { return loo_diag_chunks(n); }

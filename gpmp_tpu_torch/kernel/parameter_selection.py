@@ -7,13 +7,20 @@ its gradient come from one forward and one ``torch.autograd.grad``
 host.  History recording, local bounds and the best-seen fallback follow
 the JAX package.
 
+Mesh mode (``mesh=``, ``init_subsample=``) takes the port's one-card mesh
+(gpmp_tpu_torch.parallel.make_mesh): the model is wrapped in
+``parallel.ShardedModelView`` and its REML runs on the streamed large-n
+engine.
+
 Not ported yet (ROADMAP): dataloader sources, ``method='lbfgs-device'``,
-mesh mode (``mesh=``, ``shard_block=``), REMAP and priors.
+meshes of more than one card, ``shard_block=`` (the resident mesh branch's
+panel size), REMAP and priors.
 """
 
 import time
 
 import numpy as np
+import torch
 from scipy.optimize import minimize
 
 import gpmp_tpu_torch.num as gnp
@@ -32,8 +39,13 @@ def _not_ported(what, item):
 def _check_unported(method=None, mesh=None, shard_block=None):
     if method == "lbfgs-device":
         _not_ported("method='lbfgs-device'", 5)
-    if mesh is not None or shard_block is not None:
-        _not_ported("mesh mode (mesh=, shard_block=)", 11)
+    if mesh is not None:
+        from gpmp_tpu_torch.parallel.mesh import Mesh
+
+        if not isinstance(mesh, Mesh) or mesh.size != 1:
+            _not_ported("mesh mode beyond the port's one-card mesh (parallel.make_mesh(1))", 11)
+    if shard_block is not None:
+        _not_ported("shard_block= (the resident mesh branch's panel size)", 11)
 
 
 # ---------------------- criterion + gradient maker --------------------
@@ -190,6 +202,15 @@ def autoselect_parameters(
 
 
 # -------------------- high-level selection procedures ------------
+def _subsampled_initial_guess(model, xi, zi, init_subsample):
+    """Dense init heuristic on a deterministic subsample (mesh mode)."""
+    xi_, zi_ = gnp.asarray(xi), gnp.asarray(zi)
+    n = xi_.shape[0]
+    m = min(int(init_subsample), n)
+    idx = torch.as_tensor(np.random.default_rng(0).permutation(n)[:m], device=xi_.device)
+    return anisotropic_parameters_initial_guess(model, xi_[idx], zi_[idx].reshape(-1))
+
+
 def select_parameters_with_criterion(
     model,
     criterion,
@@ -211,16 +232,32 @@ def select_parameters_with_criterion(
     method_options=None,
     mesh=None,
     shard_block=None,
+    init_subsample=2048,
 ):
     """Optimize model parameters under a user-supplied criterion;
     writes the optimum back into the model.  With info=True, returns a
-    diagnostics dict with history/timing/criterion callables."""
+    diagnostics dict with history/timing/criterion callables.
+
+    Mesh mode: pass the port's one-card mesh (``parallel.make_mesh(1)``)
+    and the model is wrapped in ``parallel.ShardedModelView``, so a
+    criterion built on the model's likelihood methods runs on the streamed
+    large-n engine.  When ``covparam0`` is None, the init heuristic runs on
+    a deterministic subsample of ``init_subsample`` points (the dense
+    heuristic would build the full gram)."""
     _check_unported(method=method, mesh=mesh, shard_block=shard_block)
     if method_options is None:
         method_options = {}
 
     tic = time.time()
     check_xi_zi_or_loader(xi, zi, dataloader)
+
+    base_model = model
+    if mesh is not None:
+        from gpmp_tpu_torch.parallel.view import ShardedModelView
+
+        model = ShardedModelView(base_model, mesh)
+        if covparam0 is None:
+            covparam0 = _subsampled_initial_guess(base_model, xi, zi, init_subsample)
 
     if covparam0 is None:
         covparam0 = anisotropic_parameters_initial_guess(model, xi, zi)
@@ -283,8 +320,8 @@ def select_parameters_with_criterion(
         info_ret["selection_criterion"] = crit
         info_ret["selection_criterion_nograd"] = crit_no_grad
         info_ret["time"] = time.time() - tic
-        return model, info_ret
-    return model, None
+        return base_model, info_ret
+    return base_model, None
 
 
 def update_parameters_with_criterion(
@@ -436,9 +473,15 @@ def select_parameters_with_reml(
     verbosity=0, *,
     bounds=None, bounds_auto=True, bounds_delta=10.0,
     method="SLSQP", method_options=None,
-    mesh=None, shard_block=None,
+    mesh=None, shard_block=None, init_subsample=2048,
 ):
-    """Select covariance parameters with REML."""
+    """Select covariance parameters with REML.
+
+    Large-n mode: pass the port's one-card mesh (``parallel.make_mesh(1)``)
+    and the criterion becomes
+    ``parallel.sharded_negative_log_restricted_likelihood`` on the streamed
+    engine; with ``covparam0`` None the init heuristic runs on a
+    deterministic subsample of ``init_subsample`` points."""
     return select_parameters_with_criterion(
         model,
         _reml_criterion,
@@ -455,6 +498,7 @@ def select_parameters_with_reml(
         method_options=method_options,
         mesh=mesh,
         shard_block=shard_block,
+        init_subsample=init_subsample,
     )
 
 

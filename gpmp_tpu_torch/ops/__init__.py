@@ -6,11 +6,16 @@
   (the Matern polynomial, elementwise, and its backward).
 - ``mixed``: the mixed-precision Cholesky engine and its kernels K3
   (residual), K4 (factorization residual), K5 (diagonal-block triangular
-  inverse), K7 (trace-series sums) and K7b (the LOO diagonal series).
+  inverse), K6 (preconditioner apply), K7 (trace-series sums) and K7b (the
+  LOO diagonal series).
 - ``refine``: the sampling square root and its kernel K8s (f64 residual).
+- ``streamed``: the kernels of the streamed large-n engine
+  (gpmp_tpu_torch.parallel.streamed): K10b (row-chunk split into the f32
+  pair), K10r (factorization residual from the pair or from f64 panels),
+  K10m (residual against the pair) and K10t (chunked trace sums).
 - ``_build``: builds ``gpmp_tpu_torch/csrc/*.cu`` with nvcc at first use.
 """
 
-from . import distance, gram, mixed, refine
+from . import distance, gram, mixed, refine, streamed
 
-__all__ = ["distance", "gram", "mixed", "refine"]
+__all__ = ["distance", "gram", "mixed", "refine", "streamed"]

@@ -112,7 +112,15 @@ def _declare(lib):
         # ops/gram.py: K1, K2, K1m
         "gpmp_matern_max_d": ([], i32),
         "gpmp_matern_pullback_blocks": ([ll, ll], ll),
-        # ops/mixed.py: K3, K4, K5, K7, K7b; ops/refine.py: K8s
+        # ops/mixed.py: K3, K4, K5, K6, K7, K7b; ops/refine.py: K8s
+        "gpmp_precond_chunks": ([ll], ll),
+        # ops/streamed.py: K10b, K10r, K10m, K10t
+        "gpmp_split_rows": ([vp, vp, vp, vp, ll, ll, ll, ctypes.c_float, vp], i32),
+        "gpmp_streamed_residual_ff": ([vp, vp, vp, vp, ll, vp], i32),
+        "gpmp_streamed_residual_panel": ([vp, vp, vp, ll, ll, ll, vp], i32),
+        "gpmp_ff_residual": ([vp, vp, vp, vp, vp, vp, vp, ll, i32, vp], i32),
+        "gpmp_h_traces_blocks": ([ll, ll], ll),
+        "gpmp_h_traces": ([vp, vp, vp, vp, ll, ll, ll, vp], i32),
         "gpmp_residual_blocks": ([ll], ll),
         "gpmp_diag_block_inv_max_base": ([], i32),
         "gpmp_diag_block_inv": ([vp, vp, ll, i32, vp], i32),
@@ -143,6 +151,8 @@ def _declare(lib):
             [vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp], i32)
         signatures[f"gpmp_residual_{suffix}"] = ([vp, vp, vp, vp, vp, vp, ll, i32, vp], i32)
         signatures[f"gpmp_fact_residual_{suffix}"] = ([vp, vp, vp, ll, vp], i32)
+        signatures[f"gpmp_precond_apply_{suffix}"] = ([vp, vp, vp, vp, vp, ll, i32, vp], i32)
+        signatures[f"gpmp_precond_apply_wide_{suffix}"] = ([vp, vp, vp, vp, ll, ll, vp], i32)
     for name, (argtypes, restype) in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype

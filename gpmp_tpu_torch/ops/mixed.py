@@ -18,11 +18,14 @@ Counterpart of gpmp_tpu/ops/mixed.py (the 'mixed' engine of
    K^{-1} ~= M^T (I - D + D^2) M, with the analytic backward
    Kbar = -K^{-1} diag(dbar) K^{-1} - S X^T, Bbar = S.
 
-Five pieces are hand-written CUDA kernels (gpmp_tpu_torch/csrc/mixed.cu),
+Six pieces are hand-written CUDA kernels (gpmp_tpu_torch/csrc/mixed.cu),
 each with a plain PyTorch version here and a launch counter:
 
 - K3 ``residual``: R = B - K X and (sum R^2, sum B^2) for k <= 8 columns
   (``_f64_matvec`` plus the residual norms of ``refined_cholesky_solve``);
+- K6 ``_apply`` (``precond_apply_*``): the preconditioner application
+  M^T (M r) for any number of columns, r rounded to f32, f32 products,
+  cast back;
 - K4 ``factorization_residual``: R = K - L L^T over the lower triangle in
   f64, emitted in f32 and made symmetric (``_factorization_residual_f32``);
 - K5 ``diag_block_inv``: the inverses of the diagonal blocks of L32
@@ -36,11 +39,9 @@ each with a plain PyTorch version here and a launch counter:
 
 Each dispatcher takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors (or raises); there is no fallback between them.
-The matrix products around the kernels (the preconditioner applications
-M^T (M r), H = M R M^T, H @ H, the recursion levels of the triangular
-inverse, and K X for more than 8 columns) are ``torch.matmul``, as the JAX
-package left them to XLA's dot.  ``K6_APPLIES`` counts the preconditioner
-applications, the two products that the K6 kernel will fuse.
+The matrix products around the kernels (H = M R M^T, H @ H, the recursion
+levels of the triangular inverse, and K X for more than 8 columns) are
+``torch.matmul``, as the JAX package left them to XLA's dot.
 
 JAX's ``lax.while_loop`` and ``lax.cond`` become host branches: a refined
 solve reads its residual norm once per sweep (1 + sweeps reads), and the
@@ -82,7 +83,7 @@ K4_LAUNCHES = 0
 K5_LAUNCHES = 0
 K7_LAUNCHES = 0
 K7B_LAUNCHES = 0
-K6_APPLIES = 0  # calls of _apply: two torch.matmul until K6 is a kernel
+K6_LAUNCHES = 0
 
 _F32 = torch.float32
 
@@ -98,6 +99,12 @@ def residual_plain(K, X, B):
     KX = torch.stack([torch.sum(K * X[:, j], dim=1) for j in range(X.shape[1])], dim=1)
     R = B - KX
     return R, torch.stack([torch.sum(R * R), torch.sum(B * B)]).double()
+
+
+def precond_apply_plain(M32, R):
+    """K6 plain: M^T (M r32) in f32 with r32 = f32(R), cast to R's dtype (two
+    torch.matmul, as the JAX package's two jnp.dot)."""
+    return (M32.T @ (M32 @ R.to(_F32))).to(R.dtype)
 
 
 def factorization_residual_plain(K, L32):
@@ -205,6 +212,37 @@ def residual_cuda(K, X, B):
                   R.data_ptr(), partial.data_ptr(), norms.data_ptr(), n, k)
     K3_LAUNCHES += 1
     return R, norms
+
+
+def precond_apply_cuda(M32, R):
+    """K6 on the card: M^T (M r32) for lower-triangular f32 M and f64 or f32
+    R (n, k), r32 = f32(R), f32 products and sums, the result in R's dtype.
+
+    k <= 8: three launches from one C entry, y = M r32 by rows, per-chunk
+    partial sums of M^T y by column blocks, then a fixed-order sum of the
+    chunks.  Wider R: two tiled triangular products from one C entry,
+    y = M r32 then M^T y.  Both bitwise reproducible."""
+    global K6_LAUNCHES
+    dev = _check_cuda("K6 precond_apply", (M32, R), ((_F32,), (torch.float64, _F32)))
+    n = _square("K6 precond_apply", M32)
+    if R.ndim != 2 or R.shape[0] != n or R.shape[1] == 0:
+        raise ValueError(f"K6 precond_apply: R must be ({n}, k >= 1); got {tuple(R.shape)}")
+    k = R.shape[1]
+    lib = _build.load()
+    y = torch.empty((n, k), dtype=_F32, device=dev)
+    out = torch.empty((n, k), dtype=R.dtype, device=dev)
+    f64 = R.dtype == torch.float64
+    if k <= MATVEC_MAX_COLS:
+        partial = torch.empty((lib.gpmp_precond_chunks(n), n, k), dtype=_F32, device=dev)
+        fn = lib.gpmp_precond_apply_f64 if f64 else lib.gpmp_precond_apply_f32
+        _build.launch("K6 precond_apply", fn, dev, M32.data_ptr(),
+                      R.data_ptr(), y.data_ptr(), partial.data_ptr(), out.data_ptr(), n, k)
+    else:
+        fn = lib.gpmp_precond_apply_wide_f64 if f64 else lib.gpmp_precond_apply_wide_f32
+        _build.launch("K6 precond_apply (wide)", fn, dev, M32.data_ptr(),
+                      R.data_ptr(), y.data_ptr(), out.data_ptr(), n, k)
+    K6_LAUNCHES += 1
+    return out
 
 
 def factorization_residual_cuda(K, L32):
@@ -369,43 +407,47 @@ def loo_diag_pairs(G, W):
 # ----------------------------------------------------------------------------
 # The engine
 # ----------------------------------------------------------------------------
-def _block_tri_inv(L32, base=TRI_INV_BASE):
+def _block_tri_inv(L32, base=TRI_INV_BASE, blocks=None):
     """Inverse of a lower-triangular f32 matrix by recursive 2x2 blocking.
 
     [[A, 0], [C, B]]^{-1} = [[A^{-1}, 0], [-B^{-1} C A^{-1}, B^{-1}]]:
     the diagonal-block inverses (K5), then log2(nb) levels of batched
-    products.  n is padded with the identity up to base * 2^k (the JAX
-    package splits unevenly instead, to spare TPU memory); the padding
-    leaves the leading n x n block exactly L^{-1}'s computation.  Exact
-    zeros above the diagonal by construction."""
+    products, for n = base * 2^k.  Any other n is split unevenly at the
+    largest base * 2^k below it, as in the JAX package: A^{-1} and B^{-1}
+    recurse, X = -B^{-1} C A^{-1} is two products.  (Padding n with the
+    identity instead would hold (n_pad / n)^2 times the memory: two 16 GiB
+    temporaries at n = 51200.)  Every split falls on a multiple of base, so
+    one K5 launch inverts all the diagonal blocks first (``blocks``, the
+    ragged last one identity-completed) and the recursion only multiplies.
+    Exact zeros above the diagonal by construction."""
     n0 = L32.shape[0]
     if n0 <= base:
-        return diag_block_inv(L32, n0)[0]
-    nb = -(-n0 // base)
-    k = max(0, math.ceil(math.log2(nb)))
-    npad = base << k
-    blocks = diag_block_inv(L32, base)
-    if blocks.shape[0] < (1 << k):
-        eye = torch.eye(base, dtype=L32.dtype, device=L32.device)
-        blocks = torch.cat([blocks, eye.repeat((1 << k) - blocks.shape[0], 1, 1)])
-    if npad != n0:
-        Lp = torch.eye(npad, dtype=L32.dtype, device=L32.device)
-        Lp[:n0, :n0] = L32
-    else:
-        Lp = L32
+        return diag_block_inv(L32, n0)[0] if blocks is None else blocks[0][:n0, :n0]
+    if blocks is None:
+        blocks = diag_block_inv(L32, base)
+    k = math.ceil(math.log2(-(-n0 // base)))
+    if base << k != n0:
+        n1 = base << (k - 1)
+        out = torch.zeros((n0, n0), dtype=L32.dtype, device=L32.device)
+        Ai = out[:n1, :n1]
+        Ai.copy_(_block_tri_inv(L32[:n1, :n1], base, blocks[:n1 // base]))
+        Bi = _block_tri_inv(L32[n1:, n1:], base, blocks[n1 // base:])
+        out[n1:, :n1] = -(Bi @ (L32[n1:, :n1] @ Ai))
+        out[n1:, n1:] = Bi
+        return out
     s = base
     Bk = blocks
     for _ in range(k):
         m = Bk.shape[0] // 2  # pairs at this level
         A_blk, B_blk = Bk[0::2], Bk[1::2]
         jdx = torch.arange(m, device=L32.device)
-        C = Lp.reshape(m, 2, s, m, 2, s)[jdx, 1, :, jdx, 0, :]  # (m, s, s)
+        C = L32.reshape(m, 2, s, m, 2, s)[jdx, 1, :, jdx, 0, :]  # (m, s, s)
         X = -torch.matmul(B_blk, torch.matmul(C, A_blk))
         top = torch.cat([A_blk, torch.zeros_like(A_blk)], dim=2)
         bot = torch.cat([X, B_blk], dim=2)
         Bk = torch.cat([top, bot], dim=1)  # (m, 2s, 2s)
         s *= 2
-    return Bk[0][:n0, :n0]
+    return Bk[0]
 
 
 def _f32_preconditioner(K):
@@ -421,11 +463,11 @@ def _f32_preconditioner(K):
 
 
 def _apply(M32, R):
-    """Preconditioner application M^T (M R) in f32."""
-    global K6_APPLIES
-    K6_APPLIES += 1
-    r32 = R.to(_F32)
-    return (M32.T @ (M32 @ r32)).to(R.dtype)
+    """Preconditioner application M^T (M r32) cast to R's dtype, r32 =
+    f32(R), for (n, k) R of any width: K6 (card) or its plain version (CPU)."""
+    if _on_card(M32):
+        return precond_apply_cuda(M32.contiguous(), R.contiguous())
+    return precond_apply_plain(M32, R)
 
 
 def _rel2(norms, dtype):

@@ -32,6 +32,7 @@ SUBMODULES = (
     "gpmp_tpu_torch.ops._build",
     "gpmp_tpu_torch.ops.distance",
     "gpmp_tpu_torch.ops.refine",
+    "gpmp_tpu_torch.ops.streamed",
     "gpmp_tpu_torch.kernel",
     "gpmp_tpu_torch.kernel.matern",
     "gpmp_tpu_torch.kernel.exponential",
@@ -50,6 +51,11 @@ SUBMODULES = (
     "gpmp_tpu_torch.misc.designs",
     "gpmp_tpu_torch.misc.testfunctions",
     "gpmp_tpu_torch.interop",
+    "gpmp_tpu_torch.parallel",
+    "gpmp_tpu_torch.parallel.mesh",
+    "gpmp_tpu_torch.parallel.likelihood",
+    "gpmp_tpu_torch.parallel.streamed",
+    "gpmp_tpu_torch.parallel.view",
 )
 
 
