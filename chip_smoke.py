@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of gpmp_tpu_torch on one CUDA card: REML fit + predict, noisy
 REML fit + LOO + predict on the mixed Cholesky engine, conditional sample
-paths, and large-n REML on the streamed engine through a one-card mesh.
+paths, large-n REML on the streamed engine through a one-card mesh, and the
+mesh's resident branch (the blocked Cholesky with refined panels: fit,
+predict, LOO, the sharded mixed engine, n = 51200 parity).
 
 Run from the repository root with no arguments:
 
@@ -37,6 +39,14 @@ non-zero):
    plain versions on the card: at n in {1000, 4099, 8192}, cond(K) ~1e3 and
    ~1e6, panels and chunks of 512; and all five once more at n = 32768 on the
    engine's own residents at bench_large_n.py's p0; tolerances at TOL_2D.
+2e. K8r (the refined panel's residual and guard sums), K8t (the
+   triangular products of the Newton step and the Ogita-Aishima update),
+   K9u (the blocked factor's trailing update) and K9m (Murray's passes) vs
+   their plain versions on the card: K8r/K8t on (b, b) panels, b in
+   {256, 512}, cond ~1e3 and ~1e6; K9u at n in {1000, 4099, 16384, 51200}
+   (phase 3e's sizes), panels of 512, at the first, a middle and the last
+   panel, held entrywise by row blocks; K9m at n in {1000, 4099, 16384};
+   tolerances at TOL_2E.
 3. The main path: Hartmann6, n = 1000, d = 6, Matern p = 2, constant
    mean; select_parameters_with_reml then predict at nt = 1000 points, on
    the card, with the launch counters reset just before and the plain
@@ -76,9 +86,9 @@ non-zero):
    observations to 1e-6.
 3d. Large-n REML: bench_large_n.py's data and model (copied; d = 3, seed
    20260817, Matern p = 2 plus a noise variance, p0 from the data) at
-   n = 32768, set_chol_engine("mixed"), a one-card mesh, no GPMP_STREAM_N;
-   the dispatcher's numbers (the resident engines' bytes against 0.85 of the
-   card, the mode) must send it to the streamed engine in ff mode.  (a) one
+   n = 32768, set_chol_engine("mixed"), a one-card mesh, the cutover forced
+   at n (the mesh's resident mixed branch fits n = 32768 on an 80 GB card):
+   the streamed engine must pick ff mode.  (a) one
    REML value+grad at p0 through the sharded criterion with every counter of
    the path reset and the plain versions raising: K6, K10b, K10r, K10m,
    K10t, K5, K1d/K1m and their f32 backwards each launch; (b)
@@ -87,10 +97,30 @@ non-zero):
    Gates: at n = 32768 the REML value matches the port's f64 engine (core
    path, value only) to 1e-8; at n = 16384 (GPMP_STREAM_N forced) the
    gradient is within the class envelope of the f64 engine's; at n = 2048
-   the card matches the port on the CPU to 1e-8.  (d) At n = 51200 the
-   dispatcher takes recompute mode by itself: one value+grad.  The rise of
+   the card matches the port on the CPU to 1e-8.  (d) At n = 51200, past the
+   resident branch's reach, the dispatcher streams in recompute mode by
+   itself: one value+grad.  The rise of
    max_memory_allocated for one value+grad per streamed mode (and with the
    robust branch forced) and per resident engine, at n = 16384 and 32768.
+3e. The resident one-card mesh path, bench_large_n.py's workload,
+   make_mesh(1), panels of auto_shard_block = 512, the counters reset
+   before each call and every plain version raising: (a) n = 16384 on the
+   f64 engine, select_parameters_with_reml(mesh=..., L-BFGS-B, maxiter 2),
+   then the view's predict at make_data's xt (NT = 64) and LOO, held to the
+   core f64 engine (cuSOLVER) at p0 and at the fit (REML 1e-10, gradient
+   1e-7, predict and LOO at 100 cond(K) eps64, cond(K) by power iteration),
+   with K8r/K8t/K9u/K9m launched and the worst panel's guard residual
+   printed; (b) n = 16384 on the mixed engine, the dispatcher keeping the
+   resident branch (parallel/mixed.py): REML value+grad at p0 and at (a)'s
+   fit against (a) (REML 1e-6, the gradient envelope as phase 3b), K3-K7
+   launched; and at n = 32768, where the dispatcher's memory model keeps
+   the branch resident too, one value+grad at p0: its peak rise within the
+   model's units, its REML against the core f64 engine (1e-6) and its
+   gradient against the f64 resident branch (the envelope); (c) n = 51200, f64: sharded_covariance, sharded_cholesky, REML
+   with factor= against PARITY_51200_r03.json's NumPy oracle (1e-10),
+   sharded_predict(factor=) against the core f64 engine (1e-9; cuSOLVER
+   through core.kriging, on the covariance built once), and a gradient
+   through factor= must raise.
 4. Times on the card (CUDA events / synchronised host clock): K1 and K2 vs
    their plain versions at the main path's shapes; REML value+grad evals/s
    at n = 1000 and 8192 (kernels and plain gram); fit+predict wall-clock.
@@ -108,9 +138,15 @@ non-zero):
    and K10t): kernel (events and profiler device time), plain, library call
    (K6: multi_dot of the two products; K10r: a dense f64 addmm; K10m: an f64
    addmm), bound; the value and value+grad wall per mode (phase 3d).
+4e. K8r, K8t (b = 512), K9u (n = 16384, first panel) and K9m (n = 16384):
+   kernel (events and profiler device time), plain, library call (K8t:
+   torch.matmul; K9u: torch.addmm on the trailing block), bound; the whole
+   blocked factor at n = 16384 and 51200 against torch.linalg.cholesky_ex;
+   phase 3e's walls and peak rises.
 5. Where the time goes: torch.profiler over the noisy model's REML
-   value+grad at n = 1000 and 8192, mixed and f64 engines, and over one
-   streamed ff value+grad at n = 32768, device time per evaluation by
+   value+grad at n = 1000 and 8192, mixed and f64 engines, over one
+   streamed ff value+grad at n = 32768, and over one resident f64
+   value+grad at n = 16384 through the mesh, device time per evaluation by
    kernel group.
 
 The line before the last is {"kernels": [...]}, with each kernel's
@@ -239,6 +275,50 @@ TOL_LARGE = {"value": 1e-8, "robust": 1e-6, "grad": (1e-3, 1e-4)}
 # absolute) differ too; held at 1e-9 relative, ten times under the f64 gate
 TOL_FF_RC = 1e-9
 LARGE_FIT_MAXITER = 2  # L-BFGS-B iterations of the fit (1 if a value+grad takes > 20 s)
+# phase 2e: the resident mesh path's kernels vs their plain versions on the card
+K8_PANELS = (256, 512)           # the blocked factor's panel sizes
+K9U_SIZES = (1000, 4099, 16384, 51200)  # K9u at its first, a middle and its last panel
+K9M_SIZES = (1000, 4099, 16384)
+CHOL_BLOCK = 512                 # auto_shard_block at the path's n
+TOL_2E = {
+    # E = A - L L^T in f64 (L the f32 factor promoted, |E| ~ eps32 |A|): sums
+    # of b products in another order, |dE| <= 2 b eps64 max|A|; held at
+    # 1e-13 max|A| (b <= 512)
+    "K8r": 1e-13,
+    # the guard's sums: sum E^2 (E differs by ~b eps64 / eps32 ~ 1e-6
+    # relative) and sum A^2 (exact products in another order)
+    "K8r sums": (1e-5, 1e-13),
+    # C = beta A + alpha A f(B): each entry a dot product of <= b terms in
+    # another order, so |dC| <= 2 b eps64 (|beta||A| + |alpha||A||f(B)|)
+    # entrywise; held in those units (<= 1)
+    "K8t": 1.0,
+    # S - T T^T, b terms in another order: |dS| <= 2 b eps64 (|S| + |T||T|^T)
+    # entrywise, held in those units (K6's way)
+    "K9u": 1.0,
+    # the same f64 operations (a copy, a halving, a sum and a halving)
+    "K9m": 0.0,
+}
+# phase 3e: the resident one-card mesh path at full size
+RESIDENT_N = 16384      # (a) f64 fit, predict, LOO; (b) the mixed branch
+RESIDENT_MODEL_N = 32768  # (b) the dispatcher's resident choice at phase 3d's n
+RESIDENT_BIG_N = 51200  # (c) bench_large_n.py --mode parity on one device
+RESIDENT_MAXITER = 2
+# PARITY_51200_r03.json's reml_oracle: bench_large_n.py's NumPy oracle on the
+# same data at its p0 (n = 51200, d = 3)
+REML_ORACLE_51200 = -62089.0810059355
+TOL_RESIDENT = {
+    # (a) the blocked f64 factor against cuSOLVER's at the same covparam:
+    # REML relative, gradient max|dg| / max|g|; predict and LOO relative to
+    # their largest entry (the variances to the prior variance), at
+    # RESIDENT_SLACK kappa(K) eps64 (two backward-stable factorizations)
+    "reml": 1e-10, "grad": 1e-7,
+    # (b) the mixed branch against (a): REML (bench.py's gate), the gradient
+    # within the class envelope (log s2, the others) as phase 3b holds it
+    "mixed reml": 1e-6, "mixed grad": (1e-3, 1e-4),
+    # (c) the REML against the oracle, predict against cuSOLVER's f64 engine
+    "oracle": 1e-10, "predict": 1e-9,
+}
+RESIDENT_SLACK = 100.0
 
 
 def fail(msg):
@@ -387,7 +467,8 @@ class _PlainGuard:
         "mixed": ("residual_plain", "precond_apply_plain", "factorization_residual_plain",
                   "diag_block_inv_plain", "trace_sums_plain", "series_sums_plain",
                   "loo_diag_series_plain", "loo_diag_pairs_plain"),
-        "refine": ("sampling_residual_plain",),
+        "refine": ("sampling_residual_plain", "refine_residual_plain", "tri_product_plain"),
+        "chol": ("trailing_update_plain", "murray_phi_plain", "symmetrize_plain"),
         "streamed": ("split_rows_plain", "residual_panel_plain", "streamed_residual_ff_plain",
                      "ff_residual_plain", "h_traces_chunk_plain"),
     }
@@ -862,7 +943,7 @@ def _refine_probe(gp, gnp, mixed, torch, covparam, xi, zi, xt, zpm64, zpv64, swe
     return float(lam[-1] / lam[0]), out, implied, r2_engine
 
 
-def _reml_grad_terms(gp, gnp, torch, covparam, xi, zi):
+def _reml_grad_terms(gp, gnp, torch, covparam, xi, zi, model=None):
     """The two parts of the REML gradient at covparam, in plain f64 on the
     configured device (constant mean): the trace term 1/2 d(log|K| +
     log|P'K^{-1}P|), which is 1/2 tr(W dK) with W the REML projection, and
@@ -871,7 +952,7 @@ def _reml_grad_terms(gp, gnp, torch, covparam, xi, zi):
     two numbers of this size."""
     c = gnp.asarray(covparam).clone().requires_grad_(True)
     x, z = gnp.asarray(xi), gnp.asarray(zi)
-    K = _bench_model(gp, gnp).covariance(x, x, c)
+    K = (model or _bench_model(gp, gnp)).covariance(x, x, c)
     P = gnp.ones((x.shape[0], 1))
     C = torch.linalg.cholesky(K)
     X = torch.cholesky_solve(torch.cat([z[:, None], P], dim=1), C)
@@ -1569,15 +1650,25 @@ class _Patched:
 
 def phase_large_n(gp, gnp, torch, gram, distance, mixed, refine, ops, st):
     """Phase 3d: REML on bench_large_n's workload at n = LARGE_N through the
-    one-card mesh, on the streamed engine the dispatcher picks by itself."""
-    from gpmp_tpu_torch import parallel
-
+    one-card mesh, on the streamed engine."""
     t_phase = time.perf_counter()
     n = LARGE_N
     xi, zi, p0 = _large_data(n)
     gp.config.set_device(DEVICE)
     gp.config.set_chol_engine("mixed")
-    check(st.STREAM_MIN_N is None, "GPMP_STREAM_N is set: phase 3d needs the dispatcher's cutover")
+    check(st.STREAM_MIN_N is None, "GPMP_STREAM_N is set: phase 3d sets the cutover itself")
+    with _Patched(st, STREAM_MIN_N=n):
+        return _phase_large_n(gp, gnp, torch, gram, distance, mixed, refine, ops, st, t_phase)
+
+
+def _phase_large_n(gp, gnp, torch, gram, distance, mixed, refine, ops, st, t_phase):
+    """Phase 3d's body, the cutover forced at LARGE_N (the mesh's resident
+    mixed branch fits n = 32768 on an 80 GB card): (a)-(c) stream at n, and
+    (d) at LARGE_RC_N, past the resident branch's reach, streams by itself."""
+    from gpmp_tpu_torch import parallel
+
+    n = LARGE_N
+    xi, zi, p0 = _large_data(n)
     unit = 4 * n * n
     total = torch.cuda.get_device_properties(0).total_memory
     cap = st._device_bytes_cap()
@@ -1588,8 +1679,7 @@ def phase_large_n(gp, gnp, torch, gram, distance, mixed, refine, ops, st):
         f"(fits: {st._resident_fits(n)}); ff {st._FF_PEAK_UNITS}, recompute "
         f"{st._RECOMPUTE_PEAK_UNITS}, robust {st._ROBUST_PEAK_UNITS} units; mode chosen {mode}, "
         f"robust branch {st._robust_fits(n)}")
-    check(not st._resident_fits(n) and mode == "ff",
-          f"the dispatcher did not pick the streamed ff engine at n={n}")
+    check(mode == "ff", f"the streamed engine did not pick ff mode at n={n}")
     model = _large_model(gp, gnp)
     mesh = parallel.make_mesh(1, axis_name="shard")
     counters = _stream_counters(distance, gram, mixed, ops)
@@ -1694,15 +1784,17 @@ def phase_large_n(gp, gnp, torch, gram, distance, mixed, refine, ops, st):
         f"(tol {TOL_LARGE['value']})")
     check(e_cpu <= TOL_LARGE["value"], "card vs CPU at the small n")
 
-    # (d) past ff's reach: the dispatcher takes recompute mode by itself
+    # (d) past ff's reach and the resident branch's: the dispatcher streams
+    # in recompute mode by itself
     n4 = LARGE_RC_N
     xi4, zi4, p4 = _large_data(n4)
     mode4 = st.choose_mode(n4)
     check(mode4 == "recompute" and not st._resident_fits(n4),
           f"the dispatcher did not pick recompute at n={n4}: {mode4}")
     vg4, _ = _criterion(gp, model, xi4, zi4, mesh)
-    ((v4, g4), walls[f"recompute value+grad n={n4}"]), mem[("recompute", n4)] = _peak_rise(
-        torch, lambda: _timed(torch, lambda: vg4(p4)))
+    with _Patched(st, STREAM_MIN_N=None):
+        ((v4, g4), walls[f"recompute value+grad n={n4}"]), mem[("recompute", n4)] = _peak_rise(
+            torch, lambda: _timed(torch, lambda: vg4(p4)))
     say(f"[phase 3d] (d) n={n4}: mode {mode4}; value+grad "
         f"{walls[f'recompute value+grad n={n4}']:.3f} s, REML {v4!r}, grad "
         f"{np.array2string(g4, precision=6)}")
@@ -1734,6 +1826,557 @@ def phase_large_n(gp, gnp, torch, gram, distance, mixed, refine, ops, st):
     return launches, walls, mem, info
 
 
+
+# ----------------------------------------------------------------------------
+# phases 2e, 3e, 4e: the resident one-card mesh path (K8r, K8t, K9u, K9m)
+# ----------------------------------------------------------------------------
+def _resident_counters(refine, ochol):
+    """name -> (module, attribute) of the resident path's new kernels."""
+    return {"K8r": (refine, "K8R_LAUNCHES"), "K8t": (refine, "K8T_LAUNCHES"),
+            "K9u": (ochol, "K9U_LAUNCHES"), "K9m": (ochol, "K9M_LAUNCHES")}
+
+
+def _large_xt(n, d=LARGE_D, seed=LARGE_SEED, nt=64):
+    """bench_large_n.py make_data's xt (:52): drawn after xi and zi."""
+    rng = np.random.default_rng(seed)
+    rng.uniform(size=(n, d))
+    rng.normal(size=n)
+    return rng.uniform(size=(nt, d))
+
+
+def _large_gram(gp, gnp, n):
+    """K of bench_large_n's workload at its p0 (K1d/K1m), for the kernels'
+    checks at sizes where an eigendecomposition would cost seconds."""
+    from gpmp_tpu_torch import parallel
+
+    xi, _zi, p0 = _large_data(n)
+    return parallel.sharded_covariance(_large_model(gp, gnp), gnp.asarray(p0), gnp.asarray(xi),
+                                       None)
+
+
+def _dot_units(torch, dC, scale, terms):
+    """max |dC| / (2 terms eps64 scale), entrywise (0 where both are 0)."""
+    unit = 2.0 * terms * float(np.finfo(np.float64).eps) * scale
+    return float((dC.abs() / unit.clamp_min(1e-300)).max())
+
+
+def _k9u_units(torch, A1, A2, T, off, b, rows=1024):
+    """(max |dS| in units of 2 b eps64 (|S| + |T||T|^T), max |dS|, exact
+    symmetry of A1's trailing block) between K9u's output A1 and the plain
+    version's A2, by row blocks (no (n, n) temporary).  The input S is
+    recovered as A2's S + T T^T: its rounding moves the unit by ~eps64."""
+    n = A1.shape[0]
+    err, dmax, sym = 0.0, 0.0, True
+    for r0 in range(off, n, rows):
+        r1 = min(n, r0 + rows)
+        S1, S2, Tr = A1[r0:r1, off:], A2[r0:r1, off:], T[r0 - off:r1 - off]
+        dS = S1 - S2
+        scale = (S2 + Tr @ T.T).abs() + Tr.abs() @ T.abs().T
+        err = max(err, _dot_units(torch, dS, scale, b))
+        dmax = max(dmax, float(dS.abs().max()))
+        sym = sym and torch.equal(S1, A1[off:, r0:r1].T)
+        del dS, scale
+    return err, dmax, sym
+
+
+def phase_resident_kernels_vs_plain(gp, gnp, torch, gram, refine, ochol):
+    """Phase 2e: K8r, K8t, K9u and K9m against their plain versions on the
+    card, with the tolerances and reasons at TOL_2E."""
+    worst, absd = {}, {}
+
+    def held(key, err, tag):
+        tol = TOL_2E[key]
+        check(math.isfinite(err) and err <= tol, f"{key} {tag}: {err:.3e} > {tol}")
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    for b in K8_PANELS:
+        for cond_req in MIXED_CONDS:
+            A, cond_a = _noisy_matern_spd(torch, gram, b, cond_req, 300 + b)
+            tag = f"b={b} cond={cond_a:.2e}"
+            # the refinement's first inputs: L = the f32 factor promoted, M its
+            # f32 inverse promoted
+            L32 = torch.linalg.cholesky(A.float())
+            eye = torch.eye(b, dtype=torch.float32, device=DEVICE)
+            L = L32.double().contiguous()
+            M = torch.linalg.solve_triangular(L32, eye, upper=False).double().contiguous()
+            E, sums = refine.refine_residual_cuda(A, L)
+            Ep, sums_p = refine.refine_residual_plain(A, L)
+            check(torch.equal(E, E.T), f"K8r not symmetric ({tag})")
+            e_r = float((E - Ep).abs().max()) / float(A.abs().max())
+            held("K8r", e_r, tag)
+            e_s = [abs(float(sums[i] - sums_p[i])) / abs(float(sums_p[i])) for i in (0, 1)]
+            check(e_s[0] <= TOL_2E["K8r sums"][0] and e_s[1] <= TOL_2E["K8r sums"][1],
+                  f"K8r sums {tag}: {e_s}")
+            # K8t: the Newton step's two products and the Ogita-Aishima update
+            P = refine.tri_product_plain(L, M)
+            X = (M @ Ep @ M.T).contiguous()
+            e_t = []
+            for a_, b_, beta, alpha, phi in ((L, M, 0.0, 1.0, False), (M, P, 2.0, -1.0, False),
+                                            (L, X, 1.0, 1.0, True)):
+                C = refine.tri_product_cuda(a_, b_, beta, alpha, phi)
+                Cp = refine.tri_product_plain(a_, b_, beta, alpha, phi)
+                fB = refine._phi(b_) if phi else torch.tril(b_)
+                scale = abs(beta) * a_.abs() + abs(alpha) * (torch.tril(a_).abs() @ fB.abs())
+                check(bool((torch.triu(C, 1) == 0).all()), f"K8t upper triangle not 0 ({tag})")
+                e_t.append(_dot_units(torch, C - Cp, scale, b))
+                if b == CHOL_BLOCK and cond_req == MIXED_CONDS[0]:
+                    absd["K8t"] = max(absd.get("K8t", 0.0), float((C - Cp).abs().max()))
+            for e in e_t:
+                held("K8t", e, tag)
+            if b == CHOL_BLOCK and cond_req == MIXED_CONDS[0]:
+                absd["K8r"] = float((E - Ep).abs().max())
+            say(f"[phase 2e] K8r/K8t {tag}: K8r max|dE|/max|A| {e_r:.2e}, sums {e_s[0]:.2e}/"
+                f"{e_s[1]:.2e}; K8t (units of 2 b eps64 |A||f(B)|) L M {e_t[0]:.2e}, "
+                f"2M - M P {e_t[1]:.2e}, L + L Phi(X) {e_t[2]:.2e}")
+    b = CHOL_BLOCK
+    for n in K9U_SIZES:
+        A = (_noisy_matern_spd(torch, gram, n, MIXED_CONDS[0], 400 + n)[0] if n <= 4099
+             else _large_gram(gp, gnp, n))
+        gc.collect()
+        torch.cuda.empty_cache()  # the gram's temporaries: n = 51200 holds two n^2 here
+        A1 = torch.empty_like(A)
+        for c0 in sorted({0, ((n - 1) // b // 2) * b, ((n - 1) // b - 1) * b}):
+            A1.copy_(A)  # the same input for both
+            off = c0 + b
+            T = A[off:, c0:off].clone()
+            ochol.trailing_update_cuda(A1, c0, b)
+            ochol.trailing_update_plain(A, c0, b)
+            err, dmax, sym = _k9u_units(torch, A1, A, T, off, b)
+            check(sym, f"K9u trailing block not symmetric (n={n}, c0={c0})")
+            check(torch.equal(A1[:off], A[:off]) and torch.equal(A1[off:, :off], A[off:, :off]),
+                  f"K9u wrote outside the trailing block (n={n}, c0={c0})")
+            held("K9u", err, f"n={n} c0={c0}")
+            if n == RESIDENT_N and c0 == 0:
+                absd["K9u"] = dmax
+            say(f"[phase 2e] K9u n={n} panel [{c0}, {off}): max|dS| in units of 2 b eps64 "
+                f"(|S| + |T||T|^T) {err:.2e} (tol {TOL_2E['K9u']}), max|dS| {dmax:.2e}")
+            # the next panel's input is the gram again (S - T T^T + T T^T, to
+            # rounding; both versions read only the lower triangle): without
+            # the factor's panel solve in between, updated entries would grow
+            # by |T|^2 b per panel
+            A[off:, off:].addmm_(T, T.T)
+        del A, A1, T
+        gc.collect()
+        torch.cuda.empty_cache()
+    for n in K9M_SIZES:
+        gen = torch.Generator(device=DEVICE).manual_seed(n)
+        P = torch.randn(n, n, dtype=torch.float64, device=DEVICE, generator=gen)
+        same = []
+        for cuda_fn, plain_fn in ((ochol.murray_phi_cuda, ochol.murray_phi_plain),
+                                  (ochol.symmetrize_cuda, ochol.symmetrize_plain)):
+            X1, X2 = P.clone(), P.clone()
+            cuda_fn(X1)
+            plain_fn(X2)
+            same.append(torch.equal(X1, X2))
+            held("K9m", float((X1 - X2).abs().max()), f"n={n}")
+        say(f"[phase 2e] K9m n={n}: phi bitwise {same[0]}, symmetrize bitwise {same[1]}")
+    absd["K9m"] = 0.0
+    say("[phase 2e] worst " + ", ".join(f"{k} {v:.3e} (tol {TOL_2E[k]})"
+                                        for k, v in sorted(worst.items())))
+    return absd
+
+
+def _cond_estimate(torch, K, iters=40):
+    """cond(K) ~ lambda_max / lambda_min by power and inverse power iteration
+    (cuSOLVER's f64 factor for the inverse): a lower bound that converges
+    from below."""
+    C = torch.linalg.cholesky_ex(K)[0]
+    v = torch.ones(K.shape[0], 1, dtype=K.dtype, device=K.device)
+    w = v.clone()
+    for _ in range(iters):
+        v = K @ v
+        v /= v.norm()
+        w = torch.cholesky_solve(w, C)
+        w /= w.norm()
+    lam_max = float((v.T @ (K @ v)).squeeze())
+    lam_min = float((w.T @ (K @ w)).squeeze())
+    return lam_max / lam_min
+
+
+def phase_resident(gp, gnp, torch, gram, distance, mixed, refine, ochol, st):
+    """Phase 3e: the resident one-card mesh path at full size."""
+    from gpmp_tpu_torch import parallel
+    from gpmp_tpu_torch.parallel import chol as pchol
+    from gpmp_tpu_torch.parallel import mixed as pmixed
+
+    t_phase = time.perf_counter()
+    eps64 = float(np.finfo(np.float64).eps)
+    n = RESIDENT_N
+    xi, zi, p0 = _large_data(n)
+    xt = _large_xt(n)
+    gp.config.set_device(DEVICE)
+    mesh = parallel.make_mesh(1, axis_name="shard")
+    block = parallel.auto_shard_block(n, mesh)
+    check(block == CHOL_BLOCK, f"auto_shard_block({n}) = {block}")
+    counters = _resident_counters(refine, ochol)
+    guard = (gram, distance, mixed, refine, ochol)
+    walls, mem, per_call = {}, {}, {}
+    unit = 4 * n * n
+
+    # (a) the f64 engine: REML fit, predict and LOO through the mesh
+    gp.config.set_chol_engine("f64")
+    model = _large_model(gp, gnp)
+    vg_mesh, _ = _criterion(gp, model, xi, zi, mesh)
+    vg_core, _ = _criterion(gp, model, xi, zi)
+    with _PlainGuard(*guard):
+        _reset(counters)
+        ((v0, g0), walls["f64 mesh value+grad (first)"]), mem["f64 mesh value+grad"] = _peak_rise(
+            torch, lambda: _timed(torch, lambda: vg_mesh(p0)))
+        per_call["value+grad"] = _read(counters)
+        _, walls["f64 mesh value+grad (warm)"] = _timed(torch, lambda: vg_mesh(p0 + 1e-3))
+        _reset(counters)
+        fit_model = _large_model(gp, gnp)
+        (fit_model, info), walls["fit"] = _timed(
+            torch, lambda: gp.kernel.select_parameters_with_reml(
+                fit_model, xi, zi, covparam0=p0, mesh=mesh, method="L-BFGS-B",
+                method_options={"maxiter": RESIDENT_MAXITER}, info=True))
+        launches = _read(counters)
+        p_fit = np.asarray(info.x)
+        view = parallel.ShardedModelView(fit_model, mesh)
+        _reset(counters)
+        ((zpm, zpv), walls["predict"]), mem["predict"] = _peak_rise(
+            torch, lambda: _timed(torch, lambda: view.predict(xi, zi, xt)))
+        per_call["predict"] = _read(counters)
+        _reset(counters)
+        ((zloo, s2loo, eloo), walls["loo"]), mem["loo"] = _peak_rise(
+            torch, lambda: _timed(torch, lambda: view.loo(xi, zi)))
+        per_call["loo"] = _read(counters)
+        v_fit, g_fit = vg_mesh(p_fit)
+    for key in counters:
+        launches[key] += per_call["predict"][key] + per_call["loo"][key]
+    say(f"[phase 3e] (a) n={n} f64, make_mesh(1), block {block}: fit (L-BFGS-B, maxiter "
+        f"{RESIDENT_MAXITER}) nfev {info.nfev}, {walls['fit']:.3f} s, REML "
+        f"{info.history_criterion[0]!r} at p0 -> {info.fun!r}, covparam "
+        f"{np.array2string(p_fit, precision=4)}; predict {walls['predict']:.3f} s, LOO "
+        f"{walls['loo']:.3f} s; launches (fit + predict + LOO) {launches}; per value+grad "
+        f"{per_call['value+grad']}, per predict {per_call['predict']}, per LOO {per_call['loo']}")
+    for key, count in launches.items():
+        check(count > 0, f"{key} was not launched on the resident mesh path")
+    check(np.isfinite(info.fun) and info.fun <= info.history_criterion[0],
+          "the resident fit ended above its start or not finite")
+
+    # the core f64 engine (cuSOLVER) at p0 and at the fit
+    v0c, g0c = vg_core(p0)
+    _, walls["f64 core value+grad (warm)"] = _timed(torch, lambda: vg_core(p0 + 1e-3))
+    v_fitc, g_fitc = vg_core(p_fit)
+    e_v = max(abs(v0 - v0c) / abs(v0c), abs(v_fit - v_fitc) / abs(v_fitc))
+    e_g = max(float(np.max(np.abs(g0 - g0c)) / np.max(np.abs(g0c))),
+              float(np.max(np.abs(g_fit - g_fitc)) / np.max(np.abs(g_fitc))))
+    core_model = _large_model(gp, gnp)
+    core_model.covparam = gnp.asarray(p_fit)
+    zpm_c, zpv_c = core_model.predict(xi, zi, xt, convert_out=False)
+    loo_c = core_model.loo(xi, zi)
+    K = parallel.sharded_covariance(core_model, gnp.asarray(p_fit), gnp.asarray(xi), mesh)
+    kappa = _cond_estimate(torch, K)
+    prior = float((core_model.covariance(gnp.asarray(xt), None, gnp.asarray(p_fit),
+                                         pairwise=True)).abs().max())
+    # the worst refined panel's err2 = |A - L L^T|_F^2 / |A|_F^2 over one
+    # factor at the fit, and the launches per factor and per solve
+    err2s = []
+    orig = pchol.refined_cholesky
+
+    def recording(A, **kw):
+        out = orig(A, **kw)
+        Lp = out[0] if isinstance(out, tuple) else out
+        err2s.append(float(((A - Lp @ Lp.T) ** 2).sum() / (A * A).sum()))
+        return out
+
+    with _PlainGuard(*guard), _Patched(pchol, refined_cholesky=recording):
+        _reset(counters)
+        L = pchol._factor_in_place(K, mesh, block)
+        per_call["factor"] = _read(counters)
+        _reset(counters)
+        pchol.blocked_solve_lower(L, gnp.asarray(zi), block=block, mesh=mesh)
+        per_call["solve"] = _read(counters)
+    del K, L
+    tol_k = RESIDENT_SLACK * kappa * eps64
+    e_pm = rel_err(zpm, zpm_c)
+    e_pv = float((zpv - zpv_c).abs().max()) / prior
+    e_loo = [rel_err(a, b) for a, b in zip((zloo, s2loo, eloo), loo_c)]
+    say(f"[phase 3e] (a) vs the core f64 engine (cuSOLVER): REML rel {e_v:.2e} (tol "
+        f"{TOL_RESIDENT['reml']}), grad {e_g:.2e} (tol {TOL_RESIDENT['grad']}); cond(K) at the "
+        f"fit ~{kappa:.3e} (power iteration), worst panel err2 {max(err2s):.3e} over "
+        f"{len(err2s)} panels (guard {refine._FACTOR_RTOL2}); predict mean {e_pm:.2e}, variance "
+        f"{e_pv:.2e} of the prior variance, LOO {', '.join(f'{e:.2e}' for e in e_loo)} (tol "
+        f"{RESIDENT_SLACK:g} cond(K) eps64 = {tol_k:.2e}); per factor {per_call['factor']}, "
+        f"per solve {per_call['solve']}")
+    check(e_v <= TOL_RESIDENT["reml"] and e_g <= TOL_RESIDENT["grad"],
+          "the resident f64 REML against the core f64 engine")
+    check(max(e_pm, e_pv, *e_loo) <= tol_k, "resident predict/LOO against the core f64 engine")
+    check(max(err2s) < refine._FACTOR_RTOL2, "a refined panel missed the guard")
+
+    # (b) the mixed engine: the dispatcher keeps n on the resident branch
+    gp.config.set_chol_engine("mixed")
+    applicable = st.streamed_applicable(model, gnp.asarray(p0), gnp.asarray(xi), mesh, "shard")
+    check(st.STREAM_MIN_N is None and st._resident_fits(n) and not applicable,
+          f"the dispatcher did not choose the resident branch at n={n}")
+    mc = {k: (mixed, f"{k}_LAUNCHES") for k in ("K3", "K4", "K5", "K6", "K7")}
+    branches = []
+    core_fn = pmixed._mp_core
+
+    def recording_core(*a):
+        out = core_fn(*a)
+        branches.append("series" if out[2][1] else "robust")
+        return out
+
+    level2 = []
+    level2_fn = pmixed._streamed_level2_g
+
+    def recording_level2(*a):
+        g1, g2 = level2_fn(*a)
+        level2.append(float(g2))
+        return g1, g2
+
+    vg_mix, _ = _criterion(gp, model, xi, zi, mesh)
+    with _PlainGuard(*guard), _Patched(pmixed, _mp_core=recording_core,
+                                       _streamed_level2_g=recording_level2):
+        _reset(mc)
+        ((vm0, gm0), walls["mixed mesh value+grad (first)"]), mem["mixed mesh value+grad"] = (
+            _peak_rise(torch, lambda: _timed(torch, lambda: vg_mix(p0))))
+        mixed_launches = _read(mc)
+        vm1, gm1 = vg_mix(p_fit)
+        _, walls["mixed mesh value+grad (warm)"] = _timed(torch, lambda: vg_mix(p0 + 1e-3))
+    gp.config.set_chol_engine("f64")
+    g_tr, g_q = _reml_grad_terms(gp, gnp, torch, p_fit, xi, zi, model=_large_model(gp, gnp))
+    env_s2, env_rest = TOL_RESIDENT["mixed grad"]
+    env = np.array([env_s2] + [env_rest] * (len(p0) - 1))
+    e_vm = max(abs(vm0 - v0) / abs(v0), abs(vm1 - v_fit) / abs(v_fit))
+    e_g0 = np.abs(gm0 - g0) / np.abs(g0)
+    e_g1 = np.abs(gm1 - g_fit) / np.maximum.reduce([np.abs(g_fit), np.abs(g_tr), np.abs(g_q)])
+    say(f"[phase 3e] (b) n={n} mixed, dispatcher: resident (streamed applicable {applicable}, "
+        f"model {st._RESIDENT_PEAK_UNITS} units); logdet branches {branches}, level-2 "
+        f"|G|_F^2 {', '.join(f'{g:.3e}' for g in level2)} (gate {st._level2_tau(n):.3e}; the JAX "
+        f"module's absolute gate 1e-8); launches "
+        f"{mixed_launches}; REML vs (a) rel {e_vm:.2e} (tol {TOL_RESIDENT['mixed reml']}); grad at "
+        f"p0 {np.array2string(e_g0, precision=2)}, at the fit (relative to the trace and "
+        f"quadratic terms) {np.array2string(e_g1, precision=2)} (envelope {env.tolist()})")
+    for key, count in mixed_launches.items():
+        check(count > 0, f"{key} was not launched on the resident mixed branch")
+    check(e_vm <= TOL_RESIDENT["mixed reml"] and np.all(e_g0 <= env) and np.all(e_g1 <= env),
+          "the resident mixed branch against the f64 resident branch")
+    del vg_mix, vg_mesh, vg_core
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) at n = 32768, the largest size phase 3d names, where the memory
+    # model (_RESIDENT_PEAK_UNITS) keeps the dispatcher on the resident
+    # branch too: one value+grad at p0, its peak rise against the model, its
+    # REML against the core f64 engine (cuSOLVER, value only, as phase 3d(a)
+    # holds the stream) and its gradient against the f64 resident branch
+    nb = RESIDENT_MODEL_N
+    xib, zib, pb = _large_data(nb)
+    gp.config.set_chol_engine("mixed")
+    model_b = _large_model(gp, gnp)
+    applicable_b = st.streamed_applicable(model_b, gnp.asarray(pb), gnp.asarray(xib), mesh,
+                                          "shard")
+    check(st._resident_fits(nb) and not applicable_b,
+          f"the dispatcher did not choose the resident branch at n={nb}")
+    vg_b, _ = _criterion(gp, model_b, xib, zib, mesh)
+    branches.clear()
+    level2.clear()
+    with _PlainGuard(*guard), _Patched(pmixed, _mp_core=recording_core,
+                                       _streamed_level2_g=recording_level2):
+        _reset(mc)
+        ((vb, gb), walls[f"mixed mesh value+grad n={nb}"]), mem_b = _peak_rise(
+            torch, lambda: _timed(torch, lambda: vg_b(pb)))
+        launches_b = _read(mc)
+    del vg_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    gp.config.set_chol_engine("f64")
+    with torch.no_grad():
+        vb64 = float(model_b.negative_log_restricted_likelihood(
+            gnp.asarray(pb), gnp.asarray(xib), gnp.asarray(zib)))
+    vg_b64, _ = _criterion(gp, model_b, xib, zib, mesh)
+    with _PlainGuard(*guard):
+        (vbm, gbm), walls[f"f64 mesh value+grad n={nb}"] = _timed(torch, lambda: vg_b64(pb))
+    del vg_b64
+    gc.collect()
+    torch.cuda.empty_cache()
+    units_b = mem_b / (4 * nb * nb)
+    e_vb, e_vbm = abs(vb - vb64) / abs(vb64), abs(vbm - vb64) / abs(vb64)
+    e_gb = np.abs(gb - gbm) / np.abs(gbm)
+    say(f"[phase 3e] (b) n={nb} mixed, dispatcher: resident (streamed applicable "
+        f"{applicable_b}); peak rise {mem_b / 2**30:.3f} GiB = {units_b:.2f} units of 4n^2 B "
+        f"(model {st._RESIDENT_PEAK_UNITS}); logdet branches {branches}, level-2 |G|_F^2 "
+        f"{', '.join(f'{g:.3e}' for g in level2)} (gate {st._level2_tau(nb):.3e}); launches "
+        f"{launches_b}; REML {vb!r} vs the core f64 engine {vb64!r} rel {e_vb:.2e} (tol "
+        f"{TOL_RESIDENT['mixed reml']}); f64 resident branch REML rel {e_vbm:.2e} (tol "
+        f"{TOL_RESIDENT['reml']}), mixed grad vs it {np.array2string(e_gb, precision=2)} "
+        f"(envelope {env.tolist()})")
+    for key, count in launches_b.items():
+        check(count > 0, f"{key} was not launched on the resident mixed branch at n={nb}")
+    check(units_b <= st._RESIDENT_PEAK_UNITS,
+          f"the resident mixed branch's peak at n={nb} exceeds the dispatcher's model")
+    check(e_vb <= TOL_RESIDENT["mixed reml"] and e_vbm <= TOL_RESIDENT["reml"]
+          and np.all(e_gb <= env), f"the resident branches at n={nb} against the f64 engine")
+
+    # (c) n = 51200, f64: bench_large_n.py --mode parity on one device
+    n3 = RESIDENT_BIG_N
+    xi3, zi3, p3 = _large_data(n3)
+    xt3 = _large_xt(n3)
+    model3 = _large_model(gp, gnp)
+    model3.covparam = gnp.asarray(p3)
+    x3, z3, c3 = gnp.asarray(xi3), gnp.asarray(zi3), gnp.asarray(p3)
+    block3 = parallel.auto_shard_block(n3, mesh)
+    with _PlainGuard(*guard):
+        _reset(counters)
+        K3 = parallel.sharded_covariance(model3, c3, x3, mesh)
+        L3, walls[f"factor n={n3} (sharded_cholesky)"] = _timed(
+            torch, lambda: parallel.sharded_cholesky(K3, mesh, block=block3))
+        del K3
+        per_call[f"factor n={n3}"] = _read(counters)
+        v3 = float(parallel.sharded_negative_log_restricted_likelihood(
+            model3, c3, x3, z3, mesh, block=block3, factor=L3))
+        (zpm3, zpv3), walls[f"predict n={n3} (factor=)"] = _timed(
+            torch, lambda: parallel.sharded_predict(model3, xi3, zi3, xt3, mesh, block=block3,
+                                                    factor=L3))
+        pg = c3.clone().requires_grad_(True)
+        vg3 = parallel.sharded_negative_log_restricted_likelihood(
+            model3, pg, x3, z3, mesh, block=block3, factor=L3)
+        try:
+            torch.autograd.grad(vg3, pg)
+            refused = False
+        except ValueError as exc:
+            refused = "factor=" in str(exc)
+    del L3, vg3
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the core f64 engine (cuSOLVER potrf + potrs through core.kriging) on the
+    # covariance built once: the user kernel's own (n, n) temporaries (the
+    # distances, the polynomial, the noise term) do not fit the card twice
+    K3 = parallel.sharded_covariance(model3, c3, x3, mesh)
+    torch.cuda.empty_cache()  # the gram's cached temporaries: potrf needs two more n^2
+
+    def cached(x, y, c, pairwise=False):
+        if not pairwise and y is not None and x.shape[0] == n3 and y.shape[0] == n3:
+            return K3
+        return model3.covariance(x, y, c, pairwise)
+
+    core3 = gp.Model(model3.mean, cached, covparam=c3)
+    zpm3c, zpv3c = core3.predict(xi3, zi3, xt3, convert_out=False)
+    del K3, core3
+    gc.collect()
+    torch.cuda.empty_cache()
+    e_or = abs(v3 - REML_ORACLE_51200) / abs(REML_ORACLE_51200)
+    e_p3 = (rel_err(zpm3, zpm3c), rel_err(zpv3, zpv3c))
+    t_factor3 = walls[f"factor n={n3} (sharded_cholesky)"]
+    say(f"[phase 3e] (c) n={n3} f64, block {block3}: factor {t_factor3:.3f} s "
+        f"(launches {per_call[f'factor n={n3}']}); REML factor= {v3!r} vs the NumPy oracle "
+        f"{REML_ORACLE_51200!r} (PARITY_51200_r03.json) rel {e_or:.2e} (tol "
+        f"{TOL_RESIDENT['oracle']}); predict (NT=64) vs the core f64 engine mean {e_p3[0]:.2e}, "
+        f"variance {e_p3[1]:.2e} (tol {TOL_RESIDENT['predict']}); a gradient through factor= "
+        f"raised: {refused}")
+    check(e_or <= TOL_RESIDENT["oracle"], "the n=51200 REML against the oracle")
+    check(max(e_p3) <= TOL_RESIDENT["predict"], "the n=51200 predict against the core f64 engine")
+    check(refused, "a gradient through factor= did not raise")
+    for what, b in mem.items():
+        say(f"[phase 3e] peak rise, {what} n={n}: {b / 2**30:.3f} GiB = {b / unit:.2f} units of "
+            f"4n^2 B")
+    say(f"[phase 3e] walls: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
+    say(f"[phase 3e] phase seconds {time.perf_counter() - t_phase:.1f}")
+    gp.config.set_chol_engine("auto")
+    return launches, per_call, walls, mem
+
+
+def _resident_bounds(n, b=CHOL_BLOCK):
+    """(bound_ms, bound_by) of the new kernels at the shapes phase 4e times:
+    K8r/K8t on one b x b panel, K9u at the first panel of an n factor, K9m's
+    two in-place passes at n."""
+    def bound(nbytes, flops, peak):
+        t_b, t_o = nbytes / PEAK_BYTES_PER_S, flops / peak
+        return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+    tri_b = b * (b + 1) // 2
+    fma_r = sum((b - j) * (j + 1) for j in range(b))  # sum over i >= j of (j + 1)
+    fma_t = b * (b + 1) * (b + 2) // 6                 # sum over i >= j of (i - j + 1)
+    m = n - b
+    tri_m = m * (m + 1) // 2
+    return {
+        # reads A and L (lower), writes E; the guard's sums
+        "K8r": bound(8 * (b * b + tri_b) + 8 * b * b, 2 * fma_r + 3 * tri_b,
+                     PEAK_F64_TENSOR_FLOPS),
+        # reads the lower triangles of A and B, writes C
+        "K8t": bound(8 * 2 * tri_b + 8 * b * b, 2 * fma_t + 2 * tri_b, PEAK_F64_TENSOR_FLOPS),
+        # reads the lower trailing block and T, writes the trailing block
+        "K9u": bound(8 * (tri_m + m * b) + 8 * m * m, 2 * tri_m * b, PEAK_F64_TENSOR_FLOPS),
+        # phi writes the strict upper triangle's zeros and rewrites the
+        # diagonal (the lower entries it keeps need no traffic); sym reads
+        # and writes every entry
+        "K9m": bound(8 * (n * n - n) // 2 + 16 * n + 16 * n * n, 2 * n * n, PEAK_F64_FLOPS),
+    }
+
+
+def phase_resident_times(gp, gnp, torch, gram, refine, ochol, walls3e):
+    """Phase 4e: the new kernels' times (CUDA events, profiler device time),
+    their plain versions and library calls, the whole factor against
+    cuSOLVER's, and the resident path's walls."""
+    from gpmp_tpu_torch.parallel import chol as pchol
+    from gpmp_tpu_torch import parallel
+
+    b, n = CHOL_BLOCK, RESIDENT_N
+    t = lambda fn, reps: _time_cuda(torch, fn, reps, warmup=1)  # noqa: E731
+    times, device = {}, {}
+    A, _ = _noisy_matern_spd(torch, gram, b, MIXED_CONDS[0], 300 + b)
+    L32 = torch.linalg.cholesky(A.float())
+    L = L32.double().contiguous()
+    eye = torch.eye(b, dtype=torch.float32, device=DEVICE)
+    M = torch.linalg.solve_triangular(L32, eye, upper=False).double().contiguous()
+    times["K8r"] = (t(lambda: refine.refine_residual_cuda(A, L), 50),
+                    t(lambda: refine.refine_residual_plain(A, L), 50), None)
+    device["K8r"] = _device_ms(torch, lambda: refine.refine_residual_cuda(A, L), 20)
+    times["K8t"] = (t(lambda: refine.tri_product_cuda(L, M), 50),
+                    t(lambda: refine.tri_product_plain(L, M), 50),
+                    t(lambda: torch.matmul(L, M), 50))
+    device["K8t"] = _device_ms(torch, lambda: refine.tri_product_cuda(L, M), 20)
+    K = _large_gram(gp, gnp, n)
+    W = K.clone()
+    S, T = K[b:, b:], K[b:, :b]
+    times["K9u"] = (t(lambda: ochol.trailing_update_cuda(W, 0, b), 10),
+                    t(lambda: ochol.trailing_update_plain(W, 0, b), 3),
+                    t(lambda: torch.addmm(S, T, T.T, alpha=-1.0), 10))
+    device["K9u"] = _device_ms(torch, lambda: ochol.trailing_update_cuda(W, 0, b), 5)
+    W.copy_(K)
+    times["K9m"] = (
+        t(lambda: ochol.murray_phi_cuda(W), 10) + t(lambda: ochol.symmetrize_cuda(W), 10),
+        t(lambda: ochol.murray_phi_plain(W), 3) + t(lambda: ochol.symmetrize_plain(W), 3), None)
+    device["K9m"] = (_device_ms(torch, lambda: ochol.murray_phi_cuda(W), 5)
+                     + _device_ms(torch, lambda: ochol.symmetrize_cuda(W), 5))
+    del W, S, T
+    # the whole factor against cuSOLVER's f64 potrf, n = 16384 and 51200
+    factor = {}
+    W = K.clone()
+    _, factor[f"blocked n={n}"] = _timed(torch, lambda: pchol._blocked_cholesky_(W, b))
+    W.copy_(K)
+    _, factor[f"blocked n={n} (warm)"] = _timed(torch, lambda: pchol._blocked_cholesky_(W, b))
+    del W
+    _, factor[f"cholesky_ex n={n}"] = _timed(torch, lambda: torch.linalg.cholesky_ex(K))
+    _, factor[f"cholesky_ex n={n} (warm)"] = _timed(torch, lambda: torch.linalg.cholesky_ex(K))
+    del K
+    gc.collect()
+    torch.cuda.empty_cache()
+    K = _large_gram(gp, gnp, RESIDENT_BIG_N)
+    _, factor[f"cholesky_ex n={RESIDENT_BIG_N}"] = _timed(
+        torch, lambda: torch.linalg.cholesky_ex(K))
+    del K
+    gc.collect()
+    torch.cuda.empty_cache()
+    factor[f"blocked n={RESIDENT_BIG_N} (phase 3e, with its clone of K)"] = walls3e[
+        f"factor n={RESIDENT_BIG_N} (sharded_cholesky)"]
+    bounds = _resident_bounds(n)
+    shapes = {"K8r": f"b={b}", "K8t": f"b={b}", "K9u": f"n={n} first panel", "K9m": f"n={n}"}
+    for key, (t_k, t_p, t_l) in times.items():
+        b_ms, b_by = bounds[key]
+        lib = "none" if t_l is None else f"{t_l:.4f} ms"
+        say(f"[phase 4e] {key} {shapes[key]}: kernel {t_k:.4f} ms (device {device[key]:.4f} ms), "
+            f"plain {t_p:.4f} ms, library {lib}, bound {b_ms:.4f} ms ({b_by}), "
+            f"share {100 * b_ms / t_k:.1f}%")
+    say("[phase 4e] whole factor: " + ", ".join(f"{k} {v:.3f} s" for k, v in factor.items())
+        + f"; K9u's bound over a factor (n^3/3 flops at the f64 tensor peak) "
+        f"{n ** 3 / 3 / PEAK_F64_TENSOR_FLOPS:.4f} s at n={n}, "
+        f"{RESIDENT_BIG_N ** 3 / 3 / PEAK_F64_TENSOR_FLOPS:.4f} s at n={RESIDENT_BIG_N}")
+    return times, bounds, device, factor
+
 def phase_profile_large(gp, gnp, torch):
     """Phase 5, large n: torch.profiler over one ff REML value+grad at
     LARGE_N, device time by kernel group."""
@@ -1741,17 +2384,34 @@ def phase_profile_large(gp, gnp, torch):
 
     from gpmp_tpu_torch import parallel
 
+    from gpmp_tpu_torch.parallel import streamed as st
+
     xi, zi, p0 = _large_data(LARGE_N)
     gp.config.set_device(DEVICE)
     gp.config.set_chol_engine("mixed")
     vg, _ = _criterion(gp, _large_model(gp, gnp), xi, zi, parallel.make_mesh(1, axis_name="shard"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _Patched(st, STREAM_MIN_N=LARGE_N), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         vg(p0 + 1e-3)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     summary = _profile_groups(prof, wall_ms, f"ff n={LARGE_N}")
+    del vg
+    # the resident f64 branch's value+grad (the blocked factor, Murray's backward)
+    xi2, zi2, p2 = _large_data(RESIDENT_N)
+    gp.config.set_chol_engine("f64")
+    vg2, _ = _criterion(gp, _large_model(gp, gnp), xi2, zi2,
+                        parallel.make_mesh(1, axis_name="shard"))
+    vg2(p2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof2:
+        vg2(p2 + 1e-3)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    summary.update(_profile_groups(prof2, wall_ms, f"resident f64 n={RESIDENT_N}"))
     gp.config.set_chol_engine("auto")
     return summary
 
@@ -1987,6 +2647,10 @@ _GROUPS = (  # the first group whose key is in a kernel's name takes it
     ("K1d scaled distance", ("distance",)),
     ("K1/K2 gram", ("matern",)),
     ("K7b LOO diagonal", ("loo_diag",)),
+    ("K9u trailing update", ("double, double, false, false>",)),
+    ("K8r refinement residual", ("double, double, false, true>",)),
+    ("K8t triangular product", ("tri_product",)),
+    ("K9m Murray passes", ("murray_kernel",)),
     ("K4 factorization residual", ("fact_residual",)),
     ("K3 residual", ("residual_kernel",)),
     ("K5 diag-block inverse", ("diag_block_inv",)),
@@ -2076,6 +2740,7 @@ def main():
         import gpmp_tpu_torch.misc  # noqa: F401
         import gpmp_tpu_torch.num as gnp
         from gpmp_tpu_torch.ops import _build as build
+        from gpmp_tpu_torch.ops import chol as ochol
         from gpmp_tpu_torch.ops import distance, gram, mixed, refine
         from gpmp_tpu_torch.ops import streamed as ops
         from gpmp_tpu_torch.parallel import likelihood as plik
@@ -2090,6 +2755,7 @@ def main():
     main_abs.update(phase_mixed_kernels_vs_plain(torch, gram, mixed))
     main_abs.update(phase_new_kernels_vs_plain(torch, gram, distance, mixed, refine))
     phase_streamed_kernels_vs_plain(torch, gram, mixed, ops)
+    main_abs.update(phase_resident_kernels_vs_plain(gp, gnp, torch, gram, refine, ochol))
     _errs, large_abs, large_times, large_bounds, large_device = phase_streamed_large(
         gp, gnp, torch, mixed, ops, st, plik)
     launches, main_data, t_first = phase_main_path(gp, gnp, gram, torch)
@@ -2102,6 +2768,9 @@ def main():
     large_launches, large_walls, large_mem, large_info = phase_large_n(
         gp, gnp, torch, gram, distance, mixed, refine, ops, st)
     launches.update({k: large_launches[k] for k in ("K6", "K10b", "K10r", "K10m", "K10t")})
+    res_launches, res_per_call, res_walls, res_mem = phase_resident(
+        gp, gnp, torch, gram, distance, mixed, refine, ochol, st)
+    launches.update(res_launches)
     times, rates, t_warm = phase_times(gp, gnp, gram, torch, main_data)
     mtimes, mrates, mem, t_slice_warm = phase_mixed_times(gp, gnp, gram, mixed, torch,
                                                           slice_data)
@@ -2109,6 +2778,8 @@ def main():
                                                    torch, xt_paths, slice_data, t_paths_first)
     library = {k: v[2] for k, v in (*mtimes.items(), *ntimes.items())}
     times.update({k: v[:2] for k, v in (*mtimes.items(), *ntimes.items())})
+    res_times, res_bounds, res_device, res_factor = phase_resident_times(
+        gp, gnp, torch, gram, refine, ochol, res_walls)
     profile = phase_profile(gp, gnp, torch)
     profile.update(phase_profile_large(gp, gnp, torch))
     check("jax" not in sys.modules, "jax was imported")
@@ -2118,6 +2789,10 @@ def main():
     times.update({k: v[:2] for k, v in large_times.items()})
     bounds.update(large_bounds)
     device_ms.update({f"{k} n={LARGE_N}": v for k, v in large_device.items()})
+    library.update({k: v[2] for k, v in res_times.items()})
+    times.update({k: v[:2] for k, v in res_times.items()})
+    bounds.update(res_bounds)
+    device_ms.update({f"{k} resident": v for k, v in res_device.items()})
 
     say(json.dumps({
         "card": card,
@@ -2131,6 +2806,9 @@ def main():
                     "fit_reml": [float(large_info.history_criterion[0]), float(large_info.fun)],
                     "peak_rise_bytes": {f"{w} n={nn}": b for (w, nn), b in large_mem.items()},
                     "launches_per_value_grad": large_launches},
+        "resident": {"n": RESIDENT_N, "wall_s": res_walls, "factor_s": res_factor,
+                     "launches_per_call": res_per_call,
+                     "peak_rise_units": {k: v / (4 * RESIDENT_N ** 2) for k, v in res_mem.items()}},
         "device_ms_per_call_n1000": device_ms,
         "sample_paths_nt8192_1024_s": {f"{e} {w}": v for w, d in (("first", t_paths_first),
                                                                   ("warm", t_paths_warm))
@@ -2141,6 +2819,7 @@ def main():
     }))
     gram_src, mixed_src = "gpmp_tpu_torch/csrc/matern_gram.cu", "gpmp_tpu_torch/csrc/mixed.cu"
     dist_src, stream_src = "gpmp_tpu_torch/csrc/distance.cu", "gpmp_tpu_torch/csrc/streamed.cu"
+    chol_src = "gpmp_tpu_torch/csrc/chol.cu"
     rows = [
         ("K1", "matern_gram", gram_src, "gpmp_tpu/kernel/matern.py:69"),
         ("K2", "matern_gram_pullback", gram_src, "gpmp_tpu/parallel/likelihood.py:225"),
@@ -2159,6 +2838,10 @@ def main():
         ("K10r", "streamed_residual_ff", mixed_src, "gpmp_tpu/parallel/streamed.py:322"),
         ("K10m", "ff_residual", mixed_src, "gpmp_tpu/parallel/streamed.py:481"),
         ("K10t", "h_traces", stream_src, "gpmp_tpu/parallel/streamed.py:394"),
+        ("K8r", "refine_residual", mixed_src, "gpmp_tpu/ops/refine.py:75"),
+        ("K8t", "tri_product", chol_src, "gpmp_tpu/ops/refine.py:47"),
+        ("K9u", "trailing_update", mixed_src, "gpmp_tpu/parallel/chol.py:158"),
+        ("K9m", "murray_phi+symmetrize", chol_src, "gpmp_tpu/parallel/chol.py:460"),
     ]
     say(json.dumps({"kernels": [
         {"name": f"{key} {name}", "route": "cuda", "source": src, "replaces": where,

@@ -2,7 +2,9 @@
 //
 // K3, K4, K5, K6, K7 and K7b: the hand-written kernels of the
 // mixed-precision Cholesky engine (gpmp_tpu_torch/ops/mixed.py); K8s, the
-// residual of its sampling root (gpmp_tpu_torch/ops/refine.py); K10m and
+// residual of its sampling root, and K8r, the residual of the refined panel
+// factor (gpmp_tpu_torch/ops/refine.py); K9u, the blocked Cholesky's
+// trailing update (gpmp_tpu_torch/ops/chol.py); K10m and
 // K10r, K3's and K4's kernels on the streamed engine's sources of K
 // (gpmp_tpu_torch/ops/streamed.py); for Hopper, sm_90a.
 // Plain C entry points, loaded with ctypes by gpmp_tpu_torch/ops/_build.py.
@@ -44,6 +46,25 @@
 //    Same bound (n^3/6 FMAs, 5.0 us at n = 1000, 2.7 ms at n = 8192 at
 //    67 TFLOP/s) and design; E is exactly symmetric, where the JAX
 //    package's dense product is symmetric only up to roundoff.
+//
+// K8r refinement residual (replaces E = A - L L^T and the convergence
+//    guard's sums of gpmp_tpu/ops/refine.py refined_cholesky): K4's kernel
+//    with f64 L and an f64 output, on one (B, B) diagonal panel of the
+//    blocked Cholesky, plus per-tile partial sums of E^2 and A^2 over the
+//    symmetric matrix and the fixed-order second pass of K3.  Bound: B^3/6
+//    f64 FMAs (2.2e7 at B = 512, 0.7 us at 67 TFLOP/s) against reading A and
+//    L and writing E (6 MB, 1.9 us): memory-bound on paper, latency-bound in
+//    practice (136 tiles of 32 x 32 at B = 512, one wave).
+//
+// K9u trailing update (replaces S[b:, b:] - T T^T of gpmp_tpu/parallel/
+//    chol.py _blocked_cholesky_single_unrolled): K4's kernel with f64 L, an
+//    explicit k range (the B columns of the solved panel T, not 0..j) and
+//    the output written in place into the trailing block of the one (n, n)
+//    buffer that holds K and becomes L.  Only the trailing block's lower
+//    tiles run; (i, j) and (j, i) get one value, so S stays exactly
+//    symmetric for the next panel.  Bound: (n - c0 - B)^2 B / 2 f64 FMAs per
+//    panel, n^3/6 over a factor (22 ms at n = 16384 at the 67 TFLOP/s f64
+//    tensor peak); CUDA-core FMAs reach about an eighth of that (K8s).
 //
 // K10r streamed factorization residual (replaces gpmp_tpu/parallel/
 //    streamed.py _streamed_residual_f32): K4's kernel, with K read from a
@@ -301,15 +322,25 @@ constexpr int FR_TY = 8;  // block (32, 8): each thread owns 4 rows of a column
 constexpr int FR_ROWS = FR_TILE / FR_TY;
 
 // R(i, j) = K(i, j) - sum_k L(i, k) L(j, k) for rows i in [c0, n), columns
-// j in [c0, c0 + width), i >= j, written at (i, j) and (j, i).
-// PANEL = false: the whole lower triangle (c0 = 0, width = n), blockIdx.x
-// the linear index of the lower tile (bi, bj); PANEL = true: blockIdx.x the
-// row tile and blockIdx.y the column tile, both counted from c0, and the
-// tiles above the diagonal return at once.
-template <typename Src, typename TOut, bool PANEL>
+// j in [c0, c0 + width), i >= j, written at (i, j) and (j, i).  L (TL, f32 or
+// f64) and R have leading dimension n.  klen < 0: k runs over [0, tile's last
+// column], L being lower triangular; klen >= 0 (K9u): k runs over
+// [kbeg, kbeg + klen), the columns of one solved panel, whole.
+// PANEL = false: blockIdx.x is the linear index of the lower tile (bi, bj) of
+// the (width, width) block at (c0, c0); PANEL = true: blockIdx.x the row tile
+// and blockIdx.y the column tile, both counted from c0, and the tiles above
+// the diagonal return at once.  GUARD (K8r, PANEL = false only): the block's
+// sums of R^2 and K^2 over the whole symmetric matrix (off-diagonal entries
+// twice) go to partial[2 * blockIdx.x + {0, 1}].
+// In place (K9u: K, L and R one buffer) is safe, the restrict qualifiers
+// included: a thread reads K only at the lower entries it then writes (each
+// store depends on that load), and L only left of column c0, which no thread
+// writes; no location is written by one thread and read by another.
+template <typename Src, typename TL, typename TOut, bool PANEL, bool GUARD>
 __global__ void __launch_bounds__(FR_TILE * FR_TY)
-fact_residual_kernel(Src K, const float* __restrict__ L, TOut* __restrict__ R, long long n,
-                     long long c0, long long width) {
+fact_residual_kernel(Src K, const TL* __restrict__ L, TOut* __restrict__ R, long long n,
+                     long long c0, long long width, long long kbeg, long long klen,
+                     double* __restrict__ partial) {
   long long bi, bj;
   if (PANEL) {
     bi = blockIdx.x;
@@ -332,14 +363,14 @@ fact_residual_kernel(Src K, const float* __restrict__ L, TOut* __restrict__ R, l
 #pragma unroll
   for (int q = 0; q < FR_ROWS; ++q) acc[q] = 0.0;
 
-  // L[j, k] = 0 for k > j: the sum stops at the tile's last column
-  const long long kend = (j0 + FR_TILE < n) ? j0 + FR_TILE : n;
-  for (long long k0 = 0; k0 < kend; k0 += FR_TILE) {
+  // triangular L (L[j, k] = 0 for k > j): the sum stops at the tile's last column
+  const long long kend = klen >= 0 ? kbeg + klen : ((j0 + FR_TILE < n) ? j0 + FR_TILE : n);
+  for (long long k0 = kbeg; k0 < kend; k0 += FR_TILE) {
     const long long gk = k0 + tx;
     for (int r = ty; r < FR_TILE; r += FR_TY) {
       const long long gi = i0 + r, gj = j0 + r;
-      As[r][tx] = (gi < n && gk < n) ? static_cast<double>(L[gi * n + gk]) : 0.0;
-      Bs[r][tx] = (gj < n && gk < n) ? static_cast<double>(L[gj * n + gk]) : 0.0;
+      As[r][tx] = (gi < n && gk < kend) ? static_cast<double>(L[gi * n + gk]) : 0.0;
+      Bs[r][tx] = (gj < n && gk < kend) ? static_cast<double>(L[gj * n + gk]) : 0.0;
     }
     __syncthreads();
 #pragma unroll 8
@@ -351,27 +382,59 @@ fact_residual_kernel(Src K, const float* __restrict__ L, TOut* __restrict__ R, l
     __syncthreads();
   }
 
+  double e2 = 0.0, a2 = 0.0;
 #pragma unroll
   for (int q = 0; q < FR_ROWS; ++q) {
     const long long gi = i0 + ty + FR_TY * q, gj = j0 + tx;
     if (gi < n && gj < jend && gi >= gj) {
-      const TOut v = static_cast<TOut>(K(gi, gj) - acc[q]);
+      const double kv = K(gi, gj);
+      const double rv = kv - acc[q];
+      const TOut v = static_cast<TOut>(rv);
       R[gi * n + gj] = v;
       R[gj * n + gi] = v;
+      if (GUARD) {
+        const double w = gi == gj ? 1.0 : 2.0;
+        e2 += w * rv * rv;
+        a2 += w * kv * kv;
+      }
     }
   }
+  if (GUARD) {  // the block's sums in a fixed order (tree over linear thread ids)
+    __shared__ double g0[FR_TILE * FR_TY];
+    __shared__ double g1[FR_TILE * FR_TY];
+    const int t = ty * FR_TILE + tx;
+    g0[t] = e2;
+    g1[t] = a2;
+    __syncthreads();
+    for (int h = FR_TILE * FR_TY / 2; h > 0; h >>= 1) {
+      if (t < h) {
+        g0[t] += g0[t + h];
+        g1[t] += g1[t + h];
+      }
+      __syncthreads();
+    }
+    if (t == 0) {
+      partial[2 * blockIdx.x] = g0[0];
+      partial[2 * blockIdx.x + 1] = g1[0];
+    }
+  }
+}
+
+long long lower_tiles(long long n) {
+  const long long nt = (n + FR_TILE - 1) / FR_TILE;
+  return nt * (nt + 1) / 2;
 }
 
 // every lower tile of the (n, n) residual, one launch
 template <typename Src, typename TOut>
 int launch_fact_residual(Src K, const void* L, void* R, long long n, void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long nt = (n + FR_TILE - 1) / FR_TILE;
-  const long long tiles = nt * (nt + 1) / 2;
+  const long long tiles = lower_tiles(n);
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  fact_residual_kernel<Src, TOut, false><<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0,
-                                           static_cast<cudaStream_t>(stream)>>>(
-      K, static_cast<const float*>(L), static_cast<TOut*>(R), n, 0, n);
+  fact_residual_kernel<Src, float, TOut, false, false>
+      <<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          K, static_cast<const float*>(L), static_cast<TOut*>(R), n, 0, n, 0, -1, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -383,11 +446,47 @@ int launch_fact_residual_panel(const void* P, const void* L, void* R, long long 
   const long long rt = (n - c0 + FR_TILE - 1) / FR_TILE;
   const long long ct = (width + FR_TILE - 1) / FR_TILE;
   if (rt > 0x7fffffffLL || ct > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  fact_residual_kernel<PanelK, float, true>
+  fact_residual_kernel<PanelK, float, float, true, false>
       <<<dim3(static_cast<unsigned>(rt), static_cast<unsigned>(ct)), dim3(FR_TILE, FR_TY), 0,
          static_cast<cudaStream_t>(stream)>>>(
           PanelK{static_cast<const double*>(P), c0, width}, static_cast<const float*>(L),
-          static_cast<float*>(R), n, c0, width);
+          static_cast<float*>(R), n, c0, width, 0, -1, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8r: E = A - L L^T for an f64 (n, n) panel and its factor, exactly
+// symmetric, and (sum E^2, sum A^2) by per-tile partials and a fixed-order
+// second pass
+int launch_refine_residual(const void* A, const void* L, void* E, void* partial, void* sums,
+                           long long n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = lower_tiles(n);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fact_residual_kernel<DenseK<double>, double, double, false, true>
+      <<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0, s>>>(
+          DenseK<double>{static_cast<const double*>(A), n}, static_cast<const double*>(L),
+          static_cast<double*>(E), n, 0, n, 0, -1, static_cast<double*>(partial));
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  reduce_pairs_kernel<<<1, RED_THREADS, 0, s>>>(static_cast<const double*>(partial), tiles,
+                                                static_cast<double*>(sums));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9u: A[off:, off:] -= T T^T in place, off = c0 + b, T = A[off:, c0:off]
+// (the solved panel, already written into A), over the lower tiles of the
+// trailing block, (i, j) and (j, i) from one value
+int launch_trailing_update(void* A, long long n, long long c0, long long b, void* stream) {
+  const long long off = c0 + b;
+  if (n <= 0 || c0 < 0 || b <= 0 || off >= n) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = lower_tiles(n - off);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  double* a = static_cast<double*>(A);
+  fact_residual_kernel<DenseK<double>, double, double, false, false>
+      <<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0,
+         static_cast<cudaStream_t>(stream)>>>(DenseK<double>{a, n}, a, a, n, off, n - off, c0, b,
+                                               nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -825,6 +924,17 @@ int gpmp_streamed_residual_ff(const void* hi, const void* lo, const void* L, voi
 int gpmp_streamed_residual_panel(const void* P, const void* L, void* R, long long n,
                                  long long c0, long long width, void* stream) {
   return launch_fact_residual_panel(P, L, R, n, c0, width, stream);
+}
+
+long long gpmp_refine_residual_blocks(long long n) { return lower_tiles(n); }
+
+int gpmp_refine_residual(const void* A, const void* L, void* E, void* partial, void* sums,
+                         long long n, void* stream) {
+  return launch_refine_residual(A, L, E, partial, sums, n, stream);
+}
+
+int gpmp_trailing_update(void* A, long long n, long long c0, long long b, void* stream) {
+  return launch_trailing_update(A, n, c0, b, stream);
 }
 
 long long gpmp_precond_chunks(long long n) { return precond_chunks(n); }

@@ -7,14 +7,14 @@ its gradient come from one forward and one ``torch.autograd.grad``
 host.  History recording, local bounds and the best-seen fallback follow
 the JAX package.
 
-Mesh mode (``mesh=``, ``init_subsample=``) takes the port's one-card mesh
-(gpmp_tpu_torch.parallel.make_mesh): the model is wrapped in
-``parallel.ShardedModelView`` and its REML runs on the streamed large-n
-engine.
+Mesh mode (``mesh=``, ``shard_block=``, ``init_subsample=``) takes the
+port's one-card mesh (gpmp_tpu_torch.parallel.make_mesh): the model is
+wrapped in ``parallel.ShardedModelView`` (panel size ``shard_block``) and
+its REML runs on the mesh's resident branch or, past the resident engines'
+memory, on the streamed engine.
 
 Not ported yet (ROADMAP): dataloader sources, ``method='lbfgs-device'``,
-meshes of more than one card, ``shard_block=`` (the resident mesh branch's
-panel size), REMAP and priors.
+meshes of more than one card, REMAP and priors.
 """
 
 import time
@@ -36,7 +36,7 @@ def _not_ported(what, item):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
 
 
-def _check_unported(method=None, mesh=None, shard_block=None):
+def _check_unported(method=None, mesh=None):
     if method == "lbfgs-device":
         _not_ported("method='lbfgs-device'", 5)
     if mesh is not None:
@@ -44,8 +44,6 @@ def _check_unported(method=None, mesh=None, shard_block=None):
 
         if not isinstance(mesh, Mesh) or mesh.size != 1:
             _not_ported("mesh mode beyond the port's one-card mesh (parallel.make_mesh(1))", 11)
-    if shard_block is not None:
-        _not_ported("shard_block= (the resident mesh branch's panel size)", 11)
 
 
 # ---------------------- criterion + gradient maker --------------------
@@ -239,12 +237,13 @@ def select_parameters_with_criterion(
     diagnostics dict with history/timing/criterion callables.
 
     Mesh mode: pass the port's one-card mesh (``parallel.make_mesh(1)``)
-    and the model is wrapped in ``parallel.ShardedModelView``, so a
-    criterion built on the model's likelihood methods runs on the streamed
-    large-n engine.  When ``covparam0`` is None, the init heuristic runs on
-    a deterministic subsample of ``init_subsample`` points (the dense
-    heuristic would build the full gram)."""
-    _check_unported(method=method, mesh=mesh, shard_block=shard_block)
+    and the model is wrapped in ``parallel.ShardedModelView`` (panel size
+    ``shard_block``, default auto_shard_block), so a criterion built on the
+    model's likelihood methods runs on the mesh's resident branch or the
+    streamed large-n engine.  When ``covparam0`` is None, the init
+    heuristic runs on a deterministic subsample of ``init_subsample`` points
+    (the dense heuristic would build the full gram)."""
+    _check_unported(method=method, mesh=mesh)
     if method_options is None:
         method_options = {}
 
@@ -255,7 +254,7 @@ def select_parameters_with_criterion(
     if mesh is not None:
         from gpmp_tpu_torch.parallel.view import ShardedModelView
 
-        model = ShardedModelView(base_model, mesh)
+        model = ShardedModelView(base_model, mesh, block=shard_block)
         if covparam0 is None:
             covparam0 = _subsampled_initial_guess(base_model, xi, zi, init_subsample)
 
@@ -479,9 +478,10 @@ def select_parameters_with_reml(
 
     Large-n mode: pass the port's one-card mesh (``parallel.make_mesh(1)``)
     and the criterion becomes
-    ``parallel.sharded_negative_log_restricted_likelihood`` on the streamed
-    engine; with ``covparam0`` None the init heuristic runs on a
-    deterministic subsample of ``init_subsample`` points."""
+    ``parallel.sharded_negative_log_restricted_likelihood`` (the resident
+    branch with panels of ``shard_block``, or the streamed engine); with
+    ``covparam0`` None the init heuristic runs on a deterministic subsample
+    of ``init_subsample`` points."""
     return select_parameters_with_criterion(
         model,
         _reml_criterion,

@@ -16,6 +16,6 @@
 - ``_build``: builds ``gpmp_tpu_torch/csrc/*.cu`` with nvcc at first use.
 """
 
-from . import distance, gram, mixed, refine, streamed
+from . import chol, distance, gram, mixed, refine, streamed
 
-__all__ = ["distance", "gram", "mixed", "refine", "streamed"]
+__all__ = ["chol", "distance", "gram", "mixed", "refine", "streamed"]

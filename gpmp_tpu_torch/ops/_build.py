@@ -114,6 +114,12 @@ def _declare(lib):
         "gpmp_matern_pullback_blocks": ([ll, ll], ll),
         # ops/mixed.py: K3, K4, K5, K6, K7, K7b; ops/refine.py: K8s
         "gpmp_precond_chunks": ([ll], ll),
+        # ops/refine.py: K8r, K8t; ops/chol.py: K9u, K9m
+        "gpmp_refine_residual_blocks": ([ll], ll),
+        "gpmp_refine_residual": ([vp, vp, vp, vp, vp, ll, vp], i32),
+        "gpmp_tri_product": ([vp, vp, vp, ll, f64, f64, i32, vp], i32),
+        "gpmp_trailing_update": ([vp, ll, ll, ll, vp], i32),
+        "gpmp_murray": ([vp, ll, i32, vp], i32),
         # ops/streamed.py: K10b, K10r, K10m, K10t
         "gpmp_split_rows": ([vp, vp, vp, vp, ll, ll, ll, ctypes.c_float, vp], i32),
         "gpmp_streamed_residual_ff": ([vp, vp, vp, vp, ll, vp], i32),

@@ -3,28 +3,40 @@
 
 Counterpart of gpmp_tpu/parallel/likelihood.py, single-card parts: the same
 profiled REML and zero-mean NLL as gpmp_tpu_torch.core.likelihood, with
-K^{-1} [z P] and log det K from the streamed engine (parallel/streamed.py),
-which never holds the (n, n) covariance in float64.
+K^{-1} [z P] and log det K from one of three engines:
+
+- the streamed engine (parallel/streamed.py), which never holds the (n, n)
+  covariance in float64: mixed engine configured and n past the resident
+  engines' memory (or GPMP_STREAM_N), f32-polymorphic kernel;
+- the resident branch, the f64 gram handed to the sharded mixed engine
+  (parallel/mixed.py, mixed engine configured) or to the blocked Cholesky
+  with refined panels (parallel/chol.py, K8/K9; the f64 engine);
+- ``factor=``: a precomputed blocked factor of K, value only.
 
 The model kernel is called as cross-covariance (x_rows, x_full), which
 skips its ``y is x`` self-branch; the self-vs-cross diagonal difference
 (noise variance + nugget) is measured once per covparam from the full
 kernel (``_diag_correction``) and added back on the diagonal.
 
-Not ported yet: the resident branch (the f64 gram handed to the sharded
-mixed engine or to the blocked Cholesky, gpmp_tpu/parallel/mixed.py and
-chol.py, K8/K9) with its panel size ``block=``, ``factor=``, and meshes of
-more than one card.  They raise
-NotImplementedError; the resident branch does not fall back to the core
-engines, which run another algorithm.
+The gram (``_make_cov``): on the f64 branch ``torch.utils.checkpoint``
+recomputes it in the backward (the JAX package's ``jax.checkpoint``), so
+the kernel chain's (n, n) autograd residuals are never held; on the mixed
+branch its backward reruns the kernel chain in float32 by row chunks,
+accumulated in f64 (``_CovF32Backward``), or exactly in f64 where the
+kernel is not f32-polymorphic.  Meshes of more than one card raise
+NotImplementedError.
 """
 
 from math import log, pi
 
 import torch
+from torch.autograd.function import once_differentiable
+from torch.utils.checkpoint import checkpoint
 
 import gpmp_tpu_torch.num as gnp
 from gpmp_tpu_torch.core.likelihood import _nan_to_inf
+from gpmp_tpu_torch.core.linalg import chol_engine
+from .chol import _check_one_card, sharded_solve_and_logdet, value_only_wrt
 
 # Points per block of _diag_correction.  Only the block diagonals are read,
 # so the size is free: each block costs two host calls of the kernel (two
@@ -33,20 +45,6 @@ from gpmp_tpu_torch.core.likelihood import _nan_to_inf
 # card); the JAX package's 32, which XLA vmaps into one program, would be
 # 2048 pairs of host calls here.
 DIAG_CORRECTION_BLOCK = 512
-
-
-def _not_ported(what):
-    raise NotImplementedError(
-        f"{what} is not ported yet: it needs the blocked Cholesky and the refined "
-        "panels of the next slice (K8/K9: parallel/chol.py, parallel/mixed.py; "
-        "ROADMAP queue 1 item 11)")
-
-
-def _check_one_card(mesh):
-    if mesh is not None and mesh.size != 1:
-        raise NotImplementedError(
-            "meshes of more than one card need torch.distributed/NCCL "
-            "(ROADMAP queue 1 item 11)")
 
 
 def _largest_divisor_leq(n, bound):
@@ -99,34 +97,105 @@ def _streamed_active(model, covparam, xi, mesh, axis_name):
         return False
 
 
-def _streamed_solve_and_logdet(model, covparam, xi, rhs, mesh, axis_name, block, factor=None):
-    if factor is not None:
-        _not_ported("factor= (a precomputed distributed Cholesky factor)")
-    if block is not None:
-        _not_ported("block= (the resident branch's panel size)")
-    _check_one_card(mesh)
-    if not _streamed_active(model, covparam, xi, mesh, axis_name):
-        _not_ported("the resident mesh branch (n below the streamed engine's cutover, "
-                    "or the f64 engine)")
-    from .streamed import streamed_mp_solve_and_logdet
+def _engine_solve_and_logdet(K, rhs, mesh, axis_name, block, factor=None):
+    """The resident branch: the sharded mixed engine when configured, else
+    the blocked f64 Cholesky (or a precomputed factor of it)."""
+    if factor is None and K.dtype == torch.float64 and chol_engine(K.shape[0]) == "mixed":
+        from .mixed import sharded_mp_solve_and_logdet
 
-    return streamed_mp_solve_and_logdet(model, covparam, xi, rhs)
+        return sharded_mp_solve_and_logdet(K, rhs, mesh, axis_name=axis_name, block=block)
+    return sharded_solve_and_logdet(K, rhs, mesh, axis_name=axis_name, block=block,
+                                    factor=factor)
+
+
+class _CovF32Backward(torch.autograd.Function):
+    """p -> K (f64 forward) whose backward pulls Kbar back through the kernel
+    chain in float32 by row chunks, the chunks' gradients summed in f64."""
+
+    @staticmethod
+    def forward(ctx, p, model, xi, xi32):
+        ctx.model, ctx.xi32 = model, xi32
+        ctx.save_for_backward(p)
+        return sharded_covariance(model, p, xi, None)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, Kbar):
+        (p,) = ctx.saved_tensors
+        pbar = _chunked_gram_pullback(
+            ctx.model, p.to(torch.float32), ctx.xi32,
+            lambda r0, r1: Kbar[r0:r1].to(torch.float32),
+            torch.diagonal(Kbar).to(torch.float32), DIAG_CORRECTION_BLOCK)
+        return pbar.to(p.dtype), None, None, None
+
+
+def _chunked_gram_pullback(model, p32, xi32, kbar_rows, diag_bar, chunk):
+    """grad_p <Kbar, K(p)> for the f32 gram K(p) = cross_cov(xi, xi, p) +
+    diag(corr(p)), by row chunks: ``kbar_rows(r0, r1)`` gives Kbar[r0:r1] in
+    f32 (a slice of a held Kbar, or formed on the fly by the streamed
+    engine), ``diag_bar`` its f32 diagonal.  Each chunk's gradient goes
+    through the f32 kernel chain (residuals of one chunk only; K1d/K1m f32
+    backward on the card) and is accumulated in f64, with the
+    diagonal-correction term."""
+    n = xi32.shape[0]
+    xc = xi32.clone()  # defeats the kernel's `y is x`
+    g = torch.zeros(p32.shape, dtype=torch.float64, device=p32.device)
+    with torch.enable_grad():
+        pv = p32.detach().requires_grad_(True)
+        for r0 in range(0, n, chunk):
+            kb = kbar_rows(r0, min(n, r0 + chunk))
+            Kr = model.covariance(xi32[r0:r0 + chunk], xc, pv)
+            (gc,) = torch.autograd.grad(torch.sum(kb * Kr.to(kb.dtype)), pv)
+            g += gc.double()
+        corr = _diag_correction(model, pv, xi32)
+        (gd,) = torch.autograd.grad(torch.sum(diag_bar * corr.to(diag_bar.dtype)), pv)
+    return g + gd.double()
+
+
+def _make_cov(model, covparam, xi, mesh, axis_name):
+    """covparam -> K for the resident branch: the f32-backward gram on the
+    mixed engine (f32-polymorphic kernel), else the checkpointed f64 gram."""
+    from .streamed import kernel_is_f32_polymorphic
+
+    if chol_engine(xi.shape[0]) == "mixed" and xi.dtype == torch.float64:
+        if kernel_is_f32_polymorphic(model, covparam, xi):
+            xi32 = xi.to(torch.float32)
+            return lambda p: _CovF32Backward.apply(p, model, xi, xi32)
+    return lambda p: checkpoint(
+        lambda q: sharded_covariance(model, q, xi, mesh, axis_name=axis_name), p,
+        use_reentrant=False)
+
+
+def _solve_and_logdet(model, covparam, xi, rhs, mesh, axis_name, block, factor):
+    _check_one_card(mesh)
+    if factor is None and _streamed_active(model, covparam, xi, mesh, axis_name):
+        # past the resident engines' memory: K is streamed from the kernel
+        from .streamed import streamed_mp_solve_and_logdet
+
+        return streamed_mp_solve_and_logdet(model, covparam, xi, rhs)
+    if factor is None:
+        K = _make_cov(model, covparam, xi, mesh, axis_name)(covparam)
+    else:
+        K = factor  # the factored solve never reads K
+    return _engine_solve_and_logdet(K, rhs, mesh, axis_name, block, factor=factor)
 
 
 def sharded_negative_log_restricted_likelihood(
-    model, covparam, xi, zi, mesh, axis_name="shard", block=None, factor=None
+    model, covparam, xi, zi, mesh, axis_name="shard", block=256, factor=None
 ):
-    """Profiled REML on the mesh's card, K streamed from the kernel.
+    """Profiled REML on the mesh's card.
 
     Same value as core.likelihood.negative_log_restricted_likelihood
-    (impl='profiled'); differentiable through the streamed engine's analytic
-    backward.  ``block``, the resident branch's panel size, and ``factor``
-    raise NotImplementedError until that branch is ported."""
+    (impl='profiled'); differentiable end to end.  ``block``: the blocked
+    factor's panel size (n must be divisible by it on the resident branch).
+    ``factor``: a blocked Cholesky factor of THE COVARIANCE AT covparam
+    (sharded_cholesky's L) -- skips the O(n^3) refactorization; VALUE ONLY:
+    differentiating with respect to covparam raises."""
+    covparam = gnp.asarray(covparam)
     Pd = model.mean(xi, model.meanparam)
     n, q = Pd.shape
     rhs = torch.cat([zi.reshape(-1, 1), Pd], dim=1)
-    X, ldetK = _streamed_solve_and_logdet(model, covparam, xi, rhs, mesh, axis_name, block,
-                                          factor)
+    X, ldetK = _solve_and_logdet(model, covparam, xi, rhs, mesh, axis_name, block, factor)
     Kinv_z = X[:, 0]
     Kinv_P = X[:, 1:]
     M = Pd.T @ Kinv_P
@@ -137,14 +206,20 @@ def sharded_negative_log_restricted_likelihood(
     ldetM = 2.0 * torch.sum(torch.log(torch.diagonal(Cm)))
     ldetPtP = gnp.logdet(Pd.T @ Pd)
     L = 0.5 * ((n - q) * log(2.0 * pi) + ldetK + ldetM - ldetPtP + quad)
-    return _nan_to_inf(L.reshape(()))
+    out = _nan_to_inf(L.reshape(()))
+    if factor is not None:
+        # covparam never enters the factored graph: its gradient would
+        # silently be zero
+        out = value_only_wrt(out, covparam)
+    return out
 
 
 def sharded_negative_log_likelihood_zero_mean(
-    model, covparam, xi, zi, mesh, axis_name="shard", block=None
+    model, covparam, xi, zi, mesh, axis_name="shard", block=256
 ):
-    """Zero-mean NLL on the mesh's card, K streamed from the kernel."""
+    """Zero-mean NLL on the mesh's card (the engines as above)."""
     n = xi.shape[0]
-    Kinv_z, ldetK = _streamed_solve_and_logdet(model, covparam, xi, zi, mesh, axis_name, block)
+    Kinv_z, ldetK = _solve_and_logdet(model, gnp.asarray(covparam), xi, zi, mesh, axis_name,
+                                      block, None)
     L = 0.5 * (n * log(2.0 * pi) + ldetK + zi @ Kinv_z)
     return _nan_to_inf(L.reshape(()))

@@ -1,9 +1,10 @@
 # gpmp_tpu_torch/parallel/mesh.py
 """Device-mesh helpers (counterpart of gpmp_tpu/parallel/mesh.py).
 
-A mesh here is one card: the port's sharded criteria run on a single
-device, through the streamed engine (parallel/streamed.py).  Meshes of
-more than one card need torch.distributed/NCCL and are not ported yet
+A mesh here is one card: the port's sharded criteria, predict and LOO run
+on a single device, on the resident branch (parallel/chol.py,
+parallel/mixed.py) or the streamed engine (parallel/streamed.py).  Meshes
+of more than one card need torch.distributed/NCCL and are not ported yet
 (ROADMAP queue 1 item 11).
 """
 

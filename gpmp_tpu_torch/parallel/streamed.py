@@ -1,12 +1,11 @@
 # gpmp_tpu_torch/parallel/streamed.py
 """Single-card large-n mixed engine with the f64 covariance streamed.
 
-Counterpart of gpmp_tpu/parallel/streamed.py, with its names.  The resident
-engines (gpmp_tpu_torch.ops.mixed and the f64 Cholesky) hold the f64 (n, n)
-covariance and their backward's temporaries: 30 (mixed) and 18 (f64) (n, n)
-f32 units for one REML value+grad, measured on an H100, so past n ~ 24k
-(mixed) or ~31k (f64) they need more than 0.85 of an 80 GB card.  This
-engine never holds K in float64.  The mathematics are those of the
+Counterpart of gpmp_tpu/parallel/streamed.py, with its names.  The mesh's
+resident mixed branch (gpmp_tpu_torch.parallel.mixed) holds the f64 (n, n)
+covariance and its backward's temporaries: 9.0 (n, n) f32 units for one REML
+value+grad, measured on an H100, so past n ~ 43k it needs more than 0.85 of
+an 80 GB card.  This engine never holds K in float64.  The mathematics are those of the
 mixed engine (f32 Cholesky preconditioner, factorization-residual logdet
 identity, refined solves, analytic backward), with the covariance
 evaluated from the kernel in row chunks:
@@ -70,7 +69,7 @@ from gpmp_tpu_torch.ops.mixed import (
     _RIDGE_FACTOR,
     _SOLVE_RTOL2,
 )
-from .likelihood import _diag_correction, _largest_divisor_leq
+from .likelihood import _chunked_gram_pullback, _diag_correction, _largest_divisor_leq
 
 _F32 = torch.float32
 _F64 = torch.float64
@@ -88,17 +87,17 @@ STREAM_MIN_N = int(_env_stream_n) if _env_stream_n else None
 
 # Peak-bytes model, in units of one (n, n) f32 buffer (4 n^2 bytes): the
 # rise of torch.cuda.max_memory_allocated over what was held before, for one
-# REML value+grad on bench_large_n.py's workload, measured on an NVIDIA H100
-# 80GB HBM3 (700.00 W) by chip_smoke.py phase 3d, plus half a unit for the
-# caching allocator's rounding and splits.  Measured:
-#   resident mixed engine 30.00 at n=16384 (its two-level logdet's f64
-#     temporaries: the absolute |H|_F^2 gate fails at large n), out of
-#     memory at 32768; resident f64 engine 18.00 at 16384 and 32768;
+# REML value+grad on bench_large_n.py's workload at its p0, measured on an
+# NVIDIA H100 80GB HBM3 (700.00 W) by chip_smoke.py (phases 3d and 3e), plus
+# half a unit for the caching allocator's rounding and splits.  Measured:
+#   the mesh's resident mixed branch (parallel/mixed.py, the branch
+#     ``_resident_fits`` guards: the f64 engine never streams) 9.01 at
+#     n=16384 (its robust logdet);
 #   ff 7.01 / 7.00, recompute 5.01 / 5.00 at n=16384 / 32768;
 #   ff with the robust branch (its gate forced) 9.01 at 16384.
-# The resident model takes the larger of the two engines; 0.85 of this
-# card is 16.83 units at n=32768.
-_RESIDENT_PEAK_UNITS = 30.5
+# 0.85 of this card is 16.83 units at n=32768 (resident) and 6.89 at
+# n=51200 (streamed, recompute).
+_RESIDENT_PEAK_UNITS = 9.6
 _FF_PEAK_UNITS = 7.5
 _RECOMPUTE_PEAK_UNITS = 5.5
 _ROBUST_PEAK_UNITS = 9.5
@@ -363,27 +362,6 @@ def _kinv_robust(M32, H):
     return W.T @ W
 
 
-def _streamed_param_pullback(model, p32, xi32, Kinv32, S32, X32, ldbar, chunk):
-    """grad_p <Kbar, K(p)>, Kbar = ldbar K^{-1} - S X^T formed one row chunk
-    at a time (f32 addmm) and pulled back through the f32 kernel chain
-    (K1d/K1m f32 backward on the card); per-chunk gradients accumulated in
-    f64, plus the diagonal-correction term."""
-    n = xi32.shape[0]
-    diag_bar = ldbar * torch.diagonal(Kinv32) - torch.sum(S32 * X32, dim=1)
-    g = torch.zeros(p32.shape, dtype=_F64, device=p32.device)
-    with torch.enable_grad():
-        pv = p32.detach().requires_grad_(True)
-        for r0 in range(0, n, chunk):
-            kb = torch.addmm(Kinv32[r0:r0 + chunk], S32[r0:r0 + chunk], X32.T,
-                             beta=ldbar, alpha=-1.0)
-            Kr = model.covariance(xi32[r0:r0 + chunk], xi32, pv)
-            (gc,) = torch.autograd.grad(torch.sum(kb * Kr.to(kb.dtype)), pv)
-            g += gc.double()
-        corr = _diag_correction(model, pv, xi32)
-        (gd,) = torch.autograd.grad(torch.sum(diag_bar * corr.to(diag_bar.dtype)), pv)
-    return g + gd.double()
-
-
 # --------------------------------------------------------------------------
 # the operator
 # --------------------------------------------------------------------------
@@ -478,8 +456,14 @@ class _StreamedOperator:
         if Kinv32 is None:
             pbar = torch.full(p.shape, torch.nan, dtype=_F64, device=p.device)
         else:
-            pbar = _streamed_param_pullback(self.model, p.to(_F32), self.xi32, Kinv32,
-                                            S.to(_F32), Xm.to(_F32), float(ldbar), self.chunk)
+            # Kbar = ldbar K^{-1} - S X^T, formed one row chunk at a time
+            S32, X32, lb = S.to(_F32), Xm.to(_F32), float(ldbar)
+            diag_bar = lb * torch.diagonal(Kinv32) - torch.sum(S32 * X32, dim=1)
+            pbar = _chunked_gram_pullback(
+                self.model, p.to(_F32), self.xi32,
+                lambda r0, r1: torch.addmm(Kinv32[r0:r1], S32[r0:r1], X32.T, beta=lb,
+                                           alpha=-1.0),
+                diag_bar, self.chunk)
         return pbar.to(p.dtype), S.reshape(Xbar.shape)
 
 

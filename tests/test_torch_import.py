@@ -33,6 +33,7 @@ SUBMODULES = (
     "gpmp_tpu_torch.ops.distance",
     "gpmp_tpu_torch.ops.refine",
     "gpmp_tpu_torch.ops.streamed",
+    "gpmp_tpu_torch.ops.chol",
     "gpmp_tpu_torch.kernel",
     "gpmp_tpu_torch.kernel.matern",
     "gpmp_tpu_torch.kernel.exponential",
@@ -56,6 +57,10 @@ SUBMODULES = (
     "gpmp_tpu_torch.parallel.likelihood",
     "gpmp_tpu_torch.parallel.streamed",
     "gpmp_tpu_torch.parallel.view",
+    "gpmp_tpu_torch.parallel.chol",
+    "gpmp_tpu_torch.parallel.mixed",
+    "gpmp_tpu_torch.parallel.predict",
+    "gpmp_tpu_torch.parallel.loo",
 )
 
 

@@ -49,6 +49,7 @@ from gpmp_tpu_torch.parallel import (
     ShardedModelView,
     likelihood as tlik,
     make_mesh,
+    sharded_cholesky,
     streamed as st,
 )
 
@@ -427,11 +428,15 @@ def test_streamed_reml_dispatch_matches_jax(problem, forced, jax_reml_vg):
 
 
 def test_dispatch_memory_model_h100():
-    """The peak-bytes model at an H100 80GB's cap: n = 32768 is past the
-    resident engines and takes ff, with room for the robust branch, and
-    every n up to recompute's ceiling has a route (no dispatch gap)."""
+    """The peak-bytes model at an H100 80GB's cap: the mesh's resident mixed
+    branch (9.0 units of 4n^2 bytes per value+grad) holds n = 32768, n = 51200
+    is past it and streams in recompute mode, a forced stream at 32768 takes
+    ff with room for the robust branch, and every n up to recompute's
+    ceiling has a route (no dispatch gap)."""
     assert st._resident_fits(16384, cap_bytes=H100_CAP)
-    assert not st._resident_fits(32768, cap_bytes=H100_CAP)
+    assert st._resident_fits(32768, cap_bytes=H100_CAP)
+    assert not st._resident_fits(51200, cap_bytes=H100_CAP)
+    assert st.choose_mode(51200, cap_bytes=H100_CAP) == "recompute"
     assert st.choose_mode(32768, cap_bytes=H100_CAP) == "ff"
     assert st._robust_fits(32768, cap_bytes=H100_CAP)
     ceiling = max(n for n in range(512, 131072, 512)
@@ -458,37 +463,64 @@ def test_kernel_is_f32_polymorphic(problem):
 # the edges
 # ---------------------------------------------------------------------------
 def test_unported_mesh_branches_raise(problem):
-    _jm, tmodel, xi, zi, _B, _K = problem
+    """Meshes of more than one card stay unported and raise, through every
+    entry point of the mesh path; the one-card resident branch, factor=,
+    predict and LOO run (tests/test_torch_parallel.py)."""
+    _jm, tmodel, xi, zi, _B, K = problem
     assert make_mesh(1).shape == {"batch": 1} and make_mesh(1).device.type == "cpu"
     with pytest.raises(NotImplementedError, match="item 11"):
         make_mesh(2)
-    mesh = make_mesh(1, axis_name="shard")
-    args = (tmodel, _t(P0), _t(xi), _t(zi), mesh)
-    with pytest.raises(NotImplementedError, match="resident"):
-        tlik.sharded_negative_log_restricted_likelihood(*args)  # n below the cutover
-    with pytest.raises(NotImplementedError, match="factor"):
-        tlik.sharded_negative_log_restricted_likelihood(*args, factor=object())
-    view = ShardedModelView(tmodel, mesh)
-    with pytest.raises(NotImplementedError, match="predict"):
+    two = make_mesh(1, axis_name="shard")
+    two.size, two.shape = 2, {"shard": 2}
+    with pytest.raises(NotImplementedError, match="more than one card"):
+        tlik.sharded_negative_log_restricted_likelihood(tmodel, _t(P0), _t(xi), _t(zi), two)
+    with pytest.raises(NotImplementedError, match="more than one card"):
+        sharded_cholesky(_t(K), two, block=128)
+    view = ShardedModelView(tgp.Model(tmodel.mean, tmodel.covariance, covparam=P0), two)
+    with pytest.raises(NotImplementedError, match="more than one card"):
         view.predict(xi, zi, xi[:4])
-    with pytest.raises(NotImplementedError, match="loo"):
+    with pytest.raises(NotImplementedError, match="more than one card"):
         view.loo(xi, zi)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tgp.kernel.select_parameters_with_reml(tmodel, xi, zi, covparam0=P0, mesh=two)
 
 
 @pytest.mark.parametrize("where", ["criterion", "view", "select"])
-def test_resident_panel_size_raises(problem, forced, where):
-    """The resident branch's panel size (block=, shard_block=) is refused,
-    not ignored, while the streamed engine alone is ported."""
-    _jm, tmodel, xi, zi, _B, _K = problem
-    with pytest.raises(NotImplementedError, match="block"):
+def test_resident_panel_size_raises(problem, where):
+    """The resident branch's panel size (the criterion's block=, the view's
+    block=, select_parameters_with_reml's shard_block=) is honoured: the f64
+    REML with panels of 128 matches JAX's sharded REML with block=128 to
+    1e-12 (both the same exact blocked algorithm), and a panel that does not
+    divide n is refused.  (While only the streamed engine was ported, these
+    were refused.)"""
+    jmodel, tmodel, xi, zi, _B, _K = problem
+    prev = config.get_chol_engine()
+    config.set_chol_engine("f64")
+    mesh = make_mesh(1, axis_name="shard")
+    try:
+        vj = float(jax.jit(lambda p: j_sharded_reml(
+            jmodel, p, jnp.asarray(xi), jnp.asarray(zi), jmake_mesh(1, axis_name="shard"),
+            block=128))(jnp.asarray(P0)))
         if where == "criterion":
-            tlik.sharded_negative_log_restricted_likelihood(
-                tmodel, _t(P0), _t(xi), _t(zi), forced, block=128)
+            v = float(tlik.sharded_negative_log_restricted_likelihood(
+                tmodel, _t(P0), _t(xi), _t(zi), mesh, block=128))
+            with pytest.raises(ValueError, match="divisible"):
+                tlik.sharded_negative_log_restricted_likelihood(
+                    tmodel, _t(P0), _t(xi), _t(zi), mesh, block=96)
         elif where == "view":
-            ShardedModelView(tmodel, forced, block=128)
+            view = ShardedModelView(tmodel, mesh, block=128)
+            assert view._block_for(N) == 128
+            assert ShardedModelView(tmodel, mesh)._block_for(N) == 512
+            v = float(view.negative_log_restricted_likelihood(_t(P0), _t(xi), _t(zi)))
         else:
-            tgp.kernel.select_parameters_with_reml(tmodel, xi, zi, covparam0=P0, mesh=forced,
-                                                   shard_block=128)
+            model, info = tgp.kernel.select_parameters_with_reml(
+                tmodel, xi, zi, covparam0=P0, mesh=mesh, shard_block=128, method="L-BFGS-B",
+                method_options={"maxiter": 1}, info=True)
+            v = float(info.history_criterion[0])
+            assert model is tmodel and info.fun <= v
+    finally:
+        config.set_chol_engine(prev)
+    assert abs(v - vj) <= 1e-12 * abs(vj)
 
 
 def test_select_parameters_with_reml_on_a_mesh(problem, forced):
