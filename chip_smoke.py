@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of gpmp_tpu_torch on one CUDA card: REML fit + predict, noisy
 REML fit + LOO + predict on the mixed Cholesky engine, conditional sample
-paths, large-n REML on the streamed engine through a one-card mesh, and the
+paths, large-n REML on the streamed engine through a one-card mesh, the
 mesh's resident branch (the blocked Cholesky with refined panels: fit,
-predict, LOO, the sharded mixed engine, n = 51200 parity).
+predict, LOO, the sharded mixed engine, n = 51200 parity), the repaired
+second derivatives, and the group mesh on torch.distributed (the
+row-sharded factor, K9s) as a 1-rank NCCL group and as two gloo ranks
+sharing the card.
 
 Run from the repository root with no arguments:
 
@@ -47,6 +50,16 @@ non-zero):
    (phase 3e's sizes), panels of 512, at the first, a middle and the last
    panel, held entrywise by row blocks; K9m at n in {1000, 4099, 16384};
    tolerances at TOL_2E.
+2f. K9s (the slab form of K9u, the row-sharded factor's trailing update)
+   and K9m's slab form vs their plain versions on the card: K9s on the
+   slabs of R = 1 and 2 ranks at n = 16384 (f64; f32 at R = 2) at the
+   first, a middle and the last panel, and on n = 4099 cut into the slabs
+   [0, 2050) and [2050, 4099) with a panel straddling them, held entrywise
+   in units of 2 b eps, only its lower trapezoid written, and bitwise K9u's
+   lower triangle at one rank; K9m's slab forms bitwise their plain
+   versions and the square form's rows; the slab forms of K3, K6, K7 and
+   K4s (the sharded mixed engine's) on n = 4099's slabs against their plain
+   versions with phases 2b/2d's tolerances.
 3. The main path: Hartmann6, n = 1000, d = 6, Matern p = 2, constant
    mean; select_parameters_with_reml then predict at nt = 1000 points, on
    the card, with the launch counters reset just before and the plain
@@ -121,6 +134,28 @@ non-zero):
    sharded_predict(factor=) against the core f64 engine (1e-9; cuSOLVER
    through core.kriging, on the covariance built once), and a gradient
    through factor= must raise.
+3f. The repairs: the REML Hessian (torch.autograd.functional.hessian) at
+   bench.py's data and p0 (n = 1000) through the built-in covariance (K1/K2
+   plus a noise variance) and through bench.py's user kernel (K1d/K1m), and
+   the predicted mean's gradient in xt (nt = 64), card against CPU (rel
+   1e-10, the f64 engine on both); a Hessian through the mixed engine must
+   raise.
+3g. The group mesh as a 1-rank NCCL group (init_process_group on
+   tcp://127.0.0.1, make_mesh() spanning it): phase 3e's workload at
+   n = 16384, f64, panels of 512: a 2-iteration fit, the view's predict
+   and LOO (counters reset before each, the plain versions raising; K9s,
+   K8r, K8t, K9m launched, K9u not), one value+grad, one factor with its
+   gathers and bytes, held to phase 3e's one-card results (REML, gradient,
+   predict, LOO 1e-12; the fit's covparam 1e-10); the sharded mixed engine
+   on the group (K3, K4s, K6, K7, K9s launched) at p0 against phase 3e's f64
+   and mixed branches (REML 1e-6, the gradient envelope: the two mixed
+   engines' f32 preconditioners differ); n = 51200: the factor and the REML
+   through factor= against PARITY_51200_r03.json's oracle (1e-12). Walls
+   and peak rises beside phase 3e's.
+3h. Two ranks sharing the card over gloo (spawned processes): gloo's
+   collectives on CUDA tensors probed first, then REML value+grad at p0,
+   predict and LOO at n = 8192, panels of 512, against the one-card path on
+   the same card (1e-11), the ranks bitwise equal.
 4. Times on the card (CUDA events / synchronised host clock): K1 and K2 vs
    their plain versions at the main path's shapes; REML value+grad evals/s
    at n = 1000 and 8192 (kernels and plain gram); fit+predict wall-clock.
@@ -143,6 +178,9 @@ non-zero):
    torch.matmul; K9u: torch.addmm on the trailing block), bound; the whole
    blocked factor at n = 16384 and 51200 against torch.linalg.cholesky_ex;
    phase 3e's walls and peak rises.
+4f. K9s at n = 16384, first panel, on the one-rank slab and on the second
+   rank's slab of two: kernel (events and profiler device time), plain,
+   torch.addmm on the same trailing block, bound.
 5. Where the time goes: torch.profiler over the noisy model's REML
    value+grad at n = 1000 and 8192, mixed and f64 engines, over one
    streamed ff value+grad at n = 32768, and over one resident f64
@@ -319,6 +357,38 @@ TOL_RESIDENT = {
     "oracle": 1e-10, "predict": 1e-9,
 }
 RESIDENT_SLACK = 100.0
+# phase 2f: K9s (the slab form of K9u) and K9m's slab form against their plain
+# versions, on slabs of R = 1 and 2 ranks at n = K9S_N and on a ragged n whose
+# two slabs [0, 2050) and [2050, 4099) are straddled by the panel at 1792
+K9S_N = RESIDENT_N
+K9S_STRADDLE = (4099, (0, 2050, 4099), 1792)
+TOL_2F = {
+    # S - T Mt^T, b terms in another order: |dS| <= 2 b eps64 (|S| + |T||Mt|^T)
+    # entrywise, held in those units (K9u's)
+    "K9s": 1.0,  # in units of the dtype's eps (f64 and f32)
+}
+# phase 3f: the repaired second derivatives and point gradient, card vs CPU
+# (the f64 engine on both: cuSOLVER's and LAPACK's Cholesky in another
+# order, at bench.py's p0, cond(K) ~1e3 from its 1% noise variance)
+REPAIR_N = 1000
+TOL_REPAIR = {"hessian": 1e-10, "xt grad": 1e-10}
+# phases 3g/3h: the group mesh against the one-card path
+GROUP_GLOO_N = 8192
+GROUP_BACKEND = "nccl"  # phase 3g's 1-rank group
+TOL_GROUP = {
+    # the same f64 algorithm as the one-card path, its sums in another order
+    # (the gathers, the column-oriented solves' panel sums): REML, gradient,
+    # predict and LOO, relative to the largest entry
+    "one-card": 1e-12,
+    # the two fits' covparams after RESIDENT_MAXITER L-BFGS-B steps from p0:
+    # gradients 1e-13 apart, moved by the line search's steps
+    "fit": 1e-10,
+    # the REML through factor= against PARITY_51200_r03.json's oracle
+    "oracle": 1e-12,
+    # two ranks sharing the card over gloo: the panels' owners sum their
+    # parts in another order again
+    "gloo": 1e-11,
+}
 
 
 def fail(msg):
@@ -468,7 +538,8 @@ class _PlainGuard:
                   "diag_block_inv_plain", "trace_sums_plain", "series_sums_plain",
                   "loo_diag_series_plain", "loo_diag_pairs_plain"),
         "refine": ("sampling_residual_plain", "refine_residual_plain", "tri_product_plain"),
-        "chol": ("trailing_update_plain", "murray_phi_plain", "symmetrize_plain"),
+        "chol": ("trailing_update_plain", "murray_phi_plain", "symmetrize_plain",
+                 "slab_update_plain", "murray_phi_slab_plain", "symmetrize_slab_plain"),
         "streamed": ("split_rows_plain", "residual_panel_plain", "streamed_residual_ff_plain",
                      "ff_residual_plain", "h_traces_chunk_plain"),
     }
@@ -2276,7 +2347,9 @@ def phase_resident(gp, gnp, torch, gram, distance, mixed, refine, ochol, st):
     say(f"[phase 3e] walls: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
     say(f"[phase 3e] phase seconds {time.perf_counter() - t_phase:.1f}")
     gp.config.set_chol_engine("auto")
-    return launches, per_call, walls, mem
+    ref = {"v0": v0, "g0": g0, "vm0": vm0, "gm0": gm0, "p_fit": p_fit, "predict": (zpm, zpv),
+           "loo": (zloo, s2loo, eloo), "walls": walls, "mem": mem, "per_call": per_call}
+    return launches, per_call, walls, mem, ref
 
 
 def _resident_bounds(n, b=CHOL_BLOCK):
@@ -2728,6 +2801,633 @@ def _profile_groups(prof, wall_ms, label, reps=1):
     return {label: {"wall_ms": wall_ms, "device_ms": device_ms, "groups": groups}}
 
 
+# ----------------------------------------------------------------------------
+# the group mesh (one process per rank over torch.distributed): phases 2f,
+# 3f (the repairs), 3g, 3h and 4f
+# ----------------------------------------------------------------------------
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _k9s_case(torch, ochol, A, bounds, c0, b):
+    """K9s on each slab [lo, hi) of A's rows at the panel [c0, c0 + b),
+    against its plain version on the same inputs: (worst error in units of
+    2 b eps64 (|S| + |T||Mt|^T), max |d|, whether each wrote only its lower
+    trapezoid, the one-rank slab's output or None)."""
+    n = A.shape[0]
+    w0 = c0 + b
+    Mt = torch.zeros((n, b), dtype=A.dtype, device=A.device)
+    Mt[w0:] = A[w0:, c0:w0]
+    worst, dmax, only, whole = 0.0, 0.0, True, None
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        if max(lo, w0) >= hi:
+            continue
+        W1, W2 = A[lo:hi].clone(), A[lo:hi].clone()
+        ochol.slab_update_cuda(W1, lo, c0, b, Mt)
+        ochol.slab_update_plain(W2, lo, c0, b, Mt)
+        r0 = max(lo, w0) - lo
+        only = only and torch.equal(W1[:r0], A[lo:lo + r0]) and torch.equal(
+            W1[:, :w0], A[lo:hi, :w0])
+        for q0 in range(r0, hi - lo, 1024):
+            q1 = min(hi - lo, q0 + 1024)
+            upper = torch.triu(torch.ones(q1 - q0, n - w0, dtype=torch.bool, device=A.device),
+                               lo + q0 - w0 + 1)
+            only = only and torch.equal(W1[q0:q1, w0:][upper], A[lo + q0:lo + q1, w0:][upper])
+            d = W1[q0:q1, w0:] - W2[q0:q1, w0:]
+            Tq = A[lo + q0:lo + q1, c0:w0]
+            scale = (W2[q0:q1, w0:] + Tq @ Mt[w0:].T).abs() + Tq.abs() @ Mt[w0:].abs().T
+            # in units of 2 b eps of A's dtype
+            worst = max(worst, _dot_units(torch, d.double(), scale.double(), b)
+                        * float(np.finfo(np.float64).eps) / float(torch.finfo(A.dtype).eps))
+            dmax = max(dmax, float(d.abs().max()))
+            del d, scale, upper
+        if len(bounds) == 2:
+            whole = W1
+        del W2
+    return worst, dmax, only, whole
+
+
+def phase_group_kernels_vs_plain(gp, gnp, torch, gram, mixed, ochol):
+    """Phase 2f: K9s (and K9m's slab form) against their plain versions on
+    the card, and K9s against K9u at one rank, with the tolerances at TOL_2F."""
+    absd = {}
+    b = CHOL_BLOCK
+    cases = []
+    A = _large_gram(gp, gnp, K9S_N)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = K9S_N
+    panels = sorted({0, ((n - 1) // b // 2) * b, ((n - 1) // b - 1) * b})
+    for R in (1, 2):
+        cases.append((A, tuple(range(0, n + 1, n // R)), panels, f"n={n} R={R}"))
+    # f32 (the direct factor of the mixed engine's f32 preconditioner)
+    cases.append((A.float(), (0, n // 2, n), panels[:1], f"n={n} R=2 float32"))
+    ns, bounds_s, c_s = K9S_STRADDLE
+    As = _noisy_matern_spd(torch, gram, ns, MIXED_CONDS[0], 500 + ns)[0]
+    cases.append((As, bounds_s, sorted({0, c_s, ((ns - 1) // b - 1) * b}),
+                  f"n={ns} slabs {bounds_s}"))
+    worst = 0.0
+    for Ac, bounds, cs, tag in cases:
+        for c0 in cs:
+            err, dmax, only, whole = _k9s_case(torch, ochol, Ac, bounds, c0, b)
+            msg = (f"[phase 2f] K9s {tag} panel [{c0}, {c0 + b}): max|dS| in units of 2 b eps "
+                   f"(|S| + |T||Mt|^T) {err:.2e} (tol {TOL_2F['K9s']}), max|dS| {dmax:.2e}, "
+                   f"only the lower trapezoid written {only}")
+            check(math.isfinite(err) and err <= TOL_2F["K9s"], f"K9s {tag} c0={c0}: {err:.3e}")
+            check(only, f"K9s wrote outside its lower trapezoid ({tag}, c0={c0})")
+            worst = max(worst, err)
+            if whole is not None:
+                A1 = Ac.clone()
+                ochol.trailing_update_cuda(A1, c0, b)
+                w0 = c0 + b
+                same = torch.equal(torch.tril(whole[w0:, w0:]), torch.tril(A1[w0:, w0:]))
+                msg += f", bitwise K9u's lower triangle {same}"
+                check(same, f"K9s at one rank is not K9u's lower triangle ({tag}, c0={c0})")
+                del A1
+                if Ac is A and c0 == 0:
+                    absd["K9s"] = dmax
+            say(msg)
+            del whole
+            gc.collect()
+    del A
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K9m's slab form against its plain version and against the square form
+    gen = torch.Generator(device=DEVICE).manual_seed(ns)
+    P = torch.randn(ns, ns, dtype=torch.float64, device=DEVICE, generator=gen)
+    Psq, Ssq = P.clone(), P.clone()
+    ochol.murray_phi_cuda(Psq)
+    ochol.symmetrize_cuda(Ssq)
+    PT = P.T.contiguous()
+    same = []
+    for lo, hi in zip(bounds_s[:-1], bounds_s[1:]):
+        X1, X2 = P[lo:hi].clone(), P[lo:hi].clone()
+        ochol.murray_phi_slab(X1, lo)
+        ochol.murray_phi_slab_plain(X2, lo)
+        Y1, Y2 = P[lo:hi].clone(), P[lo:hi].clone()
+        ochol.symmetrize_slab(Y1, PT[lo:hi], lo)
+        ochol.symmetrize_slab_plain(Y2, PT[lo:hi])
+        same += [torch.equal(X1, X2), torch.equal(X1, Psq[lo:hi]), torch.equal(Y1, Y2),
+                 torch.equal(Y1, Ssq[lo:hi])]
+    say(f"[phase 2f] K9m slab form n={ns} slabs {bounds_s}: phi bitwise plain/square "
+        f"{same[0::4]}/{same[1::4]}, sym bitwise plain/square {same[2::4]}/{same[3::4]}")
+    check(all(same), "K9m's slab form differs from its plain version or the square form")
+    say(f"[phase 2f] worst K9s {worst:.3e} (tol {TOL_2F['K9s']})")
+    absd.update(_mixed_slab_forms(torch, gram, mixed, ns, bounds_s))
+    return absd
+
+
+def _mixed_slab_forms(torch, gram, mixed, n, bounds):
+    """The slab forms of K3, K4s, K6 and K7 on every slab of a noisy-Matern K
+    (cond ~1e3) and its f32 factor, against their plain versions, with phase
+    2b's and 2d's tolerances; K4s's blocks also against K4's square output."""
+    K = _noisy_matern_spd(torch, gram, n, MIXED_CONDS[0], 600 + n)[0]
+    L32 = torch.linalg.cholesky(K.float()).contiguous()
+    eye = torch.eye(n, dtype=torch.float32, device=DEVICE)
+    M32 = torch.linalg.solve_triangular(L32, eye, upper=False).contiguous()
+    R_sq = mixed.factorization_residual_cuda(K, L32)
+    H = (M32 @ (R_sq @ M32.T)).contiguous()
+    H2 = (H @ H).contiguous()
+    gen = np.random.default_rng(n)
+    X = torch.as_tensor(gen.normal(size=(n, 3)), device=DEVICE)
+    Bf = torch.as_tensor(gen.normal(size=(n, 3)), device=DEVICE)
+    eps32 = float(np.finfo(np.float32).eps)
+    errs = {"K3": 0.0, "K4": 0.0, "K6": 0.0, "K7": 0.0}
+    same_k4 = True
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        Ks, Ls, Ms, Hs, H2s = (A[lo:hi].contiguous() for A in (K, L32, M32, H, H2))
+        R1, n1 = mixed.residual_cuda(Ks, X, Bf[lo:hi].contiguous())
+        R2, n2 = mixed.residual_plain(Ks, X, Bf[lo:hi])
+        errs["K3"] = max(errs["K3"], rel_err(R1, R2), rel_err(n1, n2))
+        Rs1 = torch.empty((hi - lo, n), dtype=torch.float32, device=DEVICE)
+        Rs2 = torch.empty_like(Rs1)
+        for slo, shi in zip(bounds[:-1], bounds[1:]):
+            Lb = L32[slo:shi].contiguous()
+            mixed.factorization_residual_slab_cuda(Ks, Ls, Lb, lo, slo, Rs1)
+            mixed.factorization_residual_slab_plain(Ks, Ls, Lb, slo, Rs2)
+        errs["K4"] = max(errs["K4"], rel_err(Rs1.double(), Rs2.double()))
+        same_k4 = same_k4 and torch.equal(Rs1, R_sq[lo:hi])
+        z1 = mixed.precond_apply_slab_cuda(Ms, X, lo)
+        z2 = mixed.precond_apply_slab_plain(Ms, X)
+        unit = n * eps32 * (Ms.abs().T @ (Ms.abs() @ X.abs().float()))
+        errs["K6"] = max(errs["K6"], float(((z1 - z2).abs() / unit.clamp_min(1e-30)).max()))
+        t1, t2 = mixed.trace_sums_cuda(Hs, lo), mixed.trace_sums_plain(Hs, lo)
+        s1, s2 = mixed.series_sums_cuda(Hs, H2s), mixed.series_sums_plain(Hs, H2s)
+        errs["K7"] = max(errs["K7"], rel_err(t1, t2), rel_err(s1, s2))
+    say(f"[phase 2f] slab forms n={n} slabs {bounds}: K3 {errs['K3']:.2e} (tol "
+        f"{TOL_MIXED['K3']}), K4s {errs['K4']:.2e} (tol {TOL_MIXED['K4']}; bitwise K4's rows "
+        f"{same_k4}), K6 {errs['K6']:.2e} units of n eps32 (tol {TOL_2D['K6']}), K7 "
+        f"{errs['K7']:.2e} (tol {TOL_MIXED['K7']})")
+    check(errs["K3"] <= TOL_MIXED["K3"] and errs["K4"] <= TOL_MIXED["K4"]
+          and errs["K6"] <= TOL_2D["K6"] and errs["K7"] <= TOL_MIXED["K7"],
+          "a slab form of K3/K4s/K6/K7 against its plain version")
+    return {}
+
+
+def _builtin_noisy_model(gp, gnp):
+    """bench.py's noisy model through the built-in Matern covariance (K1/K2):
+    covparam [log s2, log noise, log 1/rho_1..d]."""
+    def mean(x, param):
+        return gnp.ones((x.shape[0], 1))
+
+    def kernel(x, y, param, pairwise=False):
+        theta = gnp.concatenate([param[:1], param[2:]])
+        K = gp.kernel.maternp_covariance(x, y, 2, theta, pairwise)
+        if y is x or y is None:
+            K = K + gnp.exp(param[1]) * (gnp.ones((x.shape[0],)) if pairwise
+                                         else gnp.eye(x.shape[0]))
+        return K
+
+    return gp.Model(mean, kernel)
+
+
+def _hessian_and_xt_grad(gp, gnp, torch, model, xi, zi, xt, p):
+    """(REML Hessian at p, d sum(zpm^2) / d xt at p) on the configured device."""
+    from torch.autograd.functional import hessian
+
+    x, z = gnp.asarray(xi), gnp.asarray(zi)
+    H = hessian(lambda c: model.negative_log_restricted_likelihood(c, x, z), gnp.asarray(p))
+    model.covparam = gnp.asarray(p)
+    xtg = gnp.asarray(xt).clone().requires_grad_(True)
+    zpm, _ = model.predict(x, z, xtg, convert_out=False)
+    (gx,) = torch.autograd.grad(torch.sum(zpm ** 2), xtg)
+    return H.detach().cpu().numpy(), gx.cpu().numpy()
+
+
+def phase_repairs(gp, gnp, torch):
+    """Phase 3f: the REML Hessian through the built-in (K1/K2) and the user
+    (K1d/K1m) covariance, and the predicted mean's gradient in xt, card
+    against CPU (f64 engine); a second derivative through the mixed engine
+    raises."""
+    t_phase = time.perf_counter()
+    xi, zi, p0 = _bench_data(REPAIR_N)
+    xt = np.random.default_rng(SLICE_SEED + 1).uniform(size=(64, xi.shape[1]))
+    gp.config.set_chol_engine("f64")
+    errs = {}
+    for route, make in (("built-in", _builtin_noisy_model), ("user", _bench_model)):
+        gp.config.set_device(DEVICE)
+        (H, gx), t_card = _timed(torch, lambda: _hessian_and_xt_grad(
+            gp, gnp, torch, make(gp, gnp), xi, zi, xt, p0))
+        gp.config.set_device("cpu")
+        try:
+            t0 = time.perf_counter()
+            Hc, gxc = _hessian_and_xt_grad(gp, gnp, torch, make(gp, gnp), xi, zi, xt, p0)
+            t_cpu = time.perf_counter() - t0
+        finally:
+            gp.config.set_device(DEVICE)
+        e_h = float(np.max(np.abs(H - Hc)) / np.max(np.abs(Hc)))
+        e_x = float(np.max(np.abs(gx - gxc)) / np.max(np.abs(gxc)))
+        asym = float(np.max(np.abs(H - H.T)) / np.max(np.abs(H)))
+        errs[route] = (e_h, e_x)
+        say(f"[phase 3f] {route} covariance, n={REPAIR_N}, bench.py's p0: REML Hessian card vs "
+            f"CPU rel {e_h:.2e} (tol {TOL_REPAIR['hessian']}), max|H| {np.max(np.abs(Hc)):.4e}, "
+            f"asymmetry {asym:.1e}, zero entries {int(np.sum(H == 0))}; d sum(zpm^2)/d xt (nt=64) "
+            f"rel {e_x:.2e} (tol {TOL_REPAIR['xt grad']}); {t_card:.2f} s card, {t_cpu:.2f} s CPU")
+        check(np.all(np.isfinite(H)) and np.all(H != 0), f"the {route} Hessian has zeros or NaN")
+        check(e_h <= TOL_REPAIR["hessian"], f"the {route} REML Hessian, card vs CPU")
+        check(e_x <= TOL_REPAIR["xt grad"], f"the {route} xt gradient, card vs CPU")
+    gp.config.set_chol_engine("mixed")
+    model = _bench_model(gp, gnp)
+    x, z = gnp.asarray(xi), gnp.asarray(zi)
+    from torch.autograd.functional import hessian
+
+    try:
+        hessian(lambda c: model.negative_log_restricted_likelihood(c, x, z), gnp.asarray(p0))
+        raised = None
+    except RuntimeError as exc:
+        raised = str(exc)
+    gp.config.set_chol_engine("auto")
+    say(f"[phase 3f] the mixed engine's Hessian raised: {raised!r}")
+    check(raised is not None and "second derivatives are not implemented" in raised,
+          "a second derivative through the mixed engine did not raise")
+    say(f"[phase 3f] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return errs
+
+
+def _group_counters(refine, ochol):
+    return {"K8r": (refine, "K8R_LAUNCHES"), "K8t": (refine, "K8T_LAUNCHES"),
+            "K9u": (ochol, "K9U_LAUNCHES"), "K9s": (ochol, "K9S_LAUNCHES"),
+            "K9m": (ochol, "K9M_LAUNCHES")}
+
+
+def phase_group_nccl(gp, gnp, torch, gram, distance, mixed, refine, ochol, ref):
+    """Phase 3g: a 1-rank NCCL group at full size, the per-rank algorithm
+    (gathers of one, K9s), held against phase 3e's one-card path."""
+    import datetime
+
+    import torch.distributed as dist
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # the group is this host's loopback
+    dist.init_process_group(GROUP_BACKEND, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        return _phase_group_nccl(gp, gnp, torch, gram, distance, mixed, refine, ochol, ref)
+    finally:
+        dist.destroy_process_group()
+
+
+def _phase_group_nccl(gp, gnp, torch, gram, distance, mixed, refine, ochol, ref):
+    from gpmp_tpu_torch import parallel
+    from gpmp_tpu_torch.parallel import chol as pchol
+    from gpmp_tpu_torch.parallel import comm
+
+    t_phase = time.perf_counter()
+    mesh = parallel.make_mesh(axis_name="shard")
+    check(mesh.is_group and mesh.size == 1 and mesh.device.type == "cuda",
+          f"make_mesh() under a 1-rank NCCL group gave {mesh!r}")
+    n = RESIDENT_N
+    xi, zi, p0 = _large_data(n)
+    xt = _large_xt(n)
+    block = parallel.auto_shard_block(n, mesh)
+    check(block == CHOL_BLOCK, f"auto_shard_block({n}) = {block}")
+    gp.config.set_device(DEVICE)
+    gp.config.set_chol_engine("f64")
+    counters = _group_counters(refine, ochol)
+    guard = (gram, distance, mixed, refine, ochol)
+    walls, mem, per_call = {}, {}, {}
+    unit = 4 * n * n
+    model = _large_model(gp, gnp)
+    vg, _ = _criterion(gp, model, xi, zi, mesh)
+    p_ref = ref["p_fit"]
+    pm = _large_model(gp, gnp)
+    pm.covparam = gnp.asarray(p_ref)
+    view = parallel.ShardedModelView(pm, mesh)
+    with _PlainGuard(*guard):
+        # the group's main path: fit, then predict and LOO, each with the
+        # counts set to 0 just before and read just after
+        _reset(counters)
+        fit_model = _large_model(gp, gnp)
+        (fit_model, info), walls["fit"] = _timed(
+            torch, lambda: gp.kernel.select_parameters_with_reml(
+                fit_model, xi, zi, covparam0=p0, mesh=mesh, method="L-BFGS-B",
+                method_options={"maxiter": RESIDENT_MAXITER}, info=True))
+        launches = _read(counters)
+        _reset(counters)
+        ((zpm, zpv), walls["predict"]), mem["predict"] = _peak_rise(
+            torch, lambda: _timed(torch, lambda: view.predict(xi, zi, xt)))
+        per_call["predict"] = _read(counters)
+        _reset(counters)
+        ((zloo, s2loo, eloo), walls["loo"]), mem["loo"] = _peak_rise(
+            torch, lambda: _timed(torch, lambda: view.loo(xi, zi)))
+        per_call["loo"] = _read(counters)
+        for key in counters:
+            launches[key] += per_call["predict"][key] + per_call["loo"][key]
+        _reset(counters)
+        comm.reset_counts()
+        ((v0, g0), walls["value+grad (first)"]), mem["f64 mesh value+grad"] = _peak_rise(
+            torch, lambda: _timed(torch, lambda: vg(p0)))
+        per_call["value+grad"] = _read(counters)
+        vg_comm = {k: (comm.CALLS[k], comm.BYTES[k]) for k in comm.CALLS}
+        _, walls["value+grad (warm)"] = _timed(torch, lambda: vg(p0 + 1e-3))
+        # one factor: its launches, gathers and bytes
+        K = parallel.sharded_covariance(pm, gnp.asarray(p_ref), gnp.asarray(xi), mesh)
+        _reset(counters)
+        comm.reset_counts()
+        _, walls["factor"] = _timed(torch, lambda: pchol._factor_in_place(K, mesh, block))
+        per_call["factor"] = _read(counters)
+        factor_comm = {k: (comm.CALLS[k], comm.BYTES[k]) for k in comm.CALLS if comm.CALLS[k]}
+        del K
+    p_fit = np.asarray(info.x)
+    e_v = abs(v0 - ref["v0"]) / abs(ref["v0"])
+    e_g = float(np.max(np.abs(g0 - ref["g0"])) / np.max(np.abs(ref["g0"])))
+    e_fit = float(np.max(np.abs(p_fit - p_ref)) / np.max(np.abs(p_ref)))
+    e_pred = [rel_err(a, b) for a, b in zip((zpm, zpv), ref["predict"])]
+    e_loo = [rel_err(a, b) for a, b in zip((zloo, s2loo, eloo), ref["loo"])]
+    say(f"[phase 3g] (a) n={n} f64, a 1-rank NCCL group ({mesh!r}), block {block}: fit "
+        f"(L-BFGS-B, maxiter {RESIDENT_MAXITER}) nfev {info.nfev}, {walls['fit']:.3f} s (one card "
+        f"{ref['walls']['fit']:.3f} s), REML {info.history_criterion[0]!r} -> {info.fun!r}; "
+        f"launches (fit + predict + LOO) {launches}; per value+grad {per_call['value+grad']}, "
+        f"per predict {per_call['predict']}, per LOO {per_call['loo']}, per factor "
+        f"{per_call['factor']} (one card {ref['per_call']['factor']})")
+    say(f"[phase 3g] (a) against the one-card path (phase 3e): REML at p0 rel {e_v:.2e}, "
+        f"gradient {e_g:.2e}, the fit's covparam {e_fit:.2e} (tol {TOL_GROUP['fit']}); at 3e's "
+        f"fit: predict mean {e_pred[0]:.2e}, variance {e_pred[1]:.2e}, LOO "
+        f"{', '.join(f'{e:.2e}' for e in e_loo)} (tol {TOL_GROUP['one-card']})")
+    say(f"[phase 3g] (a) collectives per factor (calls, bytes) {factor_comm}; per value+grad "
+        f"{ {k: v for k, v in vg_comm.items() if v[0]} }")
+    for key in ("K8r", "K8t", "K9s", "K9m"):
+        check(launches[key] > 0, f"{key} was not launched on the group mesh's path")
+    check(launches["K9u"] == 0, "the group mesh's path launched the one-card K9u")
+    check(e_v <= TOL_GROUP["one-card"] and e_g <= TOL_GROUP["one-card"],
+          "the group REML against the one-card path")
+    check(e_fit <= TOL_GROUP["fit"], "the group fit against the one-card fit")
+    check(max(*e_pred, *e_loo) <= TOL_GROUP["one-card"],
+          "the group predict/LOO against the one-card path")
+    check(np.isfinite(info.fun) and info.fun <= info.history_criterion[0],
+          "the group fit ended above its start or not finite")
+
+    # (b) the sharded mixed engine on the group (slabs: K3, K4s, K6, K7 in
+    # their slab forms, the f32 factor on K9s) at p0, against phase 3e's f64
+    # and mixed one-card branches with the mixed engine's class bars
+    gp.config.set_chol_engine("mixed")
+    mc = {k: (mixed, f"{k}_LAUNCHES") for k in ("K3", "K4", "K6", "K7")}
+    mc["K9s"] = (ochol, "K9S_LAUNCHES")
+    vg_mix, _ = _criterion(gp, model, xi, zi, mesh)
+    with _PlainGuard(*guard):
+        _reset(mc)
+        ((vm, gm), walls["mixed value+grad (first)"]), mem["mixed mesh value+grad"] = (
+            _peak_rise(torch, lambda: _timed(torch, lambda: vg_mix(p0))))
+        mixed_launches = _read(mc)
+        _, walls["mixed value+grad (warm)"] = _timed(torch, lambda: vg_mix(p0 + 1e-3))
+    gp.config.set_chol_engine("f64")
+    del vg_mix
+    env_s2, env_rest = TOL_RESIDENT["mixed grad"]
+    env = np.array([env_s2] + [env_rest] * (len(p0) - 1))
+    e_vm = abs(vm - ref["v0"]) / abs(ref["v0"])
+    e_gm = np.abs(gm - ref["g0"]) / np.abs(ref["g0"])
+    e_vmm = abs(vm - ref["vm0"]) / abs(ref["vm0"])
+    e_gmm = np.abs(gm - ref["gm0"]) / np.abs(ref["gm0"])
+    say(f"[phase 3g] (b) n={n} mixed on the group: launches {mixed_launches}; REML {vm!r}: "
+        f"vs the one-card f64 branch rel {e_vm:.2e}, vs the one-card mixed branch rel "
+        f"{e_vmm:.2e} (tol {TOL_RESIDENT['mixed reml']}); grad vs f64 "
+        f"{np.array2string(e_gm, precision=2)}, vs one-card mixed "
+        f"{np.array2string(e_gmm, precision=2)} (envelope {env.tolist()})")
+    for key, count in mixed_launches.items():
+        check(count > 0, f"{key} was not launched on the group's mixed branch")
+    check(max(e_vm, e_vmm) <= TOL_RESIDENT["mixed reml"] and np.all(e_gm <= env)
+          and np.all(e_gmm <= env), "the group's mixed branch against the one-card branches")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) n = 51200, f64: the factor and the REML through factor= on the group
+    n3 = RESIDENT_BIG_N
+    xi3, zi3, p3 = _large_data(n3)
+    model3 = _large_model(gp, gnp)
+    model3.covparam = gnp.asarray(p3)
+    x3, z3, c3 = gnp.asarray(xi3), gnp.asarray(zi3), gnp.asarray(p3)
+    block3 = parallel.auto_shard_block(n3, mesh)
+    with _PlainGuard(*guard):
+        K3 = parallel.sharded_covariance(model3, c3, x3, mesh)
+        _reset(counters)
+        comm.reset_counts()
+        (L3, walls[f"factor n={n3} (sharded_cholesky)"]), mem[f"factor n={n3}"] = _peak_rise(
+            torch, lambda: _timed(torch, lambda: parallel.sharded_cholesky(K3, mesh,
+                                                                           block=block3)))
+        per_call[f"factor n={n3}"] = _read(counters)
+        comm3 = {k: (comm.CALLS[k], comm.BYTES[k]) for k in comm.CALLS if comm.CALLS[k]}
+        del K3
+        v3 = float(parallel.sharded_negative_log_restricted_likelihood(
+            model3, c3, x3, z3, mesh, block=block3, factor=L3))
+    del L3
+    gc.collect()
+    torch.cuda.empty_cache()
+    e_or = abs(v3 - REML_ORACLE_51200) / abs(REML_ORACLE_51200)
+    say(f"[phase 3g] (c) n={n3} f64, block {block3}: factor "
+        f"{walls[f'factor n={n3} (sharded_cholesky)']:.3f} s (one card "
+        f"{ref['walls'][f'factor n={n3} (sharded_cholesky)']:.3f} s), launches "
+        f"{per_call[f'factor n={n3}']}, collectives {comm3}; REML factor= {v3!r} vs the NumPy "
+        f"oracle {REML_ORACLE_51200!r} rel {e_or:.2e} (tol {TOL_GROUP['oracle']})")
+    check(e_or <= TOL_GROUP["oracle"], "the group's n=51200 REML against the oracle")
+    for what, b_ in mem.items():
+        nn = n3 if "51200" in what else n
+        one = ref["mem"].get(what)
+        beside = "" if one is None else f" (one card {one / (4 * nn * nn):.2f})"
+        say(f"[phase 3g] peak rise, {what}: {b_ / 2**30:.3f} GiB = {b_ / (4 * nn * nn):.2f} units "
+            f"of 4n^2 B{beside}")
+    say("[phase 3g] walls: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
+    say(f"[phase 3g] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, walls, mem, factor_comm
+
+
+def _gloo_probe(torch, dist, rank, device):
+    """Each collective the group mesh runs, on CUDA tensors over gloo: 'ok',
+    'wrong values' or the error."""
+    out = {}
+    for op in ("all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_single",
+               "all_reduce", "broadcast"):
+        try:
+            x = torch.full((4, 3), float(rank + 1), device=device)
+            if op == "all_gather_into_tensor":
+                y = torch.empty(8, 3, device=device)
+                dist.all_gather_into_tensor(y, x)
+                ok = float(y.sum()) == 36.0
+            elif op == "reduce_scatter_tensor":
+                y = torch.empty(2, 3, device=device)
+                dist.reduce_scatter_tensor(y, x)
+                ok = float(y.sum()) == 18.0
+            elif op == "all_to_all_single":
+                y = torch.empty(4, 3, device=device)
+                dist.all_to_all_single(y, x)
+                ok = float(y.sum()) == 18.0
+            elif op == "all_reduce":
+                dist.all_reduce(x)
+                ok = float(x.sum()) == 36.0
+            else:
+                dist.broadcast(x, src=0)
+                ok = float(x.sum()) == 12.0
+            out[op] = "ok" if ok else "wrong values"
+        except Exception as exc:  # noqa: BLE001  (reported, and the phase fails)
+            out[op] = f"{type(exc).__name__}: {str(exc)[:160]}"
+    return out
+
+
+def _mesh_results(gp, gnp, torch, mesh, n, block):
+    """REML value+grad at p0, the view's predict at make_data's xt and its
+    LOO at p0, on ``mesh``, as numpy arrays, with the walls."""
+    xi, zi, p0 = _large_data(n)
+    xt = _large_xt(n)
+    model = _large_model(gp, gnp)
+    vg, _ = _criterion(gp, model, xi, zi, mesh)
+    (v, g), t_vg = _timed(torch, lambda: vg(p0))
+    model.covparam = gnp.asarray(p0)
+    from gpmp_tpu_torch import parallel
+
+    view = parallel.ShardedModelView(model, mesh, block=block)
+    (zpm, zpv), t_p = _timed(torch, lambda: view.predict(xi, zi, xt))
+    loo, t_l = _timed(torch, lambda: view.loo(xi, zi))
+    out = {"reml": np.asarray(v), "grad": np.asarray(g)}
+    for k, t in zip(("zpm", "zpv", "zloo", "s2loo", "eloo"), (zpm, zpv, *loo)):
+        out[k] = t.cpu().numpy()
+    return out, {"value+grad": t_vg, "predict": t_p, "loo": t_l}
+
+
+def _gloo_rank(rank, world, port, queue, n, block, device):
+    """One rank of phase 3h: gloo on the one card."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        sys.path.insert(0, HERE)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=120))
+        probe = _gloo_probe(torch, dist, rank, device)
+        bad = {k: v for k, v in probe.items() if v != "ok"}
+        if bad:
+            raise RuntimeError(f"gloo does not take CUDA tensors for {bad}")
+        import gpmp_tpu_torch as gp
+        import gpmp_tpu_torch.kernel  # noqa: F401
+        import gpmp_tpu_torch.num as gnp
+        import gpmp_tpu_torch.parallel  # noqa: F401
+        from gpmp_tpu_torch.ops import chol as ochol
+        from gpmp_tpu_torch.parallel import comm
+
+        gp.config.set_device(device)
+        gp.config.set_chol_engine("f64")
+        mesh = gp.parallel.make_mesh(world, axis_name="shard")
+        ochol.K9S_LAUNCHES = 0
+        comm.reset_counts()
+        res, walls = _mesh_results(gp, gnp, torch, mesh, n, block)
+        res["probe"], res["walls"], res["mesh"] = probe, walls, repr(mesh)
+        res["k9s"] = ochol.K9S_LAUNCHES
+        res["comm"] = {k: (comm.CALLS[k], comm.BYTES[k]) for k in comm.CALLS}
+        queue.put((rank, res))
+    except BaseException:  # noqa: BLE001  (the parent fails the phase with it)
+        queue.put((rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_group_gloo(gp, gnp, torch):
+    """Phase 3h: two ranks on the one card over gloo (spawned), n =
+    GROUP_GLOO_N, against the one-card resident path on the same card."""
+    import multiprocessing as mp
+    import queue as _queue
+
+    from gpmp_tpu_torch import parallel
+
+    t_phase = time.perf_counter()
+    n, block, world = GROUP_GLOO_N, CHOL_BLOCK, 2
+    gp.config.set_device(DEVICE)
+    gp.config.set_chol_engine("f64")
+    ref, ref_walls = _mesh_results(gp, gnp, torch, parallel.make_mesh(1, axis_name="shard"),
+                                   n, block)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, world, port, q, n, block, DEVICE))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(world):
+            rank, res = q.get(timeout=600)
+            check(not isinstance(res, str), f"phase 3h rank {rank} failed:\n{res}")
+            results[rank] = res
+    except _queue.Empty:
+        fail(f"phase 3h: the {world} gloo ranks did not finish in 600 s")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    t_group = time.perf_counter() - t0
+    r0, r1 = results[0], results[1]
+    keys = ("reml", "grad", "zpm", "zpv", "zloo", "s2loo", "eloo")
+    errs = {k: float(np.max(np.abs(r0[k] - ref[k])) / np.max(np.abs(ref[k]))) for k in keys}
+    same = all(np.array_equal(r0[k], r1[k]) for k in keys)
+    say(f"[phase 3h] n={n} f64, {world} gloo ranks on the one card ({r0['mesh']}), block "
+        f"{block}: collectives on CUDA tensors {r0['probe']}; K9s launches per rank "
+        f"{r0['k9s']}/{r1['k9s']}; against the one-card path "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+        + f" (tol {TOL_GROUP['gloo']}); the ranks bitwise equal {same}")
+    say(f"[phase 3h] walls (rank 0) " + ", ".join(f"{k} {v:.3f} s" for k, v in r0["walls"].items())
+        + "; one card " + ", ".join(f"{k} {v:.3f} s" for k, v in ref_walls.items())
+        + f"; the group's processes {t_group:.1f} s in all; rank 0's collectives (calls, "
+        f"bytes) { {k: v for k, v in r0['comm'].items() if v[0]} }")
+    check(r0["k9s"] > 0 and r1["k9s"] > 0, "K9s was not launched on both gloo ranks")
+    check(same, "the two ranks' replicated results differ")
+    check(max(errs.values()) <= TOL_GROUP["gloo"], "the gloo group against the one-card path")
+    say(f"[phase 3h] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return errs
+
+
+def _k9s_bound(n, b, off, rows):
+    """(bound_ms, bound_by) of one K9s launch on the slab of global rows
+    [off, off + rows) at the first panel: 2 b multiply-adds per lower
+    trapezoid entry at the f64 tensor peak, or reading and writing the
+    trapezoid and reading T and Mt's trailing rows once."""
+    w0 = b
+    ents = sum(max(0, gi - w0 + 1) for gi in range(max(off, w0), off + rows))
+    t_rows = off + rows - max(off, w0)
+    nbytes = 8 * (2 * ents + t_rows * b + (n - w0) * b)
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S, 2 * b * ents / PEAK_F64_TENSOR_FLOPS
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def phase_group_times(gp, gnp, torch, ochol):
+    """Phase 4f: K9s at n = RESIDENT_N, first panel, on the one-rank slab and
+    on the second rank's slab of two: kernel (events, profiler), plain,
+    torch.addmm on the same slab's trailing columns, bound."""
+    b, n = CHOL_BLOCK, RESIDENT_N
+    t = lambda fn, reps: _time_cuda(torch, fn, reps, warmup=1)  # noqa: E731
+    K = _large_gram(gp, gnp, n)
+    Mt = torch.zeros((n, b), dtype=K.dtype, device=K.device)
+    Mt[b:] = K[b:, :b]
+    times, bounds, device = {}, {}, {}
+    for tag, (off, rows) in (("R=1", (0, n)), ("R=2 rank 1", (n // 2, n // 2))):
+        W = K[off:off + rows].clone()
+        r0 = max(off, b) - off
+        S, T = W[r0:, b:], W[r0:, :b]
+        times[tag] = (t(lambda: ochol.slab_update_cuda(W, off, 0, b, Mt), 10),
+                      t(lambda: ochol.slab_update_plain(W, off, 0, b, Mt), 3),
+                      t(lambda: torch.addmm(S, T, Mt[b:].T, alpha=-1.0), 10))
+        device[tag] = _device_ms(torch, lambda: ochol.slab_update_cuda(W, off, 0, b, Mt), 5)
+        bounds[tag] = _k9s_bound(n, b, off, rows)
+        del W, S, T
+    del K, Mt
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tag, (t_k, t_p, t_l) in times.items():
+        b_ms, b_by = bounds[tag]
+        say(f"[phase 4f] K9s n={n} {tag} first panel: kernel {t_k:.4f} ms (device "
+            f"{device[tag]:.4f} ms), plain {t_p:.4f} ms, library (addmm) {t_l:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), share {100 * b_ms / t_k:.1f}%")
+    return {"K9s": times["R=1"]}, {"K9s": bounds["R=1"]}, {"K9s": device["R=1"]}
+
+
 def main():
     import torch
 
@@ -2756,6 +3456,7 @@ def main():
     main_abs.update(phase_new_kernels_vs_plain(torch, gram, distance, mixed, refine))
     phase_streamed_kernels_vs_plain(torch, gram, mixed, ops)
     main_abs.update(phase_resident_kernels_vs_plain(gp, gnp, torch, gram, refine, ochol))
+    main_abs.update(phase_group_kernels_vs_plain(gp, gnp, torch, gram, mixed, ochol))
     _errs, large_abs, large_times, large_bounds, large_device = phase_streamed_large(
         gp, gnp, torch, mixed, ops, st, plik)
     launches, main_data, t_first = phase_main_path(gp, gnp, gram, torch)
@@ -2768,9 +3469,14 @@ def main():
     large_launches, large_walls, large_mem, large_info = phase_large_n(
         gp, gnp, torch, gram, distance, mixed, refine, ops, st)
     launches.update({k: large_launches[k] for k in ("K6", "K10b", "K10r", "K10m", "K10t")})
-    res_launches, res_per_call, res_walls, res_mem = phase_resident(
+    res_launches, res_per_call, res_walls, res_mem, res_ref = phase_resident(
         gp, gnp, torch, gram, distance, mixed, refine, ochol, st)
     launches.update(res_launches)
+    repair_errs = phase_repairs(gp, gnp, torch)
+    grp_launches, grp_walls, grp_mem, grp_comm = phase_group_nccl(
+        gp, gnp, torch, gram, distance, mixed, refine, ochol, res_ref)
+    launches["K9s"] = grp_launches["K9s"]
+    gloo_errs = phase_group_gloo(gp, gnp, torch)
     times, rates, t_warm = phase_times(gp, gnp, gram, torch, main_data)
     mtimes, mrates, mem, t_slice_warm = phase_mixed_times(gp, gnp, gram, mixed, torch,
                                                           slice_data)
@@ -2780,6 +3486,7 @@ def main():
     times.update({k: v[:2] for k, v in (*mtimes.items(), *ntimes.items())})
     res_times, res_bounds, res_device, res_factor = phase_resident_times(
         gp, gnp, torch, gram, refine, ochol, res_walls)
+    grp_times, grp_bounds, grp_device = phase_group_times(gp, gnp, torch, ochol)
     profile = phase_profile(gp, gnp, torch)
     profile.update(phase_profile_large(gp, gnp, torch))
     check("jax" not in sys.modules, "jax was imported")
@@ -2793,6 +3500,10 @@ def main():
     times.update({k: v[:2] for k, v in res_times.items()})
     bounds.update(res_bounds)
     device_ms.update({f"{k} resident": v for k, v in res_device.items()})
+    library.update({k: v[2] for k, v in grp_times.items()})
+    times.update({k: v[:2] for k, v in grp_times.items()})
+    bounds.update(grp_bounds)
+    device_ms.update({f"{k} n={RESIDENT_N} R=1": v for k, v in grp_device.items()})
 
     say(json.dumps({
         "card": card,
@@ -2809,6 +3520,13 @@ def main():
         "resident": {"n": RESIDENT_N, "wall_s": res_walls, "factor_s": res_factor,
                      "launches_per_call": res_per_call,
                      "peak_rise_units": {k: v / (4 * RESIDENT_N ** 2) for k, v in res_mem.items()}},
+        "group": {"n": RESIDENT_N, "wall_s": grp_walls, "launches": grp_launches,
+                  "collectives_per_factor": grp_comm,
+                  "peak_rise_units": {k: v / (4 * (RESIDENT_BIG_N if "51200" in k
+                                                   else RESIDENT_N) ** 2)
+                                      for k, v in grp_mem.items()},
+                  "gloo_rel_err": gloo_errs},
+        "repairs_rel_err": repair_errs,
         "device_ms_per_call_n1000": device_ms,
         "sample_paths_nt8192_1024_s": {f"{e} {w}": v for w, d in (("first", t_paths_first),
                                                                   ("warm", t_paths_warm))
@@ -2841,6 +3559,7 @@ def main():
         ("K8r", "refine_residual", mixed_src, "gpmp_tpu/ops/refine.py:75"),
         ("K8t", "tri_product", chol_src, "gpmp_tpu/ops/refine.py:47"),
         ("K9u", "trailing_update", mixed_src, "gpmp_tpu/parallel/chol.py:158"),
+        ("K9s", "slab_update", mixed_src, "gpmp_tpu/parallel/chol.py:270"),
         ("K9m", "murray_phi+symmetrize", chol_src, "gpmp_tpu/parallel/chol.py:460"),
     ]
     say(json.dumps({"kernels": [

@@ -9,7 +9,9 @@ the factorizations go to ``torch.linalg``, or, with
 ``config.set_chol_engine("mixed")``, to the mixed-precision engine and its
 kernels (``ops.mixed``, and ``ops.refine`` for the sampling root); past the
 resident engines' memory, ``parallel`` runs REML on one card through the
-streamed engine and its kernels (``ops.streamed``).  Everything
+streamed engine and its kernels (``ops.streamed``), and on the ranks of a
+torch.distributed group through the row-sharded blocked Cholesky
+(``ops.chol``).  Everything
 runs on the card unless the CPU is asked for (``config.set_device("cpu")``
 or ``GPMP_DEVICE=cpu``).
 """

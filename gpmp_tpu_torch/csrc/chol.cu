@@ -1,12 +1,12 @@
 // gpmp_tpu_torch/csrc/chol.cu
 //
-// K8t and K9m: the hand-written kernels of the blocked Cholesky with refined
-// panels (gpmp_tpu_torch/parallel/chol.py; wrappers in
-// gpmp_tpu_torch/ops/refine.py and gpmp_tpu_torch/ops/chol.py) for Hopper,
-// sm_90a.  Plain C entry points, loaded with ctypes by
-// gpmp_tpu_torch/ops/_build.py.  The path's other two kernels, K8r (the
-// panel's refinement residual) and K9u (the trailing update), are K4's
-// kernel in csrc/mixed.cu.
+// K8t and K9m (square and slab forms): the hand-written kernels of the
+// blocked Cholesky with refined panels (gpmp_tpu_torch/parallel/chol.py;
+// wrappers in gpmp_tpu_torch/ops/refine.py and gpmp_tpu_torch/ops/chol.py)
+// for Hopper, sm_90a.  Plain C entry points, loaded with ctypes by
+// gpmp_tpu_torch/ops/_build.py.  The path's other kernels, K8r (the panel's
+// refinement residual), K9u (the trailing update) and K9s (its slab form),
+// are K4's kernel in csrc/mixed.cu.
 //
 // K8t triangular product (replaces the products of gpmp_tpu/ops/refine.py
 //    newton_tri_inv, M (2I - L M), and the Ogita-Aishima update of
@@ -39,6 +39,12 @@
 //            (j, i) get the same sum, so the result is exactly symmetric.
 //    Bound: sym reads and writes n^2 f64 (4.3 GB at n = 16384: 1.28 ms at
 //    3.35 TB/s); phi writes n^2 / 2 and reads n (0.32 ms): memory-bound.
+//    Slab form (Murray's backward on a row-sharded factor): on one rank's
+//    (rows, n) slab of global rows [off, off + rows), phi zeroes j > i and
+//    halves j = i in place; sym averages the slab with the slab of S^T
+//    (brought by an all-to-all), X <- (X + Y) / 2.  One thread per entry,
+//    consecutive threads on consecutive words; the same values as the
+//    square passes, bitwise.  Bound: reading and writing the slab(s).
 //
 // Tensor cores, TMA and wgmma are not used: these kernels are simple and
 // right first; making them fast is later work.
@@ -149,9 +155,42 @@ murray_kernel(double* __restrict__ X, long long n) {
   }
 }
 
+template <bool SYM>
+__global__ void murray_slab_kernel(double* __restrict__ X, const double* __restrict__ Y,
+                                   long long rows, long long n, long long off) {
+  const long long total = rows * n;
+  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
+       e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    if (SYM) {
+      X[e] = 0.5 * (X[e] + Y[e]);
+    } else {
+      const long long gi = off + e / n, gj = e % n;
+      const double v = X[e];
+      X[e] = gi > gj ? v : (gi == gj ? 0.5 * v : 0.0);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+int gpmp_murray_slab(void* X, const void* Y, long long rows, long long n, long long off,
+                     int sym, void* stream) {
+  if (rows <= 0 || n <= 0 || off < 0 || off + rows > n || (sym && Y == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = rows * n;
+  long long blocks = (total + 255) / 256;
+  if (blocks > 132LL * 32) blocks = 132LL * 32;  // a grid-stride loop past 32 blocks per SM
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sym)
+    murray_slab_kernel<true><<<static_cast<unsigned>(blocks), 256, 0, s>>>(
+        static_cast<double*>(X), static_cast<const double*>(Y), rows, n, off);
+  else
+    murray_slab_kernel<false><<<static_cast<unsigned>(blocks), 256, 0, s>>>(
+        static_cast<double*>(X), nullptr, rows, n, off);
+  return static_cast<int>(cudaGetLastError());
+}
 
 int gpmp_tri_product(const void* A, const void* B, void* C, long long n, double beta,
                      double alpha, int phi, void* stream) {

@@ -4,7 +4,8 @@
 // mixed-precision Cholesky engine (gpmp_tpu_torch/ops/mixed.py); K8s, the
 // residual of its sampling root, and K8r, the residual of the refined panel
 // factor (gpmp_tpu_torch/ops/refine.py); K9u, the blocked Cholesky's
-// trailing update (gpmp_tpu_torch/ops/chol.py); K10m and
+// trailing update, and K9s, its slab form on a row-sharded factor
+// (gpmp_tpu_torch/ops/chol.py); K10m and
 // K10r, K3's and K4's kernels on the streamed engine's sources of K
 // (gpmp_tpu_torch/ops/streamed.py); for Hopper, sm_90a.
 // Plain C entry points, loaded with ctypes by gpmp_tpu_torch/ops/_build.py.
@@ -65,6 +66,33 @@
 //    symmetric for the next panel.  Bound: (n - c0 - B)^2 B / 2 f64 FMAs per
 //    panel, n^3/6 over a factor (22 ms at n = 16384 at the 67 TFLOP/s f64
 //    tensor peak); CUDA-core FMAs reach about an eighth of that (K8s).
+//
+// K9s slab trailing update (replaces the per-device update
+//    K_loc[:, w0:] - Mt_loc Mt_all[w0:]^T of gpmp_tpu/parallel/chol.py
+//    _sharded_cholesky_impl's panel_step): K9u on one rank's row slab of a
+//    row-sharded factor.  A is the (rows, n) f64 slab of global rows
+//    [off, off + rows), holding the solved panel T in columns [c0, c0 + B);
+//    Mt is the (n, B) gather of every rank's trailing panel rows.  The
+//    update A[i, j] -= T[i] . Mt[j] runs over the slab's rows i >= w0 =
+//    c0 + B and the columns w0 <= j <= i (the lower trapezoid: the upper
+//    part of a slab is never read again, and its mirror lives on another
+//    rank).  K4's 32 x 32 tiles, A's rows and Mt's rows staged in shared
+//    memory, the tiles wholly above the diagonal returning at once; each
+//    entry sums its B products in K9u's order, so at one rank (off = 0) the
+//    lower triangle is bitwise K9u's.  In f64 (the refined factor), and in
+//    f32 with f32 sums (the direct factor of the mixed engine's f32
+//    preconditioner, the JAX package's f32 HIGHEST products).  Bound:
+//    (trapezoid entries) x B FMAs, n^3 / (6 R) per rank over a factor, as
+//    K9u; CUDA-core FMAs.
+//
+// Slab forms (the sharded mixed engine on a group mesh, gpmp_tpu_torch/
+//    parallel/mixed.py; the JAX package's per-device shares of the same
+//    programs): K3 and K7 take a rank's (rows, n) row slab (rows = n: the
+//    square forms), K6 a slab of M and all of r, and gives that rank's part
+//    of M^T (M r) (summed over the ranks by an all-reduce), and K4s one
+//    (rows, rows_b) column block of K - L L^T from the rank's rows of L and a
+//    source rank's (a sibling kernel on K4's tiles).  Bounds as the square
+//    forms', per rank.
 //
 // K10r streamed factorization residual (replaces gpmp_tpu/parallel/
 //    streamed.py _streamed_residual_f32): K4's kernel, with K read from a
@@ -240,7 +268,8 @@ constexpr int RES_MAX_K = 8;
 template <typename Src, typename T>
 __global__ void __launch_bounds__(RES_THREADS)
 residual_kernel(Src K, const T* __restrict__ X, const T* __restrict__ B,
-                T* __restrict__ R, double* __restrict__ partial, long long n, int k) {
+                T* __restrict__ R, double* __restrict__ partial, long long nrows, long long n,
+                int k) {
   __shared__ double xs[RES_TILE * RES_MAX_K];
   __shared__ double rows[RES_ROWS][2];
   const int warp = threadIdx.x >> 5;
@@ -256,7 +285,7 @@ residual_kernel(Src K, const T* __restrict__ X, const T* __restrict__ B,
     for (int t = threadIdx.x; t < w * k; t += RES_THREADS)
       xs[t] = static_cast<double>(X[c0 * k + t]);  // X is row-major (n, k)
     __syncthreads();
-    if (row < n) {
+    if (row < nrows) {
       for (int j = lane; j < w; j += 32) {
         const double kv = K(row, c0 + j);
 #pragma unroll
@@ -272,7 +301,7 @@ residual_kernel(Src K, const T* __restrict__ X, const T* __restrict__ B,
     if (c < k) {
       double v = acc[c];
       for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0 && row < n) {
+      if (lane == 0 && row < nrows) {
         const T b = B[row * k + c];
         const T r = static_cast<T>(static_cast<double>(b) - v);
         R[row * k + c] = r;
@@ -299,16 +328,17 @@ residual_kernel(Src K, const T* __restrict__ X, const T* __restrict__ B,
 
 long long residual_blocks(long long n) { return (n + RES_ROWS - 1) / RES_ROWS; }
 
+// rows of K (each n wide): n for the square K, n / R for a rank's row slab
 template <typename Src, typename T>
 int launch_residual(Src K, const void* X, const void* B, void* R, void* partial,
-                    void* norms, long long n, int k, void* stream) {
-  if (n <= 0 || k < 1 || k > RES_MAX_K || residual_blocks(n) > 0x7fffffffLL)
+                    void* norms, long long rows, long long n, int k, void* stream) {
+  if (rows <= 0 || n <= 0 || k < 1 || k > RES_MAX_K || residual_blocks(rows) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long nb = residual_blocks(n);
+  const long long nb = residual_blocks(rows);
   residual_kernel<Src, T><<<static_cast<unsigned>(nb), RES_THREADS, 0, s>>>(
       K, static_cast<const T*>(X), static_cast<const T*>(B),
-      static_cast<T*>(R), static_cast<double*>(partial), n, k);
+      static_cast<T*>(R), static_cast<double*>(partial), rows, n, k);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   reduce_pairs_kernel<<<1, RED_THREADS, 0, s>>>(static_cast<const double*>(partial), nb,
@@ -490,6 +520,141 @@ int launch_trailing_update(void* A, long long n, long long c0, long long b, void
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- K9s
+// A[i - off, j] -= sum_k A[i - off, c0 + k] Mt[j, k] for global rows i in
+// [r0, off + rows) and columns j in [w0, n), i >= j; blockIdx.x the row tile
+// (from r0), blockIdx.y the column tile (from w0).  A's reads are in the
+// panel's columns [c0, w0), which no thread writes; each written entry is
+// read only by the thread that writes it.
+template <typename T>
+__global__ void __launch_bounds__(FR_TILE * FR_TY)
+slab_update_kernel(T* __restrict__ A, const T* __restrict__ Mt, long long rows, long long n,
+                   long long off, long long c0, long long b, long long r0) {
+  const long long w0 = c0 + b, iend = off + rows;
+  const long long i0 = r0 + static_cast<long long>(blockIdx.x) * FR_TILE;
+  const long long j0 = w0 + static_cast<long long>(blockIdx.y) * FR_TILE;
+  if (j0 > i0 + FR_TILE - 1) return;  // wholly above the diagonal
+
+  __shared__ T As[FR_TILE][FR_TILE + 1];  // A[i0 + r - off, c0 + k0 + c]
+  __shared__ T Bs[FR_TILE][FR_TILE + 1];  // Mt[j0 + r, k0 + c]
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  T acc[FR_ROWS];
+#pragma unroll
+  for (int q = 0; q < FR_ROWS; ++q) acc[q] = T(0);
+
+  for (long long k0 = 0; k0 < b; k0 += FR_TILE) {
+    const long long gk = k0 + tx;
+    for (int r = ty; r < FR_TILE; r += FR_TY) {
+      const long long gi = i0 + r, gj = j0 + r;
+      As[r][tx] = (gi < iend && gk < b) ? A[(gi - off) * n + c0 + gk] : T(0);
+      Bs[r][tx] = (gj < n && gk < b) ? Mt[gj * b + gk] : T(0);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < FR_TILE; ++kk) {
+      const T bv = Bs[tx][kk];
+#pragma unroll
+      for (int q = 0; q < FR_ROWS; ++q) acc[q] += As[ty + FR_TY * q][kk] * bv;
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int q = 0; q < FR_ROWS; ++q) {
+    const long long gi = i0 + ty + FR_TY * q, gj = j0 + tx;
+    if (gi < iend && gj < n && gi >= gj) {
+      T* p = A + (gi - off) * n + gj;
+      *p = *p - acc[q];
+    }
+  }
+}
+
+template <typename T>
+int launch_slab_update(void* A, const void* Mt, long long rows, long long n, long long off,
+                       long long c0, long long b, void* stream) {
+  const long long w0 = c0 + b;
+  if (rows <= 0 || n <= 0 || off < 0 || off + rows > n || c0 < 0 || b <= 0 || w0 >= n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long r0 = off > w0 ? off : w0;
+  if (r0 >= off + rows) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rt = (off + rows - r0 + FR_TILE - 1) / FR_TILE;
+  const long long ct = (n - w0 + FR_TILE - 1) / FR_TILE;
+  if (rt > 0x7fffffffLL || ct > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  slab_update_kernel<T><<<dim3(static_cast<unsigned>(rt), static_cast<unsigned>(ct)),
+                          dim3(FR_TILE, FR_TY), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(A), static_cast<const T*>(Mt), rows, n, off, c0, b, r0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- K4s
+// R[i, offs + j] = f32(K[i, offs + j] - sum_k La[i, k] Lb[j, k]) for the
+// slab's rows i (global off + i) and the rows j of a source slab (global
+// offs + j): one (rows, rows_b) column block of a rank's rows of K - L L^T,
+// f64 arithmetic.  La and Lb are rows of the lower-triangular f32 L, so the
+// sum stops at min(global i, global j) (whole 32-wide k tiles: L's zeros add
+// exact zeros).  Both triangles are computed (the mirror lives on another
+// rank); with K exactly symmetric, (i, j) and (j, i) sum the same products in
+// the same order, so R is exactly symmetric as K4's.
+__global__ void __launch_bounds__(FR_TILE * FR_TY)
+slab_fact_residual_kernel(const double* __restrict__ K, const float* __restrict__ La,
+                          const float* __restrict__ Lb, float* __restrict__ R, long long rows,
+                          long long rows_b, long long n, long long off, long long offs) {
+  const long long i0 = static_cast<long long>(blockIdx.x) * FR_TILE;
+  const long long j0 = static_cast<long long>(blockIdx.y) * FR_TILE;
+  const long long ilast = off + (i0 + FR_TILE < rows ? i0 + FR_TILE : rows) - 1;
+  const long long jlast = offs + (j0 + FR_TILE < rows_b ? j0 + FR_TILE : rows_b) - 1;
+  const long long kend = (ilast < jlast ? ilast : jlast) + 1;
+
+  __shared__ double As[FR_TILE][FR_TILE + 1];  // La[i0 + r, k0 + c]
+  __shared__ double Bs[FR_TILE][FR_TILE + 1];  // Lb[j0 + r, k0 + c]
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  double acc[FR_ROWS];
+#pragma unroll
+  for (int q = 0; q < FR_ROWS; ++q) acc[q] = 0.0;
+
+  for (long long k0 = 0; k0 < kend; k0 += FR_TILE) {
+    const long long gk = k0 + tx;
+    for (int r = ty; r < FR_TILE; r += FR_TY) {
+      const long long i = i0 + r, j = j0 + r;
+      As[r][tx] = (i < rows && gk < kend) ? static_cast<double>(La[i * n + gk]) : 0.0;
+      Bs[r][tx] = (j < rows_b && gk < kend) ? static_cast<double>(Lb[j * n + gk]) : 0.0;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < FR_TILE; ++kk) {
+      const double bv = Bs[tx][kk];
+#pragma unroll
+      for (int q = 0; q < FR_ROWS; ++q) acc[q] += As[ty + FR_TY * q][kk] * bv;
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int q = 0; q < FR_ROWS; ++q) {
+    const long long i = i0 + ty + FR_TY * q, j = j0 + tx;
+    if (i < rows && j < rows_b) {
+      const long long t = i * n + offs + j;
+      R[t] = static_cast<float>(K[t] - acc[q]);
+    }
+  }
+}
+
+int launch_slab_fact_residual(const void* K, const void* La, const void* Lb, void* R,
+                              long long rows, long long rows_b, long long n, long long off,
+                              long long offs, void* stream) {
+  if (rows <= 0 || rows_b <= 0 || n <= 0 || off < 0 || off + rows > n || offs < 0 ||
+      offs + rows_b > n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rt = (rows + FR_TILE - 1) / FR_TILE;
+  const long long ct = (rows_b + FR_TILE - 1) / FR_TILE;
+  if (rt > 0x7fffffffLL || ct > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  slab_fact_residual_kernel<<<dim3(static_cast<unsigned>(rt), static_cast<unsigned>(ct)),
+                              dim3(FR_TILE, FR_TY), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(K), static_cast<const float*>(La),
+      static_cast<const float*>(Lb), static_cast<float*>(R), rows, rows_b, n, off, offs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------- K5
 constexpr int TI_MAX_BASE = 128;
 
@@ -538,33 +703,36 @@ int launch_diag_block_inv(const void* L, void* out, long long n, int base, void*
 constexpr long long TS_MAX_BLOCKS = 264;  // two per SM of the H100
 constexpr int TS_PER_THREAD = 8;
 
-long long trace_sums_blocks(long long n) {
+// blocks for a (rows, n) H: rows = n for the square H, n / R for a slab
+long long trace_sums_blocks(long long rows, long long n) {
   const long long per_block = static_cast<long long>(RED_THREADS) * TS_PER_THREAD;
-  long long b = (n * n + per_block - 1) / per_block;
+  long long b = (rows * n + per_block - 1) / per_block;
   if (b < 1) b = 1;
   return b < TS_MAX_BLOCKS ? b : TS_MAX_BLOCKS;
 }
 
 __global__ void __launch_bounds__(RED_THREADS)
-trace_sums_kernel(const float* __restrict__ H, double* __restrict__ partial, long long n) {
+trace_sums_kernel(const float* __restrict__ H, double* __restrict__ partial, long long rows,
+                  long long n, long long off) {
   const long long stride = static_cast<long long>(gridDim.x) * RED_THREADS;
   const long long first = static_cast<long long>(blockIdx.x) * RED_THREADS + threadIdx.x;
   double tr = 0.0, sq = 0.0;
-  for (long long t = first; t < n * n; t += stride) {
+  for (long long t = first; t < rows * n; t += stride) {
     const double h = static_cast<double>(H[t]);
     sq += h * h;
   }
-  for (long long i = first; i < n; i += stride) tr += static_cast<double>(H[i * (n + 1)]);
+  // the diagonal of the rows [off, off + rows) of the (n, n) H
+  for (long long i = first; i < rows; i += stride) tr += static_cast<double>(H[i * n + off + i]);
   block_pair_to_partial(tr, sq, partial);
 }
 
 __global__ void __launch_bounds__(RED_THREADS)
 series_sums_kernel(const float* __restrict__ H, const float* __restrict__ H2,
-                   double* __restrict__ partial, long long n) {
+                   double* __restrict__ partial, long long rows, long long n) {
   const long long stride = static_cast<long long>(gridDim.x) * RED_THREADS;
   double s3 = 0.0, s4 = 0.0;
   for (long long t = static_cast<long long>(blockIdx.x) * RED_THREADS + threadIdx.x;
-       t < n * n; t += stride) {
+       t < rows * n; t += stride) {
     const double h = static_cast<double>(H[t]);
     const double h2 = static_cast<double>(H2[t]);
     s3 += h2 * h;
@@ -656,18 +824,25 @@ constexpr long long PA_CHUNK = 512;  // launch 2: rows per chunk
 
 long long precond_chunks(long long n) { return (n + PA_CHUNK - 1) / PA_CHUNK; }
 
-// y = M r32 over the lower triangle: y_i = sum_{j <= i} M_ij f32(r_j), f32
-template <typename T>
+// y = M r32 over the lower triangle: y_i = sum_{j <= i} M_ij f32(r_j), f32.
+// SLAB: M is the rows [off, off + rows) of the (n, n) lower-triangular M; y
+// has those rows, r all n.  Without SLAB, rows = n and off = 0 are constants
+// (the square form's code, as fast as before the slab form existed).
+template <typename T, bool SLAB>
 __global__ void __launch_bounds__(PA_THREADS)
 precond_rows_kernel(const float* __restrict__ M, const T* __restrict__ r,
-                    float* __restrict__ y, long long n, int k) {
+                    float* __restrict__ y, long long rows_, long long n, long long off_,
+                    int k) {
+  const long long rows = SLAB ? rows_ : n;
+  const long long off = SLAB ? off_ : 0;
   __shared__ float rs[PA_TILE * PA_MAX_K];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long row0 = static_cast<long long>(blockIdx.x) * PA_ROWS;
   const long long row = row0 + warp;
   long long last = row0 + PA_ROWS - 1;  // the block's last row: its columns end there
-  if (last > n - 1) last = n - 1;
+  if (last > rows - 1) last = rows - 1;
+  last += off;  // as a global row
   float acc[PA_MAX_K];
 #pragma unroll
   for (int c = 0; c < PA_MAX_K; ++c) acc[c] = 0.0f;
@@ -678,9 +853,10 @@ precond_rows_kernel(const float* __restrict__ M, const T* __restrict__ r,
     for (int t = threadIdx.x; t < w * k; t += PA_THREADS)
       rs[t] = static_cast<float>(r[c0 * k + t]);  // r is row-major (n, k)
     __syncthreads();
-    if (row < n) {
+    if (row < rows) {
       const float* Mrow = M + row * n + c0;
-      const int wr = static_cast<int>(row + 1 - c0 < w ? row + 1 - c0 : w);  // j <= row
+      const long long grow = off + row;
+      const int wr = static_cast<int>(grow + 1 - c0 < w ? grow + 1 - c0 : w);  // j <= grow
 #pragma unroll 4
       for (int j = lane; j < wr; j += 32) {
         const float mv = Mrow[j];
@@ -695,28 +871,33 @@ precond_rows_kernel(const float* __restrict__ M, const T* __restrict__ r,
     if (c < k) {
       float v = acc[c];
       for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0 && row < n) y[row * k + c] = v;
+      if (lane == 0 && row < rows) y[row * k + c] = v;
     }
   }
 }
 
-// partial[ch, j, c] = sum over the chunk's rows i >= j of M_ij y_ic, f32
+// partial[ch, j, c] = sum over the chunk's rows i (global off + i >= j) of
+// M_ij y_ic, f32; the chunks cut the slab's rows (SLAB as above)
+template <bool SLAB>
 __global__ void __launch_bounds__(PA_COLS * PA_TY)
 precond_cols_kernel(const float* __restrict__ M, const float* __restrict__ y,
-                    float* __restrict__ partial, long long n, int k) {
+                    float* __restrict__ partial, long long rows_, long long n, long long off_,
+                    int k) {
+  const long long rows = SLAB ? rows_ : n;
+  const long long off = SLAB ? off_ : 0;
   __shared__ float red[PA_TY][PA_COLS][PA_MAX_K];
   const long long j0 = static_cast<long long>(blockIdx.x) * PA_COLS;
   const long long j = j0 + threadIdx.x;
   const long long ch = blockIdx.y;
   long long r0 = ch * PA_CHUNK;
-  const long long r1 = r0 + PA_CHUNK < n ? r0 + PA_CHUNK : n;
-  if (r0 < j0) r0 = j0;  // rows above the block's first column hold zeros of M
+  const long long r1 = r0 + PA_CHUNK < rows ? r0 + PA_CHUNK : rows;
+  if (r0 < j0 - off) r0 = j0 - off;  // rows above the block's first column hold zeros of M
   float acc[PA_MAX_K];
 #pragma unroll
   for (int c = 0; c < PA_MAX_K; ++c) acc[c] = 0.0f;
   if (j < n) {
     for (long long i = r0 + threadIdx.y; i < r1; i += PA_TY) {
-      if (i < j) continue;  // M_ij = 0 above the diagonal
+      if (off + i < j) continue;  // M_ij = 0 above the diagonal
       const float mv = M[i * n + j];
 #pragma unroll
       for (int c = 0; c < PA_MAX_K; ++c)
@@ -747,29 +928,35 @@ precond_reduce_kernel(const float* __restrict__ partial, long long chunks, long 
   out[t] = static_cast<T>(s);
 }
 
-template <typename T>
+// M^T (M r32) for M the rows [off, off + rows) of an (n, n) lower-triangular
+// f32 M (rows = n, off = 0: the whole product); r (n, k) in T; out (n, k) in
+// Tout: the whole M^T M r, or a rank's part of it, summed over the ranks by
+// the caller
+template <typename T, typename Tout, bool SLAB>
 int launch_precond_apply(const void* M, const void* r, void* y, void* partial, void* out,
-                         long long n, int k, void* stream) {
-  const long long row_blocks = (n + PA_ROWS - 1) / PA_ROWS;
+                         long long rows, long long n, long long off, int k, void* stream) {
+  const long long row_blocks = (rows + PA_ROWS - 1) / PA_ROWS;
   const long long col_blocks = (n + PA_COLS - 1) / PA_COLS;
-  const long long chunks = precond_chunks(n);
-  if (n <= 0 || k < 1 || k > PA_MAX_K || row_blocks > 0x7fffffffLL ||
-      col_blocks > 0x7fffffffLL || chunks > 65535)
+  const long long chunks = precond_chunks(rows);
+  if (rows <= 0 || n <= 0 || off < 0 || off + rows > n || k < 1 || k > PA_MAX_K ||
+      row_blocks > 0x7fffffffLL || col_blocks > 0x7fffffffLL || chunks > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  precond_rows_kernel<T><<<static_cast<unsigned>(row_blocks), PA_THREADS, 0, s>>>(
-      static_cast<const float*>(M), static_cast<const T*>(r), static_cast<float*>(y), n, k);
+  precond_rows_kernel<T, SLAB><<<static_cast<unsigned>(row_blocks), PA_THREADS, 0, s>>>(
+      static_cast<const float*>(M), static_cast<const T*>(r), static_cast<float*>(y), rows, n,
+      off, k);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  precond_cols_kernel<<<dim3(static_cast<unsigned>(col_blocks), static_cast<unsigned>(chunks)),
-                        dim3(PA_COLS, PA_TY), 0, s>>>(
+  precond_cols_kernel<SLAB>
+      <<<dim3(static_cast<unsigned>(col_blocks), static_cast<unsigned>(chunks)),
+         dim3(PA_COLS, PA_TY), 0, s>>>(
       static_cast<const float*>(M), static_cast<const float*>(y),
-      static_cast<float*>(partial), n, k);
+      static_cast<float*>(partial), rows, n, off, k);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  precond_reduce_kernel<T><<<static_cast<unsigned>((n * k + RED_THREADS - 1) / RED_THREADS),
-                             RED_THREADS, 0, s>>>(static_cast<const float*>(partial), chunks, n,
-                                                  k, static_cast<T*>(out));
+  precond_reduce_kernel<Tout><<<static_cast<unsigned>((n * k + RED_THREADS - 1) / RED_THREADS),
+                                RED_THREADS, 0, s>>>(static_cast<const float*>(partial), chunks,
+                                                     n, k, static_cast<Tout*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -875,22 +1062,24 @@ extern "C" {
 long long gpmp_residual_blocks(long long n) { return residual_blocks(n); }
 
 int gpmp_residual_f64(const void* K, const void* X, const void* B, void* R, void* partial,
-                      void* norms, long long n, int k, void* stream) {
+                      void* norms, long long rows, long long n, int k, void* stream) {
   return launch_residual<DenseK<double>, double>(
-      DenseK<double>{static_cast<const double*>(K), n}, X, B, R, partial, norms, n, k, stream);
+      DenseK<double>{static_cast<const double*>(K), n}, X, B, R, partial, norms, rows, n, k,
+      stream);
 }
 
 int gpmp_residual_f32(const void* K, const void* X, const void* B, void* R, void* partial,
-                      void* norms, long long n, int k, void* stream) {
+                      void* norms, long long rows, long long n, int k, void* stream) {
   return launch_residual<DenseK<float>, float>(
-      DenseK<float>{static_cast<const float*>(K), n}, X, B, R, partial, norms, n, k, stream);
+      DenseK<float>{static_cast<const float*>(K), n}, X, B, R, partial, norms, rows, n, k,
+      stream);
 }
 
 int gpmp_ff_residual(const void* hi, const void* lo, const void* X, const void* B, void* R,
                      void* partial, void* norms, long long n, int k, void* stream) {
   return launch_residual<PairK, double>(
       PairK{static_cast<const float*>(hi), static_cast<const float*>(lo), n}, X, B, R, partial,
-      norms, n, k, stream);
+      norms, n, n, k, stream);
 }
 
 int gpmp_fact_residual_f64(const void* K, const void* L, void* R, long long n, void* stream) {
@@ -937,16 +1126,47 @@ int gpmp_trailing_update(void* A, long long n, long long c0, long long b, void* 
   return launch_trailing_update(A, n, c0, b, stream);
 }
 
+int gpmp_slab_fact_residual(const void* K, const void* La, const void* Lb, void* R,
+                            long long rows, long long rows_b, long long n, long long off,
+                            long long offs, void* stream) {
+  return launch_slab_fact_residual(K, La, Lb, R, rows, rows_b, n, off, offs, stream);
+}
+
+int gpmp_slab_update_f64(void* A, const void* Mt, long long rows, long long n, long long off,
+                         long long c0, long long b, void* stream) {
+  return launch_slab_update<double>(A, Mt, rows, n, off, c0, b, stream);
+}
+
+int gpmp_slab_update_f32(void* A, const void* Mt, long long rows, long long n, long long off,
+                         long long c0, long long b, void* stream) {
+  return launch_slab_update<float>(A, Mt, rows, n, off, c0, b, stream);
+}
+
 long long gpmp_precond_chunks(long long n) { return precond_chunks(n); }
 
 int gpmp_precond_apply_f64(const void* M, const void* r, void* y, void* partial, void* out,
                            long long n, int k, void* stream) {
-  return launch_precond_apply<double>(M, r, y, partial, out, n, k, stream);
+  return launch_precond_apply<double, double, false>(M, r, y, partial, out, n, n, 0, k, stream);
 }
 
 int gpmp_precond_apply_f32(const void* M, const void* r, void* y, void* partial, void* out,
                            long long n, int k, void* stream) {
-  return launch_precond_apply<float>(M, r, y, partial, out, n, k, stream);
+  return launch_precond_apply<float, float, false>(M, r, y, partial, out, n, n, 0, k, stream);
+}
+
+// a rank's part of M^T (M r32), f32, from its row slab of M and all of r
+int gpmp_precond_apply_slab_f64(const void* M, const void* r, void* y, void* partial,
+                                void* out, long long rows, long long n, long long off, int k,
+                                void* stream) {
+  return launch_precond_apply<double, float, true>(M, r, y, partial, out, rows, n, off, k,
+                                                   stream);
+}
+
+int gpmp_precond_apply_slab_f32(const void* M, const void* r, void* y, void* partial,
+                                void* out, long long rows, long long n, long long off, int k,
+                                void* stream) {
+  return launch_precond_apply<float, float, true>(M, r, y, partial, out, rows, n, off, k,
+                                                  stream);
 }
 
 int gpmp_precond_apply_wide_f64(const void* M, const void* r, void* y, void* out, long long n,
@@ -982,14 +1202,20 @@ int gpmp_diag_block_inv(const void* L, void* out, long long n, int base, void* s
   return launch_diag_block_inv(L, out, n, base, stream);
 }
 
-long long gpmp_trace_sums_blocks(long long n) { return trace_sums_blocks(n); }
+long long gpmp_trace_sums_blocks(long long rows, long long n) {
+  return trace_sums_blocks(rows, n);
+}
 
-int gpmp_trace_sums(const void* H, void* partial, void* out, long long n, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// [tr, sum H^2] of the rows [off, off + rows) of an (n, n) f32 H (rows = n,
+// off = 0: the whole H)
+int gpmp_trace_sums(const void* H, void* partial, void* out, long long rows, long long n,
+                    long long off, void* stream) {
+  if (rows <= 0 || n <= 0 || off < 0 || off + rows > n)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long nb = trace_sums_blocks(n);
+  const long long nb = trace_sums_blocks(rows, n);
   trace_sums_kernel<<<static_cast<unsigned>(nb), RED_THREADS, 0, s>>>(
-      static_cast<const float*>(H), static_cast<double*>(partial), n);
+      static_cast<const float*>(H), static_cast<double*>(partial), rows, n, off);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   reduce_pairs_kernel<<<1, RED_THREADS, 0, s>>>(static_cast<const double*>(partial), nb,
@@ -997,14 +1223,14 @@ int gpmp_trace_sums(const void* H, void* partial, void* out, long long n, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-int gpmp_series_sums(const void* H, const void* H2, void* partial, void* out, long long n,
-                     void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+int gpmp_series_sums(const void* H, const void* H2, void* partial, void* out, long long rows,
+                     long long n, void* stream) {
+  if (rows <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long nb = trace_sums_blocks(n);
+  const long long nb = trace_sums_blocks(rows, n);
   series_sums_kernel<<<static_cast<unsigned>(nb), RED_THREADS, 0, s>>>(
       static_cast<const float*>(H), static_cast<const float*>(H2),
-      static_cast<double*>(partial), n);
+      static_cast<double*>(partial), rows, n);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   reduce_pairs_kernel<<<1, RED_THREADS, 0, s>>>(static_cast<const double*>(partial), nb,

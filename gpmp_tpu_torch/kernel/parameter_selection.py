@@ -7,14 +7,17 @@ its gradient come from one forward and one ``torch.autograd.grad``
 host.  History recording, local bounds and the best-seen fallback follow
 the JAX package.
 
-Mesh mode (``mesh=``, ``shard_block=``, ``init_subsample=``) takes the
-port's one-card mesh (gpmp_tpu_torch.parallel.make_mesh): the model is
-wrapped in ``parallel.ShardedModelView`` (panel size ``shard_block``) and
-its REML runs on the mesh's resident branch or, past the resident engines'
-memory, on the streamed engine.
+Mesh mode (``mesh=``, ``shard_block=``, ``init_subsample=``) takes a
+mesh of gpmp_tpu_torch.parallel.make_mesh (one card, or the ranks of a
+torch.distributed group): the model is wrapped in
+``parallel.ShardedModelView`` (panel size ``shard_block``) and its REML runs
+on the mesh's resident branch or, past the resident engines' memory on one
+card, on the streamed engine.  On a group mesh every rank runs the same
+SciPy loop on the same replicated criterion values, bitwise, so the ranks
+take the same steps.
 
 Not ported yet (ROADMAP): dataloader sources, ``method='lbfgs-device'``,
-meshes of more than one card, REMAP and priors.
+REMAP and priors.
 """
 
 import time
@@ -42,8 +45,9 @@ def _check_unported(method=None, mesh=None):
     if mesh is not None:
         from gpmp_tpu_torch.parallel.mesh import Mesh
 
-        if not isinstance(mesh, Mesh) or mesh.size != 1:
-            _not_ported("mesh mode beyond the port's one-card mesh (parallel.make_mesh(1))", 11)
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a gpmp_tpu_torch.parallel.make_mesh mesh; got "
+                            f"{type(mesh).__name__}")
 
 
 # ---------------------- criterion + gradient maker --------------------
@@ -236,8 +240,8 @@ def select_parameters_with_criterion(
     writes the optimum back into the model.  With info=True, returns a
     diagnostics dict with history/timing/criterion callables.
 
-    Mesh mode: pass the port's one-card mesh (``parallel.make_mesh(1)``)
-    and the model is wrapped in ``parallel.ShardedModelView`` (panel size
+    Mesh mode: pass a mesh of ``parallel.make_mesh`` (one card, or a
+    process group's ranks) and the model is wrapped in ``parallel.ShardedModelView`` (panel size
     ``shard_block``, default auto_shard_block), so a criterion built on the
     model's likelihood methods runs on the mesh's resident branch or the
     streamed large-n engine.  When ``covparam0`` is None, the init
@@ -476,8 +480,8 @@ def select_parameters_with_reml(
 ):
     """Select covariance parameters with REML.
 
-    Large-n mode: pass the port's one-card mesh (``parallel.make_mesh(1)``)
-    and the criterion becomes
+    Large-n mode: pass a mesh of ``parallel.make_mesh`` and the criterion
+    becomes
     ``parallel.sharded_negative_log_restricted_likelihood`` (the resident
     branch with panels of ``shard_block``, or the streamed engine); with
     ``covparam0`` None the init heuristic runs on a deterministic subsample

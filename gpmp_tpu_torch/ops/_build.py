@@ -120,6 +120,8 @@ def _declare(lib):
         "gpmp_tri_product": ([vp, vp, vp, ll, f64, f64, i32, vp], i32),
         "gpmp_trailing_update": ([vp, ll, ll, ll, vp], i32),
         "gpmp_murray": ([vp, ll, i32, vp], i32),
+        # ops/chol.py: K9m's slab form (the row-sharded factor; K9s below)
+        "gpmp_murray_slab": ([vp, vp, ll, ll, ll, i32, vp], i32),
         # ops/streamed.py: K10b, K10r, K10m, K10t
         "gpmp_split_rows": ([vp, vp, vp, vp, ll, ll, ll, ctypes.c_float, vp], i32),
         "gpmp_streamed_residual_ff": ([vp, vp, vp, vp, ll, vp], i32),
@@ -130,9 +132,10 @@ def _declare(lib):
         "gpmp_residual_blocks": ([ll], ll),
         "gpmp_diag_block_inv_max_base": ([], i32),
         "gpmp_diag_block_inv": ([vp, vp, ll, i32, vp], i32),
-        "gpmp_trace_sums_blocks": ([ll], ll),
-        "gpmp_trace_sums": ([vp, vp, vp, ll, vp], i32),
-        "gpmp_series_sums": ([vp, vp, vp, vp, ll, vp], i32),
+        "gpmp_trace_sums_blocks": ([ll, ll], ll),
+        "gpmp_trace_sums": ([vp, vp, vp, ll, ll, ll, vp], i32),
+        "gpmp_series_sums": ([vp, vp, vp, vp, ll, ll, vp], i32),
+        "gpmp_slab_fact_residual": ([vp, vp, vp, vp, ll, ll, ll, ll, ll, vp], i32),
         "gpmp_loo_diag_chunks": ([ll], ll),
         "gpmp_loo_diag_series": ([vp, vp, vp, vp, ll, vp], i32),
         # ops/distance.py: K1d
@@ -155,9 +158,12 @@ def _declare(lib):
             [vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp], i32)
         signatures[f"gpmp_matern_pullback_{suffix}"] = (
             [vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp], i32)
-        signatures[f"gpmp_residual_{suffix}"] = ([vp, vp, vp, vp, vp, vp, ll, i32, vp], i32)
+        signatures[f"gpmp_residual_{suffix}"] = ([vp, vp, vp, vp, vp, vp, ll, ll, i32, vp], i32)
         signatures[f"gpmp_fact_residual_{suffix}"] = ([vp, vp, vp, ll, vp], i32)
+        signatures[f"gpmp_slab_update_{suffix}"] = ([vp, vp, ll, ll, ll, ll, ll, vp], i32)
         signatures[f"gpmp_precond_apply_{suffix}"] = ([vp, vp, vp, vp, vp, ll, i32, vp], i32)
+        signatures[f"gpmp_precond_apply_slab_{suffix}"] = (
+            [vp, vp, vp, vp, vp, ll, ll, ll, i32, vp], i32)
         signatures[f"gpmp_precond_apply_wide_{suffix}"] = ([vp, vp, vp, vp, ll, ll, vp], i32)
     for name, (argtypes, restype) in signatures.items():
         fn = getattr(lib, name)

@@ -10,9 +10,16 @@ version and a launch counter each:
   over its lower tiles, (i, j) and (j, i) from one value
   (gpmp_tpu_torch/csrc/mixed.cu: K4's kernel with f64 L, a k range and
   in-place output; ``K9U_LAUNCHES``);
+- K9s ``slab_update``: K9u on one rank's (rows, n) row slab of a
+  row-sharded factor (``_sharded_cholesky_impl``'s per-device update
+  K_loc[:, w0:] - Mt_loc Mt_all[w0:]^T), the slab's own solved panel times
+  the gathered trailing panel rows, over the lower trapezoid
+  (gpmp_tpu_torch/csrc/mixed.cu; ``K9S_LAUNCHES``);
 - K9m ``murray_phi`` / ``symmetrize``: Murray's elementwise passes of
   ``_sharded_chol_bwd``, P <- tril(P) - diag(P) / 2 and S <- (S + S^T) / 2,
-  in place (gpmp_tpu_torch/csrc/chol.cu; ``K9M_LAUNCHES``).
+  in place, on the square matrix or on a slab at a global row offset
+  (``murray_phi_slab``; ``symmetrize_slab`` averages a slab with the slab of
+  S^T) (gpmp_tpu_torch/csrc/chol.cu; ``K9M_LAUNCHES``).
 
 Each dispatcher takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors (or raises); there is no fallback between them.
@@ -26,6 +33,7 @@ from . import _build
 from .mixed import _check_cuda, _on_card, _square
 
 K9U_LAUNCHES = 0
+K9S_LAUNCHES = 0
 K9M_LAUNCHES = 0
 
 _F64 = torch.float64
@@ -80,6 +88,59 @@ def trailing_update(A, c0, b):
     return trailing_update_plain(A, c0, b)
 
 
+def _check_slab(A, off, c0, b, Mt):
+    rows, n = A.shape
+    w0 = c0 + b
+    if not (0 <= off and off + rows <= n and 0 <= c0 and b > 0 and w0 < n):
+        raise ValueError(f"K9s: slab rows [{off}, {off + rows}) of n={n} and panel "
+                         f"[{c0}, {w0}) leave no trailing block")
+    if max(off, w0) >= off + rows:
+        raise ValueError(f"K9s: slab rows [{off}, {off + rows}) lie above the trailing "
+                         f"block at {w0}")
+    if Mt.shape != (n, b):
+        raise ValueError(f"K9s: Mt must be ({n}, {b}); got {tuple(Mt.shape)}")
+    return rows, n
+
+
+def slab_update_plain(A, off, c0, b, Mt, rows=4096):
+    """K9s plain: A[i - off, j] -= A[i - off, c0:c0 + b] . Mt[j] for the slab's
+    global rows i >= w0 = c0 + b and columns w0 <= j <= i, in place, by blocks
+    of ``rows`` rows (the rectangle left of the block's diagonal square by
+    addmm_, the square through its lower triangle); returns A."""
+    nrow, _n = _check_slab(A, off, c0, b, Mt)
+    w0 = c0 + b
+    for r0 in range(max(0, w0 - off), nrow, rows):
+        r1 = min(nrow, r0 + rows)
+        g0, g1 = off + r0, off + r1
+        T = A[r0:r1, c0:w0]
+        if g0 > w0:
+            A[r0:r1, w0:g0].addmm_(T, Mt[w0:g0].T, alpha=-1.0)
+        A[r0:r1, g0:g1].sub_(torch.tril(T @ Mt[g0:g1].T))
+    return A
+
+
+def slab_update_cuda(A, off, c0, b, Mt):
+    """K9s on the card: the slab's trailing update in place (one launch), f64
+    or f32 (A and Mt of one dtype)."""
+    global K9S_LAUNCHES
+    fp = (_F64, torch.float32)
+    dev = _check_cuda("K9s slab_update", (A, Mt), (fp, (A.dtype,)))
+    rows, n = _check_slab(A, off, c0, b, Mt)
+    lib = _build.load()
+    fn = lib.gpmp_slab_update_f64 if A.dtype == _F64 else lib.gpmp_slab_update_f32
+    _build.launch("K9s slab_update", fn, dev, A.data_ptr(), Mt.data_ptr(),
+                  rows, n, int(off), int(c0), int(b))
+    K9S_LAUNCHES += 1
+    return A
+
+
+def slab_update(A, off, c0, b, Mt):
+    """In place on the slab A; A and Mt must be contiguous on the card."""
+    if _on_card(A):
+        return slab_update_cuda(A, off, c0, b, Mt)
+    return slab_update_plain(A, off, c0, b, Mt)
+
+
 def murray_phi_plain(P):
     """K9m plain, phi: P <- tril(P) - diag(P) / 2, in place; returns P."""
     P.copy_(torch.tril(P))
@@ -124,3 +185,53 @@ def symmetrize(S):
     if _on_card(S):
         return symmetrize_cuda(S)
     return symmetrize_plain(S)
+
+
+def _check_phi_slab(X, off):
+    rows, n = X.shape
+    if not (0 <= off and off + rows <= n):
+        raise ValueError(f"K9m: slab rows [{off}, {off + rows}) outside n={n}")
+    return rows, n
+
+
+def murray_phi_slab_plain(P, off):
+    """K9m plain, phi on the slab of global rows [off, off + rows): zero
+    j > i, halve j = i, in place; returns P."""
+    _check_phi_slab(P, off)
+    P.tril_(off)
+    P.diagonal(off).mul_(0.5)
+    return P
+
+
+def symmetrize_slab_plain(S, ST):
+    """K9m plain, sym on a slab: S <- (S + ST) / 2 in place, ST the same rows
+    of S^T; returns S."""
+    S.copy_(0.5 * (S + ST))
+    return S
+
+
+def _murray_slab_cuda(X, Y, off, sym):
+    global K9M_LAUNCHES
+    name = "K9m symmetrize_slab" if sym else "K9m murray_phi_slab"
+    tensors = (X, Y) if sym else (X,)
+    dev = _check_cuda(name, tensors, ((_F64,),) * len(tensors))
+    rows, n = _check_phi_slab(X, off)
+    if sym and Y.shape != X.shape:
+        raise ValueError(f"{name}: the slabs differ in shape")
+    lib = _build.load()
+    _build.launch(name, lib.gpmp_murray_slab, dev, X.data_ptr(), Y.data_ptr() if sym else None,
+                  rows, n, int(off), int(sym))
+    K9M_LAUNCHES += 1
+    return X
+
+
+def murray_phi_slab(P, off):
+    if _on_card(P):
+        return _murray_slab_cuda(P, None, off, False)
+    return murray_phi_slab_plain(P, off)
+
+
+def symmetrize_slab(S, ST, off):
+    if _on_card(S):
+        return _murray_slab_cuda(S, ST, off, True)
+    return symmetrize_slab_plain(S, ST)

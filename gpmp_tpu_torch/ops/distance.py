@@ -31,10 +31,10 @@ and elementwise together); the plain versions count nothing.
 from __future__ import annotations
 
 import torch
-from torch.autograd.function import once_differentiable
 
 import gpmp_tpu_torch.num as gnp
 from . import _build
+from .autograd import plain_vjp
 from .mixed import _on_card
 
 K1D_LAUNCHES = 0
@@ -189,45 +189,37 @@ def scaled_distance_elementwise_pullback_cuda(dbar, loginvrho, x, y):
 # ----------------------------------------------------------------------------
 # Autograd and dispatch
 # ----------------------------------------------------------------------------
-def _xy_grads(dbar, loginvrho, x, y, elementwise, need):
-    """Gradients for x and/or y from the plain composition (off the main path)."""
-    plain = scaled_distance_elementwise_plain if elementwise else scaled_distance_plain
-    with torch.enable_grad():
-        xv = x.detach().requires_grad_(need[0])
-        yv = y.detach().requires_grad_(need[1])
-        D = plain(loginvrho.detach(), xv, yv)
-        wrt = [t for t, w in zip((xv, yv), need) if w]
-        grads = iter(torch.autograd.grad(D, wrt, dbar))
-    return [next(grads) if w else None for w in need]
+def _plain_for(elementwise):
+    return scaled_distance_elementwise_plain if elementwise else scaled_distance_plain
 
 
 class _ScaledDistance(torch.autograd.Function):
     """D(l; x, y): K1d forward and pullback on CUDA tensors, the plain
-    versions on CPU tensors."""
+    versions on CPU tensors.  The x and y cotangents come from the plain
+    composition on either device (off the main path), and so does the whole
+    backward under create_graph, recorded (exact second derivatives)."""
 
     @staticmethod
     def forward(ctx, loginvrho, x, y, elementwise):
-        card = _on_card(x)
-        if card:
-            loginvrho, x, y = loginvrho.contiguous(), x.contiguous(), y.contiguous()
         ctx.save_for_backward(loginvrho, x, y)
         ctx.elementwise = elementwise
-        if elementwise:
-            fn = scaled_distance_elementwise_cuda if card else scaled_distance_elementwise_plain
-        else:
-            fn = scaled_distance_cuda if card else scaled_distance_plain
-        return fn(loginvrho, x, y)
+        if _on_card(x):
+            fn = scaled_distance_elementwise_cuda if elementwise else scaled_distance_cuda
+            return fn(loginvrho.contiguous(), x.contiguous(), y.contiguous())
+        return _plain_for(elementwise)(loginvrho, x, y)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dbar):
         loginvrho, x, y = ctx.saved_tensors
+        plain = _plain_for(ctx.elementwise)
+        if torch.is_grad_enabled():
+            return (*plain_vjp(plain, (loginvrho, x, y), ctx.needs_input_grad[:3], dbar), None)
         gl = None
         if ctx.needs_input_grad[0]:
             if _on_card(x):
                 fn = (scaled_distance_elementwise_pullback_cuda if ctx.elementwise
                       else scaled_distance_pullback_cuda)
-                g = fn(dbar.contiguous(), loginvrho, x, y)
+                g = fn(dbar.contiguous(), loginvrho.contiguous(), x.contiguous(), y.contiguous())
             else:
                 fn = (scaled_distance_elementwise_pullback_plain if ctx.elementwise
                       else scaled_distance_pullback_plain)
@@ -236,7 +228,9 @@ class _ScaledDistance(torch.autograd.Function):
         gx = gy = None
         need = (ctx.needs_input_grad[1], ctx.needs_input_grad[2])
         if any(need):
-            gx, gy = _xy_grads(dbar, loginvrho, x, y, ctx.elementwise, need)
+            _, gx, gy = plain_vjp(plain, (loginvrho.detach(), x.detach().requires_grad_(need[0]),
+                                          y.detach().requires_grad_(need[1])),
+                                  (False, *need), dbar, create_graph=False)
         return gl, gx, gy, None
 
 

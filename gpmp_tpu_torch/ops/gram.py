@@ -32,12 +32,13 @@ working dtype when the tensors come from ``gnp``).
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
-from torch.autograd.function import once_differentiable
 
 import gpmp_tpu_torch.num as gnp
 from . import _build, distance
+from .autograd import plain_vjp
 from .mixed import _on_card
 
 K1_LAUNCHES = 0
@@ -293,23 +294,26 @@ def maternp_kernel_backward_cuda(p, h, kbar):
 # ----------------------------------------------------------------------------
 class _MaternpKernel(torch.autograd.Function):
     """k_p(h) elementwise: K1m forward and backward on CUDA tensors, the
-    plain versions on CPU tensors."""
+    plain versions on CPU tensors; under create_graph the backward is the
+    plain composition's, recorded (exact second derivatives)."""
 
     @staticmethod
     def forward(ctx, h, p):
-        card = _on_card(h)
-        if card:
-            h = h.contiguous()
         ctx.save_for_backward(h)
         ctx.p = p
-        return maternp_kernel_cuda(p, h) if card else maternp_kernel_plain(p, h)
+        if _on_card(h):
+            return maternp_kernel_cuda(p, h.contiguous())
+        return maternp_kernel_plain(p, h)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, kbar):
         (h,) = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            (hbar,) = plain_vjp(partial(maternp_kernel_plain, ctx.p), (h,),
+                                ctx.needs_input_grad[:1], kbar)
+            return hbar, None
         if _on_card(h):
-            return maternp_kernel_backward_cuda(ctx.p, h, kbar.contiguous()), None
+            return maternp_kernel_backward_cuda(ctx.p, h.contiguous(), kbar.contiguous()), None
         return maternp_kernel_backward_plain(ctx.p, h, kbar), None
 
 
@@ -320,44 +324,53 @@ def maternp_kernel(p: int, h):
 
 
 class MaternGram(torch.autograd.Function):
-    """K(x, y; theta) with a gradient for theta only: K1 forward, K2 backward
-    on CUDA tensors; the plain versions on CPU tensors."""
+    """K(x, y; theta): K1 forward and K2 (the theta pullback) backward on CUDA
+    tensors, the plain versions on CPU tensors.  The x and y cotangents come
+    from the plain composition on either device (off the main path), and so
+    does the whole backward under create_graph, recorded (exact second
+    derivatives)."""
 
     @staticmethod
     def forward(ctx, x, y, theta, p, same):
-        if x.is_cuda:
-            x, y, theta = x.contiguous(), y.contiguous(), theta.contiguous()
         ctx.save_for_backward(x, y, theta)
         ctx.p, ctx.same = p, same
         if x.is_cuda:
-            return matern_gram_cuda(x, y, p, theta, same)
+            return matern_gram_cuda(x.contiguous(), y.contiguous(), p, theta.contiguous(), same)
         return matern_gram_plain(x, y, p, theta, same)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, kbar):
         x, y, theta = ctx.saved_tensors
-        if not ctx.needs_input_grad[2]:
-            return None, None, None, None, None
-        if kbar.is_cuda:
-            g = matern_gram_pullback_cuda(kbar.contiguous(), x, y, ctx.p, theta, ctx.same)
-        else:
-            g = matern_gram_pullback_plain(kbar, x, y, ctx.p, theta, ctx.same)
-        return None, None, g.to(theta.dtype), None, None
+        plain = partial(_gram_plain_xyt, ctx.p, ctx.same)
+        if torch.is_grad_enabled():
+            return (*plain_vjp(plain, (x, y, theta), ctx.needs_input_grad[:3], kbar), None, None)
+        gx = gy = g = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            gx, gy, _ = plain_vjp(plain, (x.detach().requires_grad_(ctx.needs_input_grad[0]),
+                                          y.detach().requires_grad_(ctx.needs_input_grad[1]),
+                                          theta.detach()),
+                                  (*ctx.needs_input_grad[:2], False), kbar, create_graph=False)
+        if ctx.needs_input_grad[2]:
+            if kbar.is_cuda:
+                g = matern_gram_pullback_cuda(kbar.contiguous(), x.contiguous(), y.contiguous(),
+                                              ctx.p, theta.contiguous(), ctx.same)
+            else:
+                g = matern_gram_pullback_plain(kbar, x, y, ctx.p, theta, ctx.same)
+            g = g.to(theta.dtype)
+        return gx, gy, g, None, None
+
+
+def _gram_plain_xyt(p, same, x, y, theta):
+    return matern_gram_plain(x, y, p, theta, same)
 
 
 def matern_gram(x, y, p, theta, same=False):
-    """Matern gram K(x, y; theta), differentiable in theta.
+    """Matern gram K(x, y; theta), differentiable in theta (K2 on the card)
+    and in x and y (the plain composition), twice as well (the plain
+    composition).
 
     ``same=True`` (y is x) adds the 10 * s2 * eps nugget on the diagonal.
-    The gradient with respect to x or y is not provided: a tensor x or y
-    that requires grad raises.
     """
-    if x.requires_grad or y.requires_grad:
-        raise NotImplementedError(
-            "matern_gram gives the gradient for theta only; x and y must not "
-            "require grad"
-        )
     if not (x.device == y.device == theta.device):
         raise ValueError("x, y and theta must lie on one device")
     if x.device.type not in ("cpu", "cuda"):

@@ -37,6 +37,13 @@ each with a plain PyTorch version here and a launch counter:
   diag K^{-1} = sum_i M_ij^2 - sum_i M_ij B_ij (series) or sum_i G_ij W_ij
   (two-level) in f64 (``mp_solve_and_inv_diag``).
 
+K3 and K7 also take a rank's (rows, n) row slab of a row-sharded K or H
+(``residual`` on a slab; ``trace_sums(H, off)``, ``series_sums``), K6 a
+slab of M and all of r (``precond_apply_slab``: that rank's part of
+M^T (M r), in f32), and K4s, a sibling of K4, one column block of a rank's
+rows of K - L L^T (``factorization_residual_slab``): the sharded mixed
+engine on a group mesh (gpmp_tpu_torch/parallel/mixed.py).
+
 Each dispatcher takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors (or raises); there is no fallback between them.
 The matrix products around the kernels (H = M R M^T, H @ H, the recursion
@@ -59,8 +66,8 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.autograd.function import once_differentiable
 
+from .autograd import first_order_only
 from . import _build
 
 DEFAULT_REFINE_ITERS = 4
@@ -142,16 +149,31 @@ def diag_block_inv_plain(L32, base):
     return X
 
 
-def trace_sums_plain(H):
-    """K7 plain, first launch: [tr H, sum H^2] in f64 from f32 H."""
+def trace_sums_plain(H, off=0):
+    """K7 plain, first launch: [tr H, sum H^2] in f64 from f32 H (on a row
+    slab of global rows [off, off + rows): its part of both)."""
     H64 = H.double()
-    return torch.stack([torch.trace(H64), torch.sum(H64 * H64)])
+    return torch.stack([torch.sum(torch.diagonal(H64, off)), torch.sum(H64 * H64)])
 
 
 def series_sums_plain(H, H2):
     """K7 plain, second launch: [sum H^2 o H, sum (H^2)^2] in f64."""
     H64, H2_64 = H.double(), H2.double()
     return torch.stack([torch.sum(H2_64 * H64), torch.sum(H2_64 * H2_64)])
+
+
+def precond_apply_slab_plain(M32, R):
+    """K6 plain, slab form: M_loc^T (M_loc r32) in f32, M_loc (rows, n) a row
+    slab of M, r (n, k): this rank's part of M^T (M r)."""
+    return M32.T @ (M32 @ R.to(_F32))
+
+
+def factorization_residual_slab_plain(K, La, Lb, offs, R):
+    """K4s plain: R[:, offs:offs + rows_b] = f32(K[:, offs:offs + rows_b] -
+    La Lb^T) in f64; returns R."""
+    rows_b = Lb.shape[0]
+    R[:, offs:offs + rows_b] = (K[:, offs:offs + rows_b] - La.double() @ Lb.double().T).to(_F32)
+    return R
 
 
 def loo_diag_series_plain(M32, B32, dtype):
@@ -189,27 +211,30 @@ def _square(name, A):
 
 
 def residual_cuda(K, X, B):
-    """K3 on the card: (R = B - K X, [sum R^2, sum B^2] in f64).
+    """K3 on the card: (R = B - K X, [sum R^2, sum B^2] in f64), K (n, n) or
+    a (rows, n) row slab with B and R its rows.
 
     Two launches from one C entry: per-block partial sums, then a
     fixed-order reduction (bitwise reproducible)."""
     global K3_LAUNCHES
     fp = (torch.float64, torch.float32)
     dev = _check_cuda("K3 residual", (K, X, B), (fp, (K.dtype,), (K.dtype,)))
-    n = _square("K3 residual", K)
-    if X.ndim != 2 or X.shape != B.shape or X.shape[0] != n:
-        raise ValueError(f"K3 residual: X, B must be ({n}, k); got "
+    if K.ndim != 2 or K.shape[0] == 0 or K.shape[0] > K.shape[1]:
+        raise ValueError(f"K3 residual: K must be (rows <= n, n); got {tuple(K.shape)}")
+    rows, n = K.shape
+    if X.ndim != 2 or B.ndim != 2 or X.shape[0] != n or B.shape != (rows, X.shape[1]):
+        raise ValueError(f"K3 residual: X must be ({n}, k), B ({rows}, k); got "
                          f"{tuple(X.shape)}, {tuple(B.shape)}")
     k = X.shape[1]
     if not 1 <= k <= MATVEC_MAX_COLS:
         raise ValueError(f"K3 residual takes 1..{MATVEC_MAX_COLS} columns; got {k}")
     lib = _build.load()
     R = torch.empty_like(B)
-    partial = torch.empty((lib.gpmp_residual_blocks(n), 2), dtype=torch.float64, device=dev)
+    partial = torch.empty((lib.gpmp_residual_blocks(rows), 2), dtype=torch.float64, device=dev)
     norms = torch.empty(2, dtype=torch.float64, device=dev)
     fn = lib.gpmp_residual_f64 if K.dtype == torch.float64 else lib.gpmp_residual_f32
     _build.launch("K3 residual", fn, dev, K.data_ptr(), X.data_ptr(), B.data_ptr(),
-                  R.data_ptr(), partial.data_ptr(), norms.data_ptr(), n, k)
+                  R.data_ptr(), partial.data_ptr(), norms.data_ptr(), rows, n, k)
     K3_LAUNCHES += 1
     return R, norms
 
@@ -245,6 +270,52 @@ def precond_apply_cuda(M32, R):
     return out
 
 
+def precond_apply_slab_cuda(M32, R, off):
+    """K6 on the card, slab form: this rank's part of M^T (M r32), f32 (n, k),
+    from its (rows, n) row slab of M (global rows [off, off + rows)) and all
+    of r (n, k <= 8); three launches, as the square form's."""
+    global K6_LAUNCHES
+    dev = _check_cuda("K6 precond_apply_slab", (M32, R), ((_F32,), (torch.float64, _F32)))
+    rows, n = M32.shape
+    if not (0 <= off and off + rows <= n) or R.ndim != 2 or R.shape[0] != n:
+        raise ValueError(f"K6 precond_apply_slab: M rows [{off}, {off + rows}) of n={n}, R "
+                         f"({n}, k); got {tuple(M32.shape)}, {tuple(R.shape)}")
+    k = R.shape[1]
+    if not 1 <= k <= MATVEC_MAX_COLS:
+        raise ValueError(f"K6 precond_apply_slab takes 1..{MATVEC_MAX_COLS} columns; got {k}")
+    lib = _build.load()
+    y = torch.empty((rows, k), dtype=_F32, device=dev)
+    out = torch.empty((n, k), dtype=_F32, device=dev)
+    partial = torch.empty((lib.gpmp_precond_chunks(rows), n, k), dtype=_F32, device=dev)
+    fn = (lib.gpmp_precond_apply_slab_f64 if R.dtype == torch.float64
+          else lib.gpmp_precond_apply_slab_f32)
+    _build.launch("K6 precond_apply_slab", fn, dev, M32.data_ptr(), R.data_ptr(), y.data_ptr(),
+                  partial.data_ptr(), out.data_ptr(), rows, n, int(off), k)
+    K6_LAUNCHES += 1
+    return out
+
+
+def factorization_residual_slab_cuda(K, La, Lb, off, offs, R):
+    """K4s on the card: R[:, offs:offs + rows_b] = f32(K[:, offs:offs +
+    rows_b] - La Lb^T) in f64, K and R (rows, n) (global rows [off, off +
+    rows)), La this slab's rows of the lower-triangular f32 L, Lb a source
+    slab's (global rows [offs, offs + rows_b)); returns R."""
+    global K4_LAUNCHES
+    dev = _check_cuda("K4s factorization_residual_slab", (K, La, Lb, R),
+                      ((torch.float64,), (_F32,), (_F32,), (_F32,)))
+    rows, n = K.shape
+    rows_b = Lb.shape[0]
+    if La.shape != K.shape or R.shape != K.shape or Lb.shape[1] != n:
+        raise ValueError(f"K4s: K, La and R must be {tuple(K.shape)} and Lb (rows_b, {n}); "
+                         f"got {tuple(La.shape)}, {tuple(R.shape)}, {tuple(Lb.shape)}")
+    lib = _build.load()
+    _build.launch("K4s factorization_residual_slab", lib.gpmp_slab_fact_residual, dev,
+                  K.data_ptr(), La.data_ptr(), Lb.data_ptr(), R.data_ptr(), rows, rows_b, n,
+                  int(off), int(offs))
+    K4_LAUNCHES += 1
+    return R
+
+
 def factorization_residual_cuda(K, L32):
     """K4 on the card: symmetric f32 K - L L^T from the lower triangle."""
     global K4_LAUNCHES
@@ -278,34 +349,45 @@ def diag_block_inv_cuda(L32, base):
     return out
 
 
-def trace_sums_cuda(H):
-    """K7 on the card, first launch: [tr H, sum H^2] in f64."""
+def trace_sums_cuda(H, off=0):
+    """K7 on the card, first launch: [tr H, sum H^2] in f64; on a (rows, n)
+    row slab of global rows [off, off + rows), its part of both."""
     global K7_LAUNCHES
     dev = _check_cuda("K7 trace_sums", (H,), ((_F32,),))
-    n = _square("K7 trace_sums", H)
+    rows, n = _slab_shape("K7 trace_sums", H, off)
     lib = _build.load()
-    partial = torch.empty((lib.gpmp_trace_sums_blocks(n), 2), dtype=torch.float64, device=dev)
+    partial = torch.empty((lib.gpmp_trace_sums_blocks(rows, n), 2), dtype=torch.float64,
+                          device=dev)
     out = torch.empty(2, dtype=torch.float64, device=dev)
     _build.launch("K7 trace_sums", lib.gpmp_trace_sums, dev, H.data_ptr(),
-                  partial.data_ptr(), out.data_ptr(), n)
+                  partial.data_ptr(), out.data_ptr(), rows, n, int(off))
     K7_LAUNCHES += 1
     return out
 
 
 def series_sums_cuda(H, H2):
-    """K7 on the card, second launch: [sum H^2 o H, sum (H^2)^2] in f64."""
+    """K7 on the card, second launch: [sum H^2 o H, sum (H^2)^2] in f64 (over
+    a row slab: its part)."""
     global K7_LAUNCHES
     dev = _check_cuda("K7 series_sums", (H, H2), ((_F32,), (_F32,)))
-    n = _square("K7 series_sums", H)
+    rows, n = _slab_shape("K7 series_sums", H, 0)
     if H2.shape != H.shape:
         raise ValueError(f"K7: H2 must be {tuple(H.shape)}; got {tuple(H2.shape)}")
     lib = _build.load()
-    partial = torch.empty((lib.gpmp_trace_sums_blocks(n), 2), dtype=torch.float64, device=dev)
+    partial = torch.empty((lib.gpmp_trace_sums_blocks(rows, n), 2), dtype=torch.float64,
+                          device=dev)
     out = torch.empty(2, dtype=torch.float64, device=dev)
     _build.launch("K7 series_sums", lib.gpmp_series_sums, dev, H.data_ptr(), H2.data_ptr(),
-                  partial.data_ptr(), out.data_ptr(), n)
+                  partial.data_ptr(), out.data_ptr(), rows, n)
     K7_LAUNCHES += 1
     return out
+
+
+def _slab_shape(name, H, off):
+    if H.ndim != 2 or H.shape[0] == 0 or not (0 <= off and off + H.shape[0] <= H.shape[1]):
+        raise ValueError(f"{name}: expected the rows [{off}, {off} + rows) of an (n, n) "
+                         f"matrix, got {tuple(H.shape)}")
+    return H.shape
 
 
 def _loo_diag_launch(name, fn, dev, A, B):
@@ -374,16 +456,29 @@ def factorization_residual(K, L32):
     return factorization_residual_plain(K, L32)
 
 
+def precond_apply_slab(M32, R, off):
+    if _on_card(M32):
+        return precond_apply_slab_cuda(M32.contiguous(), R.contiguous(), off)
+    return precond_apply_slab_plain(M32, R)
+
+
+def factorization_residual_slab(K, La, Lb, off, offs, R):
+    if _on_card(K):
+        return factorization_residual_slab_cuda(K.contiguous(), La.contiguous(),
+                                                Lb.contiguous(), off, offs, R)
+    return factorization_residual_slab_plain(K, La, Lb, offs, R)
+
+
 def diag_block_inv(L32, base):
     if _on_card(L32):
         return diag_block_inv_cuda(L32.contiguous(), base)
     return diag_block_inv_plain(L32, base)
 
 
-def trace_sums(H):
+def trace_sums(H, off=0):
     if _on_card(H):
-        return trace_sums_cuda(H.contiguous())
-    return trace_sums_plain(H)
+        return trace_sums_cuda(H.contiguous(), off)
+    return trace_sums_plain(H, off)
 
 
 def series_sums(H, H2):
@@ -587,7 +682,7 @@ class _MpSolveAndLogdet(torch.autograd.Function):
         return X, ld
 
     @staticmethod
-    @once_differentiable
+    @first_order_only("mp_solve_and_logdet")
     def backward(ctx, Xbar, ldbar):
         K, M32, H, X = ctx.saved_tensors
         S, _ = refined_cholesky_solve(K, _as_matrix(Xbar), precond=(None, M32),
@@ -616,7 +711,7 @@ class _RefinedSolve(torch.autograd.Function):
         return X
 
     @staticmethod
-    @once_differentiable
+    @first_order_only("refined_solve")
     def backward(ctx, Xbar):
         K, M32, X = ctx.saved_tensors
         S, _ = refined_cholesky_solve(K, _as_matrix(Xbar), precond=(None, M32),
@@ -663,7 +758,7 @@ class _MpSolveAndInvDiag(torch.autograd.Function):
         return X, _inv_diag(K, M32)
 
     @staticmethod
-    @once_differentiable
+    @first_order_only("mp_solve_and_inv_diag")
     def backward(ctx, Xbar, dbar):
         K, M32, X = ctx.saved_tensors
         Xb = _as_matrix(Xbar)

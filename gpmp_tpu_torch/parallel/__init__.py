@@ -1,14 +1,21 @@
 # gpmp_tpu_torch/parallel/__init__.py
-"""The one-card part of gpmp_tpu.parallel: a one-card mesh; the blocked
-Cholesky with refined panels and its solves (K8/K9); the large-n
-likelihoods on the resident branch (the blocked f64 Cholesky or the sharded
-mixed engine) and on the streamed engine; sharded predict, kriging
-weights, sample paths and LOO; and the model view that routes the
-selection procedures' ``mesh=`` through them.
+"""gpmp_tpu.parallel on PyTorch: meshes (one card, or the ranks of a
+torch.distributed process group); the blocked Cholesky with refined panels
+and its solves (K8/K9; on a group mesh the row-sharded factor with K9s);
+the row-sharded gram and matvec; the large-n likelihoods on the resident
+branch (the blocked f64 Cholesky or the sharded mixed engine) and on the
+streamed engine (one card only); sharded predict, kriging weights, sample
+paths and LOO; and the model view that routes the selection procedures'
+``mesh=`` through them.
 
-Not ported yet (ROADMAP queue 1 item 11): meshes of more than one card
-(torch.distributed/NCCL: the row-sharded factor, sharded gram and matvec)
-and the data-parallel batched criteria.
+On a group mesh the low-level functions (``sharded_cholesky``, the blocked
+solves, ``sharded_gram``, ``sharded_matvec``, ``sharded_covariance``,
+``sharded_cross_covariance``) take and return this rank's row slab; the
+criteria, predict, kriging weights, sample paths, LOO and the view take
+replicated inputs and return the same replicated results on every rank.
+
+Not ported yet: the data-parallel batched criteria (ROADMAP queue 1 item
+9).
 """
 
 from .mesh import default_mesh, make_mesh
@@ -24,6 +31,7 @@ from .likelihood import (
     sharded_negative_log_likelihood_zero_mean,
     sharded_negative_log_restricted_likelihood,
 )
+from .gram import sharded_gram, sharded_matvec
 from .mixed import sharded_mp_solve_and_logdet
 from .predict import (
     sharded_cross_covariance,
@@ -43,6 +51,8 @@ __all__ = [
     "sharded_solve_and_logdet",
     "blocked_solve_lower",
     "blocked_solve_upper_t",
+    "sharded_gram",
+    "sharded_matvec",
     "sharded_covariance",
     "sharded_negative_log_restricted_likelihood",
     "sharded_negative_log_likelihood_zero_mean",

@@ -1,13 +1,13 @@
 # gpmp_tpu_torch/parallel/likelihood.py
-"""Large-n GP selection criteria on a one-card mesh.
+"""Large-n GP selection criteria on a mesh.
 
-Counterpart of gpmp_tpu/parallel/likelihood.py, single-card parts: the same
-profiled REML and zero-mean NLL as gpmp_tpu_torch.core.likelihood, with
-K^{-1} [z P] and log det K from one of three engines:
+Counterpart of gpmp_tpu/parallel/likelihood.py: the same profiled REML and
+zero-mean NLL as gpmp_tpu_torch.core.likelihood, with K^{-1} [z P] and
+log det K from one of three engines:
 
 - the streamed engine (parallel/streamed.py), which never holds the (n, n)
-  covariance in float64: mixed engine configured and n past the resident
-  engines' memory (or GPMP_STREAM_N), f32-polymorphic kernel;
+  covariance in float64: one-card mesh, mixed engine configured and n past
+  the resident engines' memory (or GPMP_STREAM_N), f32-polymorphic kernel;
 - the resident branch, the f64 gram handed to the sharded mixed engine
   (parallel/mixed.py, mixed engine configured) or to the blocked Cholesky
   with refined panels (parallel/chol.py, K8/K9; the f64 engine);
@@ -23,20 +23,29 @@ recomputes it in the backward (the JAX package's ``jax.checkpoint``), so
 the kernel chain's (n, n) autograd residuals are never held; on the mixed
 branch its backward reruns the kernel chain in float32 by row chunks,
 accumulated in f64 (``_CovF32Backward``), or exactly in f64 where the
-kernel is not f32-polymorphic.  Meshes of more than one card raise
-NotImplementedError.
+kernel is not f32-polymorphic.
+
+On a group mesh (torch.distributed ranks) ``sharded_covariance`` returns
+this rank's (n/R, n) row slab, its diagonal correction at the slab's
+offset, and the criteria take replicated inputs and return the same
+replicated value on every rank: covparam enters each rank's graph through
+``comm.replicate`` and the sums over training rows (log det, P' K^-1 P,
+P' K^-1 z, z' K^-1 z) leave through ``comm.psum``, so the gradient is the
+sum of every rank's part, bitwise the same on every rank.  A group mesh
+never streams.
 """
 
 from math import log, pi
 
 import torch
-from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 import gpmp_tpu_torch.num as gnp
+from gpmp_tpu_torch.ops.autograd import first_order_only
 from gpmp_tpu_torch.core.likelihood import _nan_to_inf
 from gpmp_tpu_torch.core.linalg import chol_engine
-from .chol import _check_one_card, sharded_solve_and_logdet, value_only_wrt
+from . import comm
+from .chol import sharded_solve_and_logdet, value_only_wrt
 
 # Points per block of _diag_correction.  Only the block diagonals are read,
 # so the size is free: each block costs two host calls of the kernel (two
@@ -77,12 +86,17 @@ def _diag_correction(model, covparam, xi, block=DIAG_CORRECTION_BLOCK):
 
 
 def sharded_covariance(model, covparam, xi, mesh, axis_name="shard"):
-    """The (n, n) covariance with the self-branch diagonal, on one card:
-    the cross-covariance plus the measured diagonal correction."""
-    _check_one_card(mesh)
-    corr = _diag_correction(model, covparam, xi)
-    Kl = model.covariance(xi, xi.clone(), covparam)
-    return Kl + torch.diag(corr.to(Kl.dtype))
+    """The (n, n) covariance with the self-branch diagonal: the
+    cross-covariance plus the measured diagonal correction.  On a group mesh,
+    this rank's (n/R, n) row slab, from the replicated points (as the JAX
+    package's ``per_shard``)."""
+    off, n_loc = comm.rows_of(xi.shape[0], mesh)
+    x_loc = xi[off:off + n_loc]
+    corr = _diag_correction(model, covparam, x_loc)
+    Kl = model.covariance(x_loc, xi.clone(), covparam)  # the clone defeats `y is x`
+    # a sum, whose backward hands Kbar on as it is (diagonal_scatter's would
+    # copy it: one more n^2 buffer in the value+grad's peak)
+    return Kl + torch.zeros_like(Kl).diagonal_scatter(corr.to(Kl.dtype), off)
 
 
 def _streamed_active(model, covparam, xi, mesh, axis_name):
@@ -100,7 +114,7 @@ def _streamed_active(model, covparam, xi, mesh, axis_name):
 def _engine_solve_and_logdet(K, rhs, mesh, axis_name, block, factor=None):
     """The resident branch: the sharded mixed engine when configured, else
     the blocked f64 Cholesky (or a precomputed factor of it)."""
-    if factor is None and K.dtype == torch.float64 and chol_engine(K.shape[0]) == "mixed":
+    if factor is None and K.dtype == torch.float64 and chol_engine(K.shape[1]) == "mixed":
         from .mixed import sharded_mp_solve_and_logdet
 
         return sharded_mp_solve_and_logdet(K, rhs, mesh, axis_name=axis_name, block=block)
@@ -109,36 +123,41 @@ def _engine_solve_and_logdet(K, rhs, mesh, axis_name, block, factor=None):
 
 
 class _CovF32Backward(torch.autograd.Function):
-    """p -> K (f64 forward) whose backward pulls Kbar back through the kernel
-    chain in float32 by row chunks, the chunks' gradients summed in f64."""
+    """p -> K (f64 forward; this rank's slab on a group mesh) whose backward
+    pulls Kbar back through the kernel chain in float32 by row chunks, the
+    chunks' gradients summed in f64."""
 
     @staticmethod
-    def forward(ctx, p, model, xi, xi32):
-        ctx.model, ctx.xi32 = model, xi32
+    def forward(ctx, p, model, xi, xi32, mesh):
+        ctx.model, ctx.xi32, ctx.mesh = model, xi32, mesh
         ctx.save_for_backward(p)
-        return sharded_covariance(model, p, xi, None)
+        return sharded_covariance(model, p, xi, mesh)
 
     @staticmethod
-    @once_differentiable
+    @first_order_only("the mixed branch's f32 gram backward")
     def backward(ctx, Kbar):
         (p,) = ctx.saved_tensors
+        off, _ = comm.rows_of(ctx.xi32.shape[0], ctx.mesh)
         pbar = _chunked_gram_pullback(
-            ctx.model, p.to(torch.float32), ctx.xi32,
+            ctx.model, p.to(torch.float32), comm.slab(ctx.xi32, ctx.mesh),
             lambda r0, r1: Kbar[r0:r1].to(torch.float32),
-            torch.diagonal(Kbar).to(torch.float32), DIAG_CORRECTION_BLOCK)
-        return pbar.to(p.dtype), None, None, None
+            torch.diagonal(Kbar, off).to(torch.float32), DIAG_CORRECTION_BLOCK,
+            xcols32=ctx.xi32)
+        return pbar.to(p.dtype), None, None, None, None
 
 
-def _chunked_gram_pullback(model, p32, xi32, kbar_rows, diag_bar, chunk):
-    """grad_p <Kbar, K(p)> for the f32 gram K(p) = cross_cov(xi, xi, p) +
-    diag(corr(p)), by row chunks: ``kbar_rows(r0, r1)`` gives Kbar[r0:r1] in
-    f32 (a slice of a held Kbar, or formed on the fly by the streamed
-    engine), ``diag_bar`` its f32 diagonal.  Each chunk's gradient goes
+def _chunked_gram_pullback(model, p32, xi32, kbar_rows, diag_bar, chunk, xcols32=None):
+    """grad_p <Kbar, K(p)> for the f32 gram K(p) = cross_cov(xi, xcols, p) +
+    the diagonal correction at xi's points (xcols defaults to xi; a row slab
+    of the gram passes its rows as xi and all the points as xcols), by row
+    chunks: ``kbar_rows(r0, r1)`` gives Kbar[r0:r1] in f32 (a slice of a
+    held Kbar, or formed on the fly by the streamed engine), ``diag_bar`` its
+    f32 entries at the correction's places.  Each chunk's gradient goes
     through the f32 kernel chain (residuals of one chunk only; K1d/K1m f32
     backward on the card) and is accumulated in f64, with the
     diagonal-correction term."""
     n = xi32.shape[0]
-    xc = xi32.clone()  # defeats the kernel's `y is x`
+    xc = (xi32 if xcols32 is None else xcols32).clone()  # defeats the kernel's `y is x`
     g = torch.zeros(p32.shape, dtype=torch.float64, device=p32.device)
     with torch.enable_grad():
         pv = p32.detach().requires_grad_(True)
@@ -160,14 +179,15 @@ def _make_cov(model, covparam, xi, mesh, axis_name):
     if chol_engine(xi.shape[0]) == "mixed" and xi.dtype == torch.float64:
         if kernel_is_f32_polymorphic(model, covparam, xi):
             xi32 = xi.to(torch.float32)
-            return lambda p: _CovF32Backward.apply(p, model, xi, xi32)
+            return lambda p: _CovF32Backward.apply(p, model, xi, xi32, mesh)
     return lambda p: checkpoint(
         lambda q: sharded_covariance(model, q, xi, mesh, axis_name=axis_name), p,
         use_reentrant=False)
 
 
 def _solve_and_logdet(model, covparam, xi, rhs, mesh, axis_name, block, factor):
-    _check_one_card(mesh)
+    """(K^{-1} rhs, log det K): rhs and the solution are this rank's row slabs
+    on a group mesh, log det replicated."""
     if factor is None and _streamed_active(model, covparam, xi, mesh, axis_name):
         # past the resident engines' memory: K is streamed from the kernel
         from .streamed import streamed_mp_solve_and_logdet
@@ -183,26 +203,30 @@ def _solve_and_logdet(model, covparam, xi, rhs, mesh, axis_name, block, factor):
 def sharded_negative_log_restricted_likelihood(
     model, covparam, xi, zi, mesh, axis_name="shard", block=256, factor=None
 ):
-    """Profiled REML on the mesh's card.
+    """Profiled REML on the mesh.
 
     Same value as core.likelihood.negative_log_restricted_likelihood
     (impl='profiled'); differentiable end to end.  ``block``: the blocked
     factor's panel size (n must be divisible by it on the resident branch).
     ``factor``: a blocked Cholesky factor of THE COVARIANCE AT covparam
-    (sharded_cholesky's L) -- skips the O(n^3) refactorization; VALUE ONLY:
-    differentiating with respect to covparam raises."""
+    (sharded_cholesky's L; its row slab on a group mesh) -- skips the
+    O(n^3) refactorization; VALUE ONLY: differentiating with respect to
+    covparam raises.  On a group mesh the inputs and the value are
+    replicated."""
     covparam = gnp.asarray(covparam)
     Pd = model.mean(xi, model.meanparam)
     n, q = Pd.shape
-    rhs = torch.cat([zi.reshape(-1, 1), Pd], dim=1)
-    X, ldetK = _solve_and_logdet(model, covparam, xi, rhs, mesh, axis_name, block, factor)
+    z_loc, P_loc = comm.slab(zi, mesh), comm.slab(Pd, mesh)
+    rhs = torch.cat([z_loc.reshape(-1, 1), P_loc], dim=1)
+    X, ldetK = _solve_and_logdet(model, comm.replicate(covparam, mesh), xi, rhs, mesh,
+                                 axis_name, block, factor)
     Kinv_z = X[:, 0]
     Kinv_P = X[:, 1:]
-    M = Pd.T @ Kinv_P
+    M = comm.psum(P_loc.T @ Kinv_P, mesh)
     Cm = gnp.cholesky(M)
-    b = Pd.T @ Kinv_z
+    b = comm.psum(P_loc.T @ Kinv_z, mesh)
     u = gnp.solve_triangular(Cm, b, lower=True)
-    quad = zi @ Kinv_z - u @ u
+    quad = comm.psum(z_loc @ Kinv_z, mesh) - u @ u
     ldetM = 2.0 * torch.sum(torch.log(torch.diagonal(Cm)))
     ldetPtP = gnp.logdet(Pd.T @ Pd)
     L = 0.5 * ((n - q) * log(2.0 * pi) + ldetK + ldetM - ldetPtP + quad)
@@ -217,9 +241,11 @@ def sharded_negative_log_restricted_likelihood(
 def sharded_negative_log_likelihood_zero_mean(
     model, covparam, xi, zi, mesh, axis_name="shard", block=256
 ):
-    """Zero-mean NLL on the mesh's card (the engines as above)."""
+    """Zero-mean NLL on the mesh (the engines as above; replicated inputs
+    and value on a group mesh)."""
     n = xi.shape[0]
-    Kinv_z, ldetK = _solve_and_logdet(model, gnp.asarray(covparam), xi, zi, mesh, axis_name,
-                                      block, None)
-    L = 0.5 * (n * log(2.0 * pi) + ldetK + zi @ Kinv_z)
+    z_loc = comm.slab(zi, mesh)
+    Kinv_z, ldetK = _solve_and_logdet(model, comm.replicate(gnp.asarray(covparam), mesh), xi,
+                                      z_loc, mesh, axis_name, block, None)
+    L = 0.5 * (n * log(2.0 * pi) + ldetK + comm.psum(z_loc @ Kinv_z, mesh))
     return _nan_to_inf(L.reshape(()))

@@ -56,9 +56,9 @@ import os
 from functools import partial
 
 import torch
-from torch.autograd.function import once_differentiable
 
 import gpmp_tpu_torch.num as gnp
+from gpmp_tpu_torch.ops.autograd import first_order_only
 from gpmp_tpu_torch.config import get_device
 from gpmp_tpu_torch.ops import mixed as _mixed
 from gpmp_tpu_torch.ops import streamed as _ops
@@ -302,17 +302,21 @@ def _residual_recompute(model, p, xi, corr, chunk, X, B):
     return R, torch.stack([torch.sum(R * R), torch.sum(B * B)])
 
 
-def _refined_solve_streamed(residual, B, M32, n_refine):
+def _refined_solve_streamed(residual, B, M32, n_refine, apply=None):
     """The refinement of gpmp_tpu_torch.ops.mixed.refined_cholesky_solve
     with the early exit (floor, stagnation, n_refine) and the NaN guard, the
-    residual (X, B) -> (B - K X, norms) given: one device read per sweep."""
+    residual (X, B) -> (B - K X, norms) given: one device read per sweep.
+    ``apply``: R -> M^T (M R), default K6 on the square M32 (a group mesh
+    passes its slab form)."""
+    if apply is None:
+        apply = partial(_mixed._apply, M32)
     squeeze = B.ndim == 1
     Bm = B.reshape(-1, 1) if squeeze else B
-    X = _mixed._apply(M32, Bm)
+    X = apply(Bm)
     R, norms = residual(X, Bm)
     r2, r2_prev, it = _mixed._rel2(norms, Bm.dtype), math.inf, 0
     while r2 >= _REFINE_FLOOR2 and r2 < 0.25 * r2_prev and it < n_refine:
-        X = X + _mixed._apply(M32, R)
+        X = X + apply(R)
         R, norms = residual(X, Bm)
         r2_prev, r2 = r2, _mixed._rel2(norms, Bm.dtype)
         it += 1
@@ -480,7 +484,7 @@ class _StreamedSolveAndLogdet(torch.autograd.Function):
         return X, ld
 
     @staticmethod
-    @once_differentiable
+    @first_order_only("streamed_mp_solve_and_logdet")
     def backward(ctx, Xbar, ldbar):
         saved, ctx.saved = ctx.saved, None
         pbar, Bbar = ctx.op.backward(ctx.p, saved, Xbar, ldbar)
@@ -498,7 +502,8 @@ def make_streamed_sal(model, xi, mode=None, n_refine=DEFAULT_REFINE_ITERS,
     if mode is None:
         raise ValueError(
             f"streamed engine: n={n} does not fit this card even in recompute mode; "
-            "meshes of more than one card are not ported yet (ROADMAP queue 1 item 11).")
+            "spread it over a group mesh of several cards (torch.distributed, "
+            "parallel.make_mesh), whose resident branch holds n^2/R per rank.")
     if mode not in ("ff", "recompute"):
         raise ValueError(f"mode must be 'ff' or 'recompute'; got {mode!r}")
     if robust is None:
@@ -529,8 +534,8 @@ def kernel_is_f32_polymorphic(model, covparam, xi):
 
 def streamed_applicable(model, covparam, xi, mesh, axis_name):
     """Dispatcher predicate for parallel/likelihood.py."""
-    if mesh is not None and mesh.size != 1:
-        return False
+    if mesh is not None and (mesh.size != 1 or mesh.is_group):
+        return False  # a group mesh never streams (nor does the JAX package's)
     n = xi.shape[0]
     if xi.dtype != _F64:
         return False

@@ -1,6 +1,7 @@
 # gpmp_tpu_torch/parallel/view.py
 """ShardedModelView: a Model proxy whose O(n^2)-memory operations run on a
-one-card mesh.
+mesh (one card, or the ranks of a group mesh, with replicated inputs and
+results).
 
 Counterpart of gpmp_tpu/parallel/view.py.  The view delegates every
 attribute, writes included (parameter selection through the view updates
@@ -33,8 +34,9 @@ from .predict import sharded_predict
 
 
 def auto_shard_block(n, mesh, axis_name="shard", cap=512):
-    """Largest panel size <= cap that divides the per-device row count (the
-    resident branch's panel; one card holds all n rows)."""
+    """Largest panel size <= cap that divides the per-rank row count n / R
+    (the resident branch's panel; a one-card mesh holds all n rows), so no
+    panel straddles two ranks."""
     n_loc = max(1, n // mesh.size)
     b = min(int(cap), n_loc)
     while b > 1 and n_loc % b != 0:

@@ -133,10 +133,21 @@ def test_maternp_kernel_limits_and_derivative():
 
 
 def test_matern_gram_rejects_x_grad_and_mixed_devices():
-    x = torch.rand(4, 2, dtype=torch.float64, requires_grad=True)
-    th = torch.zeros(3, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        gram.matern_gram(x, x, 2, th, True)
+    """x and y that require grad get their cotangents (the plain
+    composition's: it once raised NotImplementedError); mixed devices still
+    raise."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(4, 2, dtype=torch.float64, generator=g, requires_grad=True)
+    y = torch.rand(3, 2, dtype=torch.float64, generator=g, requires_grad=True)
+    th = torch.tensor([0.2, 0.4, -0.3], dtype=torch.float64)
+    w = torch.rand(4, 3, dtype=torch.float64, generator=g)
+    for yy, same, ww in ((x, True, w[:, :1] * w[:, :1].T), (y, False, w)):
+        got = torch.autograd.grad(torch.sum(ww * gram.matern_gram(x, yy, 2, th, same)), (x, yy))
+        want = torch.autograd.grad(torch.sum(ww * gram.matern_gram_plain(x, yy, 2, th, same)),
+                                   (x, yy))
+        for a, b in zip(got, want):
+            assert torch.any(b != 0)
+            torch.testing.assert_close(a, b, rtol=1e-13, atol=0)
     with pytest.raises(ValueError, match="one device"):
         gram.matern_gram(x.detach(), x.detach(), 2, th.to("meta"), True)
 

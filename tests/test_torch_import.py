@@ -163,7 +163,9 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="lbfgs-device"):
         gp.kernel.select_parameters_with_reml(model, xi, zi, covparam0=np.zeros(2),
                                               method="lbfgs-device")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # any make_mesh mesh is taken now (one card, or a process group's ranks:
+    # tests/test_torch_mesh.py); anything else is refused
+    with pytest.raises(TypeError, match="mesh"):
         gp.kernel.select_parameters_with_reml(model, xi, zi, covparam0=np.zeros(2),
                                               mesh=object())
     with pytest.raises(NotImplementedError, match="dataloader"):

@@ -52,6 +52,7 @@ from gpmp_tpu_torch.parallel import (
     sharded_cholesky,
     streamed as st,
 )
+from gpmp_tpu_torch.parallel.mesh import Mesh
 
 N, D = 512, 3
 P0 = np.array([0.0, np.log(1e-2), 0.3, 0.2, 0.1])
@@ -462,27 +463,25 @@ def test_kernel_is_f32_polymorphic(problem):
 # ---------------------------------------------------------------------------
 # the edges
 # ---------------------------------------------------------------------------
-def test_unported_mesh_branches_raise(problem):
-    """Meshes of more than one card stay unported and raise, through every
-    entry point of the mesh path; the one-card resident branch, factor=,
-    predict and LOO run (tests/test_torch_parallel.py)."""
-    _jm, tmodel, xi, zi, _B, K = problem
+def test_unported_mesh_branches_raise(problem, monkeypatch):
+    """make_mesh(2) without a process group raises and says how to start
+    one (it raised NotImplementedError before the group mesh was ported:
+    tests/test_torch_mesh.py runs one); a group mesh never streams, not even
+    at one rank (the JAX package's streamed engine is single-device too)."""
+    _jm, tmodel, xi, zi, B, K = problem
     assert make_mesh(1).shape == {"batch": 1} and make_mesh(1).device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         make_mesh(2)
-    two = make_mesh(1, axis_name="shard")
-    two.size, two.shape = 2, {"shard": 2}
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        tlik.sharded_negative_log_restricted_likelihood(tmodel, _t(P0), _t(xi), _t(zi), two)
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        sharded_cholesky(_t(K), two, block=128)
-    view = ShardedModelView(tgp.Model(tmodel.mean, tmodel.covariance, covparam=P0), two)
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        view.predict(xi, zi, xi[:4])
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        view.loo(xi, zi)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tgp.kernel.select_parameters_with_reml(tmodel, xi, zi, covparam0=P0, mesh=two)
+    group = Mesh("cpu", "shard", group=object(), rank=0, size=1)
+    monkeypatch.setattr(st, "STREAM_MIN_N", 256)
+    prev = config.get_chol_engine()
+    config.set_chol_engine("mixed")
+    try:
+        one = make_mesh(1, axis_name="shard")
+        assert st.streamed_applicable(tmodel, _t(P0), _t(xi), one, "shard")
+        assert not st.streamed_applicable(tmodel, _t(P0), _t(xi), group, "shard")
+    finally:
+        config.set_chol_engine(prev)
 
 
 @pytest.mark.parametrize("where", ["criterion", "view", "select"])
