@@ -44,14 +44,17 @@ non-zero):
    engine's own residents at bench_large_n.py's p0; tolerances at TOL_2D.
 2e. K8r (the refined panel's residual and guard sums), K8t (the
    triangular products of the Newton step and the Ogita-Aishima update),
-   K9u (the blocked factor's trailing update) and K9m (Murray's passes) vs
-   their plain versions on the card: K8r/K8t on (b, b) panels, b in
-   {256, 512}, cond ~1e3 and ~1e6; K9u at n in {1000, 4099, 16384, 51200}
-   (phase 3e's sizes), panels of 512, at the first, a middle and the last
-   panel, held entrywise by row blocks; K9m at n in {1000, 4099, 16384};
-   tolerances at TOL_2E.
-2f. K9s (the slab form of K9u, the row-sharded factor's trailing update)
-   and K9m's slab form vs their plain versions on the card: K9s on the
+   K9u (the blocked factor's trailing update, on the f64 tensor cores) and
+   K9m (Murray's passes) vs their plain versions on the card: K8r/K8t on
+   (b, b) panels, b in {256, 512}, cond ~1e3 and ~1e6; K9u at n in
+   {1000, 4099, 16384, 51200} (phase 3e's sizes; n = 4099's odd rows take
+   8-byte copies), panels of 512, at the first, a middle and the last
+   panel (n = 4099's last leaves 3 rows), held entrywise by row blocks,
+   exactly symmetric, nothing written outside the trailing block; K9m at n
+   in {1000, 4099, 16384}; tolerances at TOL_2E.
+2f. K9s (the slab form of K9u, the row-sharded factor's trailing update:
+   K9u's tensor-core kernel in f64, a CUDA-core kernel in f32) and K9m's
+   slab form vs their plain versions on the card: K9s on the
    slabs of R = 1 and 2 ranks at n = 16384 (f64; f32 at R = 2) at the
    first, a middle and the last panel, and on n = 4099 cut into the slabs
    [0, 2050) and [2050, 4099) with a panel straddling them, held entrywise
@@ -147,7 +150,7 @@ non-zero):
    K8r, K8t, K9m launched, K9u not), one value+grad, one factor with its
    gathers and bytes, held to phase 3e's one-card results (REML, gradient,
    predict, LOO 1e-12; the fit's covparam 1e-10); the sharded mixed engine
-   on the group (K3, K4s, K6, K7, K9s launched) at p0 against phase 3e's f64
+   on the group (K3, K4s, K6, K7, K9s f32 launched) at p0 against phase 3e's f64
    and mixed branches (REML 1e-6, the gradient envelope: the two mixed
    engines' f32 preconditioners differ); n = 51200: the factor and the REML
    through factor= against PARITY_51200_r03.json's oracle (1e-12). Walls
@@ -173,14 +176,21 @@ non-zero):
    and K10t): kernel (events and profiler device time), plain, library call
    (K6: multi_dot of the two products; K10r: a dense f64 addmm; K10m: an f64
    addmm), bound; the value and value+grad wall per mode (phase 3d).
-4e. K8r, K8t (b = 512), K9u (n = 16384, first panel) and K9m (n = 16384):
-   kernel (events and profiler device time), plain, library call (K8t:
-   torch.matmul; K9u: torch.addmm on the trailing block), bound; the whole
-   blocked factor at n = 16384 and 51200 against torch.linalg.cholesky_ex;
-   phase 3e's walls and peak rises.
-4f. K9s at n = 16384, first panel, on the one-rank slab and on the second
-   rank's slab of two: kernel (events and profiler device time), plain,
-   torch.addmm on the same trailing block, bound.
+4e. K8r, K8t (b = 512), K9u (n = 16384; the first, a middle and the last
+   panel) and K9m (n = 16384): kernel (events and profiler device time),
+   plain, library call (K8t: torch.matmul; K9u: torch.addmm on the same
+   trailing block), bound; K9u's mma shape probe (m16n8k4, k8, k16 at the
+   first panel: time and rate, each held to the plain version), its ptxas
+   lines (registers, spills), and its first panel at b = 256, 512, 1024
+   (a tile's fixed part and its k loop's rate); the whole blocked factor
+   at n = 16384 and 51200 against torch.linalg.cholesky_ex; phase 3e's
+   walls and peak rises.
+4f. K9s at n = 16384 on the one-rank slab (the first, a middle and the last
+   panel) and on the second rank's slab of two (first panel): kernel
+   (events and profiler device time), plain, torch.addmm on the same
+   trailing block, bound; the f32 K9s on the one-rank slab's first panel
+   (phase 3g's mixed engine) against an f32 addmm, its bound at the f32
+   peak of the CUDA cores.
 5. Where the time goes: torch.profiler over the noisy model's REML
    value+grad at n = 1000 and 8192, mixed and f64 engines, over one
    streamed ff value+grad at n = 32768, and over one resident f64
@@ -2352,32 +2362,99 @@ def phase_resident(gp, gnp, torch, gram, distance, mixed, refine, ochol, st):
     return launches, per_call, walls, mem, ref
 
 
+def _bound(nbytes, flops, peak):
+    """(bound_ms, bound_by): the larger of the bytes at the memory rate and the
+    operations at their peak."""
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S, flops / peak
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def _k9u_bound(n, b, c0):
+    """K9u on the panel [c0, c0 + b): reads the lower trailing block and T,
+    writes the whole trailing block; 2 b operations per lower entry at the
+    f64 tensor peak."""
+    m = n - c0 - b
+    tri_m = m * (m + 1) // 2
+    return _bound(8 * (tri_m + m * b) + 8 * m * m, 2 * tri_m * b, PEAK_F64_TENSOR_FLOPS)
+
+
 def _resident_bounds(n, b=CHOL_BLOCK):
     """(bound_ms, bound_by) of the new kernels at the shapes phase 4e times:
     K8r/K8t on one b x b panel, K9u at the first panel of an n factor, K9m's
     two in-place passes at n."""
-    def bound(nbytes, flops, peak):
-        t_b, t_o = nbytes / PEAK_BYTES_PER_S, flops / peak
-        return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
-
+    bound = _bound
     tri_b = b * (b + 1) // 2
     fma_r = sum((b - j) * (j + 1) for j in range(b))  # sum over i >= j of (j + 1)
     fma_t = b * (b + 1) * (b + 2) // 6                 # sum over i >= j of (i - j + 1)
-    m = n - b
-    tri_m = m * (m + 1) // 2
     return {
         # reads A and L (lower), writes E; the guard's sums
         "K8r": bound(8 * (b * b + tri_b) + 8 * b * b, 2 * fma_r + 3 * tri_b,
                      PEAK_F64_TENSOR_FLOPS),
         # reads the lower triangles of A and B, writes C
         "K8t": bound(8 * 2 * tri_b + 8 * b * b, 2 * fma_t + 2 * tri_b, PEAK_F64_TENSOR_FLOPS),
-        # reads the lower trailing block and T, writes the trailing block
-        "K9u": bound(8 * (tri_m + m * b) + 8 * m * m, 2 * tri_m * b, PEAK_F64_TENSOR_FLOPS),
+        "K9u": _k9u_bound(n, b, 0),
         # phi writes the strict upper triangle's zeros and rewrites the
         # diagonal (the lower entries it keeps need no traffic); sym reads
         # and writes every entry
         "K9m": bound(8 * (n * n - n) // 2 + 16 * n + 16 * n * n, 2 * n * n, PEAK_F64_FLOPS),
     }
+
+
+def _k9u_probe(torch, ochol, K, W, b):
+    """Phase 4e's look inside K9u's kernel at the first panel of K: each sm_90
+    f64 mma shape (time and rate in two turns, each held to the plain
+    version), the kernel's ptxas lines, and the panel at b / 2, b and 2 b,
+    which splits a wave of tiles into a fixed part (the ring's fill, the
+    epilogue) and the k loop's rate."""
+    import re
+
+    from gpmp_tpu_torch.ops import _build as build
+
+    n = K.shape[0]
+    t = lambda fn, reps: _time_cuda(torch, fn, reps, warmup=1)  # noqa: E731
+    chosen = build.load().gpmp_syrk_mma_k()
+    m = n - b
+    flops = m * (m + 1) * b
+    A2 = ochol.trailing_update_plain(K.clone(), 0, b)
+    T = K[b:, :b].clone()
+    errs = {}
+    for mk in (4, 8, 16):
+        W.copy_(K)
+        ochol.trailing_update_probe(W, 0, b, mk)
+        err, _dmax, sym = _k9u_units(torch, W, A2, T, b, b)
+        check(sym and err <= TOL_2E["K9u"],
+              f"K9u's m16n8k{mk} shape: {err:.3e} units of 2 b eps64, symmetric {sym}")
+        errs[mk] = err
+    del A2, T
+    turns = {mk: [] for mk in errs}
+    for _ in range(2):
+        for mk in turns:
+            turns[mk].append(t(lambda: ochol.trailing_update_probe(W, 0, b, mk), 10))
+    say(f"[phase 4e] K9u mma shape probe, n={n} first panel ({flops / 1e9:.1f} GFLOP; the path "
+        f"runs m16n8k{chosen}): " + ", ".join(
+            f"m16n8k{mk} " + "/".join(f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s)"
+                                      for ms in turns[mk]) + f" [{errs[mk]:.2e} units]"
+            for mk in turns))
+    entry = None
+    for line in (build.build_dir() / "ptxas.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            mo = re.search(r"syrk_f64_kernelILb(\d)ELb(\d)ELi(\d+)E", line)
+            entry = mo and (f"{'K9u' if mo.group(1) == '1' else 'K9s'} "
+                            f"{'16' if mo.group(2) == '1' else '8'}-byte copies m16n8k{mo.group(3)}")
+        elif entry and ("registers" in line or "spill" in line):
+            say(f"[phase 4e] ptxas {entry}: {line.split('info    :')[-1].strip()}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_wave = {}
+    for bb in (b // 2, b, 2 * b):
+        rt = -(-(n - bb) // ochol.SYRK_TILE)
+        ms = t(lambda: ochol.trailing_update_cuda(W, 0, bb), 5)
+        per_wave[bb] = ms * 1e3 / (rt * (rt + 1) / 2 / sms)
+    t1 = (per_wave[2 * b] - per_wave[b // 2]) / (1.5 * b)  # us per k column of a wave
+    t0 = per_wave[b // 2] - b // 2 * t1
+    say(f"[phase 4e] K9u first panel by b, us per wave of {sms} tiles: "
+        + ", ".join(f"b={bb} {v:.2f}" for bb, v in per_wave.items())
+        + f"; fixed part {t0:.2f} us a wave, k loop {2 * ochol.SYRK_TILE ** 2 * sms / t1 / 1e6:.2f}"
+        " TFLOP/s")
 
 
 def phase_resident_times(gp, gnp, torch, gram, refine, ochol, walls3e):
@@ -2404,18 +2481,28 @@ def phase_resident_times(gp, gnp, torch, gram, refine, ochol, walls3e):
     device["K8t"] = _device_ms(torch, lambda: refine.tri_product_cuda(L, M), 20)
     K = _large_gram(gp, gnp, n)
     W = K.clone()
-    S, T = K[b:, b:], K[b:, :b]
-    times["K9u"] = (t(lambda: ochol.trailing_update_cuda(W, 0, b), 10),
-                    t(lambda: ochol.trailing_update_plain(W, 0, b), 3),
-                    t(lambda: torch.addmm(S, T, T.T, alpha=-1.0), 10))
-    device["K9u"] = _device_ms(torch, lambda: ochol.trailing_update_cuda(W, 0, b), 5)
+    bounds = _resident_bounds(n)
+    # K9u at the first, a middle and the last panel (phase 2e's), beside
+    # torch.addmm on the same trailing block
+    for c0 in sorted({0, ((n - 1) // b // 2) * b, ((n - 1) // b - 1) * b}):
+        key = "K9u" if c0 == 0 else f"K9u c0={c0}"
+        off = c0 + b
+        S, T = K[off:, off:], K[off:, c0:off]
+        reps = 10 if c0 == 0 else 30
+        times[key] = (t(lambda: ochol.trailing_update_cuda(W, c0, b), reps),
+                      t(lambda: ochol.trailing_update_plain(W, c0, b), 3),
+                      t(lambda: torch.addmm(S, T, T.T, alpha=-1.0), reps))
+        device[key] = _device_ms(torch, lambda: ochol.trailing_update_cuda(W, c0, b), 5)
+        bounds[key] = _k9u_bound(n, b, c0)
+        del S, T
+    _k9u_probe(torch, ochol, K, W, b)
     W.copy_(K)
     times["K9m"] = (
         t(lambda: ochol.murray_phi_cuda(W), 10) + t(lambda: ochol.symmetrize_cuda(W), 10),
         t(lambda: ochol.murray_phi_plain(W), 3) + t(lambda: ochol.symmetrize_plain(W), 3), None)
     device["K9m"] = (_device_ms(torch, lambda: ochol.murray_phi_cuda(W), 5)
                      + _device_ms(torch, lambda: ochol.symmetrize_cuda(W), 5))
-    del W, S, T
+    del W
     # the whole factor against cuSOLVER's f64 potrf, n = 16384 and 51200
     factor = {}
     W = K.clone()
@@ -2436,12 +2523,12 @@ def phase_resident_times(gp, gnp, torch, gram, refine, ochol, walls3e):
     torch.cuda.empty_cache()
     factor[f"blocked n={RESIDENT_BIG_N} (phase 3e, with its clone of K)"] = walls3e[
         f"factor n={RESIDENT_BIG_N} (sharded_cholesky)"]
-    bounds = _resident_bounds(n)
     shapes = {"K8r": f"b={b}", "K8t": f"b={b}", "K9u": f"n={n} first panel", "K9m": f"n={n}"}
     for key, (t_k, t_p, t_l) in times.items():
         b_ms, b_by = bounds[key]
         lib = "none" if t_l is None else f"{t_l:.4f} ms"
-        say(f"[phase 4e] {key} {shapes[key]}: kernel {t_k:.4f} ms (device {device[key]:.4f} ms), "
+        say(f"[phase 4e] {key} {shapes.get(key, f'n={n}')}: kernel {t_k:.4f} ms (device "
+            f"{device[key]:.4f} ms), "
             f"plain {t_p:.4f} ms, library {lib}, bound {b_ms:.4f} ms ({b_by}), "
             f"share {100 * b_ms / t_k:.1f}%")
     say("[phase 4e] whole factor: " + ", ".join(f"{k} {v:.3f} s" for k, v in factor.items())
@@ -2720,7 +2807,9 @@ _GROUPS = (  # the first group whose key is in a kernel's name takes it
     ("K1d scaled distance", ("distance",)),
     ("K1/K2 gram", ("matern",)),
     ("K7b LOO diagonal", ("loo_diag",)),
-    ("K9u trailing update", ("double, double, false, false>",)),
+    ("K9u trailing update", ("syrk_f64_kernel<true",)),
+    ("K9s slab update (f64)", ("syrk_f64_kernel<false",)),
+    ("K9s slab update (f32)", ("slab_update_kernel",)),
     ("K8r refinement residual", ("double, double, false, true>",)),
     ("K8t triangular product", ("tri_product",)),
     ("K9m Murray passes", ("murray_kernel",)),
@@ -2880,6 +2969,8 @@ def phase_group_kernels_vs_plain(gp, gnp, torch, gram, mixed, ochol):
             check(math.isfinite(err) and err <= TOL_2F["K9s"], f"K9s {tag} c0={c0}: {err:.3e}")
             check(only, f"K9s wrote outside its lower trapezoid ({tag}, c0={c0})")
             worst = max(worst, err)
+            if Ac.dtype == torch.float32:
+                absd["K9s f32"] = max(absd.get("K9s f32", 0.0), dmax)
             if whole is not None:
                 A1 = Ac.clone()
                 ochol.trailing_update_cuda(A1, c0, b)
@@ -3161,11 +3252,11 @@ def _phase_group_nccl(gp, gnp, torch, gram, distance, mixed, refine, ochol, ref)
           "the group fit ended above its start or not finite")
 
     # (b) the sharded mixed engine on the group (slabs: K3, K4s, K6, K7 in
-    # their slab forms, the f32 factor on K9s) at p0, against phase 3e's f64
-    # and mixed one-card branches with the mixed engine's class bars
+    # their slab forms, the f32 factor on the f32 K9s) at p0, against phase
+    # 3e's f64 and mixed one-card branches with the mixed engine's class bars
     gp.config.set_chol_engine("mixed")
     mc = {k: (mixed, f"{k}_LAUNCHES") for k in ("K3", "K4", "K6", "K7")}
-    mc["K9s"] = (ochol, "K9S_LAUNCHES")
+    mc["K9s f32"] = (ochol, "K9S_F32_LAUNCHES")
     vg_mix, _ = _criterion(gp, model, xi, zi, mesh)
     with _PlainGuard(*guard):
         _reset(mc)
@@ -3188,6 +3279,7 @@ def _phase_group_nccl(gp, gnp, torch, gram, distance, mixed, refine, ochol, ref)
         f"{np.array2string(e_gmm, precision=2)} (envelope {env.tolist()})")
     for key, count in mixed_launches.items():
         check(count > 0, f"{key} was not launched on the group's mixed branch")
+    launches["K9s f32"] = mixed_launches["K9s f32"]
     check(max(e_vm, e_vmm) <= TOL_RESIDENT["mixed reml"] and np.all(e_gm <= env)
           and np.all(e_gmm <= env), "the group's mixed branch against the one-card branches")
     gc.collect()
@@ -3384,48 +3476,61 @@ def phase_group_gloo(gp, gnp, torch):
     return errs
 
 
-def _k9s_bound(n, b, off, rows):
+def _k9s_bound(n, b, off, rows, c0=0, itemsize=8, peak=PEAK_F64_TENSOR_FLOPS):
     """(bound_ms, bound_by) of one K9s launch on the slab of global rows
-    [off, off + rows) at the first panel: 2 b multiply-adds per lower
-    trapezoid entry at the f64 tensor peak, or reading and writing the
+    [off, off + rows) at the panel [c0, c0 + b): 2 b operations per lower
+    trapezoid entry at the peak for their type, or reading and writing the
     trapezoid and reading T and Mt's trailing rows once."""
-    w0 = b
-    ents = sum(max(0, gi - w0 + 1) for gi in range(max(off, w0), off + rows))
-    t_rows = off + rows - max(off, w0)
-    nbytes = 8 * (2 * ents + t_rows * b + (n - w0) * b)
-    t_b, t_o = nbytes / PEAK_BYTES_PER_S, 2 * b * ents / PEAK_F64_TENSOR_FLOPS
-    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+    w0 = c0 + b
+    r0 = max(off, w0)
+    ents = sum(gi - w0 + 1 for gi in range(r0, off + rows))
+    nbytes = itemsize * (2 * ents + (off + rows - r0) * b + (n - w0) * b)
+    return _bound(nbytes, 2 * b * ents, peak)
 
 
 def phase_group_times(gp, gnp, torch, ochol):
-    """Phase 4f: K9s at n = RESIDENT_N, first panel, on the one-rank slab and
-    on the second rank's slab of two: kernel (events, profiler), plain,
-    torch.addmm on the same slab's trailing columns, bound."""
+    """Phase 4f: K9s at n = RESIDENT_N on the one-rank slab (the first, a
+    middle and the last panel), on the second rank's slab of two (first
+    panel), and in f32 on the one-rank slab's first panel: kernel (events,
+    profiler), plain, torch.addmm on the same slab's trailing columns,
+    bound."""
     b, n = CHOL_BLOCK, RESIDENT_N
     t = lambda fn, reps: _time_cuda(torch, fn, reps, warmup=1)  # noqa: E731
     K = _large_gram(gp, gnp, n)
-    Mt = torch.zeros((n, b), dtype=K.dtype, device=K.device)
-    Mt[b:] = K[b:, :b]
     times, bounds, device = {}, {}, {}
-    for tag, (off, rows) in (("R=1", (0, n)), ("R=2 rank 1", (n // 2, n // 2))):
-        W = K[off:off + rows].clone()
-        r0 = max(off, b) - off
-        S, T = W[r0:, b:], W[r0:, :b]
-        times[tag] = (t(lambda: ochol.slab_update_cuda(W, off, 0, b, Mt), 10),
-                      t(lambda: ochol.slab_update_plain(W, off, 0, b, Mt), 3),
-                      t(lambda: torch.addmm(S, T, Mt[b:].T, alpha=-1.0), 10))
-        device[tag] = _device_ms(torch, lambda: ochol.slab_update_cuda(W, off, 0, b, Mt), 5)
-        bounds[tag] = _k9s_bound(n, b, off, rows)
-        del W, S, T
-    del K, Mt
+    f64, f32 = torch.float64, torch.float32
+    cases = [(f"R=1 c0={c0}" if c0 else "R=1", 0, n, c0, f64)
+             for c0 in sorted({0, ((n - 1) // b // 2) * b, ((n - 1) // b - 1) * b})]
+    cases += [("R=2 rank 1", n // 2, n // 2, 0, f64), ("f32 R=1", 0, n, 0, f32)]
+    for tag, off, rows, c0, dt in cases:
+        Kd = K.to(dt)
+        w0 = c0 + b
+        Mt = torch.zeros((n, b), dtype=dt, device=K.device)
+        Mt[w0:] = Kd[w0:, c0:w0]
+        W = Kd[off:off + rows].clone()
+        del Kd
+        r0 = max(off, w0) - off
+        S, T = W[r0:, w0:], W[r0:, c0:w0]
+        reps = 10 if c0 == 0 else 30
+        times[tag] = (t(lambda: ochol.slab_update_cuda(W, off, c0, b, Mt), reps),
+                      t(lambda: ochol.slab_update_plain(W, off, c0, b, Mt), 3),
+                      t(lambda: torch.addmm(S, T, Mt[w0:].T, alpha=-1.0), reps))
+        device[tag] = _device_ms(torch, lambda: ochol.slab_update_cuda(W, off, c0, b, Mt), 5)
+        bounds[tag] = _k9s_bound(n, b, off, rows, c0, W.element_size(),
+                                 PEAK_F64_TENSOR_FLOPS if dt == f64 else PEAK_F32_FLOPS)
+        del W, S, T, Mt
+    del K
     gc.collect()
     torch.cuda.empty_cache()
     for tag, (t_k, t_p, t_l) in times.items():
         b_ms, b_by = bounds[tag]
-        say(f"[phase 4f] K9s n={n} {tag} first panel: kernel {t_k:.4f} ms (device "
-            f"{device[tag]:.4f} ms), plain {t_p:.4f} ms, library (addmm) {t_l:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), share {100 * b_ms / t_k:.1f}%")
-    return {"K9s": times["R=1"]}, {"K9s": bounds["R=1"]}, {"K9s": device["R=1"]}
+        say(f"[phase 4f] K9s n={n} {tag}{'' if 'c0=' in tag else ' first panel'}: kernel "
+            f"{t_k:.4f} ms (device {device[tag]:.4f} ms), plain {t_p:.4f} ms, library (addmm"
+            f"{' f32' if 'f32' in tag else ''}) {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"share {100 * b_ms / t_k:.1f}%")
+    keys = {"K9s": "R=1", "K9s f32": "f32 R=1"}
+    return ({k: times[v] for k, v in keys.items()}, {k: bounds[v] for k, v in keys.items()},
+            {k: device[v] for k, v in keys.items()})
 
 
 def main():
@@ -3476,6 +3581,7 @@ def main():
     grp_launches, grp_walls, grp_mem, grp_comm = phase_group_nccl(
         gp, gnp, torch, gram, distance, mixed, refine, ochol, res_ref)
     launches["K9s"] = grp_launches["K9s"]
+    launches["K9s f32"] = grp_launches["K9s f32"]
     gloo_errs = phase_group_gloo(gp, gnp, torch)
     times, rates, t_warm = phase_times(gp, gnp, gram, torch, main_data)
     mtimes, mrates, mem, t_slice_warm = phase_mixed_times(gp, gnp, gram, mixed, torch,
@@ -3537,7 +3643,7 @@ def main():
     }))
     gram_src, mixed_src = "gpmp_tpu_torch/csrc/matern_gram.cu", "gpmp_tpu_torch/csrc/mixed.cu"
     dist_src, stream_src = "gpmp_tpu_torch/csrc/distance.cu", "gpmp_tpu_torch/csrc/streamed.cu"
-    chol_src = "gpmp_tpu_torch/csrc/chol.cu"
+    chol_src, syrk_src = "gpmp_tpu_torch/csrc/chol.cu", "gpmp_tpu_torch/csrc/syrk_f64.cuh"
     rows = [
         ("K1", "matern_gram", gram_src, "gpmp_tpu/kernel/matern.py:69"),
         ("K2", "matern_gram_pullback", gram_src, "gpmp_tpu/parallel/likelihood.py:225"),
@@ -3558,8 +3664,9 @@ def main():
         ("K10t", "h_traces", stream_src, "gpmp_tpu/parallel/streamed.py:394"),
         ("K8r", "refine_residual", mixed_src, "gpmp_tpu/ops/refine.py:75"),
         ("K8t", "tri_product", chol_src, "gpmp_tpu/ops/refine.py:47"),
-        ("K9u", "trailing_update", mixed_src, "gpmp_tpu/parallel/chol.py:158"),
-        ("K9s", "slab_update", mixed_src, "gpmp_tpu/parallel/chol.py:270"),
+        ("K9u", "trailing_update", syrk_src, "gpmp_tpu/parallel/chol.py:158"),
+        ("K9s", "slab_update", syrk_src, "gpmp_tpu/parallel/chol.py:270"),
+        ("K9s f32", "slab_update f32", mixed_src, "gpmp_tpu/parallel/chol.py:270"),
         ("K9m", "murray_phi+symmetrize", chol_src, "gpmp_tpu/parallel/chol.py:460"),
     ]
     say(json.dumps({"kernels": [

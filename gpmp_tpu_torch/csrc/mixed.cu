@@ -3,9 +3,9 @@
 // K3, K4, K5, K6, K7 and K7b: the hand-written kernels of the
 // mixed-precision Cholesky engine (gpmp_tpu_torch/ops/mixed.py); K8s, the
 // residual of its sampling root, and K8r, the residual of the refined panel
-// factor (gpmp_tpu_torch/ops/refine.py); K9u, the blocked Cholesky's
-// trailing update, and K9s, its slab form on a row-sharded factor
-// (gpmp_tpu_torch/ops/chol.py); K10m and
+// factor (gpmp_tpu_torch/ops/refine.py); the f32 form of K9s, the
+// row-sharded factor's slab trailing update (gpmp_tpu_torch/ops/chol.py;
+// its f64 form and K9u are csrc/syrk.cu); K10m and
 // K10r, K3's and K4's kernels on the streamed engine's sources of K
 // (gpmp_tpu_torch/ops/streamed.py); for Hopper, sm_90a.
 // Plain C entry points, loaded with ctypes by gpmp_tpu_torch/ops/_build.py.
@@ -57,33 +57,21 @@
 //    L and writing E (6 MB, 1.9 us): memory-bound on paper, latency-bound in
 //    practice (136 tiles of 32 x 32 at B = 512, one wave).
 //
-// K9u trailing update (replaces S[b:, b:] - T T^T of gpmp_tpu/parallel/
-//    chol.py _blocked_cholesky_single_unrolled): K4's kernel with f64 L, an
-//    explicit k range (the B columns of the solved panel T, not 0..j) and
-//    the output written in place into the trailing block of the one (n, n)
-//    buffer that holds K and becomes L.  Only the trailing block's lower
-//    tiles run; (i, j) and (j, i) get one value, so S stays exactly
-//    symmetric for the next panel.  Bound: (n - c0 - B)^2 B / 2 f64 FMAs per
-//    panel, n^3/6 over a factor (22 ms at n = 16384 at the 67 TFLOP/s f64
-//    tensor peak); CUDA-core FMAs reach about an eighth of that (K8s).
-//
-// K9s slab trailing update (replaces the per-device update
+// K9s slab trailing update, f32 (replaces the per-device update
 //    K_loc[:, w0:] - Mt_loc Mt_all[w0:]^T of gpmp_tpu/parallel/chol.py
-//    _sharded_cholesky_impl's panel_step): K9u on one rank's row slab of a
-//    row-sharded factor.  A is the (rows, n) f64 slab of global rows
+//    _sharded_cholesky_impl's panel_step on the direct f32 factor of the
+//    mixed engine's preconditioner, the JAX package's f32 HIGHEST
+//    products): A is one rank's (rows, n) f32 slab of global rows
 //    [off, off + rows), holding the solved panel T in columns [c0, c0 + B);
-//    Mt is the (n, B) gather of every rank's trailing panel rows.  The
-//    update A[i, j] -= T[i] . Mt[j] runs over the slab's rows i >= w0 =
-//    c0 + B and the columns w0 <= j <= i (the lower trapezoid: the upper
-//    part of a slab is never read again, and its mirror lives on another
-//    rank).  K4's 32 x 32 tiles, A's rows and Mt's rows staged in shared
-//    memory, the tiles wholly above the diagonal returning at once; each
-//    entry sums its B products in K9u's order, so at one rank (off = 0) the
-//    lower triangle is bitwise K9u's.  In f64 (the refined factor), and in
-//    f32 with f32 sums (the direct factor of the mixed engine's f32
-//    preconditioner, the JAX package's f32 HIGHEST products).  Bound:
-//    (trapezoid entries) x B FMAs, n^3 / (6 R) per rank over a factor, as
-//    K9u; CUDA-core FMAs.
+//    Mt is the (n, B) gather of every rank's trailing panel rows; the update
+//    A[i, j] -= T[i] . Mt[j] runs over the slab's rows i >= w0 = c0 + B and
+//    the columns w0 <= j <= i (the lower trapezoid), in f32 with f32 sums.
+//    K4's 32 x 32 tiles, A's rows and Mt's rows staged in shared memory, the
+//    tiles wholly above the diagonal returning at once.  Bound: (trapezoid
+//    entries) x B FMAs, n^3 / (6 R) per rank over a factor, at the 67
+//    TFLOP/s f32 peak of the CUDA cores (TF32, the only f32 tensor-core
+//    route, is forbidden by the port's precision pin); CUDA-core FMAs.  The
+//    f64 form (the refined factor) is K9u's tensor-core kernel, csrc/syrk.cu.
 //
 // Slab forms (the sharded mixed engine on a group mesh, gpmp_tpu_torch/
 //    parallel/mixed.py; the JAX package's per-device shares of the same
@@ -353,24 +341,18 @@ constexpr int FR_ROWS = FR_TILE / FR_TY;
 
 // R(i, j) = K(i, j) - sum_k L(i, k) L(j, k) for rows i in [c0, n), columns
 // j in [c0, c0 + width), i >= j, written at (i, j) and (j, i).  L (TL, f32 or
-// f64) and R have leading dimension n.  klen < 0: k runs over [0, tile's last
-// column], L being lower triangular; klen >= 0 (K9u): k runs over
-// [kbeg, kbeg + klen), the columns of one solved panel, whole.
+// f64) and R have leading dimension n; k runs over [0, tile's last column],
+// L being lower triangular.
 // PANEL = false: blockIdx.x is the linear index of the lower tile (bi, bj) of
 // the (width, width) block at (c0, c0); PANEL = true: blockIdx.x the row tile
 // and blockIdx.y the column tile, both counted from c0, and the tiles above
 // the diagonal return at once.  GUARD (K8r, PANEL = false only): the block's
 // sums of R^2 and K^2 over the whole symmetric matrix (off-diagonal entries
 // twice) go to partial[2 * blockIdx.x + {0, 1}].
-// In place (K9u: K, L and R one buffer) is safe, the restrict qualifiers
-// included: a thread reads K only at the lower entries it then writes (each
-// store depends on that load), and L only left of column c0, which no thread
-// writes; no location is written by one thread and read by another.
 template <typename Src, typename TL, typename TOut, bool PANEL, bool GUARD>
 __global__ void __launch_bounds__(FR_TILE * FR_TY)
 fact_residual_kernel(Src K, const TL* __restrict__ L, TOut* __restrict__ R, long long n,
-                     long long c0, long long width, long long kbeg, long long klen,
-                     double* __restrict__ partial) {
+                     long long c0, long long width, double* __restrict__ partial) {
   long long bi, bj;
   if (PANEL) {
     bi = blockIdx.x;
@@ -394,8 +376,8 @@ fact_residual_kernel(Src K, const TL* __restrict__ L, TOut* __restrict__ R, long
   for (int q = 0; q < FR_ROWS; ++q) acc[q] = 0.0;
 
   // triangular L (L[j, k] = 0 for k > j): the sum stops at the tile's last column
-  const long long kend = klen >= 0 ? kbeg + klen : ((j0 + FR_TILE < n) ? j0 + FR_TILE : n);
-  for (long long k0 = kbeg; k0 < kend; k0 += FR_TILE) {
+  const long long kend = (j0 + FR_TILE < n) ? j0 + FR_TILE : n;
+  for (long long k0 = 0; k0 < kend; k0 += FR_TILE) {
     const long long gk = k0 + tx;
     for (int r = ty; r < FR_TILE; r += FR_TY) {
       const long long gi = i0 + r, gj = j0 + r;
@@ -464,7 +446,7 @@ int launch_fact_residual(Src K, const void* L, void* R, long long n, void* strea
   fact_residual_kernel<Src, float, TOut, false, false>
       <<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0,
          static_cast<cudaStream_t>(stream)>>>(
-          K, static_cast<const float*>(L), static_cast<TOut*>(R), n, 0, n, 0, -1, nullptr);
+          K, static_cast<const float*>(L), static_cast<TOut*>(R), n, 0, n, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -480,7 +462,7 @@ int launch_fact_residual_panel(const void* P, const void* L, void* R, long long 
       <<<dim3(static_cast<unsigned>(rt), static_cast<unsigned>(ct)), dim3(FR_TILE, FR_TY), 0,
          static_cast<cudaStream_t>(stream)>>>(
           PanelK{static_cast<const double*>(P), c0, width}, static_cast<const float*>(L),
-          static_cast<float*>(R), n, c0, width, 0, -1, nullptr);
+          static_cast<float*>(R), n, c0, width, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -496,7 +478,7 @@ int launch_refine_residual(const void* A, const void* L, void* E, void* partial,
   fact_residual_kernel<DenseK<double>, double, double, false, true>
       <<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0, s>>>(
           DenseK<double>{static_cast<const double*>(A), n}, static_cast<const double*>(L),
-          static_cast<double*>(E), n, 0, n, 0, -1, static_cast<double*>(partial));
+          static_cast<double*>(E), n, 0, n, static_cast<double*>(partial));
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   reduce_pairs_kernel<<<1, RED_THREADS, 0, s>>>(static_cast<const double*>(partial), tiles,
@@ -504,55 +486,38 @@ int launch_refine_residual(const void* A, const void* L, void* E, void* partial,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K9u: A[off:, off:] -= T T^T in place, off = c0 + b, T = A[off:, c0:off]
-// (the solved panel, already written into A), over the lower tiles of the
-// trailing block, (i, j) and (j, i) from one value
-int launch_trailing_update(void* A, long long n, long long c0, long long b, void* stream) {
-  const long long off = c0 + b;
-  if (n <= 0 || c0 < 0 || b <= 0 || off >= n) return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles = lower_tiles(n - off);
-  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  double* a = static_cast<double*>(A);
-  fact_residual_kernel<DenseK<double>, double, double, false, false>
-      <<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0,
-         static_cast<cudaStream_t>(stream)>>>(DenseK<double>{a, n}, a, a, n, off, n - off, c0, b,
-                                               nullptr);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------- K9s
+// ---------------------------------------------------------------- K9s f32
 // A[i - off, j] -= sum_k A[i - off, c0 + k] Mt[j, k] for global rows i in
 // [r0, off + rows) and columns j in [w0, n), i >= j; blockIdx.x the row tile
 // (from r0), blockIdx.y the column tile (from w0).  A's reads are in the
 // panel's columns [c0, w0), which no thread writes; each written entry is
 // read only by the thread that writes it.
-template <typename T>
 __global__ void __launch_bounds__(FR_TILE * FR_TY)
-slab_update_kernel(T* __restrict__ A, const T* __restrict__ Mt, long long rows, long long n,
-                   long long off, long long c0, long long b, long long r0) {
+slab_update_kernel(float* __restrict__ A, const float* __restrict__ Mt, long long rows,
+                   long long n, long long off, long long c0, long long b, long long r0) {
   const long long w0 = c0 + b, iend = off + rows;
   const long long i0 = r0 + static_cast<long long>(blockIdx.x) * FR_TILE;
   const long long j0 = w0 + static_cast<long long>(blockIdx.y) * FR_TILE;
   if (j0 > i0 + FR_TILE - 1) return;  // wholly above the diagonal
 
-  __shared__ T As[FR_TILE][FR_TILE + 1];  // A[i0 + r - off, c0 + k0 + c]
-  __shared__ T Bs[FR_TILE][FR_TILE + 1];  // Mt[j0 + r, k0 + c]
+  __shared__ float As[FR_TILE][FR_TILE + 1];  // A[i0 + r - off, c0 + k0 + c]
+  __shared__ float Bs[FR_TILE][FR_TILE + 1];  // Mt[j0 + r, k0 + c]
   const int tx = threadIdx.x, ty = threadIdx.y;
-  T acc[FR_ROWS];
+  float acc[FR_ROWS];
 #pragma unroll
-  for (int q = 0; q < FR_ROWS; ++q) acc[q] = T(0);
+  for (int q = 0; q < FR_ROWS; ++q) acc[q] = 0.0f;
 
   for (long long k0 = 0; k0 < b; k0 += FR_TILE) {
     const long long gk = k0 + tx;
     for (int r = ty; r < FR_TILE; r += FR_TY) {
       const long long gi = i0 + r, gj = j0 + r;
-      As[r][tx] = (gi < iend && gk < b) ? A[(gi - off) * n + c0 + gk] : T(0);
-      Bs[r][tx] = (gj < n && gk < b) ? Mt[gj * b + gk] : T(0);
+      As[r][tx] = (gi < iend && gk < b) ? A[(gi - off) * n + c0 + gk] : 0.0f;
+      Bs[r][tx] = (gj < n && gk < b) ? Mt[gj * b + gk] : 0.0f;
     }
     __syncthreads();
 #pragma unroll 8
     for (int kk = 0; kk < FR_TILE; ++kk) {
-      const T bv = Bs[tx][kk];
+      const float bv = Bs[tx][kk];
 #pragma unroll
       for (int q = 0; q < FR_ROWS; ++q) acc[q] += As[ty + FR_TY * q][kk] * bv;
     }
@@ -563,13 +528,12 @@ slab_update_kernel(T* __restrict__ A, const T* __restrict__ Mt, long long rows, 
   for (int q = 0; q < FR_ROWS; ++q) {
     const long long gi = i0 + ty + FR_TY * q, gj = j0 + tx;
     if (gi < iend && gj < n && gi >= gj) {
-      T* p = A + (gi - off) * n + gj;
+      float* p = A + (gi - off) * n + gj;
       *p = *p - acc[q];
     }
   }
 }
 
-template <typename T>
 int launch_slab_update(void* A, const void* Mt, long long rows, long long n, long long off,
                        long long c0, long long b, void* stream) {
   const long long w0 = c0 + b;
@@ -580,9 +544,9 @@ int launch_slab_update(void* A, const void* Mt, long long rows, long long n, lon
   const long long rt = (off + rows - r0 + FR_TILE - 1) / FR_TILE;
   const long long ct = (n - w0 + FR_TILE - 1) / FR_TILE;
   if (rt > 0x7fffffffLL || ct > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  slab_update_kernel<T><<<dim3(static_cast<unsigned>(rt), static_cast<unsigned>(ct)),
-                          dim3(FR_TILE, FR_TY), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<T*>(A), static_cast<const T*>(Mt), rows, n, off, c0, b, r0);
+  slab_update_kernel<<<dim3(static_cast<unsigned>(rt), static_cast<unsigned>(ct)),
+                       dim3(FR_TILE, FR_TY), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(A), static_cast<const float*>(Mt), rows, n, off, c0, b, r0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1122,24 +1086,15 @@ int gpmp_refine_residual(const void* A, const void* L, void* E, void* partial, v
   return launch_refine_residual(A, L, E, partial, sums, n, stream);
 }
 
-int gpmp_trailing_update(void* A, long long n, long long c0, long long b, void* stream) {
-  return launch_trailing_update(A, n, c0, b, stream);
-}
-
 int gpmp_slab_fact_residual(const void* K, const void* La, const void* Lb, void* R,
                             long long rows, long long rows_b, long long n, long long off,
                             long long offs, void* stream) {
   return launch_slab_fact_residual(K, La, Lb, R, rows, rows_b, n, off, offs, stream);
 }
 
-int gpmp_slab_update_f64(void* A, const void* Mt, long long rows, long long n, long long off,
-                         long long c0, long long b, void* stream) {
-  return launch_slab_update<double>(A, Mt, rows, n, off, c0, b, stream);
-}
-
 int gpmp_slab_update_f32(void* A, const void* Mt, long long rows, long long n, long long off,
                          long long c0, long long b, void* stream) {
-  return launch_slab_update<float>(A, Mt, rows, n, off, c0, b, stream);
+  return launch_slab_update(A, Mt, rows, n, off, c0, b, stream);
 }
 
 long long gpmp_precond_chunks(long long n) { return precond_chunks(n); }

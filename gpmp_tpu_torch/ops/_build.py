@@ -114,14 +114,21 @@ def _declare(lib):
         "gpmp_matern_pullback_blocks": ([ll, ll], ll),
         # ops/mixed.py: K3, K4, K5, K6, K7, K7b; ops/refine.py: K8s
         "gpmp_precond_chunks": ([ll], ll),
-        # ops/refine.py: K8r, K8t; ops/chol.py: K9u, K9m
+        # ops/refine.py: K8r, K8t; ops/chol.py: K9m
         "gpmp_refine_residual_blocks": ([ll], ll),
         "gpmp_refine_residual": ([vp, vp, vp, vp, vp, ll, vp], i32),
         "gpmp_tri_product": ([vp, vp, vp, ll, f64, f64, i32, vp], i32),
-        "gpmp_trailing_update": ([vp, ll, ll, ll, vp], i32),
         "gpmp_murray": ([vp, ll, i32, vp], i32),
-        # ops/chol.py: K9m's slab form (the row-sharded factor; K9s below)
+        # ops/chol.py: K9m's slab form (the row-sharded factor)
         "gpmp_murray_slab": ([vp, vp, ll, ll, ll, i32, vp], i32),
+        # ops/chol.py: K9u and K9s (f64) on the f64 tensor cores (csrc/syrk.cu),
+        # K9s (f32) on the CUDA cores (csrc/mixed.cu)
+        "gpmp_syrk_tile": ([], i32),
+        "gpmp_syrk_mma_k": ([], i32),
+        "gpmp_trailing_update": ([vp, vp, ll, ll, ll, ll, vp], i32),
+        "gpmp_syrk_probe": ([vp, vp, ll, ll, ll, ll, i32, vp], i32),
+        "gpmp_slab_update_f64": ([vp, vp, vp, ll, ll, ll, ll, ll, ll, vp], i32),
+        "gpmp_slab_update_f32": ([vp, vp, ll, ll, ll, ll, ll, vp], i32),
         # ops/streamed.py: K10b, K10r, K10m, K10t
         "gpmp_split_rows": ([vp, vp, vp, vp, ll, ll, ll, ctypes.c_float, vp], i32),
         "gpmp_streamed_residual_ff": ([vp, vp, vp, vp, ll, vp], i32),
@@ -160,7 +167,6 @@ def _declare(lib):
             [vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp], i32)
         signatures[f"gpmp_residual_{suffix}"] = ([vp, vp, vp, vp, vp, vp, ll, ll, i32, vp], i32)
         signatures[f"gpmp_fact_residual_{suffix}"] = ([vp, vp, vp, ll, vp], i32)
-        signatures[f"gpmp_slab_update_{suffix}"] = ([vp, vp, ll, ll, ll, ll, ll, vp], i32)
         signatures[f"gpmp_precond_apply_{suffix}"] = ([vp, vp, vp, vp, vp, ll, i32, vp], i32)
         signatures[f"gpmp_precond_apply_slab_{suffix}"] = (
             [vp, vp, vp, vp, vp, ll, ll, ll, i32, vp], i32)

@@ -8,13 +8,14 @@ version and a launch counter each:
 - K9u ``trailing_update``: S <- S - T T^T in place on the trailing block of
   the right-looking factor (``_blocked_cholesky_single_unrolled``'s SYRK),
   over its lower tiles, (i, j) and (j, i) from one value
-  (gpmp_tpu_torch/csrc/mixed.cu: K4's kernel with f64 L, a k range and
-  in-place output; ``K9U_LAUNCHES``);
+  (gpmp_tpu_torch/csrc/syrk.cu: f64 tensor cores, 128 x 128 tiles listed by
+  ``syrk_tiles``; ``K9U_LAUNCHES``);
 - K9s ``slab_update``: K9u on one rank's (rows, n) row slab of a
   row-sharded factor (``_sharded_cholesky_impl``'s per-device update
   K_loc[:, w0:] - Mt_loc Mt_all[w0:]^T), the slab's own solved panel times
-  the gathered trailing panel rows, over the lower trapezoid
-  (gpmp_tpu_torch/csrc/mixed.cu; ``K9S_LAUNCHES``);
+  the gathered trailing panel rows, over the lower trapezoid: in f64 K9u's
+  kernel without the mirror (csrc/syrk.cu; ``K9S_LAUNCHES``), in f32 a
+  CUDA-core kernel (csrc/mixed.cu; ``K9S_F32_LAUNCHES``);
 - K9m ``murray_phi`` / ``symmetrize``: Murray's elementwise passes of
   ``_sharded_chol_bwd``, P <- tril(P) - diag(P) / 2 and S <- (S + S^T) / 2,
   in place, on the square matrix or on a slab at a global row offset
@@ -27,6 +28,8 @@ kernel for CUDA tensors (or raises); there is no fallback between them.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -34,9 +37,51 @@ from .mixed import _check_cuda, _on_card, _square
 
 K9U_LAUNCHES = 0
 K9S_LAUNCHES = 0
+K9S_F32_LAUNCHES = 0
 K9M_LAUNCHES = 0
 
 _F64 = torch.float64
+_F32 = torch.float32
+
+SYRK_TILE = 128  # K9u/K9s's output tile (csrc/syrk_f64.cuh TILE)
+
+
+def syrk_tiles(n, w0, r0, iend):
+    """The launch geometry of K9u and K9s (f64): the global (i0, j0) corners
+    of the SYRK_TILE-square output tiles over rows [r0, iend) and columns
+    [w0, n) that meet the lower triangle j <= i, as an int32 (count, 2)
+    tensor on the CPU (one thread block each; the kernel masks the diagonal
+    tiles entrywise).  Row tiles start at r0, column tiles at w0; listed row
+    by row."""
+    if not (0 <= w0 < n and w0 <= r0 < iend <= n):
+        raise ValueError(f"syrk_tiles: rows [{r0}, {iend}) x columns [{w0}, {n}) is not a "
+                         "trailing block")
+    t = SYRK_TILE
+    i0, j0 = torch.meshgrid(torch.arange(r0, iend, t), torch.arange(w0, n, t), indexing="ij")
+    keep = j0 <= torch.clamp(i0 + t, max=iend) - 1
+    return torch.stack([i0[keep], j0[keep]], 1).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=256)
+def _tiles_on(device, n, w0, r0, iend):
+    return syrk_tiles(n, w0, r0, iend).to(device)
+
+
+def _launch_tiles(lib, device, n, w0, r0, iend):
+    if lib.gpmp_syrk_tile() != SYRK_TILE:
+        raise RuntimeError(f"csrc/syrk_f64.cuh's tile is {lib.gpmp_syrk_tile()}, "
+                           f"not SYRK_TILE = {SYRK_TILE}")
+    return _tiles_on(device, n, w0, r0, iend)
+
+
+def _check_args(name, tensors, dtypes):
+    """The dtype and the layout, before the device: a wrong tensor is refused
+    for what it is, wherever it lies."""
+    for t, dt in zip(tensors, dtypes):
+        if t.dtype not in dt:
+            raise ValueError(f"{name}: dtype {t.dtype} not in {dt}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
 
 
 def _check_panel(A, c0, b):
@@ -67,17 +112,35 @@ def trailing_update_plain(A, c0, b, rows=4096):
     return A
 
 
+def _trailing_update_launch(name, A, c0, b, mma_k=None):
+    _check_args(name, (A,), ((_F64,),))
+    n = _square(name, A)
+    _check_panel(A, c0, b)
+    dev = _check_cuda(name, (A,), ((_F64,),))
+    lib = _build.load()
+    off = int(c0) + int(b)
+    tiles = _launch_tiles(lib, dev, n, off, off, n)
+    args = (A.data_ptr(), tiles.data_ptr(), tiles.shape[0], n, int(c0), int(b))
+    if mma_k is None:
+        _build.launch(name, lib.gpmp_trailing_update, dev, *args)
+    else:
+        _build.launch(name, lib.gpmp_syrk_probe, dev, *args, int(mma_k))
+    return A
+
+
 def trailing_update_cuda(A, c0, b):
     """K9u on the card: the trailing update in place, lower tiles only."""
     global K9U_LAUNCHES
-    dev = _check_cuda("K9u trailing_update", (A,), ((_F64,),))
-    n = _square("K9u trailing_update", A)
-    _check_panel(A, c0, b)
-    lib = _build.load()
-    _build.launch("K9u trailing_update", lib.gpmp_trailing_update, dev, A.data_ptr(), n,
-                  int(c0), int(b))
+    _trailing_update_launch("K9u trailing_update", A, c0, b)
     K9U_LAUNCHES += 1
     return A
+
+
+def trailing_update_probe(A, c0, b, mma_k):
+    """K9u's kernel at the f64 mma shape m16n8k{mma_k} (mma_k in 4, 8, 16),
+    for timing the shapes against each other; counts no launch.  The path
+    runs the shape ``_build.load().gpmp_syrk_mma_k()``."""
+    return _trailing_update_launch(f"K9u probe m16n8k{mma_k}", A, c0, b, mma_k)
 
 
 def trailing_update(A, c0, b):
@@ -121,16 +184,25 @@ def slab_update_plain(A, off, c0, b, Mt, rows=4096):
 
 def slab_update_cuda(A, off, c0, b, Mt):
     """K9s on the card: the slab's trailing update in place (one launch), f64
-    or f32 (A and Mt of one dtype)."""
-    global K9S_LAUNCHES
-    fp = (_F64, torch.float32)
-    dev = _check_cuda("K9s slab_update", (A, Mt), (fp, (A.dtype,)))
+    (K9u's tensor-core kernel) or f32 (a CUDA-core kernel); A and Mt of one
+    dtype."""
+    global K9S_LAUNCHES, K9S_F32_LAUNCHES
+    name = "K9s slab_update"
+    dtypes = ((_F64, _F32), (A.dtype,))
+    _check_args(name, (A, Mt), dtypes)
     rows, n = _check_slab(A, off, c0, b, Mt)
+    dev = _check_cuda(name, (A, Mt), dtypes)
     lib = _build.load()
-    fn = lib.gpmp_slab_update_f64 if A.dtype == _F64 else lib.gpmp_slab_update_f32
-    _build.launch("K9s slab_update", fn, dev, A.data_ptr(), Mt.data_ptr(),
-                  rows, n, int(off), int(c0), int(b))
-    K9S_LAUNCHES += 1
+    off, c0, b = int(off), int(c0), int(b)
+    if A.dtype == _F64:
+        tiles = _launch_tiles(lib, dev, n, c0 + b, max(off, c0 + b), off + rows)
+        _build.launch(name, lib.gpmp_slab_update_f64, dev, A.data_ptr(), Mt.data_ptr(),
+                      tiles.data_ptr(), tiles.shape[0], rows, n, off, c0, b)
+        K9S_LAUNCHES += 1
+    else:
+        _build.launch(name, lib.gpmp_slab_update_f32, dev, A.data_ptr(), Mt.data_ptr(),
+                      rows, n, off, c0, b)
+        K9S_F32_LAUNCHES += 1
     return A
 
 
