@@ -35,7 +35,8 @@ non-zero):
    on the card: K1d/K1m at n in {1000, 4099}, d in {1, 6}, p in {0, 2, 3},
    with coincident points, in f64 and f32; K7b on phase 2b's inputs; K8s
    at n in {1000, 4099, 8192}, cond(K) ~1e3 and ~1e6; tolerances at
-   TOL_2C.
+   TOL_2C; K4 (the f64 tensor-core residual) on K8s's inputs, exactly
+   symmetric and within TOL_MIXED["K4"] of its plain version.
 2d. K6 (the preconditioner apply), K10b (row-chunk split into the f32
    pair), K10r (factorization residual from the pair and from f64 panels),
    K10m (residual against the pair) and K10t (chunked trace sums) vs their
@@ -53,16 +54,18 @@ non-zero):
    exactly symmetric, nothing written outside the trailing block; K9m at n
    in {1000, 4099, 16384}; tolerances at TOL_2E.
 2f. K9s (the slab form of K9u, the row-sharded factor's trailing update:
-   K9u's tensor-core kernel in f64, a CUDA-core kernel in f32) and K9m's
-   slab form vs their plain versions on the card: K9s on the
-   slabs of R = 1 and 2 ranks at n = 16384 (f64; f32 at R = 2) at the
-   first, a middle and the last panel, and on n = 4099 cut into the slabs
-   [0, 2050) and [2050, 4099) with a panel straddling them, held entrywise
-   in units of 2 b eps, only its lower trapezoid written, and bitwise K9u's
-   lower triangle at one rank; K9m's slab forms bitwise their plain
-   versions and the square form's rows; the slab forms of K3, K6, K7 and
-   K4s (the sharded mixed engine's) on n = 4099's slabs against their plain
-   versions with phases 2b/2d's tolerances.
+   K9u's tensor-core kernel in f64, a register-tiled CUDA-core kernel in
+   f32) and K9m's slab form vs their plain versions on the card: K9s on the
+   slabs of R = 1 and 2 ranks at n = 16384 (f64 and f32) at the first, a
+   middle and the last panel, and on n = 4099 cut into the slabs [0, 2050)
+   and [2050, 4099) with a panel straddling them (f64 and f32), held
+   entrywise in units of 2 b eps, only its lower trapezoid written, and
+   bitwise K9u's lower triangle at one rank (f64); K9m's slab forms bitwise
+   their plain versions and the square form's rows; the slab forms of K3,
+   K6, K7 and K4s (the sharded mixed engine's) on n = 4099's slabs against
+   their plain versions with phases 2b/2d's tolerances, K4s's blocks
+   bitwise K4's rows; K4s at n in {1000, 4099, 8192}: bitwise K4 at one
+   rank, and at two ranks R[i, j] on one bitwise R[j, i] on the other.
 3. The main path: Hartmann6, n = 1000, d = 6, Matern p = 2, constant
    mean; select_parameters_with_reml then predict at nt = 1000 points, on
    the card, with the launch counters reset just before and the plain
@@ -163,7 +166,8 @@ non-zero):
    their plain versions at the main path's shapes; REML value+grad evals/s
    at n = 1000 and 8192 (kernels and plain gram); fit+predict wall-clock.
 4b. K3/K4/K5/K7: kernel, plain and library-call ms at the slice's shapes
-   (n = 1000); the noisy model's REML value+grad evals/s at n = 1000 and
+   (n = 1000); K4 at n in {1000, 4099, 8192} (events and profiler device
+   time) against an f64 addmm of the same product, with its bound; the noisy model's REML value+grad evals/s at n = 1000 and
    8192 on the mixed and f64 engines in turns; fit+LOO+predict wall-clock
    (first and warm); the rise of torch.cuda.max_memory_allocated over
    what was held before at n = 8192, per engine, for one value+grad and
@@ -178,24 +182,31 @@ non-zero):
    addmm), bound; the value and value+grad wall per mode (phase 3d).
 4e. K8r, K8t (b = 512), K9u (n = 16384; the first, a middle and the last
    panel) and K9m (n = 16384): kernel (events and profiler device time),
-   plain, library call (K8t: torch.matmul; K9u: torch.addmm on the same
-   trailing block), bound; K9u's mma shape probe (m16n8k4, k8, k16 at the
-   first panel: time and rate, each held to the plain version), its ptxas
-   lines (registers, spills), and its first panel at b = 256, 512, 1024
-   (a tile's fixed part and its k loop's rate); the whole blocked factor
+   plain, library call (K8r: torch.addmm(A, L, L^T, alpha=-1); K8t:
+   torch.matmul; K9u: torch.addmm on the same trailing block), bound;
+   K9u's mma shape probe (m16n8k4, k8, k16 at the first panel: time and
+   rate, each held to the plain version), the registers and spills of
+   every instance of csrc/syrk_f64.cuh's kernel (K9u, K9s, K4, K4s) and of
+   the f32 K9s's, and K9u's first panel at b = 256, 512, 1024 (a tile's
+   fixed part and its k loop's rate); the whole blocked factor
    at n = 16384 and 51200 against torch.linalg.cholesky_ex; phase 3e's
    walls and peak rises.
 4f. K9s at n = 16384 on the one-rank slab (the first, a middle and the last
-   panel) and on the second rank's slab of two (first panel): kernel
-   (events and profiler device time), plain, torch.addmm on the same
-   trailing block, bound; the f32 K9s on the one-rank slab's first panel
-   (phase 3g's mixed engine) against an f32 addmm, its bound at the f32
-   peak of the CUDA cores.
+   panel) and on the second rank's slab of two (first panel), in f64 and in
+   f32 (phase 3g's mixed engine; its bound at the f32 peak of the CUDA
+   cores): kernel (events and profiler device time), plain, torch.addmm on
+   the same trailing block, bound; K4s on the one-rank slab and K4 at the
+   same n (phase 3e(b)'s resident mixed branch) against an f64 addmm.
 5. Where the time goes: torch.profiler over the noisy model's REML
    value+grad at n = 1000 and 8192, mixed and f64 engines, over one
    streamed ff value+grad at n = 32768, and over one resident f64
    value+grad at n = 16384 through the mesh, device time per evaluation by
    kernel group.
+
+``python3 chip_smoke.py --compare ROOT`` instead runs phases 4b's and 4f's
+timings of K4, K4s and K9s (f64, f32) on the gpmp_tpu_torch package under
+ROOT alone, with digests of K9u's and K9s's outputs (compare_main), for
+setting two trees side by side in one call.
 
 The line before the last is {"kernels": [...]}, with each kernel's
 least time on the card (bound_ms) computed from this run's shapes against
@@ -219,6 +230,8 @@ DEVICE = "cuda"
 TOL_K1 = {"float64": 1e-12, "float32": 1e-5}
 TOL_K2 = {"float64": 1e-9, "float32": 1e-3}
 TOL_PATH = 1e-8
+DEVICE_MS_ATTEMPTS = 6  # profiler windows _device_ms takes to find a whole one
+DEVICE_MS_PAD = 32      # spin kernels ahead of _device_ms's launches
 EVAL_SIZES = ((1000, 30), (8192, 10))  # (n, evaluations) for the evals/s rates
 
 # H100 SXM data-sheet peaks (NVIDIA; dense, at the 700 W power limit)
@@ -372,6 +385,9 @@ RESIDENT_SLACK = 100.0
 # two slabs [0, 2050) and [2050, 4099) are straddled by the panel at 1792
 K9S_N = RESIDENT_N
 K9S_STRADDLE = (4099, (0, 2050, 4099), 1792)
+# K4 against plain (2c), K4s against K4 (2f), K4's times (4b): a small n whose
+# 64-wide tiles fill few SMs, odd n's narrow copies, and phase 3d's n
+K4_SIZES = (1000, 4099, 8192)
 TOL_2F = {
     # S - T Mt^T, b terms in another order: |dS| <= 2 b eps64 (|S| + |T||Mt|^T)
     # entrywise, held in those units (K9u's)
@@ -666,8 +682,14 @@ def phase_times(gp, gnp, gram, torch, main_data):
         _time_cuda(torch, lambda: gram.matern_gram_pullback_cuda(kb, x, x, 2, theta, True), 200),
         _time_cuda(torch, lambda: gram.matern_gram_pullback_plain(kb, x, x, 2, theta, True), 50),
     )
+    device = {
+        "K1": _device_ms(torch, lambda: gram.matern_gram_cuda(x, x, 2, theta, True), 50),
+        "K2": _device_ms(torch, lambda: gram.matern_gram_pullback_cuda(kb, x, x, 2, theta, True),
+                         50),
+    }
     for k, (t_k, t_p) in times.items():
-        say(f"[phase 4] {k} n=m=1000 d=6 p=2 f64: kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        say(f"[phase 4] {k} n=m=1000 d=6 p=2 f64: kernel {t_k:.4f} ms (device "
+            f"{_fmt_ms(device[k])}), plain {t_p:.4f} ms")
 
     import gpmp_tpu_torch.kernel.matern as matern_mod
 
@@ -904,10 +926,19 @@ def phase_new_kernels_vs_plain(torch, gram, distance, mixed, refine):
             Ep = refine.sampling_residual_plain(K, L32)
             check(torch.equal(E, E.T), f"K8s not symmetric at n={n}")
             err = float((E - Ep).abs().max()) / float(K.abs().max())
-            say(f"[phase 2c] K8s n={n} cond={cond_k:.2e}: max|dE|/max|K| {err:.2e}")
+            # K4 (the f64 tensor-core residual) at the same sizes, 8192 beyond
+            # phase 2b's: R exactly symmetric, within TOL_MIXED["K4"] of plain
+            F = mixed.factorization_residual_cuda(K, L32)
+            e4 = rel_err(F, mixed.factorization_residual_plain(K, L32))
+            say(f"[phase 2c] K8s n={n} cond={cond_k:.2e}: max|dE|/max|K| {err:.2e}; K4 (tile "
+                f"{mixed.RESIDUAL_TILE}) rel {e4:.2e} (tol {TOL_MIXED['K4']}), exactly "
+                f"symmetric {torch.equal(F, F.T)}")
             held("K8s", "float64", err, f"n={n} cond={cond_k:.2e}")
+            check(torch.equal(F, F.T), f"K4 not symmetric at n={n}")
+            check(e4 <= TOL_MIXED["K4"], f"K4 n={n} cond={cond_k:.2e}: {e4:.3e}")
             if n == SLICE_N and ci == 0:
                 main_abs["K8s"] = float((E - Ep).abs().max())
+            del F
         del fam, K, E, Ep
     for (key, dname), val in sorted(worst.items()):
         say(f"[phase 2c] worst {key} {dname} {val:.3e} (tol {TOL_2C[(key, dname)]})")
@@ -1674,7 +1705,7 @@ def phase_streamed_large(gp, gnp, torch, mixed, ops, st, plik):
     for key, (t_k, t_p, t_l) in times.items():
         b_ms, b_by = bounds[key]
         lib = "none" if t_l is None else f"{t_l:.4f} ms"
-        say(f"[phase 4d] {key} n={n}: kernel {t_k:.4f} ms (device {device[key]:.4f} ms), "
+        say(f"[phase 4d] {key} n={n}: kernel {t_k:.4f} ms (device {_fmt_ms(device[key])}), "
             f"plain {t_p:.4f} ms, library {lib}, bound {b_ms:.4f} ms ({b_by}), "
             f"share {100 * b_ms / t_k:.1f}%")
     say(f"[phase 4d] K10r panel variant (rows [0, n) x columns [0, {c})): kernel "
@@ -2403,11 +2434,10 @@ def _resident_bounds(n, b=CHOL_BLOCK):
 def _k9u_probe(torch, ochol, K, W, b):
     """Phase 4e's look inside K9u's kernel at the first panel of K: each sm_90
     f64 mma shape (time and rate in two turns, each held to the plain
-    version), the kernel's ptxas lines, and the panel at b / 2, b and 2 b,
-    which splits a wave of tiles into a fixed part (the ring's fill, the
-    epilogue) and the k loop's rate."""
-    import re
-
+    version), the ptxas lines of csrc/syrk_f64.cuh's instances (K9u, K9s,
+    K4, K4s) and of the f32 K9s, and the panel at b / 2, b and 2 b, which
+    splits a wave of tiles into a fixed part (the ring's fill, the epilogue)
+    and the k loop's rate."""
     from gpmp_tpu_torch.ops import _build as build
 
     n = K.shape[0]
@@ -2435,14 +2465,8 @@ def _k9u_probe(torch, ochol, K, W, b):
             f"m16n8k{mk} " + "/".join(f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s)"
                                       for ms in turns[mk]) + f" [{errs[mk]:.2e} units]"
             for mk in turns))
-    entry = None
-    for line in (build.build_dir() / "ptxas.log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            mo = re.search(r"syrk_f64_kernelILb(\d)ELb(\d)ELi(\d+)E", line)
-            entry = mo and (f"{'K9u' if mo.group(1) == '1' else 'K9s'} "
-                            f"{'16' if mo.group(2) == '1' else '8'}-byte copies m16n8k{mo.group(3)}")
-        elif entry and ("registers" in line or "spill" in line):
-            say(f"[phase 4e] ptxas {entry}: {line.split('info    :')[-1].strip()}")
+    for line in _ptxas_core_lines((build.build_dir() / "ptxas.log").read_text(), chosen):
+        say(f"[phase 4e] ptxas {line}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     per_wave = {}
     for bb in (b // 2, b, 2 * b):
@@ -2455,6 +2479,40 @@ def _k9u_probe(torch, ochol, K, W, b):
         + ", ".join(f"b={bb} {v:.2f}" for bb, v in per_wave.items())
         + f"; fixed part {t0:.2f} us a wave, k loop {2 * ochol.SYRK_TILE ** 2 * sms / t1 / 1e6:.2f}"
         " TFLOP/s")
+
+
+# csrc/syrk_f64.cuh's modes, as they appear in mma_tile_kernel's mangled name
+PTXAS_MODES = {"Trailing": "K9u", "Slab": "K9s f64", "ResidualIdE": "K4 (K f64)",
+               "ResidualIfE": "K4 (K f32)", "ResidualSlab": "K4s"}
+
+
+def _ptxas_core_lines(log, mma_k):
+    """ptxas's registers and spills of every instance of csrc/syrk_f64.cuh's
+    mma_tile_kernel (its mode, tile width, copy bytes and mma shape decoded
+    from the mangled name; "path" where the mma shape is the built one,
+    mma_k) and of csrc/syrk_f32.cu's slab_update_f32_kernel (the f32 K9s),
+    one line each, from the text of a ptxas log."""
+    import re
+
+    core = re.compile(r"mma_tile_kernelINS0_\d+([A-Za-z]+?(?:I[df]E)?)ENS0_3GeoILi(\d+)E"
+                      r"Li\d+ELi\d+ELi\d+EEELi(\d+)ELi(\d+)E")
+    out, entry, info = [], None, []
+    for line in log.splitlines() + ["Compiling entry function (end)"]:
+        if "Compiling entry function" in line:
+            if entry:
+                out.append(f"{entry}: " + "; ".join(info))
+            mo = core.search(line)
+            entry = None
+            if mo:
+                mode, tile, cpb, mk = mo.group(1), *map(int, mo.group(2, 3, 4))
+                entry = (f"{PTXAS_MODES.get(mode, mode)} {tile}-wide tiles, {cpb}-byte copies, "
+                         f"m16n8k{mk}{' (path)' if mk == mma_k else ''}")
+            elif "slab_update_f32_kernel" in line:
+                entry = "K9s f32 (slab_update_f32_kernel)"
+            info = []
+        elif entry and ("registers" in line or "spill" in line):
+            info.append(line.split("info    :")[-1].strip())
+    return out
 
 
 def phase_resident_times(gp, gnp, torch, gram, refine, ochol, walls3e):
@@ -2473,7 +2531,8 @@ def phase_resident_times(gp, gnp, torch, gram, refine, ochol, walls3e):
     eye = torch.eye(b, dtype=torch.float32, device=DEVICE)
     M = torch.linalg.solve_triangular(L32, eye, upper=False).double().contiguous()
     times["K8r"] = (t(lambda: refine.refine_residual_cuda(A, L), 50),
-                    t(lambda: refine.refine_residual_plain(A, L), 50), None)
+                    t(lambda: refine.refine_residual_plain(A, L), 50),
+                    t(lambda: torch.addmm(A, L, L.T, alpha=-1), 50))
     device["K8r"] = _device_ms(torch, lambda: refine.refine_residual_cuda(A, L), 20)
     times["K8t"] = (t(lambda: refine.tri_product_cuda(L, M), 50),
                     t(lambda: refine.tri_product_plain(L, M), 50),
@@ -2500,8 +2559,9 @@ def phase_resident_times(gp, gnp, torch, gram, refine, ochol, walls3e):
     times["K9m"] = (
         t(lambda: ochol.murray_phi_cuda(W), 10) + t(lambda: ochol.symmetrize_cuda(W), 10),
         t(lambda: ochol.murray_phi_plain(W), 3) + t(lambda: ochol.symmetrize_plain(W), 3), None)
-    device["K9m"] = (_device_ms(torch, lambda: ochol.murray_phi_cuda(W), 5)
-                     + _device_ms(torch, lambda: ochol.symmetrize_cuda(W), 5))
+    parts = (_device_ms(torch, lambda: ochol.murray_phi_cuda(W), 5),
+             _device_ms(torch, lambda: ochol.symmetrize_cuda(W), 5))
+    device["K9m"] = None if None in parts else sum(parts)
     del W
     # the whole factor against cuSOLVER's f64 potrf, n = 16384 and 51200
     factor = {}
@@ -2528,7 +2588,7 @@ def phase_resident_times(gp, gnp, torch, gram, refine, ochol, walls3e):
         b_ms, b_by = bounds[key]
         lib = "none" if t_l is None else f"{t_l:.4f} ms"
         say(f"[phase 4e] {key} {shapes.get(key, f'n={n}')}: kernel {t_k:.4f} ms (device "
-            f"{device[key]:.4f} ms), "
+            f"{_fmt_ms(device[key])}), "
             f"plain {t_p:.4f} ms, library {lib}, bound {b_ms:.4f} ms ({b_by}), "
             f"share {100 * b_ms / t_k:.1f}%")
     say("[phase 4e] whole factor: " + ", ".join(f"{k} {v:.3f} s" for k, v in factor.items())
@@ -2577,23 +2637,49 @@ def phase_profile_large(gp, gnp, torch):
 
 
 def _device_ms(torch, fn, reps):
-    """Device time per call of everything fn launches, from torch.profiler:
+    """Device time per call of the kernels fn launches, from torch.profiler:
     the kernels' own time, without the host's launch gaps that CUDA events
-    around a loop of short launches also count."""
+    around a loop of short launches also count.  Each kernel record of the
+    profiler's event list is read as its own interval on the card
+    (key_averages() is not used: its device times hang on the CPU ops a
+    kernel is attributed to); copies and fills are not counted, and fn's
+    measured calls launch none.  Late in a long process the profiler loses
+    the device records of the first launches of many windows (about
+    twenty), while it keeps their host-side launch calls (PERF.md §7).  So
+    DEVICE_MS_PAD of PyTorch's spin kernels open each window (their records,
+    where kept, are not counted), a window counts only when it holds exactly
+    one kernel record for every kernel launch of fn, and it is taken again,
+    up to DEVICE_MS_ATTEMPTS times; None if no window was whole."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        if "cuda" in str(getattr(evt, "device_type", "")).lower():
-            t_us = getattr(evt, "self_device_time_total", None)
-            total_us += t_us if t_us is not None else getattr(evt, "self_cuda_time_total", 0.0)
-    return total_us / 1e3 / reps
+    for attempt in range(1, DEVICE_MS_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(DEVICE_MS_PAD):
+                torch.cuda._sleep(1)  # PyTorch's spin_kernel: a record to lose
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        kernels = [evt for evt in events if evt.device_type == DeviceType.CUDA
+                   and not getattr(evt, "is_user_annotation", False)
+                   and not evt.name.startswith(("Memcpy", "Memset"))
+                   and "spin_kernel" not in evt.name]
+        launches = sum(1 for evt in events if evt.device_type == DeviceType.CPU
+                       and "LaunchKernel" in evt.name) - DEVICE_MS_PAD
+        if kernels and len(kernels) == launches:
+            if attempt > 1:
+                say(f"[device_ms] a whole window at attempt {attempt}")
+            return sum(evt.time_range.elapsed_us() for evt in kernels) / 1e3 / reps
+    say(f"[device_ms] no whole window in {DEVICE_MS_ATTEMPTS} attempts (last: {len(kernels)} "
+        f"kernel records for {launches} kernel launches): not measured")
+    return None
+
+
+def _fmt_ms(v):
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 def _noisy_evals_per_s(gp, gnp, torch, n, reps):
@@ -2640,9 +2726,19 @@ def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
                                           mixed.series_sums_plain(H, H2)), 50),
                None),
     }
+    device = {
+        "K3": _device_ms(torch, lambda: mixed.residual_cuda(K, X, B), 50),
+        "K4": _device_ms(torch, lambda: mixed.factorization_residual_cuda(K, L32), 50),
+        "K5": _device_ms(torch, lambda: mixed.diag_block_inv_cuda(L32, base), 50),
+        "K7": _device_ms(torch, lambda: (mixed.trace_sums_cuda(H),
+                                         mixed.series_sums_cuda(H, H2)), 50),
+    }
     for key, (t_k, t_p, t_l) in times.items():
         lib = "none" if t_l is None else f"{t_l:.4f} ms"
-        say(f"[phase 4b] {key} n={n}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library {lib}")
+        say(f"[phase 4b] {key} n={n}: kernel {t_k:.4f} ms (device {_fmt_ms(device[key])}), "
+            f"plain {t_p:.4f} ms, library {lib}")
+    for n4 in K4_SIZES:
+        _k4_times(torch, gram, mixed, n4, "4b")
 
     rates = {}
     for n_e, reps in NOISY_EVAL_SIZES:
@@ -2683,6 +2779,26 @@ def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
         f"nfev {info.nfev}")
     gp.config.set_chol_engine("auto")
     return times, rates, mem, t_warm
+
+
+def _k4_times(torch, gram, mixed, n, phase):
+    """K4 at n: kernel (CUDA events and profiler device time), plain, an f64
+    addmm of the same product, bound; printed, and returned as ((kernel,
+    plain, library), device, bound)."""
+    K = _time_sqrt_inputs(torch, gram, n)
+    L32 = torch.linalg.cholesky_ex(K.float())[0].contiguous()
+    L64 = L32.double()
+    reps = 50 if n < 8192 else 5
+    t = (_time_cuda(torch, lambda: mixed.factorization_residual_cuda(K, L32), reps),
+         _time_cuda(torch, lambda: mixed.factorization_residual_plain(K, L32), max(reps // 5, 2)),
+         _time_cuda(torch, lambda: torch.addmm(K, L64, L64.T, alpha=-1), reps))
+    dev = _device_ms(torch, lambda: mixed.factorization_residual_cuda(K, L32), min(reps, 10))
+    bound = _kernel_bounds(n)["K4"]
+    say(f"[phase {phase}] K4 n={n}: kernel {t[0]:.4f} ms "
+        f"(device {_fmt_ms(dev)}), plain {t[1]:.4f} ms, library (f64 addmm) {t[2]:.4f} ms, "
+        f"bound {bound[0]:.4f} ms ({bound[1]}), share {100 * bound[0] / t[0]:.1f}%")
+    del K, L32, L64
+    return t, dev, bound
 
 
 def _time_sqrt_inputs(torch, gram, n):
@@ -2736,7 +2852,7 @@ def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, sli
         k6w: _device_ms(torch, lambda: mixed.precond_apply_cuda(M32, Rw), 20),
     }
     say("[phase 4c] device time per call (torch.profiler, all kernels the call launches), "
-        "ms: " + ", ".join(f"{k} {v:.4f}" for k, v in device.items()))
+        "ms: " + ", ".join(f"{k} {_fmt_ms(v)}" for k, v in device.items()))
     times = {
         "K1d": (t(lambda: distance.scaled_distance_cuda(l, x, x), 200),
                 t(lambda: distance.scaled_distance_plain(l, x, x), 50),
@@ -2773,7 +2889,7 @@ def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, sli
     bounds["K8s n=8192"] = _kernel_bounds(PATHS_NT)["K8s"]
     for key, (t_k, t_p, t_l) in times.items():
         b_ms, b_by = bounds[key]
-        kern = "none" if t_k is None else f"{t_k:.4f} ms (device {device[key]:.4f} ms)"
+        kern = "none" if t_k is None else f"{t_k:.4f} ms (device {_fmt_ms(device[key])})"
         lib = "none" if t_l is None else f"{t_l:.4f} ms"
         share = "" if t_k is None else f", share {100 * b_ms / t_k:.1f}%"
         say(f"[phase 4c] {key} (n={n if 'n=' not in key else PATHS_NT}): kernel {kern}, "
@@ -2807,13 +2923,15 @@ _GROUPS = (  # the first group whose key is in a kernel's name takes it
     ("K1d scaled distance", ("distance",)),
     ("K1/K2 gram", ("matern",)),
     ("K7b LOO diagonal", ("loo_diag",)),
-    ("K9u trailing update", ("syrk_f64_kernel<true",)),
-    ("K9s slab update (f64)", ("syrk_f64_kernel<false",)),
-    ("K9s slab update (f32)", ("slab_update_kernel",)),
+    ("K9u trailing update", ("syrk::trailing",)),
+    ("K9s slab update (f64)", ("syrk::slab,",)),
+    ("K9s slab update (f32)", ("slab_update_f32_kernel",)),
+    ("K4s slab factorization residual", ("syrk::residualslab",)),
+    ("K4 factorization residual", ("syrk::residual<",)),
     ("K8r refinement residual", ("double, double, false, true>",)),
     ("K8t triangular product", ("tri_product",)),
     ("K9m Murray passes", ("murray_kernel",)),
-    ("K4 factorization residual", ("fact_residual",)),
+    ("K8s sampling residual", ("fact_residual",)),
     ("K3 residual", ("residual_kernel",)),
     ("K5 diag-block inverse", ("diag_block_inv",)),
     ("K7 trace sums", ("trace_sums", "series_sums")),
@@ -2954,11 +3072,14 @@ def phase_group_kernels_vs_plain(gp, gnp, torch, gram, mixed, ochol):
     for R in (1, 2):
         cases.append((A, tuple(range(0, n + 1, n // R)), panels, f"n={n} R={R}"))
     # f32 (the direct factor of the mixed engine's f32 preconditioner)
-    cases.append((A.float(), (0, n // 2, n), panels[:1], f"n={n} R=2 float32"))
+    A32 = A.float()
+    for R in (1, 2):
+        cases.append((A32, tuple(range(0, n + 1, n // R)), panels, f"n={n} R={R} float32"))
     ns, bounds_s, c_s = K9S_STRADDLE
     As = _noisy_matern_spd(torch, gram, ns, MIXED_CONDS[0], 500 + ns)[0]
-    cases.append((As, bounds_s, sorted({0, c_s, ((ns - 1) // b - 1) * b}),
-                  f"n={ns} slabs {bounds_s}"))
+    panels_s = sorted({0, c_s, ((ns - 1) // b - 1) * b})
+    cases.append((As, bounds_s, panels_s, f"n={ns} slabs {bounds_s}"))
+    cases.append((As.float(), bounds_s, panels_s, f"n={ns} slabs {bounds_s} float32"))
     worst = 0.0
     for Ac, bounds, cs, tag in cases:
         for c0 in cs:
@@ -2971,7 +3092,7 @@ def phase_group_kernels_vs_plain(gp, gnp, torch, gram, mixed, ochol):
             worst = max(worst, err)
             if Ac.dtype == torch.float32:
                 absd["K9s f32"] = max(absd.get("K9s f32", 0.0), dmax)
-            if whole is not None:
+            if whole is not None and Ac.dtype == torch.float64:
                 A1 = Ac.clone()
                 ochol.trailing_update_cuda(A1, c0, b)
                 w0 = c0 + b
@@ -2984,7 +3105,7 @@ def phase_group_kernels_vs_plain(gp, gnp, torch, gram, mixed, ochol):
             say(msg)
             del whole
             gc.collect()
-    del A
+    del A, A32, cases
     gc.collect()
     torch.cuda.empty_cache()
     # K9m's slab form against its plain version and against the square form
@@ -3009,6 +3130,20 @@ def phase_group_kernels_vs_plain(gp, gnp, torch, gram, mixed, ochol):
     check(all(same), "K9m's slab form differs from its plain version or the square form")
     say(f"[phase 2f] worst K9s {worst:.3e} (tol {TOL_2F['K9s']})")
     absd.update(_mixed_slab_forms(torch, gram, mixed, ns, bounds_s))
+    # K4s against K4: bitwise at one rank, exactly symmetric across two
+    for nk in K4_SIZES:
+        K = _noisy_matern_spd(torch, gram, nk, MIXED_CONDS[0], 700 + nk)[0]
+        L32 = torch.linalg.cholesky(K.float()).contiguous()
+        F = mixed.factorization_residual_cuda(K, L32)
+        one, cross, err, dmax = _k4s_symmetry(torch, mixed, K, L32, F)
+        say(f"[phase 2f] K4s n={nk}: R=1 bitwise K4 {one}, "
+            f"R=2 R[i, j] on one rank bitwise R[j, i] on the other {cross}, R=1 vs plain "
+            f"{err:.2e} (tol {TOL_MIXED['K4']})")
+        check(one and cross and err <= TOL_MIXED["K4"],
+              f"K4s at n={nk}: bitwise K4 {one}, symmetric across ranks {cross}, err {err:.3e}")
+        if nk == SLICE_N:
+            absd["K4s"] = dmax
+        del K, L32, F
     return absd
 
 
@@ -3056,7 +3191,34 @@ def _mixed_slab_forms(torch, gram, mixed, n, bounds):
     check(errs["K3"] <= TOL_MIXED["K3"] and errs["K4"] <= TOL_MIXED["K4"]
           and errs["K6"] <= TOL_2D["K6"] and errs["K7"] <= TOL_MIXED["K7"],
           "a slab form of K3/K4s/K6/K7 against its plain version")
+    check(same_k4, f"K4s's blocks on the slabs {bounds} are not bitwise K4's rows")
     return {}
+
+
+def _k4s_symmetry(torch, mixed, K, L32, F):
+    """K4s at one rank (the whole matrix as one slab) against K4's output F,
+    and at two ranks (n split at ceil(n / 2)): (bitwise F at R = 1, R[i, j]
+    on one rank bitwise R[j, i] on the other, max|K4s - plain| / max|plain|
+    and max|K4s - plain| at R = 1)."""
+    n = K.shape[0]
+    R1 = torch.empty((n, n), dtype=torch.float32, device=DEVICE)
+    mixed.factorization_residual_slab_cuda(K, L32, L32, 0, 0, R1)
+    one = torch.equal(R1, F)
+    P = mixed.factorization_residual_slab_plain(K, L32, L32, 0, torch.empty_like(R1))
+    dmax = float((R1.double() - P.double()).abs().max())
+    err = dmax / float(P.abs().max())
+    del R1, P
+    h = n - n // 2
+    cuts = (0, h, n)
+    slabs = []
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        Ks, Ls = K[lo:hi].contiguous(), L32[lo:hi].contiguous()
+        R2 = torch.empty((hi - lo, n), dtype=torch.float32, device=DEVICE)
+        for slo, shi in zip(cuts[:-1], cuts[1:]):
+            mixed.factorization_residual_slab_cuda(Ks, Ls, L32[slo:shi].contiguous(), lo, slo, R2)
+        slabs.append(R2)
+    cross = torch.equal(slabs[0][:, h:], slabs[1][:, :h].T)
+    return one, cross, err, dmax
 
 
 def _builtin_noisy_model(gp, gnp):
@@ -3255,7 +3417,8 @@ def _phase_group_nccl(gp, gnp, torch, gram, distance, mixed, refine, ochol, ref)
     # their slab forms, the f32 factor on the f32 K9s) at p0, against phase
     # 3e's f64 and mixed one-card branches with the mixed engine's class bars
     gp.config.set_chol_engine("mixed")
-    mc = {k: (mixed, f"{k}_LAUNCHES") for k in ("K3", "K4", "K6", "K7")}
+    mc = {k: (mixed, f"{k}_LAUNCHES") for k in ("K3", "K6", "K7")}
+    mc["K4s"] = (mixed, "K4S_LAUNCHES")
     mc["K9s f32"] = (ochol, "K9S_F32_LAUNCHES")
     vg_mix, _ = _criterion(gp, model, xi, zi, mesh)
     with _PlainGuard(*guard):
@@ -3280,6 +3443,7 @@ def _phase_group_nccl(gp, gnp, torch, gram, distance, mixed, refine, ochol, ref)
     for key, count in mixed_launches.items():
         check(count > 0, f"{key} was not launched on the group's mixed branch")
     launches["K9s f32"] = mixed_launches["K9s f32"]
+    launches["K4s"] = mixed_launches["K4s"]
     check(max(e_vm, e_vmm) <= TOL_RESIDENT["mixed reml"] and np.all(e_gm <= env)
           and np.all(e_gmm <= env), "the group's mixed branch against the one-card branches")
     gc.collect()
@@ -3488,27 +3652,58 @@ def _k9s_bound(n, b, off, rows, c0=0, itemsize=8, peak=PEAK_F64_TENSOR_FLOPS):
     return _bound(nbytes, 2 * b * ents, peak)
 
 
-def phase_group_times(gp, gnp, torch, ochol):
-    """Phase 4f: K9s at n = RESIDENT_N on the one-rank slab (the first, a
-    middle and the last panel), on the second rank's slab of two (first
-    panel), and in f32 on the one-rank slab's first panel: kernel (events,
-    profiler), plain, torch.addmm on the same slab's trailing columns,
-    bound."""
-    b, n = CHOL_BLOCK, RESIDENT_N
+def _k4s_bound(n, rows, rows_b, off, offs):
+    """(bound_ms, bound_by) of one K4s launch: the (rows, rows_b) column
+    block of K read (f64) and of R written (f32), the rows of La and Lb read
+    up to each one's last needed column (f32), and 2 min(i, j) + 2
+    operations per entry at the f64 tensor peak."""
+    ops, la, lb = 0, 0, 0
+    jlo, jhi = offs, offs + rows_b
+    for gi in range(off, off + rows):  # sum over j of (min(gi, gj) + 1)
+        m = min(max(gi, jlo), jhi)  # columns gj < m have gj < gi
+        ops += (m - jlo) * (jlo + m + 1) // 2 + (jhi - m) * (gi + 1)
+        la += min(gi, jhi - 1) + 1
+    for gj in range(jlo, jhi):
+        lb += min(gj, off + rows - 1) + 1
+    return _bound(8 * rows * rows_b + 4 * (la + lb) + 4 * rows * rows_b, 2 * ops,
+                  PEAK_F64_TENSOR_FLOPS)
+
+
+def phase_group_times(gp, gnp, torch, gram, mixed, ochol):
+    """Phase 4f: the slab kernels at n = RESIDENT_N (_slab_kernel_times)."""
+    K = _large_gram(gp, gnp, RESIDENT_N)
+    times, bounds, device = _slab_kernel_times(torch, mixed, ochol, K, "4f")
+    del K
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = {"K9s": "R=1", "K9s f32": "f32 R=1", "K4s": "K4s R=1"}
+    return ({k: times[v] for k, v in keys.items()}, {k: bounds[v] for k, v in keys.items()},
+            {k: device[v] for k, v in keys.items()})
+
+
+def _slab_kernel_times(torch, mixed, ochol, K, phase, digests=None):
+    """K9s on K's one-rank slab (the first, a middle and the last panel) and
+    on the second rank's slab of two (first panel), in f64 and in f32 (phase
+    3g's mixed engine), K4s on the one-rank slab and K4 on K (phase 3e(b)'s
+    resident mixed branch): kernel (events, profiler), plain, library call
+    (torch.addmm on the same inputs), bound; printed and returned as (times,
+    bounds, device) by case.  With a dict ``digests``, also each K9s case's
+    output from one launch on a fresh copy, hashed into it."""
+    b, n = CHOL_BLOCK, K.shape[0]
     t = lambda fn, reps: _time_cuda(torch, fn, reps, warmup=1)  # noqa: E731
-    K = _large_gram(gp, gnp, n)
     times, bounds, device = {}, {}, {}
     f64, f32 = torch.float64, torch.float32
-    cases = [(f"R=1 c0={c0}" if c0 else "R=1", 0, n, c0, f64)
-             for c0 in sorted({0, ((n - 1) // b // 2) * b, ((n - 1) // b - 1) * b})]
-    cases += [("R=2 rank 1", n // 2, n // 2, 0, f64), ("f32 R=1", 0, n, 0, f32)]
+    panels = sorted({0, ((n - 1) // b // 2) * b, ((n - 1) // b - 1) * b})
+    cases = []
+    for dt, pre in ((f64, ""), (f32, "f32 ")):
+        cases += [(f"{pre}R=1 c0={c0}" if c0 else f"{pre}R=1", 0, n, c0, dt) for c0 in panels]
+        cases += [(f"{pre}R=2 rank 1", n // 2, n // 2, 0, dt)]
     for tag, off, rows, c0, dt in cases:
         Kd = K.to(dt)
         w0 = c0 + b
         Mt = torch.zeros((n, b), dtype=dt, device=K.device)
         Mt[w0:] = Kd[w0:, c0:w0]
         W = Kd[off:off + rows].clone()
-        del Kd
         r0 = max(off, w0) - off
         S, T = W[r0:, w0:], W[r0:, c0:w0]
         reps = 10 if c0 == 0 else 30
@@ -3518,19 +3713,99 @@ def phase_group_times(gp, gnp, torch, ochol):
         device[tag] = _device_ms(torch, lambda: ochol.slab_update_cuda(W, off, c0, b, Mt), 5)
         bounds[tag] = _k9s_bound(n, b, off, rows, c0, W.element_size(),
                                  PEAK_F64_TENSOR_FLOPS if dt == f64 else PEAK_F32_FLOPS)
-        del W, S, T, Mt
-    del K
-    gc.collect()
-    torch.cuda.empty_cache()
+        if digests is not None:
+            W.copy_(Kd[off:off + rows])
+            ochol.slab_update_cuda(W, off, c0, b, Mt)
+            digests[f"K9s {tag}"] = _digest(W)
+        del Kd, W, S, T, Mt
+    # K4s on the one-rank slab (the group's mixed engine) and K4 at n
+    L32 = torch.linalg.cholesky_ex(K.float())[0].contiguous()
+    L64 = L32.double()
+    R = torch.empty((n, n), dtype=f32, device=K.device)
+    times["K4s R=1"] = (
+        t(lambda: mixed.factorization_residual_slab_cuda(K, L32, L32, 0, 0, R), 5),
+        t(lambda: mixed.factorization_residual_slab_plain(K, L32, L32, 0, R), 2),
+        t(lambda: torch.addmm(K, L64, L64.T, alpha=-1), 5))
+    device["K4s R=1"] = _device_ms(
+        torch, lambda: mixed.factorization_residual_slab_cuda(K, L32, L32, 0, 0, R), 3)
+    bounds["K4s R=1"] = _k4s_bound(n, n, n, 0, 0)
+    del R
+    times["K4"] = (t(lambda: mixed.factorization_residual_cuda(K, L32), 5),
+                   t(lambda: mixed.factorization_residual_plain(K, L32), 2),
+                   times["K4s R=1"][2])
+    device["K4"] = _device_ms(torch, lambda: mixed.factorization_residual_cuda(K, L32), 3)
+    bounds["K4"] = _kernel_bounds(n)["K4"]
+    del L32, L64
     for tag, (t_k, t_p, t_l) in times.items():
         b_ms, b_by = bounds[tag]
-        say(f"[phase 4f] K9s n={n} {tag}{'' if 'c0=' in tag else ' first panel'}: kernel "
-            f"{t_k:.4f} ms (device {device[tag]:.4f} ms), plain {t_p:.4f} ms, library (addmm"
-            f"{' f32' if 'f32' in tag else ''}) {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"share {100 * b_ms / t_k:.1f}%")
-    keys = {"K9s": "R=1", "K9s f32": "f32 R=1"}
-    return ({k: times[v] for k, v in keys.items()}, {k: bounds[v] for k, v in keys.items()},
-            {k: device[v] for k, v in keys.items()})
+        name = tag if tag.startswith("K4") else f"K9s {tag}"
+        where = "" if ("c0=" in tag or tag.startswith("K4")) else " first panel"
+        lib = "addmm f64" if tag.startswith("K4") else (
+            "addmm f32" if "f32" in tag else "addmm")
+        say(f"[phase {phase}] {name} n={n}{where}: kernel {t_k:.4f} ms (device "
+            f"{_fmt_ms(device[tag])}), plain {t_p:.4f} ms, library ({lib}) {t_l:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), share {100 * b_ms / t_k:.1f}%")
+    return times, bounds, device
+
+
+# ----------------------------------------------------------------------------
+# --compare ROOT: the redesigned kernels of a tree, timed alone
+# ----------------------------------------------------------------------------
+def _digest(t):
+    import hashlib
+
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def compare_main(root):
+    """``python3 chip_smoke.py --compare ROOT``: phases 4b's and 4f's times of
+    K4 (K4_SIZES and n = RESIDENT_N), K4s, K9s (f64 and f32) of the
+    gpmp_tpu_torch package under ROOT (this checkout, or another one
+    unpacked beside it, e.g. a parent commit from git archive), through the
+    same helpers, with digests of K9u's (first panel) and K9s's outputs.
+    Run it for two trees in turns (parent, change, change, parent) in one
+    call to compare them on one card; the last line is one JSON object."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import gpmp_tpu_torch as gp
+    import gpmp_tpu_torch.num as gnp
+    from gpmp_tpu_torch.ops import _build as build
+    from gpmp_tpu_torch.ops import chol as ochol
+    from gpmp_tpu_torch.ops import gram, mixed
+
+    check(os.path.abspath(build.__file__).startswith(root + os.sep),
+          f"gpmp_tpu_torch was not imported from {root}")
+    say(_card_line())
+    t0 = time.perf_counter()
+    build.load()
+    out = {"root": root, "build_s": time.perf_counter() - t0, "ms (kernel, plain, library)": {},
+           "device_ms": {}, "digest": {}}
+    for n in K4_SIZES:
+        ms, dev, _bound = _k4_times(torch, gram, mixed, n, "compare")
+        out["ms (kernel, plain, library)"][f"K4 n={n}"], out["device_ms"][f"K4 n={n}"] = ms, dev
+    K = _large_gram(gp, gnp, RESIDENT_N)
+    times, _bounds, device = _slab_kernel_times(torch, mixed, ochol, K, "compare", out["digest"])
+    for tag in times:
+        key = f"K4 n={RESIDENT_N}" if tag == "K4" else tag if tag.startswith("K4") else f"K9s {tag}"
+        out["ms (kernel, plain, library)"][key], out["device_ms"][key] = times[tag], device[tag]
+    W = K.clone()
+    ochol.trailing_update_cuda(W, 0, CHOL_BLOCK)
+    out["digest"]["K9u"] = _digest(W)
+    del W, K
+    say(json.dumps(out))
+
+
+def _card_line():
+    try:
+        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as exc:
+        return f"nvidia-smi failed: {exc}"
 
 
 def main():
@@ -3582,6 +3857,7 @@ def main():
         gp, gnp, torch, gram, distance, mixed, refine, ochol, res_ref)
     launches["K9s"] = grp_launches["K9s"]
     launches["K9s f32"] = grp_launches["K9s f32"]
+    launches["K4s"] = grp_launches["K4s"]
     gloo_errs = phase_group_gloo(gp, gnp, torch)
     times, rates, t_warm = phase_times(gp, gnp, gram, torch, main_data)
     mtimes, mrates, mem, t_slice_warm = phase_mixed_times(gp, gnp, gram, mixed, torch,
@@ -3592,7 +3868,8 @@ def main():
     times.update({k: v[:2] for k, v in (*mtimes.items(), *ntimes.items())})
     res_times, res_bounds, res_device, res_factor = phase_resident_times(
         gp, gnp, torch, gram, refine, ochol, res_walls)
-    grp_times, grp_bounds, grp_device = phase_group_times(gp, gnp, torch, ochol)
+    grp_times, grp_bounds, grp_device = phase_group_times(gp, gnp, torch, gram, mixed,
+                                                          ochol)
     profile = phase_profile(gp, gnp, torch)
     profile.update(phase_profile_large(gp, gnp, torch))
     check("jax" not in sys.modules, "jax was imported")
@@ -3644,11 +3921,13 @@ def main():
     gram_src, mixed_src = "gpmp_tpu_torch/csrc/matern_gram.cu", "gpmp_tpu_torch/csrc/mixed.cu"
     dist_src, stream_src = "gpmp_tpu_torch/csrc/distance.cu", "gpmp_tpu_torch/csrc/streamed.cu"
     chol_src, syrk_src = "gpmp_tpu_torch/csrc/chol.cu", "gpmp_tpu_torch/csrc/syrk_f64.cuh"
+    res_src, syrk32_src = "gpmp_tpu_torch/csrc/residual.cu", "gpmp_tpu_torch/csrc/syrk_f32.cu"
     rows = [
         ("K1", "matern_gram", gram_src, "gpmp_tpu/kernel/matern.py:69"),
         ("K2", "matern_gram_pullback", gram_src, "gpmp_tpu/parallel/likelihood.py:225"),
         ("K3", "residual", mixed_src, "gpmp_tpu/ops/mixed.py:173"),
-        ("K4", "factorization_residual", mixed_src, "gpmp_tpu/ops/mixed.py:191"),
+        ("K4", "factorization_residual", res_src, "gpmp_tpu/ops/mixed.py:191"),
+        ("K4s", "factorization_residual_slab", res_src, "gpmp_tpu/ops/mixed.py:191"),
         ("K5", "diag_block_inv", mixed_src, "gpmp_tpu/ops/mixed.py:94"),
         ("K7", "trace_sums+series_sums", mixed_src, "gpmp_tpu/ops/mixed.py:378"),
         ("K7b", "loo_diag_series", mixed_src, "gpmp_tpu/ops/mixed.py:637"),
@@ -3666,7 +3945,7 @@ def main():
         ("K8t", "tri_product", chol_src, "gpmp_tpu/ops/refine.py:47"),
         ("K9u", "trailing_update", syrk_src, "gpmp_tpu/parallel/chol.py:158"),
         ("K9s", "slab_update", syrk_src, "gpmp_tpu/parallel/chol.py:270"),
-        ("K9s f32", "slab_update f32", mixed_src, "gpmp_tpu/parallel/chol.py:270"),
+        ("K9s f32", "slab_update f32", syrk32_src, "gpmp_tpu/parallel/chol.py:270"),
         ("K9m", "murray_phi+symmetrize", chol_src, "gpmp_tpu/parallel/chol.py:460"),
     ]
     say(json.dumps({"kernels": [
@@ -3682,4 +3961,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare":
+        compare_main(sys.argv[2])
+    else:
+        main()

@@ -1,14 +1,13 @@
 // gpmp_tpu_torch/csrc/mixed.cu
 //
-// K3, K4, K5, K6, K7 and K7b: the hand-written kernels of the
-// mixed-precision Cholesky engine (gpmp_tpu_torch/ops/mixed.py); K8s, the
-// residual of its sampling root, and K8r, the residual of the refined panel
-// factor (gpmp_tpu_torch/ops/refine.py); the f32 form of K9s, the
-// row-sharded factor's slab trailing update (gpmp_tpu_torch/ops/chol.py;
-// its f64 form and K9u are csrc/syrk.cu); K10m and
-// K10r, K3's and K4's kernels on the streamed engine's sources of K
-// (gpmp_tpu_torch/ops/streamed.py); for Hopper, sm_90a.
-// Plain C entry points, loaded with ctypes by gpmp_tpu_torch/ops/_build.py.
+// K3, K5, K6, K7 and K7b: the hand-written kernels of the mixed-precision
+// Cholesky engine (gpmp_tpu_torch/ops/mixed.py; its K4 and K4s are
+// csrc/residual.cu); K8s, the residual of its sampling root, and K8r, the
+// residual of the refined panel factor (gpmp_tpu_torch/ops/refine.py);
+// K10m and K10r, K3's kernel and the CUDA-core residual kernel on the
+// streamed engine's sources of K (gpmp_tpu_torch/ops/streamed.py); for
+// Hopper, sm_90a.  Plain C entry points, loaded with ctypes by
+// gpmp_tpu_torch/ops/_build.py.
 //
 // K3 residual (replaces gpmp_tpu/ops/mixed.py _f64_matvec and the residual
 //    norms of refined_cholesky_solve):
@@ -31,60 +30,41 @@
 //    summed in f64 in registers (hi + lo is exact in f64).  Bound: reading
 //    the pair once, 8 n^2 bytes (2.6 ms at n = 32768): memory-bound.
 //
-// K4 factorization residual (replaces _factorization_residual_f32):
-//      R = K - L L^T, computed in f64 on the lower-triangular tiles only,
-//      cast to f32, and written to (i, j) and (j, i): exactly symmetric.
-//    Bound: n^3/6 f64 FMAs (3.3e8 flops at n = 1000), ~5 us at the f64
-//    tensor-core peak (67 TFLOP/s) against ~4.8 us for its 16 n^2 bytes:
-//    compute-bound.  Design: 32 x 32 output tiles, only bi >= bj launched;
-//    the k loop stops at the tile's last column, because L is lower
-//    triangular; L (f32 in device memory) is promoted to f64 while staged
-//    in shared memory.  Plain f64 FMAs on the vector units, no DMMA.
+// The CUDA-core factorization residual (fact_residual_kernel): R = K - L L^T
+//    in f64 on 32 x 32 lower-triangular tiles, the k loop stopping at the
+//    tile's last column (L is lower triangular), L promoted to f64 while
+//    staged in shared memory, each entry written at (i, j) and (j, i):
+//    exactly symmetric.  Plain f64 FMAs on the vector units, about 1.25
+//    shared loads per FMA: ~13% of the f64 tensor bound.  It was K4's
+//    kernel until K4 moved to the f64 tensor cores (csrc/residual.cu); K8s,
+//    K8r and K10r still run it.
 //
 // K8s sampling residual (replaces E = K - L L^T of gpmp_tpu/ops/refine.py
-//    sampling_sqrt): K4's kernel with an output in K's dtype instead of
-//    f32, so E keeps f64 for the sampling root C = L + L (M E M^T) / 2.
+//    sampling_sqrt): the CUDA-core residual kernel with an output in K's
+//    dtype, so E keeps f64 for the sampling root C = L + L (M E M^T) / 2.
 //    Same bound (n^3/6 FMAs, 5.0 us at n = 1000, 2.7 ms at n = 8192 at
 //    67 TFLOP/s) and design; E is exactly symmetric, where the JAX
 //    package's dense product is symmetric only up to roundoff.
 //
 // K8r refinement residual (replaces E = A - L L^T and the convergence
-//    guard's sums of gpmp_tpu/ops/refine.py refined_cholesky): K4's kernel
-//    with f64 L and an f64 output, on one (B, B) diagonal panel of the
-//    blocked Cholesky, plus per-tile partial sums of E^2 and A^2 over the
+//    guard's sums of gpmp_tpu/ops/refine.py refined_cholesky): the CUDA-core
+//    residual kernel with f64 L and an f64 output, on one (B, B) diagonal
+//    panel of the blocked Cholesky, plus per-tile partial sums of E^2 and A^2 over the
 //    symmetric matrix and the fixed-order second pass of K3.  Bound: B^3/6
 //    f64 FMAs (2.2e7 at B = 512, 0.7 us at 67 TFLOP/s) against reading A and
 //    L and writing E (6 MB, 1.9 us): memory-bound on paper, latency-bound in
 //    practice (136 tiles of 32 x 32 at B = 512, one wave).
 //
-// K9s slab trailing update, f32 (replaces the per-device update
-//    K_loc[:, w0:] - Mt_loc Mt_all[w0:]^T of gpmp_tpu/parallel/chol.py
-//    _sharded_cholesky_impl's panel_step on the direct f32 factor of the
-//    mixed engine's preconditioner, the JAX package's f32 HIGHEST
-//    products): A is one rank's (rows, n) f32 slab of global rows
-//    [off, off + rows), holding the solved panel T in columns [c0, c0 + B);
-//    Mt is the (n, B) gather of every rank's trailing panel rows; the update
-//    A[i, j] -= T[i] . Mt[j] runs over the slab's rows i >= w0 = c0 + B and
-//    the columns w0 <= j <= i (the lower trapezoid), in f32 with f32 sums.
-//    K4's 32 x 32 tiles, A's rows and Mt's rows staged in shared memory, the
-//    tiles wholly above the diagonal returning at once.  Bound: (trapezoid
-//    entries) x B FMAs, n^3 / (6 R) per rank over a factor, at the 67
-//    TFLOP/s f32 peak of the CUDA cores (TF32, the only f32 tensor-core
-//    route, is forbidden by the port's precision pin); CUDA-core FMAs.  The
-//    f64 form (the refined factor) is K9u's tensor-core kernel, csrc/syrk.cu.
-//
 // Slab forms (the sharded mixed engine on a group mesh, gpmp_tpu_torch/
 //    parallel/mixed.py; the JAX package's per-device shares of the same
 //    programs): K3 and K7 take a rank's (rows, n) row slab (rows = n: the
 //    square forms), K6 a slab of M and all of r, and gives that rank's part
-//    of M^T (M r) (summed over the ranks by an all-reduce), and K4s one
-//    (rows, rows_b) column block of K - L L^T from the rank's rows of L and a
-//    source rank's (a sibling kernel on K4's tiles).  Bounds as the square
-//    forms', per rank.
+//    of M^T (M r) (summed over the ranks by an all-reduce).  Bounds as the
+//    square forms', per rank (K4s, K4's slab form, is csrc/residual.cu's).
 //
 // K10r streamed factorization residual (replaces gpmp_tpu/parallel/
-//    streamed.py _streamed_residual_f32): K4's kernel, with K read from a
-//    source given as a template parameter:
+//    streamed.py _streamed_residual_f32): the CUDA-core residual kernel,
+//    with K read from a source given as a template parameter:
 //      ff:        the float-float pair (K32 + E32), summed in f64 in
 //                 registers, over every lower tile in one launch (the card
 //                 never holds K in f64, so the JAX package's column panels,
@@ -218,8 +198,9 @@ __device__ void block_pair_to_partial(double a, double b, double* __restrict__ p
 }
 
 // ------------------------------------------------- sources of K(i, j)
-// K3/K4 read K through one of these (K10m/K10r are the same kernels on the
-// streamed engine's sources); each returns the entry promoted to f64.
+// K3 and the residual kernel read K through one of these (K10m/K10r are the
+// same kernels on the streamed engine's sources); each returns the entry
+// promoted to f64.
 template <typename T>
 struct DenseK {  // K (n, n) in T, row-major
   const T* __restrict__ K;
@@ -334,7 +315,7 @@ int launch_residual(Src K, const void* X, const void* B, void* R, void* partial,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------- K4
+// ------------------------------------- the CUDA-core residual (K8s, K8r, K10r)
 constexpr int FR_TILE = 32;
 constexpr int FR_TY = 8;  // block (32, 8): each thread owns 4 rows of a column
 constexpr int FR_ROWS = FR_TILE / FR_TY;
@@ -483,139 +464,6 @@ int launch_refine_residual(const void* A, const void* L, void* E, void* partial,
   if (err) return err;
   reduce_pairs_kernel<<<1, RED_THREADS, 0, s>>>(static_cast<const double*>(partial), tiles,
                                                 static_cast<double*>(sums));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------- K9s f32
-// A[i - off, j] -= sum_k A[i - off, c0 + k] Mt[j, k] for global rows i in
-// [r0, off + rows) and columns j in [w0, n), i >= j; blockIdx.x the row tile
-// (from r0), blockIdx.y the column tile (from w0).  A's reads are in the
-// panel's columns [c0, w0), which no thread writes; each written entry is
-// read only by the thread that writes it.
-__global__ void __launch_bounds__(FR_TILE * FR_TY)
-slab_update_kernel(float* __restrict__ A, const float* __restrict__ Mt, long long rows,
-                   long long n, long long off, long long c0, long long b, long long r0) {
-  const long long w0 = c0 + b, iend = off + rows;
-  const long long i0 = r0 + static_cast<long long>(blockIdx.x) * FR_TILE;
-  const long long j0 = w0 + static_cast<long long>(blockIdx.y) * FR_TILE;
-  if (j0 > i0 + FR_TILE - 1) return;  // wholly above the diagonal
-
-  __shared__ float As[FR_TILE][FR_TILE + 1];  // A[i0 + r - off, c0 + k0 + c]
-  __shared__ float Bs[FR_TILE][FR_TILE + 1];  // Mt[j0 + r, k0 + c]
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  float acc[FR_ROWS];
-#pragma unroll
-  for (int q = 0; q < FR_ROWS; ++q) acc[q] = 0.0f;
-
-  for (long long k0 = 0; k0 < b; k0 += FR_TILE) {
-    const long long gk = k0 + tx;
-    for (int r = ty; r < FR_TILE; r += FR_TY) {
-      const long long gi = i0 + r, gj = j0 + r;
-      As[r][tx] = (gi < iend && gk < b) ? A[(gi - off) * n + c0 + gk] : 0.0f;
-      Bs[r][tx] = (gj < n && gk < b) ? Mt[gj * b + gk] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < FR_TILE; ++kk) {
-      const float bv = Bs[tx][kk];
-#pragma unroll
-      for (int q = 0; q < FR_ROWS; ++q) acc[q] += As[ty + FR_TY * q][kk] * bv;
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int q = 0; q < FR_ROWS; ++q) {
-    const long long gi = i0 + ty + FR_TY * q, gj = j0 + tx;
-    if (gi < iend && gj < n && gi >= gj) {
-      float* p = A + (gi - off) * n + gj;
-      *p = *p - acc[q];
-    }
-  }
-}
-
-int launch_slab_update(void* A, const void* Mt, long long rows, long long n, long long off,
-                       long long c0, long long b, void* stream) {
-  const long long w0 = c0 + b;
-  if (rows <= 0 || n <= 0 || off < 0 || off + rows > n || c0 < 0 || b <= 0 || w0 >= n)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long r0 = off > w0 ? off : w0;
-  if (r0 >= off + rows) return static_cast<int>(cudaErrorInvalidValue);
-  const long long rt = (off + rows - r0 + FR_TILE - 1) / FR_TILE;
-  const long long ct = (n - w0 + FR_TILE - 1) / FR_TILE;
-  if (rt > 0x7fffffffLL || ct > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  slab_update_kernel<<<dim3(static_cast<unsigned>(rt), static_cast<unsigned>(ct)),
-                       dim3(FR_TILE, FR_TY), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(A), static_cast<const float*>(Mt), rows, n, off, c0, b, r0);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------- K4s
-// R[i, offs + j] = f32(K[i, offs + j] - sum_k La[i, k] Lb[j, k]) for the
-// slab's rows i (global off + i) and the rows j of a source slab (global
-// offs + j): one (rows, rows_b) column block of a rank's rows of K - L L^T,
-// f64 arithmetic.  La and Lb are rows of the lower-triangular f32 L, so the
-// sum stops at min(global i, global j) (whole 32-wide k tiles: L's zeros add
-// exact zeros).  Both triangles are computed (the mirror lives on another
-// rank); with K exactly symmetric, (i, j) and (j, i) sum the same products in
-// the same order, so R is exactly symmetric as K4's.
-__global__ void __launch_bounds__(FR_TILE * FR_TY)
-slab_fact_residual_kernel(const double* __restrict__ K, const float* __restrict__ La,
-                          const float* __restrict__ Lb, float* __restrict__ R, long long rows,
-                          long long rows_b, long long n, long long off, long long offs) {
-  const long long i0 = static_cast<long long>(blockIdx.x) * FR_TILE;
-  const long long j0 = static_cast<long long>(blockIdx.y) * FR_TILE;
-  const long long ilast = off + (i0 + FR_TILE < rows ? i0 + FR_TILE : rows) - 1;
-  const long long jlast = offs + (j0 + FR_TILE < rows_b ? j0 + FR_TILE : rows_b) - 1;
-  const long long kend = (ilast < jlast ? ilast : jlast) + 1;
-
-  __shared__ double As[FR_TILE][FR_TILE + 1];  // La[i0 + r, k0 + c]
-  __shared__ double Bs[FR_TILE][FR_TILE + 1];  // Lb[j0 + r, k0 + c]
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  double acc[FR_ROWS];
-#pragma unroll
-  for (int q = 0; q < FR_ROWS; ++q) acc[q] = 0.0;
-
-  for (long long k0 = 0; k0 < kend; k0 += FR_TILE) {
-    const long long gk = k0 + tx;
-    for (int r = ty; r < FR_TILE; r += FR_TY) {
-      const long long i = i0 + r, j = j0 + r;
-      As[r][tx] = (i < rows && gk < kend) ? static_cast<double>(La[i * n + gk]) : 0.0;
-      Bs[r][tx] = (j < rows_b && gk < kend) ? static_cast<double>(Lb[j * n + gk]) : 0.0;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < FR_TILE; ++kk) {
-      const double bv = Bs[tx][kk];
-#pragma unroll
-      for (int q = 0; q < FR_ROWS; ++q) acc[q] += As[ty + FR_TY * q][kk] * bv;
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int q = 0; q < FR_ROWS; ++q) {
-    const long long i = i0 + ty + FR_TY * q, j = j0 + tx;
-    if (i < rows && j < rows_b) {
-      const long long t = i * n + offs + j;
-      R[t] = static_cast<float>(K[t] - acc[q]);
-    }
-  }
-}
-
-int launch_slab_fact_residual(const void* K, const void* La, const void* Lb, void* R,
-                              long long rows, long long rows_b, long long n, long long off,
-                              long long offs, void* stream) {
-  if (rows <= 0 || rows_b <= 0 || n <= 0 || off < 0 || off + rows > n || offs < 0 ||
-      offs + rows_b > n)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long rt = (rows + FR_TILE - 1) / FR_TILE;
-  const long long ct = (rows_b + FR_TILE - 1) / FR_TILE;
-  if (rt > 0x7fffffffLL || ct > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  slab_fact_residual_kernel<<<dim3(static_cast<unsigned>(rt), static_cast<unsigned>(ct)),
-                              dim3(FR_TILE, FR_TY), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(K), static_cast<const float*>(La),
-      static_cast<const float*>(Lb), static_cast<float*>(R), rows, rows_b, n, off, offs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1046,16 +894,6 @@ int gpmp_ff_residual(const void* hi, const void* lo, const void* X, const void* 
       norms, n, n, k, stream);
 }
 
-int gpmp_fact_residual_f64(const void* K, const void* L, void* R, long long n, void* stream) {
-  return launch_fact_residual<DenseK<double>, float>(
-      DenseK<double>{static_cast<const double*>(K), n}, L, R, n, stream);
-}
-
-int gpmp_fact_residual_f32(const void* K, const void* L, void* R, long long n, void* stream) {
-  return launch_fact_residual<DenseK<float>, float>(
-      DenseK<float>{static_cast<const float*>(K), n}, L, R, n, stream);
-}
-
 int gpmp_sampling_residual_f64(const void* K, const void* L, void* R, long long n,
                                void* stream) {
   return launch_fact_residual<DenseK<double>, double>(
@@ -1084,17 +922,6 @@ long long gpmp_refine_residual_blocks(long long n) { return lower_tiles(n); }
 int gpmp_refine_residual(const void* A, const void* L, void* E, void* partial, void* sums,
                          long long n, void* stream) {
   return launch_refine_residual(A, L, E, partial, sums, n, stream);
-}
-
-int gpmp_slab_fact_residual(const void* K, const void* La, const void* Lb, void* R,
-                            long long rows, long long rows_b, long long n, long long off,
-                            long long offs, void* stream) {
-  return launch_slab_fact_residual(K, La, Lb, R, rows, rows_b, n, off, offs, stream);
-}
-
-int gpmp_slab_update_f32(void* A, const void* Mt, long long rows, long long n, long long off,
-                         long long c0, long long b, void* stream) {
-  return launch_slab_update(A, Mt, rows, n, off, c0, b, stream);
 }
 
 long long gpmp_precond_chunks(long long n) { return precond_chunks(n); }

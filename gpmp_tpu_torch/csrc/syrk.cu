@@ -24,9 +24,9 @@
 //      of a slab is never read again, and its mirror lives on another rank).
 //    The same kernel as K9u (MIRROR = false), so at one rank (off = 0) the
 //    lower triangle is bitwise K9u's.  The f32 form (the direct factor of
-//    the mixed engine's f32 preconditioner) stays on the CUDA-core kernel
-//    of csrc/mixed.cu: its only tensor-core route is TF32, which the port's
-//    f32 precision pin forbids.
+//    the mixed engine's f32 preconditioner) is a CUDA-core kernel, csrc/
+//    syrk_f32.cu: its only tensor-core route is TF32, which the port's f32
+//    precision pin forbids.
 //
 // Bound on the H100: (trailing lower entries) x b f64 multiply-adds,
 //    n^3/6 over a factor; at n = 16384, b = 512, first panel, 1.29e11
@@ -62,17 +62,18 @@ bool bad_panel(long long n, long long c0, long long b) {
   return n <= 0 || c0 < 0 || b <= 0 || c0 + b >= n;
 }
 
-syrk::Args trailing_args(void* A, const void* tiles, long long n, long long c0, long long b) {
+syrk::Args<syrk::Trailing> trailing_args(void* A, const void* tiles, long long n, long long c0,
+                                         long long b) {
   double* a = static_cast<double*>(A);
-  return syrk::Args{a, a + c0, a + c0, static_cast<const int*>(tiles), n, n, 0, n, n, b};
+  return {a, a, a + c0, a + c0, static_cast<const int*>(tiles), n, n, n, 0, n, 0, n, b};
 }
 
 template <int MK>
 int trailing_update(void* A, const void* tiles, long long ntiles, long long n, long long c0,
                     long long b, void* stream) {
   if (bad_panel(n, c0, b) || !A || !tiles) return static_cast<int>(cudaErrorInvalidValue);
-  return syrk::launch<true, MK>(trailing_args(A, tiles, n, c0, b), ntiles,
-                                static_cast<cudaStream_t>(stream));
+  return syrk::launch<syrk::Trailing, syrk::Big, MK>(trailing_args(A, tiles, n, c0, b), ntiles,
+                                                     static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -108,9 +109,10 @@ int gpmp_slab_update_f64(void* A, const void* Mt, const void* tiles, long long n
     return static_cast<int>(cudaErrorInvalidValue);
   if ((off > c0 + b ? off : c0 + b) >= off + rows) return static_cast<int>(cudaErrorInvalidValue);
   double* a = static_cast<double*>(A);
-  const syrk::Args p{a, a + c0, static_cast<const double*>(Mt), static_cast<const int*>(tiles),
-                     n, b, off, off + rows, n, b};
-  return syrk::launch<false, MMA_K>(p, ntiles, static_cast<cudaStream_t>(stream));
+  const syrk::Args<syrk::Slab> p{a, a, a + c0, static_cast<const double*>(Mt),
+                                 static_cast<const int*>(tiles), n, n, b, off, off + rows, 0, n,
+                                 b};
+  return syrk::launch<syrk::Slab, syrk::Big, MMA_K>(p, ntiles, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -122,13 +122,19 @@ def _declare(lib):
         # ops/chol.py: K9m's slab form (the row-sharded factor)
         "gpmp_murray_slab": ([vp, vp, ll, ll, ll, i32, vp], i32),
         # ops/chol.py: K9u and K9s (f64) on the f64 tensor cores (csrc/syrk.cu),
-        # K9s (f32) on the CUDA cores (csrc/mixed.cu)
+        # K9s (f32) on the CUDA cores (csrc/syrk_f32.cu)
         "gpmp_syrk_tile": ([], i32),
         "gpmp_syrk_mma_k": ([], i32),
         "gpmp_trailing_update": ([vp, vp, ll, ll, ll, ll, vp], i32),
         "gpmp_syrk_probe": ([vp, vp, ll, ll, ll, ll, i32, vp], i32),
         "gpmp_slab_update_f64": ([vp, vp, vp, ll, ll, ll, ll, ll, ll, vp], i32),
-        "gpmp_slab_update_f32": ([vp, vp, ll, ll, ll, ll, ll, vp], i32),
+        "gpmp_syrk_f32_tile": ([], i32),
+        "gpmp_slab_update_f32": ([vp, vp, vp, ll, ll, ll, ll, ll, ll, vp], i32),
+        # ops/mixed.py: K4 and K4s on the f64 tensor cores (csrc/residual.cu)
+        "gpmp_residual_tile": ([], i32),
+        "gpmp_fact_residual_mma_f64": ([vp, vp, vp, vp, ll, ll, vp], i32),
+        "gpmp_fact_residual_mma_f32": ([vp, vp, vp, vp, ll, ll, vp], i32),
+        "gpmp_slab_fact_residual_mma": ([vp, vp, vp, vp, vp, ll, ll, ll, ll, ll, ll, vp], i32),
         # ops/streamed.py: K10b, K10r, K10m, K10t
         "gpmp_split_rows": ([vp, vp, vp, vp, ll, ll, ll, ctypes.c_float, vp], i32),
         "gpmp_streamed_residual_ff": ([vp, vp, vp, vp, ll, vp], i32),
@@ -142,7 +148,6 @@ def _declare(lib):
         "gpmp_trace_sums_blocks": ([ll, ll], ll),
         "gpmp_trace_sums": ([vp, vp, vp, ll, ll, ll, vp], i32),
         "gpmp_series_sums": ([vp, vp, vp, vp, ll, ll, vp], i32),
-        "gpmp_slab_fact_residual": ([vp, vp, vp, vp, ll, ll, ll, ll, ll, vp], i32),
         "gpmp_loo_diag_chunks": ([ll], ll),
         "gpmp_loo_diag_series": ([vp, vp, vp, vp, ll, vp], i32),
         # ops/distance.py: K1d
@@ -166,7 +171,6 @@ def _declare(lib):
         signatures[f"gpmp_matern_pullback_{suffix}"] = (
             [vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp], i32)
         signatures[f"gpmp_residual_{suffix}"] = ([vp, vp, vp, vp, vp, vp, ll, ll, i32, vp], i32)
-        signatures[f"gpmp_fact_residual_{suffix}"] = ([vp, vp, vp, ll, vp], i32)
         signatures[f"gpmp_precond_apply_{suffix}"] = ([vp, vp, vp, vp, vp, ll, i32, vp], i32)
         signatures[f"gpmp_precond_apply_slab_{suffix}"] = (
             [vp, vp, vp, vp, vp, ll, ll, ll, i32, vp], i32)

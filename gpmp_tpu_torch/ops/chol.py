@@ -15,7 +15,8 @@ version and a launch counter each:
   K_loc[:, w0:] - Mt_loc Mt_all[w0:]^T), the slab's own solved panel times
   the gathered trailing panel rows, over the lower trapezoid: in f64 K9u's
   kernel without the mirror (csrc/syrk.cu; ``K9S_LAUNCHES``), in f32 a
-  CUDA-core kernel (csrc/mixed.cu; ``K9S_F32_LAUNCHES``);
+  register-tiled CUDA-core kernel on the same tiles (csrc/syrk_f32.cu;
+  ``K9S_F32_LAUNCHES``);
 - K9m ``murray_phi`` / ``symmetrize``: Murray's elementwise passes of
   ``_sharded_chol_bwd``, P <- tril(P) - diag(P) / 2 and S <- (S + S^T) / 2,
   in place, on the square matrix or on a slab at a global row offset
@@ -43,11 +44,11 @@ K9M_LAUNCHES = 0
 _F64 = torch.float64
 _F32 = torch.float32
 
-SYRK_TILE = 128  # K9u/K9s's output tile (csrc/syrk_f64.cuh TILE)
+SYRK_TILE = 128  # K9u/K9s's output tile (csrc/syrk_f64.cuh TILE, csrc/syrk_f32.cu TILE)
 
 
 def syrk_tiles(n, w0, r0, iend):
-    """The launch geometry of K9u and K9s (f64): the global (i0, j0) corners
+    """The launch geometry of K9u and K9s: the global (i0, j0) corners
     of the SYRK_TILE-square output tiles over rows [r0, iend) and columns
     [w0, n) that meet the lower triangle j <= i, as an int32 (count, 2)
     tensor on the CPU (one thread block each; the kernel masks the diagonal
@@ -183,9 +184,9 @@ def slab_update_plain(A, off, c0, b, Mt, rows=4096):
 
 
 def slab_update_cuda(A, off, c0, b, Mt):
-    """K9s on the card: the slab's trailing update in place (one launch), f64
-    (K9u's tensor-core kernel) or f32 (a CUDA-core kernel); A and Mt of one
-    dtype."""
+    """K9s on the card: the slab's trailing update in place (one launch) over
+    the tiles of ``syrk_tiles``, f64 (K9u's tensor-core kernel) or f32 (a
+    register-tiled CUDA-core kernel); A and Mt of one dtype."""
     global K9S_LAUNCHES, K9S_F32_LAUNCHES
     name = "K9s slab_update"
     dtypes = ((_F64, _F32), (A.dtype,))
@@ -194,14 +195,16 @@ def slab_update_cuda(A, off, c0, b, Mt):
     dev = _check_cuda(name, (A, Mt), dtypes)
     lib = _build.load()
     off, c0, b = int(off), int(c0), int(b)
+    if A.dtype == _F32 and lib.gpmp_syrk_f32_tile() != SYRK_TILE:
+        raise RuntimeError(f"csrc/syrk_f32.cu's tile is {lib.gpmp_syrk_f32_tile()}, "
+                           f"not SYRK_TILE = {SYRK_TILE}")
+    tiles = _launch_tiles(lib, dev, n, c0 + b, max(off, c0 + b), off + rows)
+    fn = lib.gpmp_slab_update_f64 if A.dtype == _F64 else lib.gpmp_slab_update_f32
+    _build.launch(name, fn, dev, A.data_ptr(), Mt.data_ptr(), tiles.data_ptr(), tiles.shape[0],
+                  rows, n, off, c0, b)
     if A.dtype == _F64:
-        tiles = _launch_tiles(lib, dev, n, c0 + b, max(off, c0 + b), off + rows)
-        _build.launch(name, lib.gpmp_slab_update_f64, dev, A.data_ptr(), Mt.data_ptr(),
-                      tiles.data_ptr(), tiles.shape[0], rows, n, off, c0, b)
         K9S_LAUNCHES += 1
     else:
-        _build.launch(name, lib.gpmp_slab_update_f32, dev, A.data_ptr(), Mt.data_ptr(),
-                      rows, n, off, c0, b)
         K9S_F32_LAUNCHES += 1
     return A
 

@@ -18,8 +18,9 @@ Counterpart of gpmp_tpu/ops/mixed.py (the 'mixed' engine of
    K^{-1} ~= M^T (I - D + D^2) M, with the analytic backward
    Kbar = -K^{-1} diag(dbar) K^{-1} - S X^T, Bbar = S.
 
-Six pieces are hand-written CUDA kernels (gpmp_tpu_torch/csrc/mixed.cu),
-each with a plain PyTorch version here and a launch counter:
+Six pieces are hand-written CUDA kernels (gpmp_tpu_torch/csrc/mixed.cu; K4
+and K4s in csrc/residual.cu), each with a plain PyTorch version here and a
+launch counter:
 
 - K3 ``residual``: R = B - K X and (sum R^2, sum B^2) for k <= 8 columns
   (``_f64_matvec`` plus the residual norms of ``refined_cholesky_solve``);
@@ -27,7 +28,8 @@ each with a plain PyTorch version here and a launch counter:
   M^T (M r) for any number of columns, r rounded to f32, f32 products,
   cast back;
 - K4 ``factorization_residual``: R = K - L L^T over the lower triangle in
-  f64, emitted in f32 and made symmetric (``_factorization_residual_f32``);
+  f64, emitted in f32 and made symmetric (``_factorization_residual_f32``),
+  on the f64 tensor cores over the tiles of ``residual_tiles``;
 - K5 ``diag_block_inv``: the inverses of the diagonal blocks of L32
   (the base case of ``_block_tri_inv``);
 - K7 ``trace_sums`` / ``series_sums``: (tr H, sum H^2) and
@@ -40,9 +42,10 @@ each with a plain PyTorch version here and a launch counter:
 K3 and K7 also take a rank's (rows, n) row slab of a row-sharded K or H
 (``residual`` on a slab; ``trace_sums(H, off)``, ``series_sums``), K6 a
 slab of M and all of r (``precond_apply_slab``: that rank's part of
-M^T (M r), in f32), and K4s, a sibling of K4, one column block of a rank's
-rows of K - L L^T (``factorization_residual_slab``): the sharded mixed
-engine on a group mesh (gpmp_tpu_torch/parallel/mixed.py).
+M^T (M r), in f32), and K4s, K4's kernel on one column block of a rank's
+rows of K - L L^T (``factorization_residual_slab``, tiles of
+``residual_slab_tiles``, ``K4S_LAUNCHES``): the sharded mixed engine on a
+group mesh (gpmp_tpu_torch/parallel/mixed.py).
 
 Each dispatcher takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors (or raises); there is no fallback between them.
@@ -63,6 +66,7 @@ autograd Functions here have no ``jvp`` (ROADMAP queue 1 item 8).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -87,6 +91,7 @@ TRI_INV_BASE = 128
 
 K3_LAUNCHES = 0
 K4_LAUNCHES = 0
+K4S_LAUNCHES = 0
 K5_LAUNCHES = 0
 K7_LAUNCHES = 0
 K7B_LAUNCHES = 0
@@ -295,12 +300,74 @@ def precond_apply_slab_cuda(M32, R, off):
     return out
 
 
+# K4 and K4s's launch geometry (csrc/residual.cu): square output tiles of
+# RESIDUAL_TILE, 4 warps each, two blocks to an SM (measured on the card
+# against K9u's 128-wide tiles of 8 warps, and against a split k range at
+# n = 1000: no slower at any n, 2.5-2.7x faster below 2048; PERF.md)
+RESIDUAL_TILE = 64
+
+
+def _residual_tile(lib):
+    if lib.gpmp_residual_tile() != RESIDUAL_TILE:
+        raise RuntimeError(f"csrc/residual.cu's tile is {lib.gpmp_residual_tile()}, "
+                           f"not RESIDUAL_TILE = {RESIDUAL_TILE}")
+    return RESIDUAL_TILE
+
+
+def _longest_first(i0, j0, kend):
+    """The (i0, j0) corners as an int32 (count, 2) tensor, the longest k
+    range first (row order among equals): the longest tiles start in the
+    first wave, so none is left to run alone at the end."""
+    order = torch.sort(-kend, stable=True).indices
+    return torch.stack([i0[order], j0[order]], 1).to(torch.int32)
+
+
+def residual_tiles(n, tile):
+    """K4's launch geometry: the corners (i0, j0), j0 <= i0, of the
+    tile-square output tiles of the (n, n) lower triangle (one thread block
+    each; the kernel masks the diagonal tiles entrywise), on the CPU.  L is
+    lower triangular, so a tile sums over k < min(j0 + tile, n); listed
+    longest first."""
+    if n <= 0 or tile <= 0:
+        raise ValueError(f"residual_tiles: n={n}, tile={tile}")
+    i0, j0 = torch.meshgrid(torch.arange(0, n, tile), torch.arange(0, n, tile), indexing="ij")
+    keep = j0 <= i0
+    i0, j0 = i0[keep], j0[keep]
+    return _longest_first(i0, j0, torch.clamp(j0 + tile, max=n))
+
+
+def residual_slab_tiles(rows, rows_b, off, offs, tile):
+    """K4s's launch geometry: the global corners (i0, j0) of the tiles of one
+    (rows, rows_b) column block, rows [off, off + rows) by columns
+    [offs, offs + rows_b), both triangles; a tile sums over k up to the
+    smaller of its last row and last column.  Longest first, on the CPU."""
+    if rows <= 0 or rows_b <= 0 or off < 0 or offs < 0 or tile <= 0:
+        raise ValueError(f"residual_slab_tiles: rows={rows}, rows_b={rows_b}, off={off}, "
+                         f"offs={offs}, tile={tile}")
+    i0, j0 = torch.meshgrid(torch.arange(off, off + rows, tile),
+                            torch.arange(offs, offs + rows_b, tile), indexing="ij")
+    i0, j0 = i0.reshape(-1), j0.reshape(-1)
+    ilast = torch.clamp(i0 + tile, max=off + rows) - 1
+    jlast = torch.clamp(j0 + tile, max=offs + rows_b) - 1
+    return _longest_first(i0, j0, torch.minimum(ilast, jlast) + 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _residual_tiles_on(device, n, tile):
+    return residual_tiles(n, tile).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _residual_slab_tiles_on(device, rows, rows_b, off, offs, tile):
+    return residual_slab_tiles(rows, rows_b, off, offs, tile).to(device)
+
+
 def factorization_residual_slab_cuda(K, La, Lb, off, offs, R):
     """K4s on the card: R[:, offs:offs + rows_b] = f32(K[:, offs:offs +
     rows_b] - La Lb^T) in f64, K and R (rows, n) (global rows [off, off +
     rows)), La this slab's rows of the lower-triangular f32 L, Lb a source
     slab's (global rows [offs, offs + rows_b)); returns R."""
-    global K4_LAUNCHES
+    global K4S_LAUNCHES
     dev = _check_cuda("K4s factorization_residual_slab", (K, La, Lb, R),
                       ((torch.float64,), (_F32,), (_F32,), (_F32,)))
     rows, n = K.shape
@@ -308,11 +375,16 @@ def factorization_residual_slab_cuda(K, La, Lb, off, offs, R):
     if La.shape != K.shape or R.shape != K.shape or Lb.shape[1] != n:
         raise ValueError(f"K4s: K, La and R must be {tuple(K.shape)} and Lb (rows_b, {n}); "
                          f"got {tuple(La.shape)}, {tuple(R.shape)}, {tuple(Lb.shape)}")
+    off, offs = int(off), int(offs)
+    if not (0 <= off and off + rows <= n and 0 <= offs and offs + rows_b <= n):
+        raise ValueError(f"K4s: rows [{off}, {off + rows}) or [{offs}, {offs + rows_b}) "
+                         f"outside n={n}")
     lib = _build.load()
-    _build.launch("K4s factorization_residual_slab", lib.gpmp_slab_fact_residual, dev,
-                  K.data_ptr(), La.data_ptr(), Lb.data_ptr(), R.data_ptr(), rows, rows_b, n,
-                  int(off), int(offs))
-    K4_LAUNCHES += 1
+    tiles = _residual_slab_tiles_on(dev, rows, rows_b, off, offs, _residual_tile(lib))
+    _build.launch("K4s factorization_residual_slab", lib.gpmp_slab_fact_residual_mma, dev,
+                  K.data_ptr(), La.data_ptr(), Lb.data_ptr(), R.data_ptr(), tiles.data_ptr(),
+                  tiles.shape[0], rows, rows_b, n, off, offs)
+    K4S_LAUNCHES += 1
     return R
 
 
@@ -325,10 +397,13 @@ def factorization_residual_cuda(K, L32):
     if L32.shape != K.shape:
         raise ValueError(f"K4: L must be {tuple(K.shape)}; got {tuple(L32.shape)}")
     lib = _build.load()
+    tile = _residual_tile(lib)
+    tiles = _residual_tiles_on(dev, n, tile)
     out = torch.empty((n, n), dtype=_F32, device=dev)
-    fn = lib.gpmp_fact_residual_f64 if K.dtype == torch.float64 else lib.gpmp_fact_residual_f32
+    fn = (lib.gpmp_fact_residual_mma_f64 if K.dtype == torch.float64
+          else lib.gpmp_fact_residual_mma_f32)
     _build.launch("K4 factorization_residual", fn, dev, K.data_ptr(), L32.data_ptr(),
-                  out.data_ptr(), n)
+                  out.data_ptr(), tiles.data_ptr(), tiles.shape[0], n)
     K4_LAUNCHES += 1
     return out
 
