@@ -36,7 +36,8 @@ non-zero):
    with coincident points, in f64 and f32; K7b on phase 2b's inputs; K8s
    at n in {1000, 4099, 8192}, cond(K) ~1e3 and ~1e6; tolerances at
    TOL_2C; K4 (the f64 tensor-core residual) on K8s's inputs, exactly
-   symmetric and within TOL_MIXED["K4"] of its plain version.
+   symmetric and within TOL_MIXED["K4"] of its plain version; K8s (K4's
+   kernel with an f64 output) rounded to f32 bitwise K4.
 2d. K6 (the preconditioner apply), K10b (row-chunk split into the f32
    pair), K10r (factorization residual from the pair and from f64 panels),
    K10m (residual against the pair) and K10t (chunked trace sums) vs their
@@ -47,7 +48,9 @@ non-zero):
    triangular products of the Newton step and the Ogita-Aishima update),
    K9u (the blocked factor's trailing update, on the f64 tensor cores) and
    K9m (Murray's passes) vs their plain versions on the card: K8r/K8t on
-   (b, b) panels, b in {256, 512}, cond ~1e3 and ~1e6; K9u at n in
+   (b, b) panels, b in {3, 256, 488, 512} (3 and 488: the ragged last
+   panels of n = 4099 and 1000), cond ~1e3 and ~1e6, K8t's upper triangle
+   exact zeros; K9u at n in
    {1000, 4099, 16384, 51200} (phase 3e's sizes; n = 4099's odd rows take
    8-byte copies), panels of 512, at the first, a middle and the last
    panel (n = 4099's last leaves 3 rows), held entrywise by row blocks,
@@ -184,10 +187,12 @@ non-zero):
    panel) and K9m (n = 16384): kernel (events and profiler device time),
    plain, library call (K8r: torch.addmm(A, L, L^T, alpha=-1); K8t:
    torch.matmul; K9u: torch.addmm on the same trailing block), bound;
+   K8t's host issue time per call (time.perf_counter over 300 calls, the
+   card kept busy) through each layer of its path, beside torch.matmul's;
    K9u's mma shape probe (m16n8k4, k8, k16 at the first panel: time and
    rate, each held to the plain version), the registers and spills of
-   every instance of csrc/syrk_f64.cuh's kernel (K9u, K9s, K4, K4s) and of
-   the f32 K9s's, and K9u's first panel at b = 256, 512, 1024 (a tile's
+   every instance of csrc/syrk_f64.cuh's kernel (K9u, K9s, K4, K4s, K8s),
+   of the f32 K9s's and of K8t's, and K9u's first panel at b = 256, 512, 1024 (a tile's
    fixed part and its k loop's rate); the whole blocked factor
    at n = 16384 and 51200 against torch.linalg.cholesky_ex; phase 3e's
    walls and peak rises.
@@ -203,10 +208,11 @@ non-zero):
    value+grad at n = 16384 through the mesh, device time per evaluation by
    kernel group.
 
-``python3 chip_smoke.py --compare ROOT`` instead runs phases 4b's and 4f's
-timings of K4, K4s and K9s (f64, f32) on the gpmp_tpu_torch package under
-ROOT alone, with digests of K9u's and K9s's outputs (compare_main), for
-setting two trees side by side in one call.
+``python3 chip_smoke.py --compare ROOT`` instead times K8s (n = 1000 and
+8192) and K8t (b = 512, with its host issue time), and runs phases 4b's
+and 4f's timings of K4, K4s and K9s (f64, f32), on the gpmp_tpu_torch
+package under ROOT alone, with digests of K8s's, K8t's, K9u's and K9s's
+outputs (compare_main), for setting two trees side by side in one call.
 
 The line before the last is {"kernels": [...]}, with each kernel's
 least time on the card (bound_ms) computed from this run's shapes against
@@ -337,7 +343,9 @@ TOL_LARGE = {"value": 1e-8, "robust": 1e-6, "grad": (1e-3, 1e-4)}
 TOL_FF_RC = 1e-9
 LARGE_FIT_MAXITER = 2  # L-BFGS-B iterations of the fit (1 if a value+grad takes > 20 s)
 # phase 2e: the resident mesh path's kernels vs their plain versions on the card
-K8_PANELS = (256, 512)           # the blocked factor's panel sizes
+# the blocked factor's panel sizes, and ragged last panels it meets (n = 4099
+# leaves 3 rows, n = 1000 leaves 488)
+K8_PANELS = (3, 256, 488, 512)
 K9U_SIZES = (1000, 4099, 16384, 51200)  # K9u at its first, a middle and its last panel
 K9M_SIZES = (1000, 4099, 16384)
 CHOL_BLOCK = 512                 # auto_shard_block at the path's n
@@ -927,13 +935,17 @@ def phase_new_kernels_vs_plain(torch, gram, distance, mixed, refine):
             check(torch.equal(E, E.T), f"K8s not symmetric at n={n}")
             err = float((E - Ep).abs().max()) / float(K.abs().max())
             # K4 (the f64 tensor-core residual) at the same sizes, 8192 beyond
-            # phase 2b's: R exactly symmetric, within TOL_MIXED["K4"] of plain
+            # phase 2b's: R exactly symmetric, within TOL_MIXED["K4"] of plain;
+            # K8s is K4's kernel with an f64 output, the same tiles and sums:
+            # rounded to f32 it is bitwise K4
             F = mixed.factorization_residual_cuda(K, L32)
             e4 = rel_err(F, mixed.factorization_residual_plain(K, L32))
-            say(f"[phase 2c] K8s n={n} cond={cond_k:.2e}: max|dE|/max|K| {err:.2e}; K4 (tile "
-                f"{mixed.RESIDUAL_TILE}) rel {e4:.2e} (tol {TOL_MIXED['K4']}), exactly "
-                f"symmetric {torch.equal(F, F.T)}")
+            same4 = torch.equal(E.float(), F)
+            say(f"[phase 2c] K8s n={n} cond={cond_k:.2e}: max|dE|/max|K| {err:.2e}, f32(E) "
+                f"bitwise K4 {same4}; K4 (tile {mixed.RESIDUAL_TILE}) rel {e4:.2e} (tol "
+                f"{TOL_MIXED['K4']}), exactly symmetric {torch.equal(F, F.T)}")
             held("K8s", "float64", err, f"n={n} cond={cond_k:.2e}")
+            check(same4, f"K8s rounded to f32 is not bitwise K4 at n={n}")
             check(torch.equal(F, F.T), f"K4 not symmetric at n={n}")
             check(e4 <= TOL_MIXED["K4"], f"K4 n={n} cond={cond_k:.2e}: {e4:.3e}")
             if n == SLICE_N and ci == 0:
@@ -2483,15 +2495,17 @@ def _k9u_probe(torch, ochol, K, W, b):
 
 # csrc/syrk_f64.cuh's modes, as they appear in mma_tile_kernel's mangled name
 PTXAS_MODES = {"Trailing": "K9u", "Slab": "K9s f64", "ResidualIdE": "K4 (K f64)",
-               "ResidualIfE": "K4 (K f32)", "ResidualSlab": "K4s"}
+               "ResidualIfE": "K4 (K f32; K8s with K f32)", "ResidualSlab": "K4s",
+               "SamplingResidual": "K8s (K f64)"}
 
 
 def _ptxas_core_lines(log, mma_k):
     """ptxas's registers and spills of every instance of csrc/syrk_f64.cuh's
     mma_tile_kernel (its mode, tile width, copy bytes and mma shape decoded
     from the mangled name; "path" where the mma shape is the built one,
-    mma_k) and of csrc/syrk_f32.cu's slab_update_f32_kernel (the f32 K9s),
-    one line each, from the text of a ptxas log."""
+    mma_k), of csrc/syrk_f32.cu's slab_update_f32_kernel (the f32 K9s) and
+    of csrc/chol.cu's tri_product_kernel (K8t, by copy bytes), one line
+    each, from the text of a ptxas log."""
     import re
 
     core = re.compile(r"mma_tile_kernelINS0_\d+([A-Za-z]+?(?:I[df]E)?)ENS0_3GeoILi(\d+)E"
@@ -2509,6 +2523,9 @@ def _ptxas_core_lines(log, mma_k):
                          f"m16n8k{mk}{' (path)' if mk == mma_k else ''}")
             elif "slab_update_f32_kernel" in line:
                 entry = "K9s f32 (slab_update_f32_kernel)"
+            elif "tri_product_kernel" in line:
+                cpb = re.search(r"tri_product_kernelILi(\d+)E", line)
+                entry = f"K8t (tri_product_kernel, {cpb.group(1) if cpb else '?'}-byte copies)"
             info = []
         elif entry and ("registers" in line or "spill" in line):
             info.append(line.split("info    :")[-1].strip())
@@ -2538,6 +2555,11 @@ def phase_resident_times(gp, gnp, torch, gram, refine, ochol, walls3e):
                     t(lambda: refine.tri_product_plain(L, M), 50),
                     t(lambda: torch.matmul(L, M), 50))
     device["K8t"] = _device_ms(torch, lambda: refine.tri_product_cuda(L, M), 20)
+    host = _k8t_host_path(torch, refine, L, M)
+    say(f"[phase 4e] K8t b={b}: events {times['K8t'][0] * 1e3:.2f} us, device "
+        f"{_fmt_ms(device['K8t'])}, torch.matmul events {times['K8t'][2] * 1e3:.2f} us; "
+        f"host issue per call ({HOST_ISSUE_CALLS} calls, the card kept busy): "
+        + ", ".join(f"{k} {v:.2f} us" for k, v in host.items()))
     K = _large_gram(gp, gnp, n)
     W = K.clone()
     bounds = _resident_bounds(n)
@@ -2595,7 +2617,8 @@ def phase_resident_times(gp, gnp, torch, gram, refine, ochol, walls3e):
         + f"; K9u's bound over a factor (n^3/3 flops at the f64 tensor peak) "
         f"{n ** 3 / 3 / PEAK_F64_TENSOR_FLOPS:.4f} s at n={n}, "
         f"{RESIDENT_BIG_N ** 3 / 3 / PEAK_F64_TENSOR_FLOPS:.4f} s at n={RESIDENT_BIG_N}")
-    return times, bounds, device, factor
+    return times, bounds, device, factor, host
+
 
 def phase_profile_large(gp, gnp, torch):
     """Phase 5, large n: torch.profiler over one ff REML value+grad at
@@ -2680,6 +2703,52 @@ def _device_ms(torch, fn, reps):
 
 def _fmt_ms(v):
     return "not measured" if v is None else f"{v:.4f} ms"
+
+
+HOST_ISSUE_CALLS = 300
+HOST_ISSUE_SLEEP = 40_000_000  # device clock cycles (~20 ms) spun ahead of the calls
+
+
+def _host_issue_us(torch, fn, calls=HOST_ISSUE_CALLS):
+    """Host time per call of fn (time.perf_counter over ``calls`` calls),
+    with the card kept busy by a spin kernel queued first, so that no call
+    waits on the device: the time the host takes to issue a call."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOST_ISSUE_SLEEP)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def _k8t_host_path(torch, refine, L, M):
+    """Phase 4e: K8t's host issue time per call, through each layer of its
+    path (the dispatcher, the wrapper, _build.launch with the wrapper's
+    arguments ready, the bare ctypes call, the output's allocation), beside
+    torch.matmul's on the same operands; us a call."""
+    from gpmp_tpu_torch.ops import _build as build
+
+    lib = build.load()
+    dev, b = L.device, L.shape[0]
+    plan = refine._tri_plan_on(dev, b)
+    C = torch.empty_like(L)
+    args = (L.data_ptr(), M.data_ptr(), C.data_ptr(), plan.data_ptr(), plan.shape[0], b,
+            0.0, 1.0, 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    parts = {
+        "dispatcher (refine.tri_product)": lambda: refine.tri_product(L, M),
+        "wrapper (tri_product_cuda)": lambda: refine.tri_product_cuda(L, M),
+        "_build.launch, arguments ready": lambda: build.launch(
+            "K8t tri_product", lib.gpmp_tri_product, dev, *args),
+        "ctypes call alone": lambda: lib.gpmp_tri_product(*args, stream),
+        "torch.empty_like": lambda: torch.empty_like(L),
+        "library (torch.matmul)": lambda: torch.matmul(L, M),
+    }
+    return {k: _host_issue_us(torch, fn) for k, fn in parts.items()}
 
 
 def _noisy_evals_per_s(gp, gnp, torch, n, reps):
@@ -2927,11 +2996,11 @@ _GROUPS = (  # the first group whose key is in a kernel's name takes it
     ("K9s slab update (f64)", ("syrk::slab,",)),
     ("K9s slab update (f32)", ("slab_update_f32_kernel",)),
     ("K4s slab factorization residual", ("syrk::residualslab",)),
+    ("K8s sampling residual", ("syrk::samplingresidual",)),
     ("K4 factorization residual", ("syrk::residual<",)),
     ("K8r refinement residual", ("double, double, false, true>",)),
     ("K8t triangular product", ("tri_product",)),
     ("K9m Murray passes", ("murray_kernel",)),
-    ("K8s sampling residual", ("fact_residual",)),
     ("K3 residual", ("residual_kernel",)),
     ("K5 diag-block inverse", ("diag_block_inv",)),
     ("K7 trace sums", ("trace_sums", "series_sums")),
@@ -3757,12 +3826,58 @@ def _digest(t):
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+def _compare_k8(torch, gram, mixed, refine, out):
+    """--compare's K8s (n = SLICE_N and PATHS_NT, phase 4c's inputs) and K8t
+    (b = CHOL_BLOCK, phase 4e's L and M): events, device time, the library
+    call (f64 addmm / torch.matmul), K8t's host issue time per call through
+    the wrapper and the dispatcher, and digests of the outputs, into out."""
+    ms_out, dev_out = out["ms (kernel, plain, library)"], out["device_ms"]
+    for n in (SLICE_N, PATHS_NT):
+        K = _time_sqrt_inputs(torch, gram, n)
+        L32 = mixed._f32_preconditioner(K)[0]
+        L64 = L32.double()
+        reps = 50 if n < PATHS_NT else 5
+        key = f"K8s n={n}"
+        ms_out[key] = (_time_cuda(torch, lambda: refine.sampling_residual_cuda(K, L32), reps),
+                       None, _time_cuda(torch, lambda: torch.addmm(K, L64, L64.T, alpha=-1),
+                                        reps))
+        dev_out[key] = _device_ms(torch, lambda: refine.sampling_residual_cuda(K, L32),
+                                  min(reps, 10))
+        out["digest"][key] = _digest(refine.sampling_residual_cuda(K, L32))
+        say(f"[compare] {key}: kernel {ms_out[key][0]:.4f} ms (device {_fmt_ms(dev_out[key])}), "
+            f"library (f64 addmm) {ms_out[key][2]:.4f} ms")
+        del K, L32, L64
+    b = CHOL_BLOCK
+    A, _ = _noisy_matern_spd(torch, gram, b, MIXED_CONDS[0], 300 + b)
+    L32 = torch.linalg.cholesky(A.float())
+    L = L32.double().contiguous()
+    eye = torch.eye(b, dtype=torch.float32, device=DEVICE)
+    M = torch.linalg.solve_triangular(L32, eye, upper=False).double().contiguous()
+    key = f"K8t b={b}"
+    ms_out[key] = (_time_cuda(torch, lambda: refine.tri_product_cuda(L, M), 50, warmup=1), None,
+                   _time_cuda(torch, lambda: torch.matmul(L, M), 50, warmup=1))
+    dev_out[key] = _device_ms(torch, lambda: refine.tri_product_cuda(L, M), 20)
+    out["host_issue_us"][key] = {
+        "wrapper": _host_issue_us(torch, lambda: refine.tri_product_cuda(L, M)),
+        "dispatcher": _host_issue_us(torch, lambda: refine.tri_product(L, M)),
+        "torch.matmul": _host_issue_us(torch, lambda: torch.matmul(L, M))}
+    P = refine.tri_product_cuda(L, M)
+    X = (M @ A @ M.T).contiguous()
+    out["digest"][key] = _digest(torch.stack([
+        P, refine.tri_product_cuda(M, P, 2.0, -1.0), refine.tri_product_cuda(L, X, 1.0, 1.0, True)]))
+    say(f"[compare] {key}: kernel {ms_out[key][0] * 1e3:.2f} us (device "
+        f"{_fmt_ms(dev_out[key])}), torch.matmul {ms_out[key][2] * 1e3:.2f} us; host issue "
+        + ", ".join(f"{k} {v:.2f} us" for k, v in out["host_issue_us"][key].items()))
+    del A, L32, L, M, P, X
+
+
 def compare_main(root):
-    """``python3 chip_smoke.py --compare ROOT``: phases 4b's and 4f's times of
-    K4 (K4_SIZES and n = RESIDENT_N), K4s, K9s (f64 and f32) of the
-    gpmp_tpu_torch package under ROOT (this checkout, or another one
-    unpacked beside it, e.g. a parent commit from git archive), through the
-    same helpers, with digests of K9u's (first panel) and K9s's outputs.
+    """``python3 chip_smoke.py --compare ROOT``: K8s's and K8t's times
+    (_compare_k8), phases 4b's and 4f's times of K4 (K4_SIZES and n =
+    RESIDENT_N), K4s, K9s (f64 and f32) of the gpmp_tpu_torch package under
+    ROOT (this checkout, or another one unpacked beside it, e.g. a parent
+    commit from git archive), through the same helpers, with digests of
+    K8s's, K8t's, K9u's (first panel) and K9s's outputs.
     Run it for two trees in turns (parent, change, change, parent) in one
     call to compare them on one card; the last line is one JSON object."""
     import torch
@@ -3775,7 +3890,7 @@ def compare_main(root):
     import gpmp_tpu_torch.num as gnp
     from gpmp_tpu_torch.ops import _build as build
     from gpmp_tpu_torch.ops import chol as ochol
-    from gpmp_tpu_torch.ops import gram, mixed
+    from gpmp_tpu_torch.ops import gram, mixed, refine
 
     check(os.path.abspath(build.__file__).startswith(root + os.sep),
           f"gpmp_tpu_torch was not imported from {root}")
@@ -3783,7 +3898,8 @@ def compare_main(root):
     t0 = time.perf_counter()
     build.load()
     out = {"root": root, "build_s": time.perf_counter() - t0, "ms (kernel, plain, library)": {},
-           "device_ms": {}, "digest": {}}
+           "device_ms": {}, "host_issue_us": {}, "digest": {}}
+    _compare_k8(torch, gram, mixed, refine, out)
     for n in K4_SIZES:
         ms, dev, _bound = _k4_times(torch, gram, mixed, n, "compare")
         out["ms (kernel, plain, library)"][f"K4 n={n}"], out["device_ms"][f"K4 n={n}"] = ms, dev
@@ -3866,7 +3982,7 @@ def main():
                                                    torch, xt_paths, slice_data, t_paths_first)
     library = {k: v[2] for k, v in (*mtimes.items(), *ntimes.items())}
     times.update({k: v[:2] for k, v in (*mtimes.items(), *ntimes.items())})
-    res_times, res_bounds, res_device, res_factor = phase_resident_times(
+    res_times, res_bounds, res_device, res_factor, res_host = phase_resident_times(
         gp, gnp, torch, gram, refine, ochol, res_walls)
     grp_times, grp_bounds, grp_device = phase_group_times(gp, gnp, torch, gram, mixed,
                                                           ochol)
@@ -3901,6 +4017,7 @@ def main():
                     "peak_rise_bytes": {f"{w} n={nn}": b for (w, nn), b in large_mem.items()},
                     "launches_per_value_grad": large_launches},
         "resident": {"n": RESIDENT_N, "wall_s": res_walls, "factor_s": res_factor,
+                     "k8t_host_issue_us": res_host,
                      "launches_per_call": res_per_call,
                      "peak_rise_units": {k: v / (4 * RESIDENT_N ** 2) for k, v in res_mem.items()}},
         "group": {"n": RESIDENT_N, "wall_s": grp_walls, "launches": grp_launches,
@@ -3935,7 +4052,7 @@ def main():
         ("K1d pullback", "scaled_distance_pullback", dist_src, "gpmp_tpu/num/__init__.py:389"),
         ("K1m", "maternp_kernel", gram_src, "gpmp_tpu/kernel/matern.py:49"),
         ("K1m backward", "maternp_kernel_backward", gram_src, "gpmp_tpu/kernel/matern.py:49"),
-        ("K8s", "sampling_residual", mixed_src, "gpmp_tpu/ops/refine.py:114"),
+        ("K8s", "sampling_residual", res_src, "gpmp_tpu/ops/refine.py:114"),
         ("K6", "precond_apply", mixed_src, "gpmp_tpu/ops/mixed.py:236"),
         ("K10b", "split_rows", stream_src, "gpmp_tpu/parallel/streamed.py:259"),
         ("K10r", "streamed_residual_ff", mixed_src, "gpmp_tpu/parallel/streamed.py:322"),

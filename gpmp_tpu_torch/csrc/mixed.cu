@@ -1,8 +1,8 @@
 // gpmp_tpu_torch/csrc/mixed.cu
 //
 // K3, K5, K6, K7 and K7b: the hand-written kernels of the mixed-precision
-// Cholesky engine (gpmp_tpu_torch/ops/mixed.py; its K4 and K4s are
-// csrc/residual.cu); K8s, the residual of its sampling root, and K8r, the
+// Cholesky engine (gpmp_tpu_torch/ops/mixed.py; its K4 and K4s, and K8s,
+// the residual of its sampling root, are csrc/residual.cu); K8r, the
 // residual of the refined panel factor (gpmp_tpu_torch/ops/refine.py);
 // K10m and K10r, K3's kernel and the CUDA-core residual kernel on the
 // streamed engine's sources of K (gpmp_tpu_torch/ops/streamed.py); for
@@ -36,15 +36,9 @@
 //    staged in shared memory, each entry written at (i, j) and (j, i):
 //    exactly symmetric.  Plain f64 FMAs on the vector units, about 1.25
 //    shared loads per FMA: ~13% of the f64 tensor bound.  It was K4's
-//    kernel until K4 moved to the f64 tensor cores (csrc/residual.cu); K8s,
-//    K8r and K10r still run it.
-//
-// K8s sampling residual (replaces E = K - L L^T of gpmp_tpu/ops/refine.py
-//    sampling_sqrt): the CUDA-core residual kernel with an output in K's
-//    dtype, so E keeps f64 for the sampling root C = L + L (M E M^T) / 2.
-//    Same bound (n^3/6 FMAs, 5.0 us at n = 1000, 2.7 ms at n = 8192 at
-//    67 TFLOP/s) and design; E is exactly symmetric, where the JAX
-//    package's dense product is symmetric only up to roundoff.
+//    kernel until K4 moved to the f64 tensor cores (csrc/residual.cu), and
+//    K8s's until K8s moved there too, as K4's kernel with an f64 output;
+//    only K8r and K10r run it now.
 //
 // K8r refinement residual (replaces E = A - L L^T and the convergence
 //    guard's sums of gpmp_tpu/ops/refine.py refined_cholesky): the CUDA-core
@@ -75,8 +69,8 @@
 //    R is f32 and written at (i, j) and (j, i) from one value: exactly
 //    symmetric, the diagonal sub-blocks of the panels included.  Bound:
 //    ~n^3/6 f64 FMAs over all panels (1.17e13 at n = 32768: 0.35 s at the
-//    67 TFLOP/s f64 tensor peak); K8s's 21 ms at n = 8192 puts the kernel
-//    near 1.35 s there.
+//    67 TFLOP/s f64 tensor peak); the kernel's 22.6 ms at n = 8192 (as K8s,
+//    before K8s left it) puts it near 1.35 s there.
 //
 // K6 preconditioner apply (replaces gpmp_tpu/ops/mixed.py _apply and
 //    gpmp_tpu/parallel/streamed.py _apply_precond):
@@ -315,7 +309,7 @@ int launch_residual(Src K, const void* X, const void* B, void* R, void* partial,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------- the CUDA-core residual (K8s, K8r, K10r)
+// ------------------------------------------ the CUDA-core residual (K8r, K10r)
 constexpr int FR_TILE = 32;
 constexpr int FR_TY = 8;  // block (32, 8): each thread owns 4 rows of a column
 constexpr int FR_ROWS = FR_TILE / FR_TY;
@@ -892,18 +886,6 @@ int gpmp_ff_residual(const void* hi, const void* lo, const void* X, const void* 
   return launch_residual<PairK, double>(
       PairK{static_cast<const float*>(hi), static_cast<const float*>(lo), n}, X, B, R, partial,
       norms, n, n, k, stream);
-}
-
-int gpmp_sampling_residual_f64(const void* K, const void* L, void* R, long long n,
-                               void* stream) {
-  return launch_fact_residual<DenseK<double>, double>(
-      DenseK<double>{static_cast<const double*>(K), n}, L, R, n, stream);
-}
-
-int gpmp_sampling_residual_f32(const void* K, const void* L, void* R, long long n,
-                               void* stream) {
-  return launch_fact_residual<DenseK<float>, float>(
-      DenseK<float>{static_cast<const float*>(K), n}, L, R, n, stream);
 }
 
 int gpmp_streamed_residual_ff(const void* hi, const void* lo, const void* L, void* R,

@@ -1,11 +1,13 @@
 // gpmp_tpu_torch/csrc/residual.cu
 //
 // K4 and K4s: the factorization residual of the mixed-precision Cholesky
-// engine (wrappers in gpmp_tpu_torch/ops/mixed.py), for Hopper, sm_90a, on
-// the f64 tensor cores.  Plain C entry points, loaded with ctypes by
-// gpmp_tpu_torch/ops/_build.py.  The kernel itself (tiles, the cp.async
-// ring, the mma fragments, the epilogue) is csrc/syrk_f64.cuh's, in the
-// modes Residual<T> (K4) and ResidualSlab (K4s).
+// engine (wrappers in gpmp_tpu_torch/ops/mixed.py), and K8s, the residual
+// of its sampling root (wrapper in gpmp_tpu_torch/ops/refine.py), for
+// Hopper, sm_90a, on the f64 tensor cores.  Plain C entry points, loaded
+// with ctypes by gpmp_tpu_torch/ops/_build.py.  The kernel itself (tiles,
+// the cp.async ring, the mma fragments, the epilogue) is csrc/
+// syrk_f64.cuh's, in the modes Residual<T> (K4), ResidualSlab (K4s) and
+// SamplingResidual (K8s with f64 K).
 //
 // K4 factorization residual (replaces gpmp_tpu/ops/mixed.py
 //    _factorization_residual_f32):
@@ -23,6 +25,16 @@
 //      sum order as K4: at one rank R is bitwise K4's, and across ranks
 //      R[i, j] on one equals R[j, i] on the other (chip_smoke phase 2f holds
 //      both).
+// K8s sampling residual (replaces E = K - L L^T of gpmp_tpu/ops/refine.py
+//    sampling_sqrt):
+//      E = K - L L^T in K's dtype, the sampling root's C = L + L (M E M^T) / 2
+//      needing E in f64.  f64 K: K4's kernel, tiles and sum order with an
+//      f64 output (mode SamplingResidual), so E rounded to f32 is bitwise K4
+//      and E is exactly symmetric; f32 K: E is K4's f32 instance as it is
+//      (Residual<float> computes f32(K - L L^T) with K f32), no second
+//      instance.  Bound: K4's operations (2.7 ms at n = 8192, the sample
+//      paths' size) beside K4's bytes with E written in f64.  It replaces
+//      the CUDA-core 32 x 32 residual of csrc/mixed.cu, ~12% of that bound.
 //
 // Bound on the H100: n^3/3 f64 operations over the lower triangle (L is
 //    triangular, so a tile's sum stops at its last column) at the 67
@@ -55,13 +67,14 @@ int launch_tile(const syrk::Args<M>& p, long long ntiles, void* stream) {
   return syrk::launch<M, syrk::Small, MMA_K>(p, ntiles, static_cast<cudaStream_t>(stream));
 }
 
-template <typename T>
+// the square residual in mode M over the listed lower tiles
+template <class M>
 int residual(const void* K, const void* L, void* R, const void* tiles, long long ntiles,
              long long n, void* stream) {
   if (n <= 0 || !K || !L || !R || !tiles) return static_cast<int>(cudaErrorInvalidValue);
   const float* l = static_cast<const float*>(L);
-  const syrk::Args<syrk::Residual<T>> p{static_cast<float*>(R), static_cast<const T*>(K), l, l,
-                                        static_cast<const int*>(tiles), n, n, n, 0, n, 0, n, n};
+  const syrk::Args<M> p{static_cast<typename M::TO*>(R), static_cast<const typename M::TS*>(K),
+                        l, l, static_cast<const int*>(tiles), n, n, n, 0, n, 0, n, n};
   return launch_tile(p, ntiles, stream);
 }
 
@@ -74,13 +87,20 @@ int gpmp_residual_tile() { return syrk::Small::TILE; }
 // K4: R = f32(K - L L^T) over the listed lower tiles, K f64
 int gpmp_fact_residual_mma_f64(const void* K, const void* L, void* R, const void* tiles,
                                long long ntiles, long long n, void* stream) {
-  return residual<double>(K, L, R, tiles, ntiles, n, stream);
+  return residual<syrk::Residual<double>>(K, L, R, tiles, ntiles, n, stream);
 }
 
 // K4 with K f32 (the port's float32 mode)
 int gpmp_fact_residual_mma_f32(const void* K, const void* L, void* R, const void* tiles,
                                long long ntiles, long long n, void* stream) {
-  return residual<float>(K, L, R, tiles, ntiles, n, stream);
+  return residual<syrk::Residual<float>>(K, L, R, tiles, ntiles, n, stream);
+}
+
+// K8s with K f64: E = K - L L^T in f64 over K4's tiles, mirrored (K8s with
+// K f32 is gpmp_fact_residual_mma_f32)
+int gpmp_sampling_residual_mma_f64(const void* K, const void* L, void* E, const void* tiles,
+                                   long long ntiles, long long n, void* stream) {
+  return residual<syrk::SamplingResidual>(K, L, E, tiles, ntiles, n, stream);
 }
 
 // K4s: R[:, offs:offs + rows_b] = f32(K[:, offs:offs + rows_b] - La Lb^T)

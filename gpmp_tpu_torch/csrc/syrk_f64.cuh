@@ -3,8 +3,10 @@
 // The f64 tensor-core core of the port's symmetric products, included by
 // csrc/syrk.cu (K9u, the blocked Cholesky's trailing update, and K9s f64,
 // its slab form) and csrc/residual.cu (K4, the factorization residual
-// K - L L^T, and K4s, its slab form); see there for what each kernel
-// replaces and what bounds it.  One device kernel, one instance per mode:
+// K - L L^T, K4s, its slab form, and K8s, the sampling root's residual
+// E = K - L L^T kept in f64); see there for what each kernel replaces and
+// what bounds it.  csrc/chol.cu's K8t takes only the mma and cp.async
+// helpers.  One device kernel, one instance per mode:
 // for each listed TILE x TILE output tile (i0, j0),
 //
 //      O[i - off, j] = S[i - off, j] - sum_{k < kend} Ta[i, k] Tb[j, k]
@@ -12,14 +14,15 @@
 // with the products and the sums in f64 and O rounded to its type; the
 // mode (a struct of types and flags, below) says
 //   - the operand type TA: f64 (K9), or f32 widened to f64 as the fragments
-//     are formed (K4: an f32 x f32 product is exact in f64);
-//   - LOWER: only the entries i >= j (K9u, K9s, K4); K4s writes its whole
-//     column block;
-//   - MIRROR: the same value also stored at (j, i) (K9u, K4): O stays
+//     are formed (K4, K8s: an f32 x f32 product is exact in f64);
+//   - the output type TO: f32 (K4, K4s) or f64 (K9, K8s);
+//   - LOWER: only the entries i >= j (K9u, K9s, K4, K8s); K4s writes its
+//     whole column block;
+//   - MIRROR: the same value also stored at (j, i) (K9u, K4, K8s): O stays
 //     exactly symmetric;
 //   - TRI: the operands are rows of a lower-triangular factor, so the sum
-//     stops at kend = min(last row, last column) + 1 of the tile (K4, K4s;
-//     K9 sums all b columns).
+//     stops at kend = min(last row, last column) + 1 of the tile (K4, K4s,
+//     K8s; K9 sums all b columns).
 //
 // Design, for Hopper (sm_90a):
 // - f64 tensor cores through mma.sync.aligned.m16n8k{4,8,16}.row.col.f64
@@ -27,7 +30,7 @@
 //   tile; each warp a (TILE / WARPS_M) x (TILE / WARPS_N) sub-tile of m16n8
 //   fragments.  Two geometries: 128 x 128 tiles of 8 warps (64 f64
 //   accumulators a thread, one block per SM; K9u, K9s), and 64 x 64 tiles
-//   of 4 warps (32 accumulators, two blocks per SM; K4, K4s), which keep
+//   of 4 warps (32 accumulators, two blocks per SM; K4, K4s, K8s), which keep
 //   the SMs busy at small n, where 128-wide tiles leave most of them idle.
 // - k advances 16 columns a step through a ring of STAGES stages in dynamic
 //   shared memory, filled by cp.async (16-byte .cg copies where every row
@@ -47,7 +50,8 @@
 //   the mode: K9s at one rank is bitwise K9u's lower triangle; K4s at one
 //   rank is bitwise K4 (the steps past a tile's kend add exact zeros, and an
 //   entry computed with the operands' roles swapped sums the same exact
-//   products in the same slots).
+//   products in the same slots); K8s holds the f64 value S - C that K4
+//   rounds to f32, so K8s rounded to f32 is bitwise K4.
 // - Epilogue: the tile goes to shared memory (the ring reused, rows padded
 //   to an odd LDC so that column reads are conflict-free); each thread then
 //   loads all of its S entries before it stores any, so the loads are in
@@ -127,6 +131,12 @@ struct Residual {  // K4: R = f32(K - L L^T) on the lower tiles, mirrored
   using TA = float;
   using TS = T;
   using TO = float;
+  static constexpr bool LOWER = true, MIRROR = true, TRI = true;
+};
+struct SamplingResidual {  // K8s: E = K - L L^T in f64 on the lower tiles, mirrored
+  using TA = float;
+  using TS = double;
+  using TO = double;
   static constexpr bool LOWER = true, MIRROR = true, TRI = true;
 };
 struct ResidualSlab {  // K4s: a (rows, rows_b) column block of f32(K - La Lb^T)

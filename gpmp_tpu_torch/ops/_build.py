@@ -112,12 +112,13 @@ def _declare(lib):
         # ops/gram.py: K1, K2, K1m
         "gpmp_matern_max_d": ([], i32),
         "gpmp_matern_pullback_blocks": ([ll, ll], ll),
-        # ops/mixed.py: K3, K4, K5, K6, K7, K7b; ops/refine.py: K8s
+        # ops/mixed.py: K3, K5, K6, K7, K7b
         "gpmp_precond_chunks": ([ll], ll),
         # ops/refine.py: K8r, K8t; ops/chol.py: K9m
         "gpmp_refine_residual_blocks": ([ll], ll),
         "gpmp_refine_residual": ([vp, vp, vp, vp, vp, ll, vp], i32),
-        "gpmp_tri_product": ([vp, vp, vp, ll, f64, f64, i32, vp], i32),
+        "gpmp_tri_product_geometry": ([i32], i32),
+        "gpmp_tri_product": ([vp, vp, vp, vp, ll, ll, f64, f64, i32, vp], i32),
         "gpmp_murray": ([vp, ll, i32, vp], i32),
         # ops/chol.py: K9m's slab form (the row-sharded factor)
         "gpmp_murray_slab": ([vp, vp, ll, ll, ll, i32, vp], i32),
@@ -130,10 +131,12 @@ def _declare(lib):
         "gpmp_slab_update_f64": ([vp, vp, vp, ll, ll, ll, ll, ll, ll, vp], i32),
         "gpmp_syrk_f32_tile": ([], i32),
         "gpmp_slab_update_f32": ([vp, vp, vp, ll, ll, ll, ll, ll, ll, vp], i32),
-        # ops/mixed.py: K4 and K4s on the f64 tensor cores (csrc/residual.cu)
+        # ops/mixed.py: K4 and K4s, ops/refine.py: K8s, on the f64 tensor
+        # cores (csrc/residual.cu)
         "gpmp_residual_tile": ([], i32),
         "gpmp_fact_residual_mma_f64": ([vp, vp, vp, vp, ll, ll, vp], i32),
         "gpmp_fact_residual_mma_f32": ([vp, vp, vp, vp, ll, ll, vp], i32),
+        "gpmp_sampling_residual_mma_f64": ([vp, vp, vp, vp, ll, ll, vp], i32),
         "gpmp_slab_fact_residual_mma": ([vp, vp, vp, vp, vp, ll, ll, ll, ll, ll, ll, vp], i32),
         # ops/streamed.py: K10b, K10r, K10m, K10t
         "gpmp_split_rows": ([vp, vp, vp, vp, ll, ll, ll, ctypes.c_float, vp], i32),
@@ -164,7 +167,6 @@ def _declare(lib):
             [vp, vp, vp, vp, vp, vp, ll, i32, vp], i32)
         signatures[f"gpmp_maternp_{suffix}"] = ([vp, vp, vp, ll, i32, vp], i32)
         signatures[f"gpmp_maternp_backward_{suffix}"] = ([vp, vp, vp, vp, ll, i32, vp], i32)
-        signatures[f"gpmp_sampling_residual_{suffix}"] = ([vp, vp, vp, ll, vp], i32)
         signatures[f"gpmp_loo_diag_pairs_{suffix}"] = ([vp, vp, vp, vp, ll, vp], i32)
         signatures[f"gpmp_matern_gram_{suffix}"] = (
             [vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp], i32)
@@ -182,8 +184,12 @@ def _declare(lib):
 
 
 def load():
-    """The kernel library, built from the sources on first call."""
+    """The kernel library, built from the sources on first call (the lock is
+    taken only until it is loaded)."""
     global _lib
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is None:
             _lib = _declare(ctypes.CDLL(str(_compile(build_dir()))))
@@ -191,8 +197,14 @@ def load():
 
 
 def launch(name, fn, device, *args):
-    """Call a C entry on the current stream; raise on its cudaGetLastError()."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    """Call a C entry on ``device``'s current stream; raise on its
+    cudaGetLastError().  The device is made current only where it is not
+    already (the kernel launches on the host thread's current device)."""
+    index, current = device.index, torch.cuda.current_device()
+    if index is None or index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

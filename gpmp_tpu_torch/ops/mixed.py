@@ -505,7 +505,7 @@ def loo_diag_pairs_cuda(G, W):
 # Dispatch on the tensors' device
 # ----------------------------------------------------------------------------
 def _on_card(t):
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
     if t.device.type == "cpu":
         return False

@@ -31,19 +31,24 @@ Counterpart of gpmp_tpu/ops/refine.py.  Two users:
    T L^T = B with the refined inverse and one residual sweep
    (torch.matmul, as the JAX package's jnp.dot).
 
-Hand-written CUDA (gpmp_tpu_torch/csrc/mixed.cu and csrc/chol.cu), each
-with a plain PyTorch version and a launch counter:
+Hand-written CUDA (gpmp_tpu_torch/csrc/residual.cu, csrc/mixed.cu and
+csrc/chol.cu), each with a plain PyTorch version and a launch counter:
 
-- K8s ``sampling_residual``: K4's kernel with an output in K's dtype; it
-  launches only the lower 32 x 32 tiles, stops each tile's k loop at its
-  last column, and writes (i, j) and (j, i) from one value, so E is exactly
-  symmetric (``K8S_LAUNCHES``);
-- K8r ``refine_residual``: the same kernel with f64 L, plus the guard's
-  sums of E^2 and A^2 in a fixed order (``K8R_LAUNCHES``);
+- K8s ``sampling_residual``: K4's kernel on the f64 tensor cores (csrc/
+  syrk_f64.cuh) over K4's tile list, with an output in K's dtype: for f64
+  K the mode SamplingResidual (E in f64, bitwise K4 once rounded to f32),
+  for f32 K K4's f32 instance itself; it launches only the lower 64 x 64
+  tiles, stops each tile's k loop at its last column, and writes (i, j)
+  and (j, i) from one value, so E is exactly symmetric (``K8S_LAUNCHES``);
+- K8r ``refine_residual``: csrc/mixed.cu's CUDA-core residual with f64 L,
+  plus the guard's sums of E^2 and A^2 in a fixed order (``K8R_LAUNCHES``);
 - K8t ``tri_product``: C = beta A + alpha A f(B) over the lower tiles only,
   f(B) = tril(B) or Phi(B), the upper triangle exact zeros: the two
   products of a Newton step and the Ogita-Aishima update
-  (``K8T_LAUNCHES``).
+  (``K8T_LAUNCHES``).  f64 mma.sync on 32 x 32 tiles from a launch plan
+  (``tri_product_plan``: the lower tiles, longest first, each tile's k
+  range cut into one contiguous chunk a warp), the warps' partial tiles
+  summed in warp order.
 
 Each dispatcher takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors (or raises); there is no fallback between them.
@@ -54,10 +59,13 @@ exception) and ``torch.linalg.solve_triangular``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
-from .mixed import _F32, _check_cuda, _f32_preconditioner, _on_card, _square
+from .mixed import (_F32, _check_cuda, _f32_preconditioner, _on_card, _residual_tile,
+                    _residual_tiles_on, _square)
 
 K8S_LAUNCHES = 0
 K8R_LAUNCHES = 0
@@ -81,7 +89,8 @@ def sampling_residual_plain(K, L32):
 
 
 def sampling_residual_cuda(K, L32):
-    """K8s on the card: symmetric K - L L^T in K's dtype from the lower triangle."""
+    """K8s on the card: symmetric K - L L^T in K's dtype from the lower
+    triangle, over K4's tiles (f32 K: K4's own f32 instance)."""
     global K8S_LAUNCHES
     dev = _check_cuda("K8s sampling_residual", (K, L32),
                       ((torch.float64, torch.float32), (_F32,)))
@@ -89,11 +98,12 @@ def sampling_residual_cuda(K, L32):
     if L32.shape != K.shape:
         raise ValueError(f"K8s: L must be {tuple(K.shape)}; got {tuple(L32.shape)}")
     lib = _build.load()
+    tiles = _residual_tiles_on(dev, n, _residual_tile(lib))
     out = torch.empty((n, n), dtype=K.dtype, device=dev)
-    fn = (lib.gpmp_sampling_residual_f64 if K.dtype == torch.float64
-          else lib.gpmp_sampling_residual_f32)
+    fn = (lib.gpmp_sampling_residual_mma_f64 if K.dtype == torch.float64
+          else lib.gpmp_fact_residual_mma_f32)
     _build.launch("K8s sampling_residual", fn, dev, K.data_ptr(), L32.data_ptr(),
-                  out.data_ptr(), n)
+                  out.data_ptr(), tiles.data_ptr(), tiles.shape[0], n)
     K8S_LAUNCHES += 1
     return out
 
@@ -160,17 +170,65 @@ def tri_product_plain(A, B, beta=0.0, alpha=1.0, phi=False):
     return torch.tril(beta * A + alpha * (torch.tril(A) @ fB))
 
 
+# K8t's launch geometry (csrc/chol.cu): 32 x 32 output tiles, the k range
+# of each cut into TRI_WARPS chunks (one a warp) at multiples of TRI_KS
+# columns; a plan row is (i0, j0, k_0, .., k_TRI_WARPS, 0)
+TRI_TILE, TRI_WARPS, TRI_KS, TRI_PLAN = 32, 8, 8, 12
+
+
+def tri_product_plan(b):
+    """K8t's launch plan for a (b, b) product, on the CPU: an int32 (count,
+    TRI_PLAN) tensor, one row per lower TRI_TILE-square tile (j0 <= i0),
+    (i0, j0, k_0, .., k_TRI_WARPS, 0).  Warp w sums k in [k_w, k_{w+1}): the
+    tile's range [j0, min(i0 + TRI_TILE, b)) (A lower: k <= i; f(B) lower:
+    k >= j) cut into contiguous chunks of whole TRI_KS-column steps, as even
+    a split as the steps allow (the last chunk ends at the range's end;
+    empty chunks are allowed).  Rows listed longest k range first (row
+    order among equals)."""
+    if b <= 0:
+        raise ValueError(f"tri_product_plan: b={b}")
+    tile, warps, ks = TRI_TILE, TRI_WARPS, TRI_KS
+    i0, j0 = torch.meshgrid(torch.arange(0, b, tile), torch.arange(0, b, tile), indexing="ij")
+    keep = j0 <= i0
+    i0, j0 = i0[keep], j0[keep]
+    kend = torch.clamp(i0 + tile, max=b)
+    steps = -(-(kend - j0) // ks)
+    w = torch.arange(warps + 1)
+    bounds = torch.minimum(j0[:, None] + ks * (w[None, :] * steps[:, None] // warps),
+                           kend[:, None])
+    rows = torch.cat([i0[:, None], j0[:, None], bounds,
+                      torch.zeros((i0.shape[0], TRI_PLAN - warps - 3), dtype=i0.dtype)], 1)
+    order = torch.sort(-(kend - j0), stable=True).indices
+    return rows[order].to(torch.int32)
+
+
+def _tri_geometry(lib):
+    built = tuple(lib.gpmp_tri_product_geometry(q) for q in range(4))
+    if built != (TRI_TILE, TRI_WARPS, TRI_KS, TRI_PLAN):
+        raise RuntimeError(f"csrc/chol.cu's K8t geometry (tile, warps, ks, plan) is {built}, "
+                           f"not {(TRI_TILE, TRI_WARPS, TRI_KS, TRI_PLAN)}")
+
+
+@functools.lru_cache(maxsize=64)
+def _tri_plan_on(device, b):
+    _tri_geometry(_build.load())
+    return tri_product_plan(b).to(device)
+
+
 def tri_product_cuda(A, B, beta=0.0, alpha=1.0, phi=False):
-    """K8t on the card: beta A + alpha A f(B) over the lower tiles, f64."""
+    """K8t on the card: beta A + alpha tril(A) f(B) over the lower tiles, the
+    upper triangle zeros, f64 (A, B contiguous, (b, b), on one card)."""
     global K8T_LAUNCHES
     dev = _check_cuda("K8t tri_product", (A, B), ((_F64,), (_F64,)))
     n = _square("K8t tri_product", A)
     if B.shape != A.shape:
         raise ValueError(f"K8t: B must be {tuple(A.shape)}; got {tuple(B.shape)}")
     lib = _build.load()
+    plan = _tri_plan_on(dev, n)
     C = torch.empty_like(A)
     _build.launch("K8t tri_product", lib.gpmp_tri_product, dev, A.data_ptr(), B.data_ptr(),
-                  C.data_ptr(), n, float(beta), float(alpha), int(bool(phi)))
+                  C.data_ptr(), plan.data_ptr(), plan.shape[0], n, float(beta), float(alpha),
+                  int(bool(phi)))
     K8T_LAUNCHES += 1
     return C
 
