@@ -42,8 +42,12 @@ non-zero):
    pair), K10r (factorization residual from the pair and from f64 panels),
    K10m (residual against the pair) and K10t (chunked trace sums) vs their
    plain versions on the card: at n in {1000, 4099, 8192}, cond(K) ~1e3 and
-   ~1e6, panels and chunks of 512; and all five once more at n = 32768 on the
-   engine's own residents at bench_large_n.py's p0; tolerances at TOL_2D.
+   ~1e6, panels and chunks of 512 (K10r's panels also 500 and 333 wide: c0
+   and w not multiples of its 64-wide tiles; K10m at k in {2, 3, 8}); and all
+   five once more at n = 32768 on the engine's own residents at
+   bench_large_n.py's p0; tolerances at TOL_2D.  K10r from the pair is
+   bitwise K4 on hi + lo in f64 and its panels bitwise the pair's at every
+   n; K10m is bitwise reproducible.
 2e. K8r (the refined panel's residual and guard sums), K8t (the
    triangular products of the Newton step and the Ogita-Aishima update),
    K9u (the blocked factor's trailing update, on the f64 tensor cores) and
@@ -182,7 +186,11 @@ non-zero):
 4d. K6, K10b, K10r, K10m and K10t at n = 32768 (per 512-row chunk for K10b
    and K10t): kernel (events and profiler device time), plain, library call
    (K6: multi_dot of the two products; K10r: a dense f64 addmm; K10m: an f64
-   addmm), bound; the value and value+grad wall per mode (phase 3d).
+   addmm), bound; K4 on hi + lo beside K10r, and K10r's share of its bound;
+   K10r's recompute pass at n = 51200 (100 panels of 512, random inputs of
+   the same shapes) and its panel with the most work (kernel, device, plain,
+   bound, share beside K4's); the value and value+grad wall per mode (phase
+   3d).
 4e. K8r, K8t (b = 512), K9u (n = 16384; the first, a middle and the last
    panel) and K9m (n = 16384): kernel (events and profiler device time),
    plain, library call (K8r: torch.addmm(A, L, L^T, alpha=-1); K8t:
@@ -209,10 +217,14 @@ non-zero):
    kernel group.
 
 ``python3 chip_smoke.py --compare ROOT`` instead times K8s (n = 1000 and
-8192) and K8t (b = 512, with its host issue time), and runs phases 4b's
-and 4f's timings of K4, K4s and K9s (f64, f32), on the gpmp_tpu_torch
-package under ROOT alone, with digests of K8s's, K8t's, K9u's and K9s's
-outputs (compare_main), for setting two trees side by side in one call.
+8192) and K8t (b = 512, with its host issue time), runs phases 4b's and
+4f's timings of K4, K4s and K9s (f64, f32), and times K10m and K10r (from
+the pair) at n = 32768 and K10r's recompute pass at n = 51200, and runs
+one streamed REML value+grad per mode (ff at n = 32768, recompute at
+n = 51200), on the gpmp_tpu_torch package under ROOT alone, with digests
+of K8s's, K8t's, K8r's, K3's, K4's, K4s's, K9u's, K9s's, K10m's and
+K10r's outputs (compare_main), for setting two trees side by side in one
+call.
 
 The line before the last is {"kernels": [...]}, with each kernel's
 least time on the card (bound_ms) computed from this run's shapes against
@@ -304,6 +316,10 @@ TOL_SQRT = 1e-8  # |C C^T - K|_F / |K|_F, tests/test_ops.py's bar
 EPS32 = float(np.finfo(np.float32).eps)
 STREAM_SIZES = (1000, 4099, 8192)  # cond(K) ~1e3 and ~1e6 each (MIXED_CONDS)
 STREAM_PANEL = 512                 # K10r's panels and K10b/K10t's row chunks
+# K10r's panel widths in phase 2d beside STREAM_PANEL: c0 and w not multiples
+# of its 64-wide tiles (n = 4099's and 1000's ragged last panels too)
+K10R_PANEL_WIDTHS = (STREAM_PANEL, 500, 333)
+K10M_WIDTHS = (2, 3, 8)            # K10m's k: the engine's 2, an odd one, the most
 K6_WIDTHS = (2, 8, 9, 1001)        # K6's narrow and wide variants
 TOL_2D = {
     # y = M r32 and M^T y in f32, summed in another order than cuBLAS's: two
@@ -1534,7 +1550,9 @@ def _k10t_err(torch, ops, H, chunk):
 
 def phase_streamed_kernels_vs_plain(torch, gram, mixed, ops):
     """Phase 2d: K6, K10b, K10r (both sources), K10m and K10t against their
-    plain versions on noisy-Matern K at n in STREAM_SIZES, cond ~1e3 and ~1e6."""
+    plain versions on noisy-Matern K at n in STREAM_SIZES, cond ~1e3 and ~1e6;
+    K10r from the pair bitwise K4 on hi + lo, its panels (K10R_PANEL_WIDTHS)
+    bitwise the pair's; K10m reproducible at K10M_WIDTHS columns."""
     worst = {}
 
     def held(key, err, tag):
@@ -1571,29 +1589,42 @@ def phase_streamed_kernels_vs_plain(torch, gram, mixed, ops):
                 same &= torch.equal(bufs[0], bufs[2]) and (lo_k is None or torch.equal(lo_k, lo_p))
             e["K10b"] = 0.0 if same else float("inf")
             del bufs
-            # K10r from the pair (one launch) and from f64 panels of K (one per panel)
+            # K10r from the pair (one launch) and from f64 panels of K (one per
+            # panel), each against its plain version; both bitwise K4 on hi + lo
             Rk = ops.streamed_residual_ff_cuda(K32, E32, L32)
             Rp = ops.streamed_residual_ff_plain(K32, E32, L32, c)
-            Rk2, Rp2 = torch.empty_like(Rk), torch.empty_like(Rk)
-            for c0 in range(0, n, c):
-                P = K[c0:, c0:c0 + c].contiguous()
-                ops.residual_panel_cuda(P, L32, c0, Rk2)
-                ops.residual_panel_plain(P, L32, c0, Rp2)
-            check(torch.equal(Rk, Rk.T) and torch.equal(Rk2, Rk2.T), f"K10r not symmetric, {tag}")
-            e["K10r"] = max(rel_err(Rk, Rp), rel_err(Rk2, Rp2))
-            # K10m
-            X = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
-            B = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
-            (R, nr), (Rq, nrq) = ops.ff_residual_cuda(K32, E32, X, B), ops.ff_residual_plain(
-                K32, E32, X, B)
-            check(torch.equal(R, ops.ff_residual_cuda(K32, E32, X, B)[0]), "K10m not reproducible")
-            e["K10m"] = max(rel_err(R, Rq), rel_err(nr, nrq))
+            check(torch.equal(Rk, Rk.T), f"K10r (pair) not symmetric, {tag}")
+            e["K10r"] = rel_err(Rk, Rp)
+            Kp = K32.double() + E32.double()
+            check(torch.equal(Rk, mixed.factorization_residual_cuda(Kp, L32)),
+                  f"K10r (pair) is not bitwise K4 on hi + lo, {tag}")
+            Rp2 = torch.empty_like(Rk)
+            for w in K10R_PANEL_WIDTHS:
+                Rk2 = torch.full_like(Rk, float("nan"))
+                for c0 in range(0, n, w):
+                    P = Kp[c0:, c0:c0 + w].contiguous()
+                    ops.residual_panel_cuda(P, L32, c0, Rk2)
+                    ops.residual_panel_plain(P, L32, c0, Rp2)
+                check(torch.equal(Rk2, Rk), f"K10r panels of {w} are not bitwise the pair's, {tag}")
+                e["K10r"] = max(e["K10r"], rel_err(Rk2, Rp2))
+            del Kp, Rk2
+            # K10m, reproducible, at K10M_WIDTHS columns
+            e["K10m"] = 0.0
+            for k in K10M_WIDTHS:
+                X = torch.randn(n, k, dtype=torch.float64, device=DEVICE, generator=gen)
+                B = torch.randn(n, k, dtype=torch.float64, device=DEVICE, generator=gen)
+                (R, nr), (Rq, nrq) = ops.ff_residual_cuda(K32, E32, X, B), ops.ff_residual_plain(
+                    K32, E32, X, B)
+                R2, nr2 = ops.ff_residual_cuda(K32, E32, X, B)
+                check(torch.equal(R, R2) and torch.equal(nr, nr2), f"K10m not reproducible, k={k}")
+                e["K10m"] = max(e["K10m"], rel_err(R, Rq), rel_err(nr, nrq))
             # K10t on H = M R M^T of this K
             H = M32 @ (Rp @ M32.T)
             e["K10t"] = _k10t_err(torch, ops, H, c)[0]
             say(f"[phase 2d] {tag}: " + " ".join(
-                f"{k} {held(k, v, tag):.2e}" for k, v in e.items()) + " (K6 in n eps32)")
-            del K, L32, M32, K32, E32, Rk, Rp, Rk2, Rp2, H
+                f"{k} {held(k, v, tag):.2e}" for k, v in e.items()) + " (K6 in n eps32); K10r "
+                f"bitwise K4 on hi + lo, its panels of {K10R_PANEL_WIDTHS} bitwise the pair's")
+            del K, L32, M32, K32, E32, Rk, Rp, Rp2, H
     for key, val in worst.items():
         say(f"[phase 2d] worst {key} {val:.3e} (tol {TOL_2D[key]})")
 
@@ -1629,21 +1660,29 @@ def _large_model(gp, gnp):
     return gp.Model(mean, kernel)
 
 
+def _streamed_residents(gp, gnp, torch, st, plik, n, c=STREAM_PANEL):
+    """The streamed engine's residents at bench_large_n's p0 and n: (model,
+    x, p, corr, K32, E32, L32), the pair built by K10b in row chunks of c,
+    L32 its f32 factor (the engine's ridge)."""
+    xi, _zi, p0 = _large_data(n)
+    gp.config.set_device(DEVICE)
+    model = _large_model(gp, gnp)
+    x, p = gnp.asarray(xi), gnp.asarray(p0)
+    corr = plik._diag_correction(model, p, x)
+    K32, E32 = st._build_pair(model, p, x, corr, c, pair=True)
+    L32, info = st._cholesky_f32(K32, 10 * EPS32 * (torch.trace(K32) / n))
+    check(int(info) == 0, "the f32 factor failed at bench_large_n's p0")
+    return model, x, p, corr, K32, E32, L32
+
+
 def phase_streamed_large(gp, gnp, torch, mixed, ops, st, plik):
     """Phase 2d at n = LARGE_N, on the engine's own residents at bench_large_n's
     p0 (K10b's pair, the f32 factor, M, H): K6, K10b, K10r, K10m and K10t
     against their plain versions; then phase 4d's kernel times there (CUDA
     events, profiler device time, plain, library call)."""
     n, c = LARGE_N, STREAM_PANEL
-    xi, _zi, p0 = _large_data(n)
-    gp.config.set_device(DEVICE)
-    model = _large_model(gp, gnp)
-    x, p = gnp.asarray(xi), gnp.asarray(p0)
+    model, x, p, corr, K32, E32, L32 = _streamed_residents(gp, gnp, torch, st, plik, n)
     gen = torch.Generator(device=DEVICE).manual_seed(11)
-    corr = plik._diag_correction(model, p, x)
-    K32, E32 = st._build_pair(model, p, x, corr, c, pair=True)
-    L32, info = st._cholesky_f32(K32, 10 * EPS32 * (torch.trace(K32) / n))
-    check(int(info) == 0, "the f32 factor failed at bench_large_n's p0")
     errs, absd, times, device = {}, {}, {}, {}
     # K10b on the first row chunk, into copies of its rows
     k64 = model.covariance(x[:c], x, p)
@@ -1659,12 +1698,21 @@ def phase_streamed_large(gp, gnp, torch, mixed, ops, st, plik):
                      t(lambda: ops.split_rows_plain(k64, corr[:c], 0, hi_p, lo_p), 5), None)
     device["K10b"] = _device_ms(torch, lambda: ops.split_rows_cuda(k64, corr[:c], 0, hi_k, lo_k), 10)
     del hi_k, lo_k, hi_p, lo_p
-    # K10r, one launch over the pair
+    # K10r, one launch over the pair: bitwise K4 on hi + lo, and its panels
+    # (recompute mode's, one launch each) bitwise the pair's
     Rk = ops.streamed_residual_ff_cuda(K32, E32, L32)
     Rp = ops.streamed_residual_ff_plain(K32, E32, L32, c)
     check(torch.equal(Rk, Rk.T), "K10r not symmetric at the large n")
     errs["K10r"], absd["K10r"] = rel_err(Rk, Rp), float((Rk - Rp).abs().max())
     del Rp
+    K64 = K32.double() + E32.double()
+    R4 = mixed.factorization_residual_cuda(K64, L32)
+    check(torch.equal(Rk, R4), f"K10r (pair) is not bitwise K4 on hi + lo at n={n}")
+    R4.fill_(float("nan"))
+    for c0 in range(0, n, c):
+        ops.residual_panel_cuda(K64[c0:, c0:c0 + c].contiguous(), L32, c0, R4)
+    check(torch.equal(Rk, R4), f"K10r's panels of {c} are not bitwise the pair's at n={n}")
+    del R4
     M32 = mixed._block_tri_inv(L32, base=mixed.TRI_INV_BASE)
     H = st._h_from_residual(M32, Rk, c)
     del Rk
@@ -1682,7 +1730,8 @@ def phase_streamed_large(gp, gnp, torch, mixed, ops, st, plik):
         check(math.isfinite(val) and val <= TOL_2D[key], f"{key} at n={n}: {val:.3e}")
     say(f"[phase 2d] n={n} (bench_large_n's p0, the engine's own residents): "
         + " ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " (K6 in n eps32); max|diff| "
-        + " ".join(f"{k} {v:.2e}" for k, v in absd.items()))
+        + " ".join(f"{k} {v:.2e}" for k, v in absd.items())
+        + f"; K10r bitwise K4 on hi + lo, its panels of {c} bitwise the pair's")
 
     r32 = r.float()
     H2r = H[:c] @ H
@@ -1695,20 +1744,16 @@ def phase_streamed_large(gp, gnp, torch, mixed, ops, st, plik):
                      t(lambda: ops.h_traces_chunk_plain(H, H2r, 0, acc), 5), None)
     device["K10t"] = _device_ms(torch, lambda: ops.h_traces_chunk_cuda(H, H2r, 0, acc), 10)
     del H, H2r, M32
-    K64 = K32.double() + E32.double()
     times["K10m"] = (t(lambda: ops.ff_residual_cuda(K32, E32, X, B), 20),
                      t(lambda: ops.ff_residual_plain(K32, E32, X, B), 3),
                      t(lambda: torch.addmm(B, K64, X, alpha=-1), 5))
     device["K10m"] = _device_ms(torch, lambda: ops.ff_residual_cuda(K32, E32, X, B), 10)
-    # K10r's panel variant (recompute mode), its widest panel
-    P = K64[:, :c].contiguous()
-    Rpan = torch.empty((n, n), dtype=torch.float32, device=DEVICE)
-    t_panel = (t(lambda: ops.residual_panel_cuda(P, L32, 0, Rpan), 3),
-               t(lambda: ops.residual_panel_plain(P, L32, 0, Rpan), 2))
-    del Rpan, P
     times["K10r"] = (t(lambda: ops.streamed_residual_ff_cuda(K32, E32, L32), 2),
                      t(lambda: ops.streamed_residual_ff_plain(K32, E32, L32, c), 1), None)
     device["K10r"] = _device_ms(torch, lambda: ops.streamed_residual_ff_cuda(K32, E32, L32), 1)
+    # K4 on hi + lo, K10r's yardstick (the same tiles and sums from a dense K)
+    t_k4 = (t(lambda: mixed.factorization_residual_cuda(K64, L32), 2),
+            _device_ms(torch, lambda: mixed.factorization_residual_cuda(K64, L32), 1))
     del K32, E32
     L64 = L32.double()
     times["K10r"] = times["K10r"][:2] + (t(lambda: torch.addmm(K64, L64, L64.T, alpha=-1), 1),)
@@ -1720,9 +1765,72 @@ def phase_streamed_large(gp, gnp, torch, mixed, ops, st, plik):
         say(f"[phase 4d] {key} n={n}: kernel {t_k:.4f} ms (device {_fmt_ms(device[key])}), "
             f"plain {t_p:.4f} ms, library {lib}, bound {b_ms:.4f} ms ({b_by}), "
             f"share {100 * b_ms / t_k:.1f}%")
-    say(f"[phase 4d] K10r panel variant (rows [0, n) x columns [0, {c})): kernel "
-        f"{t_panel[0]:.4f} ms, plain {t_panel[1]:.4f} ms")
+    b_ms = bounds["K10r"][0]
+    say(f"[phase 4d] K4 on hi + lo n={n} (K10r's yardstick): kernel {t_k4[0]:.4f} ms (device "
+        f"{_fmt_ms(t_k4[1])}); K10r's share of its {b_ms:.2f} ms bound: events "
+        f"{100 * b_ms / times['K10r'][0]:.1f}%, device "
+        + ("not measured" if device["K10r"] is None else f"{100 * b_ms / device['K10r']:.1f}%"))
+    panels = _k10r_panel_pass(torch, ops, LARGE_RC_N, STREAM_PANEL, gen)
+    pb_ms, pb_by = panels["bound"]
+    say(f"[phase 4d] K10r recompute pass n={LARGE_RC_N}, {panels['panels']} panels of "
+        f"{STREAM_PANEL}: {panels['pass_ms']:.2f} ms; the panel with the most work "
+        f"(c0={panels['c0']}): kernel {panels['ms']:.4f} ms (device "
+        f"{_fmt_ms(panels['device_ms'])}), plain {panels['plain_ms']:.4f} ms, bound "
+        f"{pb_ms:.4f} ms ({pb_by}), share {100 * pb_ms / panels['ms']:.1f}% (K4 at n={n}: "
+        f"{100 * b_ms / t_k4[0]:.1f}%)")
     return errs, absd, times, bounds, device
+
+
+def _k10r_panel_bound(n, c0, w):
+    """(bound_ms, bound_by) of K10r on one panel of w columns at c0: (n - j)(j + 1)
+    multiply-adds for each column j (the rows i >= j, each k <= j), at the f64
+    tensor peak; it reads the f64 panel and L's rows [c0, n) up to column
+    c0 + w, writes the panel's block of R and its mirror."""
+    c1 = c0 + w
+    fma = sum((n - j) * (j + 1) for j in range(c0, c1))
+    nbytes = 8 * (n - c0) * w + 4 * sum(min(i + 1, c1) for i in range(c0, n)) \
+        + 4 * ((n - c0) * w + w * (n - c1))
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S, (2 * fma + (n - c0) * w) / PEAK_F64_TENSOR_FLOPS
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def _k10r_panel_pass(torch, ops, n, w, gen, digests=None):
+    """K10r's recompute pass at n: one launch per panel of w columns (the
+    engine's rblock) on a random lower-triangular f32 L and random f64
+    panels (the time depends only on the shapes), the whole pass timed with
+    CUDA events, and the panel with the most work alone (events, device
+    time, plain version, bound).  With digests, that panel's block of
+    R goes in under "K10r panel n=...".  Frees what it made."""
+    L32 = torch.rand((n, n), dtype=torch.float32, device=DEVICE, generator=gen).tril_()
+    L32.div_(math.sqrt(n))  # L Lᵀ as large as the panel: its rounding shows in R
+    R = torch.empty((n, n), dtype=torch.float32, device=DEVICE)
+    P = torch.rand((n, w), dtype=torch.float64, device=DEVICE, generator=gen)
+    starts = list(range(0, n, w))
+    work = [sum((n - j) * (j + 1) for j in range(c0, min(n, c0 + w))) for c0 in starts]
+    c0 = starts[work.index(max(work))]
+    cw = min(w, n - c0)
+    Pw = P[:n - c0, :cw].contiguous()
+
+    def one_pass():
+        for a in starts:
+            aw = min(w, n - a)
+            ops.residual_panel_cuda(P[:n - a, :aw] if aw == w else P[:n - a, :aw].contiguous(),
+                                    L32, a, R)
+
+    out = {"panels": len(starts), "c0": c0,
+           "pass_ms": _time_cuda(torch, one_pass, 1, warmup=1),
+           "ms": _time_cuda(torch, lambda: ops.residual_panel_cuda(Pw, L32, c0, R), 3, warmup=1),
+           "device_ms": _device_ms(torch, lambda: ops.residual_panel_cuda(Pw, L32, c0, R), 2),
+           "plain_ms": _time_cuda(torch, lambda: ops.residual_panel_plain(Pw, L32, c0, R), 1,
+                                  warmup=1),
+           "bound": _k10r_panel_bound(n, c0, cw)}
+    if digests is not None:
+        ops.residual_panel_cuda(Pw, L32, c0, R)
+        digests[f"K10r panel n={n} c0={c0}"] = _digest(R[c0:, c0:c0 + cw].contiguous())
+    del L32, R, P, Pw, one_pass
+    gc.collect()
+    torch.cuda.empty_cache()  # n = 51200's two n^2 f32: the next phase's cuBLAS needs room
+    return out
 
 
 def _timed(torch, fn):
@@ -2496,15 +2604,17 @@ def _k9u_probe(torch, ochol, K, W, b):
 # csrc/syrk_f64.cuh's modes, as they appear in mma_tile_kernel's mangled name
 PTXAS_MODES = {"Trailing": "K9u", "Slab": "K9s f64", "ResidualIdE": "K4 (K f64)",
                "ResidualIfE": "K4 (K f32; K8s with K f32)", "ResidualSlab": "K4s",
-               "SamplingResidual": "K8s (K f64)"}
+               "SamplingResidual": "K8s (K f64)", "PairResidual": "K10r (pair)",
+               "PanelResidual": "K10r (panel)"}
 
 
 def _ptxas_core_lines(log, mma_k):
     """ptxas's registers and spills of every instance of csrc/syrk_f64.cuh's
     mma_tile_kernel (its mode, tile width, copy bytes and mma shape decoded
     from the mangled name; "path" where the mma shape is the built one,
-    mma_k), of csrc/syrk_f32.cu's slab_update_f32_kernel (the f32 K9s) and
-    of csrc/chol.cu's tri_product_kernel (K8t, by copy bytes), one line
+    mma_k), of csrc/syrk_f32.cu's slab_update_f32_kernel (the f32 K9s), of
+    csrc/chol.cu's tri_product_kernel (K8t, by copy bytes) and of csrc/
+    mixed.cu's ff_residual_kernel (K10m, by k and load width), one line
     each, from the text of a ptxas log."""
     import re
 
@@ -2523,6 +2633,11 @@ def _ptxas_core_lines(log, mma_k):
                          f"m16n8k{mk}{' (path)' if mk == mma_k else ''}")
             elif "slab_update_f32_kernel" in line:
                 entry = "K9s f32 (slab_update_f32_kernel)"
+            elif "ff_residual_kernel" in line:
+                kv = re.search(r"ff_residual_kernelILi(\d+)ELb([01])E", line)
+                entry = (f"K10m (ff_residual_kernel, k={kv.group(1)}, "
+                         f"{16 if kv.group(2) == '1' else 4}-byte loads)" if kv
+                         else "K10m (ff_residual_kernel)")
             elif "tri_product_kernel" in line:
                 cpb = re.search(r"tri_product_kernelILi(\d+)E", line)
                 entry = f"K8t (tri_product_kernel, {cpb.group(1) if cpb else '?'}-byte copies)"
@@ -2850,10 +2965,11 @@ def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
     return times, rates, mem, t_warm
 
 
-def _k4_times(torch, gram, mixed, n, phase):
+def _k4_times(torch, gram, mixed, n, phase, digests=None):
     """K4 at n: kernel (CUDA events and profiler device time), plain, an f64
     addmm of the same product, bound; printed, and returned as ((kernel,
-    plain, library), device, bound)."""
+    plain, library), device, bound).  With a dict ``digests``, also K4's
+    output, hashed into it."""
     K = _time_sqrt_inputs(torch, gram, n)
     L32 = torch.linalg.cholesky_ex(K.float())[0].contiguous()
     L64 = L32.double()
@@ -2863,6 +2979,8 @@ def _k4_times(torch, gram, mixed, n, phase):
          _time_cuda(torch, lambda: torch.addmm(K, L64, L64.T, alpha=-1), reps))
     dev = _device_ms(torch, lambda: mixed.factorization_residual_cuda(K, L32), min(reps, 10))
     bound = _kernel_bounds(n)["K4"]
+    if digests is not None:
+        digests[f"K4 n={n}"] = _digest(mixed.factorization_residual_cuda(K, L32))
     say(f"[phase {phase}] K4 n={n}: kernel {t[0]:.4f} ms "
         f"(device {_fmt_ms(dev)}), plain {t[1]:.4f} ms, library (f64 addmm) {t[2]:.4f} ms, "
         f"bound {bound[0]:.4f} ms ({bound[1]}), share {100 * bound[0] / t[0]:.1f}%")
@@ -2981,10 +3099,8 @@ def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, sli
 
 
 _GROUPS = (  # the first group whose key is in a kernel's name takes it
-    ("K10r streamed factorization residual",
-     ("fact_residual_kernel<(anonymous namespace)::pairk", "fact_residual_kernel<(anonymous "
-      "namespace)::panelk")),
-    ("K10m streamed residual", ("residual_kernel<(anonymous namespace)::pairk",)),
+    ("K10r streamed factorization residual", ("syrk::pairresidual", "syrk::panelresidual")),
+    ("K10m streamed residual", ("ff_residual_kernel",)),
     ("K10b row split", ("split_rows",)),
     ("K10t chunked traces", ("h_traces",)),
     ("K6 preconditioner apply", ("precond_",)),
@@ -2998,7 +3114,7 @@ _GROUPS = (  # the first group whose key is in a kernel's name takes it
     ("K4s slab factorization residual", ("syrk::residualslab",)),
     ("K8s sampling residual", ("syrk::samplingresidual",)),
     ("K4 factorization residual", ("syrk::residual<",)),
-    ("K8r refinement residual", ("double, double, false, true>",)),
+    ("K8r refinement residual", ("fact_residual_kernel",)),
     ("K8t triangular product", ("tri_product",)),
     ("K9m Murray passes", ("murray_kernel",)),
     ("K3 residual", ("residual_kernel",)),
@@ -3757,7 +3873,7 @@ def _slab_kernel_times(torch, mixed, ochol, K, phase, digests=None):
     resident mixed branch): kernel (events, profiler), plain, library call
     (torch.addmm on the same inputs), bound; printed and returned as (times,
     bounds, device) by case.  With a dict ``digests``, also each K9s case's
-    output from one launch on a fresh copy, hashed into it."""
+    output from one launch on a fresh copy, K4s's and K4's, hashed into it."""
     b, n = CHOL_BLOCK, K.shape[0]
     t = lambda fn, reps: _time_cuda(torch, fn, reps, warmup=1)  # noqa: E731
     times, bounds, device = {}, {}, {}
@@ -3798,6 +3914,9 @@ def _slab_kernel_times(torch, mixed, ochol, K, phase, digests=None):
     device["K4s R=1"] = _device_ms(
         torch, lambda: mixed.factorization_residual_slab_cuda(K, L32, L32, 0, 0, R), 3)
     bounds["K4s R=1"] = _k4s_bound(n, n, n, 0, 0)
+    if digests is not None:
+        digests["K4s R=1"] = _digest(R)
+        digests[f"K4 n={n}"] = _digest(mixed.factorization_residual_cuda(K, L32))
     del R
     times["K4"] = (t(lambda: mixed.factorization_residual_cuda(K, L32), 5),
                    t(lambda: mixed.factorization_residual_plain(K, L32), 2),
@@ -3830,7 +3949,8 @@ def _compare_k8(torch, gram, mixed, refine, out):
     """--compare's K8s (n = SLICE_N and PATHS_NT, phase 4c's inputs) and K8t
     (b = CHOL_BLOCK, phase 4e's L and M): events, device time, the library
     call (f64 addmm / torch.matmul), K8t's host issue time per call through
-    the wrapper and the dispatcher, and digests of the outputs, into out."""
+    the wrapper and the dispatcher, and digests of the outputs (and of K8r's
+    and K3's on the same panel), into out."""
     ms_out, dev_out = out["ms (kernel, plain, library)"], out["device_ms"]
     for n in (SLICE_N, PATHS_NT):
         K = _time_sqrt_inputs(torch, gram, n)
@@ -3865,19 +3985,88 @@ def _compare_k8(torch, gram, mixed, refine, out):
     X = (M @ A @ M.T).contiguous()
     out["digest"][key] = _digest(torch.stack([
         P, refine.tri_product_cuda(M, P, 2.0, -1.0), refine.tri_product_cuda(L, X, 1.0, 1.0, True)]))
+    # K8r and K3, which this tree's kernels of K10m and K10r sit beside: digests only
+    E, sums = refine.refine_residual_cuda(A, L)
+    out["digest"][f"K8r b={b}"] = _digest(torch.cat([E.reshape(-1), sums]))
+    Xr = torch.linspace(-1.0, 1.0, 2 * b, dtype=torch.float64, device=DEVICE).reshape(b, 2)
+    R3, norms3 = mixed.residual_cuda(A, Xr, Xr.flip(0).contiguous())
+    out["digest"][f"K3 n={b}"] = _digest(torch.cat([R3.reshape(-1), norms3]))
     say(f"[compare] {key}: kernel {ms_out[key][0] * 1e3:.2f} us (device "
         f"{_fmt_ms(dev_out[key])}), torch.matmul {ms_out[key][2] * 1e3:.2f} us; host issue "
         + ", ".join(f"{k} {v:.2f} us" for k, v in out["host_issue_us"][key].items()))
     del A, L32, L, M, P, X
 
 
+def _compare_streamed(gp, gnp, torch, out):
+    """--compare's K10m and K10r (from the pair) at n = LARGE_N on the
+    engine's residents at bench_large_n's p0 (phase 4d's inputs), and K10r's
+    recompute pass at n = LARGE_RC_N (_k10r_panel_pass): events, device time,
+    digests, into out."""
+    from gpmp_tpu_torch.ops import streamed as ops
+    from gpmp_tpu_torch.parallel import likelihood as plik
+    from gpmp_tpu_torch.parallel import streamed as st
+
+    ms_out, dev_out = out["ms (kernel, plain, library)"], out["device_ms"]
+    n = LARGE_N
+    *_, K32, E32, L32 = _streamed_residents(gp, gnp, torch, st, plik, n)
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    X = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+    B = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+    key = f"K10m n={n}"
+    ms_out[key] = (_time_cuda(torch, lambda: ops.ff_residual_cuda(K32, E32, X, B), 20, warmup=1),
+                   None, None)
+    dev_out[key] = _device_ms(torch, lambda: ops.ff_residual_cuda(K32, E32, X, B), 10)
+    R, nr = ops.ff_residual_cuda(K32, E32, X, B)
+    out["digest"][key] = _digest(torch.cat([R.reshape(-1), nr]))
+    key = f"K10r n={n}"
+    ms_out[key] = (_time_cuda(torch, lambda: ops.streamed_residual_ff_cuda(K32, E32, L32), 2,
+                              warmup=1), None, None)
+    dev_out[key] = _device_ms(torch, lambda: ops.streamed_residual_ff_cuda(K32, E32, L32), 1)
+    out["digest"][key] = _digest(ops.streamed_residual_ff_cuda(K32, E32, L32))
+    del K32, E32, L32, X, B, R
+    panels = _k10r_panel_pass(torch, ops, LARGE_RC_N, STREAM_PANEL, gen, out["digest"])
+    ms_out[f"K10r recompute pass n={LARGE_RC_N}"] = (panels["pass_ms"], None, None)
+    key = f"K10r panel n={LARGE_RC_N} c0={panels['c0']}"
+    ms_out[key] = (panels["ms"], panels["plain_ms"], None)
+    dev_out[key] = panels["device_ms"]
+    say(f"[compare] K10m n={n}: {ms_out[f'K10m n={n}'][0]:.4f} ms (device "
+        f"{_fmt_ms(dev_out[f'K10m n={n}'])}); K10r n={n}: {ms_out[f'K10r n={n}'][0]:.2f} ms "
+        f"(device {_fmt_ms(dev_out[f'K10r n={n}'])}); K10r recompute pass n={LARGE_RC_N}: "
+        f"{panels['pass_ms']:.2f} ms, {key}: {panels['ms']:.4f} ms")
+
+
+def _compare_walls(gp, gnp, torch, out):
+    """--compare's streamed REML walls through the one-card mesh on
+    bench_large_n's workload at p0 (phase 3d's (a) and (d)): one ff
+    value+grad at n = LARGE_N (the cutover forced there) and one recompute
+    value+grad at n = LARGE_RC_N (the dispatcher's own choice), into out."""
+    from gpmp_tpu_torch import parallel
+    from gpmp_tpu_torch.parallel import streamed as st
+
+    gp.config.set_device(DEVICE)
+    gp.config.set_chol_engine("mixed")
+    model, mesh = _large_model(gp, gnp), parallel.make_mesh(1, axis_name="shard")
+    for n, tag, cutover in ((LARGE_N, "ff", LARGE_N), (LARGE_RC_N, "recompute", None)):
+        xi, zi, p0 = _large_data(n)
+        with _Patched(st, STREAM_MIN_N=cutover):
+            check(st.choose_mode(n) == tag, f"--compare: the stream does not pick {tag} at n={n}")
+            vg, _ = _criterion(gp, model, xi, zi, mesh)
+            (v, _g), wall = _timed(torch, lambda: vg(p0))
+        out["walls_s"][f"{tag} value+grad n={n}"] = wall
+        say(f"[compare] {tag} value+grad n={n}: {wall:.3f} s, REML {v!r}")
+        del vg
+    gp.config.set_chol_engine("auto")
+
+
 def compare_main(root):
     """``python3 chip_smoke.py --compare ROOT``: K8s's and K8t's times
     (_compare_k8), phases 4b's and 4f's times of K4 (K4_SIZES and n =
-    RESIDENT_N), K4s, K9s (f64 and f32) of the gpmp_tpu_torch package under
-    ROOT (this checkout, or another one unpacked beside it, e.g. a parent
-    commit from git archive), through the same helpers, with digests of
-    K8s's, K8t's, K9u's (first panel) and K9s's outputs.
+    RESIDENT_N), K4s, K9s (f64 and f32), and K10m's and K10r's at phase 4d's
+    shapes (_compare_streamed) of the gpmp_tpu_torch package under ROOT (this
+    checkout, or another one unpacked beside it, e.g. a parent commit from
+    git archive), through the same helpers, with digests of K8s's, K8t's,
+    K9u's (first panel), K9s's, K4's and K4s's, K10m's and K10r's outputs,
+    and the streamed REML walls of phase 3d (_compare_walls).
     Run it for two trees in turns (parent, change, change, parent) in one
     call to compare them on one card; the last line is one JSON object."""
     import torch
@@ -3898,10 +4087,10 @@ def compare_main(root):
     t0 = time.perf_counter()
     build.load()
     out = {"root": root, "build_s": time.perf_counter() - t0, "ms (kernel, plain, library)": {},
-           "device_ms": {}, "host_issue_us": {}, "digest": {}}
+           "device_ms": {}, "host_issue_us": {}, "digest": {}, "walls_s": {}}
     _compare_k8(torch, gram, mixed, refine, out)
     for n in K4_SIZES:
-        ms, dev, _bound = _k4_times(torch, gram, mixed, n, "compare")
+        ms, dev, _bound = _k4_times(torch, gram, mixed, n, "compare", out["digest"])
         out["ms (kernel, plain, library)"][f"K4 n={n}"], out["device_ms"][f"K4 n={n}"] = ms, dev
     K = _large_gram(gp, gnp, RESIDENT_N)
     times, _bounds, device = _slab_kernel_times(torch, mixed, ochol, K, "compare", out["digest"])
@@ -3912,6 +4101,8 @@ def compare_main(root):
     ochol.trailing_update_cuda(W, 0, CHOL_BLOCK)
     out["digest"]["K9u"] = _digest(W)
     del W, K
+    _compare_streamed(gp, gnp, torch, out)
+    _compare_walls(gp, gnp, torch, out)
     say(json.dumps(out))
 
 
@@ -4055,7 +4246,7 @@ def main():
         ("K8s", "sampling_residual", res_src, "gpmp_tpu/ops/refine.py:114"),
         ("K6", "precond_apply", mixed_src, "gpmp_tpu/ops/mixed.py:236"),
         ("K10b", "split_rows", stream_src, "gpmp_tpu/parallel/streamed.py:259"),
-        ("K10r", "streamed_residual_ff", mixed_src, "gpmp_tpu/parallel/streamed.py:322"),
+        ("K10r", "streamed_residual_ff", res_src, "gpmp_tpu/parallel/streamed.py:322"),
         ("K10m", "ff_residual", mixed_src, "gpmp_tpu/parallel/streamed.py:481"),
         ("K10t", "h_traces", stream_src, "gpmp_tpu/parallel/streamed.py:394"),
         ("K8r", "refine_residual", mixed_src, "gpmp_tpu/ops/refine.py:75"),

@@ -4,8 +4,8 @@
 // Cholesky engine (gpmp_tpu_torch/ops/mixed.py; its K4 and K4s, and K8s,
 // the residual of its sampling root, are csrc/residual.cu); K8r, the
 // residual of the refined panel factor (gpmp_tpu_torch/ops/refine.py);
-// K10m and K10r, K3's kernel and the CUDA-core residual kernel on the
-// streamed engine's sources of K (gpmp_tpu_torch/ops/streamed.py); for
+// K10m, the streamed engine's residual against its f32 pair
+// (gpmp_tpu_torch/ops/streamed.py; its K10r is csrc/residual.cu's); for
 // Hopper, sm_90a.  Plain C entry points, loaded with ctypes by
 // gpmp_tpu_torch/ops/_build.py.
 //
@@ -26,19 +26,27 @@
 //      R = B - (K32 + E32) X, and (sum R^2, sum B^2), with K held as the
 //      float-float pair of the streamed engine (gpmp_tpu_torch/parallel/
 //      streamed.py), X and B (n, k <= 8) in f64.
-//    K3's kernel with a two-float source of K: each entry is promoted and
-//    summed in f64 in registers (hi + lo is exact in f64).  Bound: reading
-//    the pair once, 8 n^2 bytes (2.6 ms at n = 32768): memory-bound.
+//    Bound: reading the pair once, 8 n^2 bytes (2.56 ms at n = 32768),
+//    against 2 k + 1 f64 operations per entry: memory-bound for k <= 8.
+//    It was K3's kernel on a two-float source, at 56% of that bound: a
+//    barrier every 256 columns to stage X in shared memory, 4-byte loads, X
+//    read from L2 once per 8 rows.  Design: a warp owns 4 rows and reads
+//    them with 16-byte streaming loads (4 consecutive entries of hi and of
+//    lo a lane; 4-byte ones where n % 4 != 0), the next 128 columns' loads
+//    issued before this step's products; X through the read-only path, a
+//    lane's 4 rows of X in 16-byte loads, shared by the warp's 4 rows;
+//    no barrier until the epilogue; 8 warps (32 rows) a block, so X is read
+//    from L2 a quarter as often.  Sums in f64 on hi + lo (exact in f64)
+//    times x, in one fixed order: each lane's columns, a butterfly over the
+//    lanes, the block's warps, then the fixed-order second pass of K3.
 //
-// The CUDA-core factorization residual (fact_residual_kernel): R = K - L L^T
+// The CUDA-core factorization residual (fact_residual_kernel): E = A - L L^T
 //    in f64 on 32 x 32 lower-triangular tiles, the k loop stopping at the
-//    tile's last column (L is lower triangular), L promoted to f64 while
-//    staged in shared memory, each entry written at (i, j) and (j, i):
-//    exactly symmetric.  Plain f64 FMAs on the vector units, about 1.25
-//    shared loads per FMA: ~13% of the f64 tensor bound.  It was K4's
-//    kernel until K4 moved to the f64 tensor cores (csrc/residual.cu), and
-//    K8s's until K8s moved there too, as K4's kernel with an f64 output;
-//    only K8r and K10r run it now.
+//    tile's last column (L is lower triangular), L staged in shared memory,
+//    each entry written at (i, j) and (j, i): exactly symmetric.  Plain f64
+//    FMAs on the vector units, about 1.25 shared loads per FMA: ~13% of the
+//    f64 tensor bound.  It was K4's, K8s's and K10r's kernel until each
+//    moved to the f64 tensor cores (csrc/residual.cu); K8r alone runs it.
 //
 // K8r refinement residual (replaces E = A - L L^T and the convergence
 //    guard's sums of gpmp_tpu/ops/refine.py refined_cholesky): the CUDA-core
@@ -55,22 +63,6 @@
 //    square forms), K6 a slab of M and all of r, and gives that rank's part
 //    of M^T (M r) (summed over the ranks by an all-reduce).  Bounds as the
 //    square forms', per rank (K4s, K4's slab form, is csrc/residual.cu's).
-//
-// K10r streamed factorization residual (replaces gpmp_tpu/parallel/
-//    streamed.py _streamed_residual_f32): the CUDA-core residual kernel,
-//    with K read from a source given as a template parameter:
-//      ff:        the float-float pair (K32 + E32), summed in f64 in
-//                 registers, over every lower tile in one launch (the card
-//                 never holds K in f64, so the JAX package's column panels,
-//                 which only bounded XLA's temporaries, are not needed);
-//      recompute: an f64 column panel (n - c0, width) of K at (c0, c0),
-//                 one launch per panel, over the lower tiles of rows
-//                 [c0, n) x columns [c0, c0 + width).
-//    R is f32 and written at (i, j) and (j, i) from one value: exactly
-//    symmetric, the diagonal sub-blocks of the panels included.  Bound:
-//    ~n^3/6 f64 FMAs over all panels (1.17e13 at n = 32768: 0.35 s at the
-//    67 TFLOP/s f64 tensor peak); the kernel's 22.6 ms at n = 8192 (as K8s,
-//    before K8s left it) puts it near 1.35 s there.
 //
 // K6 preconditioner apply (replaces gpmp_tpu/ops/mixed.py _apply and
 //    gpmp_tpu/parallel/streamed.py _apply_precond):
@@ -138,6 +130,7 @@
 // right first; making them fast is later work.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -191,34 +184,14 @@ __device__ void block_pair_to_partial(double a, double b, double* __restrict__ p
   }
 }
 
-// ------------------------------------------------- sources of K(i, j)
-// K3 and the residual kernel read K through one of these (K10m/K10r are the
-// same kernels on the streamed engine's sources); each returns the entry
-// promoted to f64.
+// ------------------------------------------------- K3's source of K(i, j)
+// the entry promoted to f64
 template <typename T>
 struct DenseK {  // K (n, n) in T, row-major
   const T* __restrict__ K;
   long long ld;
   __device__ double operator()(long long i, long long j) const {
     return static_cast<double>(K[i * ld + j]);
-  }
-};
-
-struct PairK {  // the float-float pair K = hi + lo, (n, n) each, row-major
-  const float* __restrict__ hi;
-  const float* __restrict__ lo;
-  long long ld;
-  __device__ double operator()(long long i, long long j) const {
-    const long long t = i * ld + j;
-    return static_cast<double>(hi[t]) + static_cast<double>(lo[t]);
-  }
-};
-
-struct PanelK {  // an f64 column panel (n - c0, width) of K whose (0, 0) is K(c0, c0)
-  const double* __restrict__ P;
-  long long c0, width;
-  __device__ double operator()(long long i, long long j) const {
-    return P[(i - c0) * width + (j - c0)];
   }
 };
 
@@ -309,43 +282,206 @@ int launch_residual(Src K, const void* X, const void* B, void* R, void* partial,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------ the CUDA-core residual (K8r, K10r)
+// ---------------------------------------------------------------- K10m
+constexpr int FF_WARPS = 8;                      // warps a block
+constexpr int FF_ROWS = 4;                       // rows a warp
+constexpr int FF_BLOCK_ROWS = FF_WARPS * FF_ROWS;
+constexpr int FF_THREADS = 32 * FF_WARPS;
+constexpr int FF_STEP = 128;                     // columns a warp step: 4 a lane
+
+// a lane's 4 consecutive columns c .. c + 3 of FF_ROWS rows of the pair,
+// 16-byte streaming loads (VEC: rows 16-byte aligned, c + 3 < n), else
+// 4-byte ones with the columns past n read as zeros
+template <bool VEC>
+__device__ __forceinline__ void ff_load(const float* __restrict__ hi, const float* __restrict__ lo,
+                                        const long long (&row)[FF_ROWS], long long c, long long n,
+                                        float4 (&h)[FF_ROWS], float4 (&l)[FF_ROWS]) {
+#pragma unroll
+  for (int r = 0; r < FF_ROWS; ++r) {
+    if (VEC) {
+      h[r] = __ldcs(reinterpret_cast<const float4*>(hi + row[r] + c));
+      l[r] = __ldcs(reinterpret_cast<const float4*>(lo + row[r] + c));
+    } else {
+      const float* ph = hi + row[r] + c;
+      const float* pl = lo + row[r] + c;
+      h[r] = make_float4(__ldcs(ph), c + 1 < n ? __ldcs(ph + 1) : 0.f,
+                         c + 2 < n ? __ldcs(ph + 2) : 0.f, c + 3 < n ? __ldcs(ph + 3) : 0.f);
+      l[r] = make_float4(__ldcs(pl), c + 1 < n ? __ldcs(pl + 1) : 0.f,
+                         c + 2 < n ? __ldcs(pl + 2) : 0.f, c + 3 < n ? __ldcs(pl + 3) : 0.f);
+    }
+  }
+}
+
+// R = B - (hi + lo) X and the block's (sum R^2, sum B^2), X, B, R (n, KC)
+// row-major f64.  A warp owns FF_ROWS rows; lane t reads the columns
+// 128 s + 4 t .. 128 s + 4 t + 3 of each at step s, the next step's loads
+// issued before this step's products; X comes through the read-only path
+// (a lane's 4 rows of X are 4 KC consecutive doubles).  No barrier before
+// the epilogue.  Each sum runs in one fixed order: a lane's columns in
+// order, then a butterfly over the lanes, then the block's warps in order
+// (per-block partials; a second launch sums the blocks in a fixed order),
+// whatever the path (VEC or not): bitwise reproducible.
+template <int KC, bool VEC>
+__global__ void __launch_bounds__(FF_THREADS, KC <= 4 ? 2 : 1)
+ff_residual_kernel(const float* __restrict__ hi, const float* __restrict__ lo,
+                   const double* __restrict__ X, const double* __restrict__ B,
+                   double* __restrict__ R, double* __restrict__ partial, long long n) {
+  __shared__ double wsum[FF_WARPS][2];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r0 = (static_cast<long long>(blockIdx.x) * FF_WARPS + warp) * FF_ROWS;
+  long long row[FF_ROWS];  // row offsets; rows past n read row n - 1, their sums dropped
+#pragma unroll
+  for (int r = 0; r < FF_ROWS; ++r) row[r] = (r0 + r < n ? r0 + r : n - 1) * n;
+  double acc[FF_ROWS][KC];
+#pragma unroll
+  for (int r = 0; r < FF_ROWS; ++r)
+#pragma unroll
+    for (int c = 0; c < KC; ++c) acc[r][c] = 0.0;
+
+  long long c = 4 * lane;
+  float4 h[FF_ROWS], l[FF_ROWS];
+  if (c < n) ff_load<VEC>(hi, lo, row, c, n, h, l);
+  while (c < n) {
+    const long long cn = c + FF_STEP;
+    float4 hn[FF_ROWS], ln[FF_ROWS];
+    if (cn < n) ff_load<VEC>(hi, lo, row, cn, n, hn, ln);
+    double x[4][KC];
+    if (VEC) {
+      const double2* xv = reinterpret_cast<const double2*>(X + c * KC);
+#pragma unroll
+      for (int q = 0; q < 2 * KC; ++q) {
+        const double2 v = __ldg(xv + q);
+        x[(2 * q) / KC][(2 * q) % KC] = v.x;
+        x[(2 * q + 1) / KC][(2 * q + 1) % KC] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int q = 0; q < KC; ++q) x[e][q] = c + e < n ? __ldg(X + (c + e) * KC + q) : 0.0;
+    }
+#pragma unroll
+    for (int r = 0; r < FF_ROWS; ++r) {
+      const double kv[4] = {static_cast<double>(h[r].x) + static_cast<double>(l[r].x),
+                            static_cast<double>(h[r].y) + static_cast<double>(l[r].y),
+                            static_cast<double>(h[r].z) + static_cast<double>(l[r].z),
+                            static_cast<double>(h[r].w) + static_cast<double>(l[r].w)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int q = 0; q < KC; ++q) acc[r][q] = fma(kv[e], x[e][q], acc[r][q]);
+    }
+#pragma unroll
+    for (int r = 0; r < FF_ROWS; ++r) {
+      h[r] = hn[r];
+      l[r] = ln[r];
+    }
+    c = cn;
+  }
+
+  double rr = 0.0, bb = 0.0;
+#pragma unroll
+  for (int r = 0; r < FF_ROWS; ++r)
+#pragma unroll
+    for (int q = 0; q < KC; ++q) {
+      double v = acc[r][q];
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+      if (lane == 0 && r0 + r < n) {
+        const long long t = (r0 + r) * KC + q;
+        const double b = B[t];
+        const double rv = b - v;
+        R[t] = rv;
+        rr += rv * rv;
+        bb += b * b;
+      }
+    }
+  if (lane == 0) {
+    wsum[warp][0] = rr;
+    wsum[warp][1] = bb;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double a = 0.0, b = 0.0;
+    for (int w = 0; w < FF_WARPS; ++w) {
+      a += wsum[w][0];
+      b += wsum[w][1];
+    }
+    partial[2 * blockIdx.x] = a;
+    partial[2 * blockIdx.x + 1] = b;
+  }
+}
+
+long long ff_residual_blocks(long long n) { return (n + FF_BLOCK_ROWS - 1) / FF_BLOCK_ROWS; }
+
+template <int KC>
+int launch_ff_residual_k(const float* hi, const float* lo, const double* X, const double* B,
+                         double* R, double* partial, long long n, bool vec, cudaStream_t s) {
+  const unsigned nb = static_cast<unsigned>(ff_residual_blocks(n));
+  if (vec)
+    ff_residual_kernel<KC, true><<<nb, FF_THREADS, 0, s>>>(hi, lo, X, B, R, partial, n);
+  else
+    ff_residual_kernel<KC, false><<<nb, FF_THREADS, 0, s>>>(hi, lo, X, B, R, partial, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10m: R = B - (hi + lo) X and (sum R^2, sum B^2), two launches
+int launch_ff_residual(const void* hi_, const void* lo_, const void* X_, const void* B_, void* R_,
+                       void* partial, void* norms, long long n, int k, void* stream) {
+  if (n <= 0 || k < 1 || k > RES_MAX_K || ff_residual_blocks(n) > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* hi = static_cast<const float*>(hi_);
+  const float* lo = static_cast<const float*>(lo_);
+  const double* X = static_cast<const double*>(X_);
+  const double* B = static_cast<const double*>(B_);
+  double* R = static_cast<double*>(R_);
+  double* part = static_cast<double*>(partial);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 16-byte loads: every row of the pair 16-byte aligned, X too (a lane's 4
+  // rows of X start at a multiple of 32 k bytes)
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(hi) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(lo) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(X) % 16 == 0;
+  int err;
+  switch (k) {
+    case 1: err = launch_ff_residual_k<1>(hi, lo, X, B, R, part, n, vec, s); break;
+    case 2: err = launch_ff_residual_k<2>(hi, lo, X, B, R, part, n, vec, s); break;
+    case 3: err = launch_ff_residual_k<3>(hi, lo, X, B, R, part, n, vec, s); break;
+    case 4: err = launch_ff_residual_k<4>(hi, lo, X, B, R, part, n, vec, s); break;
+    case 5: err = launch_ff_residual_k<5>(hi, lo, X, B, R, part, n, vec, s); break;
+    case 6: err = launch_ff_residual_k<6>(hi, lo, X, B, R, part, n, vec, s); break;
+    case 7: err = launch_ff_residual_k<7>(hi, lo, X, B, R, part, n, vec, s); break;
+    default: err = launch_ff_residual_k<8>(hi, lo, X, B, R, part, n, vec, s); break;
+  }
+  if (err) return err;
+  reduce_pairs_kernel<<<1, RED_THREADS, 0, s>>>(part, ff_residual_blocks(n),
+                                                static_cast<double*>(norms));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------ the CUDA-core residual (K8r)
 constexpr int FR_TILE = 32;
 constexpr int FR_TY = 8;  // block (32, 8): each thread owns 4 rows of a column
 constexpr int FR_ROWS = FR_TILE / FR_TY;
 
-// R(i, j) = K(i, j) - sum_k L(i, k) L(j, k) for rows i in [c0, n), columns
-// j in [c0, c0 + width), i >= j, written at (i, j) and (j, i).  L (TL, f32 or
-// f64) and R have leading dimension n; k runs over [0, tile's last column],
-// L being lower triangular.
-// PANEL = false: blockIdx.x is the linear index of the lower tile (bi, bj) of
-// the (width, width) block at (c0, c0); PANEL = true: blockIdx.x the row tile
-// and blockIdx.y the column tile, both counted from c0, and the tiles above
-// the diagonal return at once.  GUARD (K8r, PANEL = false only): the block's
-// sums of R^2 and K^2 over the whole symmetric matrix (off-diagonal entries
-// twice) go to partial[2 * blockIdx.x + {0, 1}].
-template <typename Src, typename TL, typename TOut, bool PANEL, bool GUARD>
+// E(i, j) = A(i, j) - sum_k L(i, k) L(j, k) for i >= j, written at (i, j)
+// and (j, i), A, L and E (n, n) f64; k runs over [0, tile's last column], L
+// being lower triangular.  blockIdx.x is the linear index of the lower tile
+// (bi, bj).  The block's sums of E^2 and A^2 over the whole symmetric
+// matrix (off-diagonal entries twice) go to partial[2 * blockIdx.x + {0, 1}].
 __global__ void __launch_bounds__(FR_TILE * FR_TY)
-fact_residual_kernel(Src K, const TL* __restrict__ L, TOut* __restrict__ R, long long n,
-                     long long c0, long long width, double* __restrict__ partial) {
-  long long bi, bj;
-  if (PANEL) {
-    bi = blockIdx.x;
-    bj = blockIdx.y;
-    if (bi < bj) return;
-  } else {
-    const long long b = blockIdx.x;
-    bi = static_cast<long long>((sqrt(8.0 * static_cast<double>(b) + 1.0) - 1.0) / 2.0);
-    while (bi * (bi + 1) / 2 > b) --bi;
-    while ((bi + 1) * (bi + 2) / 2 <= b) ++bi;
-    bj = b - bi * (bi + 1) / 2;
-  }
+fact_residual_kernel(const double* __restrict__ A, const double* __restrict__ L,
+                     double* __restrict__ E, long long n, double* __restrict__ partial) {
+  const long long b = blockIdx.x;
+  long long bi = static_cast<long long>((sqrt(8.0 * static_cast<double>(b) + 1.0) - 1.0) / 2.0);
+  while (bi * (bi + 1) / 2 > b) --bi;
+  while ((bi + 1) * (bi + 2) / 2 <= b) ++bi;
+  const long long bj = b - bi * (bi + 1) / 2;
 
   __shared__ double As[FR_TILE][FR_TILE + 1];  // L[i0 + r, k0 + c]
   __shared__ double Bs[FR_TILE][FR_TILE + 1];  // L[j0 + r, k0 + c]
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const long long i0 = c0 + bi * FR_TILE, j0 = c0 + bj * FR_TILE;
-  const long long jend = c0 + width;  // columns of this launch: [c0, jend)
+  const long long i0 = bi * FR_TILE, j0 = bj * FR_TILE;
   double acc[FR_ROWS];
 #pragma unroll
   for (int q = 0; q < FR_ROWS; ++q) acc[q] = 0.0;
@@ -356,8 +492,8 @@ fact_residual_kernel(Src K, const TL* __restrict__ L, TOut* __restrict__ R, long
     const long long gk = k0 + tx;
     for (int r = ty; r < FR_TILE; r += FR_TY) {
       const long long gi = i0 + r, gj = j0 + r;
-      As[r][tx] = (gi < n && gk < kend) ? static_cast<double>(L[gi * n + gk]) : 0.0;
-      Bs[r][tx] = (gj < n && gk < kend) ? static_cast<double>(L[gj * n + gk]) : 0.0;
+      As[r][tx] = (gi < n && gk < kend) ? L[gi * n + gk] : 0.0;
+      Bs[r][tx] = (gj < n && gk < kend) ? L[gj * n + gk] : 0.0;
     }
     __syncthreads();
 #pragma unroll 8
@@ -373,72 +509,39 @@ fact_residual_kernel(Src K, const TL* __restrict__ L, TOut* __restrict__ R, long
 #pragma unroll
   for (int q = 0; q < FR_ROWS; ++q) {
     const long long gi = i0 + ty + FR_TY * q, gj = j0 + tx;
-    if (gi < n && gj < jend && gi >= gj) {
-      const double kv = K(gi, gj);
+    if (gi < n && gj < n && gi >= gj) {
+      const double kv = A[gi * n + gj];
       const double rv = kv - acc[q];
-      const TOut v = static_cast<TOut>(rv);
-      R[gi * n + gj] = v;
-      R[gj * n + gi] = v;
-      if (GUARD) {
-        const double w = gi == gj ? 1.0 : 2.0;
-        e2 += w * rv * rv;
-        a2 += w * kv * kv;
-      }
+      E[gi * n + gj] = rv;
+      E[gj * n + gi] = rv;
+      const double w = gi == gj ? 1.0 : 2.0;
+      e2 += w * rv * rv;
+      a2 += w * kv * kv;
     }
   }
-  if (GUARD) {  // the block's sums in a fixed order (tree over linear thread ids)
-    __shared__ double g0[FR_TILE * FR_TY];
-    __shared__ double g1[FR_TILE * FR_TY];
-    const int t = ty * FR_TILE + tx;
-    g0[t] = e2;
-    g1[t] = a2;
+  // the block's sums in a fixed order (tree over linear thread ids)
+  __shared__ double g0[FR_TILE * FR_TY];
+  __shared__ double g1[FR_TILE * FR_TY];
+  const int t = ty * FR_TILE + tx;
+  g0[t] = e2;
+  g1[t] = a2;
+  __syncthreads();
+  for (int h = FR_TILE * FR_TY / 2; h > 0; h >>= 1) {
+    if (t < h) {
+      g0[t] += g0[t + h];
+      g1[t] += g1[t + h];
+    }
     __syncthreads();
-    for (int h = FR_TILE * FR_TY / 2; h > 0; h >>= 1) {
-      if (t < h) {
-        g0[t] += g0[t + h];
-        g1[t] += g1[t + h];
-      }
-      __syncthreads();
-    }
-    if (t == 0) {
-      partial[2 * blockIdx.x] = g0[0];
-      partial[2 * blockIdx.x + 1] = g1[0];
-    }
+  }
+  if (t == 0) {
+    partial[2 * blockIdx.x] = g0[0];
+    partial[2 * blockIdx.x + 1] = g1[0];
   }
 }
 
 long long lower_tiles(long long n) {
   const long long nt = (n + FR_TILE - 1) / FR_TILE;
   return nt * (nt + 1) / 2;
-}
-
-// every lower tile of the (n, n) residual, one launch
-template <typename Src, typename TOut>
-int launch_fact_residual(Src K, const void* L, void* R, long long n, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles = lower_tiles(n);
-  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  fact_residual_kernel<Src, float, TOut, false, false>
-      <<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          K, static_cast<const float*>(L), static_cast<TOut*>(R), n, 0, n, nullptr);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the lower tiles of rows [c0, n) x columns [c0, c0 + width), one launch
-// per column panel (K10r, recompute mode)
-int launch_fact_residual_panel(const void* P, const void* L, void* R, long long n, long long c0,
-                               long long width, void* stream) {
-  if (n <= 0 || c0 < 0 || width <= 0 || c0 + width > n) return static_cast<int>(cudaErrorInvalidValue);
-  const long long rt = (n - c0 + FR_TILE - 1) / FR_TILE;
-  const long long ct = (width + FR_TILE - 1) / FR_TILE;
-  if (rt > 0x7fffffffLL || ct > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  fact_residual_kernel<PanelK, float, float, true, false>
-      <<<dim3(static_cast<unsigned>(rt), static_cast<unsigned>(ct)), dim3(FR_TILE, FR_TY), 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          PanelK{static_cast<const double*>(P), c0, width}, static_cast<const float*>(L),
-          static_cast<float*>(R), n, c0, width, nullptr);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // K8r: E = A - L L^T for an f64 (n, n) panel and its factor, exactly
@@ -450,10 +553,9 @@ int launch_refine_residual(const void* A, const void* L, void* E, void* partial,
   const long long tiles = lower_tiles(n);
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fact_residual_kernel<DenseK<double>, double, double, false, true>
-      <<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0, s>>>(
-          DenseK<double>{static_cast<const double*>(A), n}, static_cast<const double*>(L),
-          static_cast<double*>(E), n, 0, n, static_cast<double*>(partial));
+  fact_residual_kernel<<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0, s>>>(
+      static_cast<const double*>(A), static_cast<const double*>(L), static_cast<double*>(E), n,
+      static_cast<double*>(partial));
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   reduce_pairs_kernel<<<1, RED_THREADS, 0, s>>>(static_cast<const double*>(partial), tiles,
@@ -881,22 +983,11 @@ int gpmp_residual_f32(const void* K, const void* X, const void* B, void* R, void
       stream);
 }
 
+long long gpmp_ff_residual_blocks(long long n) { return ff_residual_blocks(n); }
+
 int gpmp_ff_residual(const void* hi, const void* lo, const void* X, const void* B, void* R,
                      void* partial, void* norms, long long n, int k, void* stream) {
-  return launch_residual<PairK, double>(
-      PairK{static_cast<const float*>(hi), static_cast<const float*>(lo), n}, X, B, R, partial,
-      norms, n, n, k, stream);
-}
-
-int gpmp_streamed_residual_ff(const void* hi, const void* lo, const void* L, void* R,
-                              long long n, void* stream) {
-  return launch_fact_residual<PairK, float>(
-      PairK{static_cast<const float*>(hi), static_cast<const float*>(lo), n}, L, R, n, stream);
-}
-
-int gpmp_streamed_residual_panel(const void* P, const void* L, void* R, long long n,
-                                 long long c0, long long width, void* stream) {
-  return launch_fact_residual_panel(P, L, R, n, c0, width, stream);
+  return launch_ff_residual(hi, lo, X, B, R, partial, norms, n, k, stream);
 }
 
 long long gpmp_refine_residual_blocks(long long n) { return lower_tiles(n); }

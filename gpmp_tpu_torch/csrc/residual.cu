@@ -1,13 +1,14 @@
 // gpmp_tpu_torch/csrc/residual.cu
 //
 // K4 and K4s: the factorization residual of the mixed-precision Cholesky
-// engine (wrappers in gpmp_tpu_torch/ops/mixed.py), and K8s, the residual
-// of its sampling root (wrapper in gpmp_tpu_torch/ops/refine.py), for
+// engine (wrappers in gpmp_tpu_torch/ops/mixed.py), K8s, the residual of
+// its sampling root (wrapper in gpmp_tpu_torch/ops/refine.py), and K10r,
+// the streamed engine's (wrappers in gpmp_tpu_torch/ops/streamed.py), for
 // Hopper, sm_90a, on the f64 tensor cores.  Plain C entry points, loaded
 // with ctypes by gpmp_tpu_torch/ops/_build.py.  The kernel itself (tiles,
 // the cp.async ring, the mma fragments, the epilogue) is csrc/
-// syrk_f64.cuh's, in the modes Residual<T> (K4), ResidualSlab (K4s) and
-// SamplingResidual (K8s with f64 K).
+// syrk_f64.cuh's, in the modes Residual<T> (K4), ResidualSlab (K4s),
+// SamplingResidual (K8s with f64 K), PairResidual and PanelResidual (K10r).
 //
 // K4 factorization residual (replaces gpmp_tpu/ops/mixed.py
 //    _factorization_residual_f32):
@@ -35,6 +36,27 @@
 //      instance.  Bound: K4's operations (2.7 ms at n = 8192, the sample
 //      paths' size) beside K4's bytes with E written in f64.  It replaces
 //      the CUDA-core 32 x 32 residual of csrc/mixed.cu, ~12% of that bound.
+// K10r streamed factorization residual (replaces gpmp_tpu/parallel/
+//    streamed.py _streamed_residual_f32):
+//      R = f32(K - L L^T) as K4, with K read from the streamed engine's
+//      sources instead of a dense f64 K (the core's source policy, read
+//      only in the epilogue):
+//      ff:        the f32 pair, K = hi + lo (exact in f64), over K4's tiles
+//                 in one launch (the card never holds K in f64, so the JAX
+//                 package's column panels, which bounded XLA's
+//                 temporaries, are not needed);
+//      recompute: an f64 column panel (n - c0, w) of K at (c0, c0), one
+//                 launch per panel, over the tiles of rows [c0, n) x
+//                 columns [c0, c0 + w) on a grid measured from c0 that meet
+//                 i >= j (gpmp_tpu_torch/ops/mixed.py
+//                 residual_panel_tiles; c0 and w need not be multiples of
+//                 64), each mirrored into R[c0:c0 + w, c0:].
+//      The tiles, the sum order and the value of S are K4's, so K10r from
+//      the pair is bitwise K4 on hi + lo in f64, and each panel bitwise the
+//      same columns of it (an entry's sum past its own k range adds exact
+//      zeros).  Bound: K4's operations, ~n^3/3 f64 at the tensor peak
+//      (175 ms at n = 32768); it replaces the CUDA-core residual of
+//      csrc/mixed.cu, ~12% of that bound.
 //
 // Bound on the H100: n^3/3 f64 operations over the lower triangle (L is
 //    triangular, so a tile's sum stops at its last column) at the 67
@@ -67,15 +89,24 @@ int launch_tile(const syrk::Args<M>& p, long long ntiles, void* stream) {
   return syrk::launch<M, syrk::Small, MMA_K>(p, ntiles, static_cast<cudaStream_t>(stream));
 }
 
-// the square residual in mode M over the listed lower tiles
+// the square residual in mode M from the source S over the listed lower
+// tiles of the columns [0, jend) (every column but K10r's panels)
 template <class M>
-int residual(const void* K, const void* L, void* R, const void* tiles, long long ntiles,
-             long long n, void* stream) {
-  if (n <= 0 || !K || !L || !R || !tiles) return static_cast<int>(cudaErrorInvalidValue);
+int residual(const typename M::Src& S, const void* L, void* R, const void* tiles,
+             long long ntiles, long long n, long long jend, void* stream) {
+  if (n <= 0 || jend <= 0 || jend > n || !L || !R || !tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* l = static_cast<const float*>(L);
-  const syrk::Args<M> p{static_cast<typename M::TO*>(R), static_cast<const typename M::TS*>(K),
-                        l, l, static_cast<const int*>(tiles), n, n, n, 0, n, 0, n, n};
+  const syrk::Args<M> p{static_cast<typename M::TO*>(R), S, l, l, static_cast<const int*>(tiles),
+                        n, n, n, 0, n, 0, jend, n};
   return launch_tile(p, ntiles, stream);
+}
+
+template <class M, typename T>
+int dense_residual(const void* K, const void* L, void* R, const void* tiles, long long ntiles,
+                   long long n, void* stream) {
+  if (!K) return static_cast<int>(cudaErrorInvalidValue);
+  return residual<M>({static_cast<const T*>(K), n, 0}, L, R, tiles, ntiles, n, n, stream);
 }
 
 }  // namespace
@@ -87,20 +118,40 @@ int gpmp_residual_tile() { return syrk::Small::TILE; }
 // K4: R = f32(K - L L^T) over the listed lower tiles, K f64
 int gpmp_fact_residual_mma_f64(const void* K, const void* L, void* R, const void* tiles,
                                long long ntiles, long long n, void* stream) {
-  return residual<syrk::Residual<double>>(K, L, R, tiles, ntiles, n, stream);
+  return dense_residual<syrk::Residual<double>, double>(K, L, R, tiles, ntiles, n, stream);
 }
 
 // K4 with K f32 (the port's float32 mode)
 int gpmp_fact_residual_mma_f32(const void* K, const void* L, void* R, const void* tiles,
                                long long ntiles, long long n, void* stream) {
-  return residual<syrk::Residual<float>>(K, L, R, tiles, ntiles, n, stream);
+  return dense_residual<syrk::Residual<float>, float>(K, L, R, tiles, ntiles, n, stream);
 }
 
 // K8s with K f64: E = K - L L^T in f64 over K4's tiles, mirrored (K8s with
 // K f32 is gpmp_fact_residual_mma_f32)
 int gpmp_sampling_residual_mma_f64(const void* K, const void* L, void* E, const void* tiles,
                                    long long ntiles, long long n, void* stream) {
-  return residual<syrk::SamplingResidual>(K, L, E, tiles, ntiles, n, stream);
+  return dense_residual<syrk::SamplingResidual, double>(K, L, E, tiles, ntiles, n, stream);
+}
+
+// K10r from the pair: R = f32(hi + lo - L L^T) over K4's tiles, mirrored
+int gpmp_streamed_residual_ff(const void* hi, const void* lo, const void* L, void* R,
+                              const void* tiles, long long ntiles, long long n, void* stream) {
+  if (!hi || !lo) return static_cast<int>(cudaErrorInvalidValue);
+  return residual<syrk::PairResidual>(
+      {static_cast<const float*>(hi), static_cast<const float*>(lo), n}, L, R, tiles, ntiles, n,
+      n, stream);
+}
+
+// K10r from one f64 column panel P = K[c0:, c0:c0 + w] (leading dimension
+// w): R[c0:, c0:c0 + w] over the panel's listed lower tiles, mirrored into
+// R[c0:c0 + w, c0:]
+int gpmp_streamed_residual_panel(const void* P, const void* L, void* R, const void* tiles,
+                                 long long ntiles, long long n, long long c0, long long w,
+                                 void* stream) {
+  if (!P || c0 < 0 || w <= 0 || c0 > n - w) return static_cast<int>(cudaErrorInvalidValue);
+  return residual<syrk::PanelResidual>({static_cast<const double*>(P), w, c0}, L, R, tiles,
+                                       ntiles, n, c0 + w, stream);
 }
 
 // K4s: R[:, offs:offs + rows_b] = f32(K[:, offs:offs + rows_b] - La Lb^T)
@@ -113,9 +164,9 @@ int gpmp_slab_fact_residual_mma(const void* K, const void* La, const void* Lb, v
       offs + rows_b > n || !K || !La || !Lb || !R || !tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   const syrk::Args<syrk::ResidualSlab> p{
-      static_cast<float*>(R), static_cast<const double*>(K), static_cast<const float*>(La),
-      static_cast<const float*>(Lb), static_cast<const int*>(tiles), n, n, n, off, off + rows,
-      offs, offs + rows_b, n};
+      static_cast<float*>(R), {static_cast<const double*>(K), n, off},
+      static_cast<const float*>(La), static_cast<const float*>(Lb), static_cast<const int*>(tiles),
+      n, n, n, off, off + rows, offs, offs + rows_b, n};
   return launch_tile(p, ntiles, stream);
 }
 

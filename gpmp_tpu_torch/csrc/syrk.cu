@@ -65,7 +65,7 @@ bool bad_panel(long long n, long long c0, long long b) {
 syrk::Args<syrk::Trailing> trailing_args(void* A, const void* tiles, long long n, long long c0,
                                          long long b) {
   double* a = static_cast<double*>(A);
-  return {a, a, a + c0, a + c0, static_cast<const int*>(tiles), n, n, n, 0, n, 0, n, b};
+  return {a, {a, n, 0}, a + c0, a + c0, static_cast<const int*>(tiles), n, n, n, 0, n, 0, n, b};
 }
 
 template <int MK>
@@ -109,7 +109,7 @@ int gpmp_slab_update_f64(void* A, const void* Mt, const void* tiles, long long n
     return static_cast<int>(cudaErrorInvalidValue);
   if ((off > c0 + b ? off : c0 + b) >= off + rows) return static_cast<int>(cudaErrorInvalidValue);
   double* a = static_cast<double*>(A);
-  const syrk::Args<syrk::Slab> p{a, a, a + c0, static_cast<const double*>(Mt),
+  const syrk::Args<syrk::Slab> p{a, {a, n, off}, a + c0, static_cast<const double*>(Mt),
                                  static_cast<const int*>(tiles), n, n, b, off, off + rows, 0, n,
                                  b};
   return syrk::launch<syrk::Slab, syrk::Big, MMA_K>(p, ntiles, static_cast<cudaStream_t>(stream));

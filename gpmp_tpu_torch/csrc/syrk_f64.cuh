@@ -3,26 +3,31 @@
 // The f64 tensor-core core of the port's symmetric products, included by
 // csrc/syrk.cu (K9u, the blocked Cholesky's trailing update, and K9s f64,
 // its slab form) and csrc/residual.cu (K4, the factorization residual
-// K - L L^T, K4s, its slab form, and K8s, the sampling root's residual
-// E = K - L L^T kept in f64); see there for what each kernel replaces and
-// what bounds it.  csrc/chol.cu's K8t takes only the mma and cp.async
-// helpers.  One device kernel, one instance per mode:
+// K - L L^T, K4s, its slab form, K8s, the sampling root's residual
+// E = K - L L^T kept in f64, and K10r, the streamed engine's residual);
+// see there for what each kernel replaces and what bounds it.  csrc/
+// chol.cu's K8t takes only the mma and cp.async helpers.  One device
+// kernel, one instance per mode:
 // for each listed TILE x TILE output tile (i0, j0),
 //
-//      O[i - off, j] = S[i - off, j] - sum_{k < kend} Ta[i, k] Tb[j, k]
+//      O[i - off, j] = S(i, j) - sum_{k < kend} Ta[i, k] Tb[j, k]
 //
 // with the products and the sums in f64 and O rounded to its type; the
 // mode (a struct of types and flags, below) says
+//   - the source S: Dense (the output's layout: K9 in place, K4, K4s,
+//     K8s), Pair (K10r: the f32 pair hi + lo, exact in f64) or Panel
+//     (K10r: an f64 column panel of K at (c0, c0)); only the epilogue
+//     reads it;
 //   - the operand type TA: f64 (K9), or f32 widened to f64 as the fragments
 //     are formed (K4, K8s: an f32 x f32 product is exact in f64);
-//   - the output type TO: f32 (K4, K4s) or f64 (K9, K8s);
-//   - LOWER: only the entries i >= j (K9u, K9s, K4, K8s); K4s writes its
-//     whole column block;
-//   - MIRROR: the same value also stored at (j, i) (K9u, K4, K8s): O stays
-//     exactly symmetric;
+//   - the output type TO: f32 (K4, K4s, K10r) or f64 (K9, K8s);
+//   - LOWER: only the entries i >= j (K9u, K9s, K4, K8s, K10r); K4s writes
+//     its whole column block;
+//   - MIRROR: the same value also stored at (j, i) (K9u, K4, K8s, K10r): O
+//     stays exactly symmetric;
 //   - TRI: the operands are rows of a lower-triangular factor, so the sum
 //     stops at kend = min(last row, last column) + 1 of the tile (K4, K4s,
-//     K8s; K9 sums all b columns).
+//     K8s, K10r; K9 sums all b columns).
 //
 // Design, for Hopper (sm_90a):
 // - f64 tensor cores through mma.sync.aligned.m16n8k{4,8,16}.row.col.f64
@@ -31,7 +36,8 @@
 //   fragments.  Two geometries: 128 x 128 tiles of 8 warps (64 f64
 //   accumulators a thread, one block per SM; K9u, K9s), and 64 x 64 tiles
 //   of 4 warps (32 accumulators, two blocks per SM; K4, K4s, K8s), which keep
-//   the SMs busy at small n, where 128-wide tiles leave most of them idle.
+//   the SMs busy at small n, where 128-wide tiles leave most of them idle
+//   (K10r too).
 // - k advances 16 columns a step through a ring of STAGES stages in dynamic
 //   shared memory, filled by cp.async (16-byte .cg copies where every row
 //   is 16-byte aligned, else 8-byte (f64) or 4-byte (f32) .ca copies;
@@ -51,7 +57,8 @@
 //   rank is bitwise K4 (the steps past a tile's kend add exact zeros, and an
 //   entry computed with the operands' roles swapped sums the same exact
 //   products in the same slots); K8s holds the f64 value S - C that K4
-//   rounds to f32, so K8s rounded to f32 is bitwise K4.
+//   rounds to f32, so K8s rounded to f32 is bitwise K4; K10r's sources
+//   give K4's S exactly, so K10r is bitwise K4 on hi + lo, each panel too.
 // - Epilogue: the tile goes to shared memory (the ring reused, rows padded
 //   to an odd LDC so that column reads are conflict-free); each thread then
 //   loads all of its S entries before it stores any, so the loads are in
@@ -113,43 +120,89 @@ struct Smem {
   static_assert(BYTES <= 232448, "the ring and the epilogue tile fit in 227 KB");
 };
 
+// ---------------------------------------------------------------- sources
+// S(i, j), the value O = S - C starts from, promoted to f64.  Only the
+// epilogue reads it, once per written entry; the k loop, the fragments and
+// the sum order do not depend on it.
+template <typename T>
+struct Dense {  // S in the output's layout, S[(i - off) * ld + j] (K9: S = O = A, in place)
+  const T* s;
+  long long ld, off;
+  __device__ __forceinline__ double operator()(long long i, long long j) const {
+    return static_cast<double>(s[(i - off) * ld + j]);
+  }
+  bool aligned() const { return reinterpret_cast<uintptr_t>(s) % sizeof(T) == 0; }
+};
+struct Pair {  // the streamed engine's f32 pair, K = hi + lo, (n, n) each: exact in f64
+  const float* hi;
+  const float* lo;
+  long long ld;
+  __device__ __forceinline__ double operator()(long long i, long long j) const {
+    const long long t = i * ld + j;
+    return static_cast<double>(hi[t]) + static_cast<double>(lo[t]);
+  }
+  bool aligned() const {
+    return reinterpret_cast<uintptr_t>(hi) % 4 == 0 && reinterpret_cast<uintptr_t>(lo) % 4 == 0;
+  }
+};
+struct Panel {  // an f64 column panel (n - c0, ld) of K whose (0, 0) is K(c0, c0)
+  const double* s;
+  long long ld, c0;
+  __device__ __forceinline__ double operator()(long long i, long long j) const {
+    return s[(i - c0) * ld + (j - c0)];
+  }
+  bool aligned() const { return reinterpret_cast<uintptr_t>(s) % 8 == 0; }
+};
+
 // ------------------------------------------------------------------ modes
 struct Trailing {  // K9u: A -= T T^T in place, mirrored
   using TA = double;
-  using TS = double;
+  using Src = Dense<double>;
   using TO = double;
   static constexpr bool LOWER = true, MIRROR = true, TRI = false;
 };
 struct Slab {  // K9s f64: a slab's lower trapezoid in place
   using TA = double;
-  using TS = double;
+  using Src = Dense<double>;
   using TO = double;
   static constexpr bool LOWER = true, MIRROR = false, TRI = false;
 };
 template <typename T>
 struct Residual {  // K4: R = f32(K - L L^T) on the lower tiles, mirrored
   using TA = float;
-  using TS = T;
+  using Src = Dense<T>;
   using TO = float;
   static constexpr bool LOWER = true, MIRROR = true, TRI = true;
 };
 struct SamplingResidual {  // K8s: E = K - L L^T in f64 on the lower tiles, mirrored
   using TA = float;
-  using TS = double;
+  using Src = Dense<double>;
   using TO = double;
   static constexpr bool LOWER = true, MIRROR = true, TRI = true;
 };
 struct ResidualSlab {  // K4s: a (rows, rows_b) column block of f32(K - La Lb^T)
   using TA = float;
-  using TS = double;
+  using Src = Dense<double>;
   using TO = float;
   static constexpr bool LOWER = false, MIRROR = false, TRI = true;
+};
+struct PairResidual {  // K10r, ff: K4 with K read from the pair
+  using TA = float;
+  using Src = Pair;
+  using TO = float;
+  static constexpr bool LOWER = true, MIRROR = true, TRI = true;
+};
+struct PanelResidual {  // K10r, recompute: K4 on the columns [c0, jend) of an f64 panel
+  using TA = float;
+  using Src = Panel;
+  using TO = float;
+  static constexpr bool LOWER = true, MIRROR = true, TRI = true;
 };
 
 template <class M>
 struct Args {
-  typename M::TO* O;        // output: O[(i - off) * ldo + j] for global rows i in [off, iend)
-  const typename M::TS* S;  // source, the same layout (K9: S = O = A, in place)
+  typename M::TO* O;         // output: O[(i - off) * ldo + j] for global rows i in [off, iend)
+  typename M::Src S;         // the source S(i, j)
   const typename M::TA* Ta;  // row i of the left operand at Ta + (i - off) * lda
   const typename M::TA* Tb;  // row j of the right operand at Tb + (j - joff) * ldb
   const int* tiles;          // (i0, j0) of block b at tiles[2 b], tiles[2 b + 1]
@@ -310,7 +363,7 @@ __device__ __forceinline__ void epilogue(const Args<M> p, double* cs, long long 
     for (int e = 0; e < CE; ++e) {
       const long long gj = j0 + lane + 32 * e;
       sv[q][e] = (gi < p.iend && gj < p.jend && (!M::LOWER || gj <= gi))
-                     ? static_cast<double>(p.S[(gi - p.off) * p.ldo + gj])
+                     ? p.S(gi, gj)
                      : 0.0;
     }
   }
@@ -443,7 +496,7 @@ int launch(const Args<M>& p, long long ntiles, cudaStream_t s) {
   constexpr int NARROW = static_cast<int>(sizeof(typename M::TA));  // 8 (f64) or 4 (f32)
   if (ntiles <= 0 || ntiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(p.O) % sizeof(typename M::TO) ||
-      reinterpret_cast<uintptr_t>(p.S) % sizeof(typename M::TS) ||
+      !p.S.aligned() ||
       reinterpret_cast<uintptr_t>(p.Ta) % NARROW || reinterpret_cast<uintptr_t>(p.Tb) % NARROW ||
       reinterpret_cast<uintptr_t>(p.tiles) % 4)
     return static_cast<int>(cudaErrorMisalignedAddress);

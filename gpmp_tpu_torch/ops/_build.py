@@ -131,17 +131,18 @@ def _declare(lib):
         "gpmp_slab_update_f64": ([vp, vp, vp, ll, ll, ll, ll, ll, ll, vp], i32),
         "gpmp_syrk_f32_tile": ([], i32),
         "gpmp_slab_update_f32": ([vp, vp, vp, ll, ll, ll, ll, ll, ll, vp], i32),
-        # ops/mixed.py: K4 and K4s, ops/refine.py: K8s, on the f64 tensor
-        # cores (csrc/residual.cu)
+        # ops/mixed.py: K4 and K4s, ops/refine.py: K8s, ops/streamed.py:
+        # K10r, on the f64 tensor cores (csrc/residual.cu)
         "gpmp_residual_tile": ([], i32),
         "gpmp_fact_residual_mma_f64": ([vp, vp, vp, vp, ll, ll, vp], i32),
         "gpmp_fact_residual_mma_f32": ([vp, vp, vp, vp, ll, ll, vp], i32),
         "gpmp_sampling_residual_mma_f64": ([vp, vp, vp, vp, ll, ll, vp], i32),
         "gpmp_slab_fact_residual_mma": ([vp, vp, vp, vp, vp, ll, ll, ll, ll, ll, ll, vp], i32),
-        # ops/streamed.py: K10b, K10r, K10m, K10t
+        "gpmp_streamed_residual_ff": ([vp, vp, vp, vp, vp, ll, ll, vp], i32),
+        "gpmp_streamed_residual_panel": ([vp, vp, vp, vp, ll, ll, ll, ll, vp], i32),
+        # ops/streamed.py: K10b, K10m (csrc/mixed.cu), K10t
         "gpmp_split_rows": ([vp, vp, vp, vp, ll, ll, ll, ctypes.c_float, vp], i32),
-        "gpmp_streamed_residual_ff": ([vp, vp, vp, vp, ll, vp], i32),
-        "gpmp_streamed_residual_panel": ([vp, vp, vp, ll, ll, ll, vp], i32),
+        "gpmp_ff_residual_blocks": ([ll], ll),
         "gpmp_ff_residual": ([vp, vp, vp, vp, vp, vp, vp, ll, i32, vp], i32),
         "gpmp_h_traces_blocks": ([ll, ll], ll),
         "gpmp_h_traces": ([vp, vp, vp, vp, ll, ll, ll, vp], i32),

@@ -352,6 +352,23 @@ def residual_slab_tiles(rows, rows_b, off, offs, tile):
     return _longest_first(i0, j0, torch.minimum(ilast, jlast) + 1)
 
 
+def residual_panel_tiles(n, c0, w, tile):
+    """K10r's panel geometry (recompute mode): the global corners (i0, j0)
+    of the tile-square tiles of rows [c0, n) by columns [c0, c0 + w), on a
+    grid measured from c0, that meet i >= j (i0 >= j0; the kernel masks the
+    diagonal tiles entrywise).  A tile sums over k up to the smaller of its
+    last row and last column.  c0 and w need not be multiples of tile.
+    Longest first, on the CPU."""
+    if n <= 0 or c0 < 0 or w <= 0 or c0 + w > n or tile <= 0:
+        raise ValueError(f"residual_panel_tiles: n={n}, c0={c0}, w={w}, tile={tile}")
+    i0, j0 = torch.meshgrid(torch.arange(c0, n, tile), torch.arange(c0, c0 + w, tile),
+                            indexing="ij")
+    keep = j0 <= i0
+    i0, j0 = i0[keep], j0[keep]
+    jlast = torch.clamp(j0 + tile, max=c0 + w) - 1
+    return _longest_first(i0, j0, torch.minimum(torch.clamp(i0 + tile, max=n) - 1, jlast) + 1)
+
+
 @functools.lru_cache(maxsize=64)
 def _residual_tiles_on(device, n, tile):
     return residual_tiles(n, tile).to(device)
@@ -360,6 +377,12 @@ def _residual_tiles_on(device, n, tile):
 @functools.lru_cache(maxsize=64)
 def _residual_slab_tiles_on(device, rows, rows_b, off, offs, tile):
     return residual_slab_tiles(rows, rows_b, off, offs, tile).to(device)
+
+
+# one entry per panel of the recompute mode's pass (100 at n = 51200)
+@functools.lru_cache(maxsize=256)
+def _residual_panel_tiles_on(device, n, c0, w, tile):
+    return residual_panel_tiles(n, c0, w, tile).to(device)
 
 
 def factorization_residual_slab_cuda(K, La, Lb, off, offs, R):

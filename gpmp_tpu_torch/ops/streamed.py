@@ -9,15 +9,16 @@ Counterpart of the device programs of gpmp_tpu/parallel/streamed.py:
   ``corr`` on the global diagonal, written in place into rows [r0, r0 + c)
   of the (n, n) f32 pair (hi = f32(v), lo = f32(v - hi)), or of K32 alone
   with an f32 ridge on the diagonal (csrc/streamed.cu).
-- K10r ``streamed_residual_ff`` / ``streamed_residual_panel``
+- K10r ``streamed_residual_ff`` / ``residual_panel``
   (``_streamed_residual_f32``): R = K - L32 L32^T in f64, f32 and exactly
-  symmetric, with K read from the pair (one launch over every lower tile)
-  or from an f64 column panel (n - c0, width) at (c0, c0) (one launch per
-  panel): K4's kernel on these sources (csrc/mixed.cu).
+  symmetric, with K read from the pair (one launch over K4's tiles) or from
+  an f64 column panel (n - c0, width) at (c0, c0) (one launch per panel,
+  over ``mixed.residual_panel_tiles``): K4's tensor-core kernel on these
+  sources (csrc/residual.cu), bitwise K4 on hi + lo.
 - K10m ``ff_residual`` (``_matvec_ff`` and the residual of
   ``_refined_solve_streamed``): R = B - (K32 + E32) X in f64 and
-  (sum R^2, sum B^2), for k <= 8 columns: K3's kernel on the pair
-  (csrc/mixed.cu).
+  (sum R^2, sum B^2), for k <= 8 columns: a bandwidth-bound kernel on the
+  pair, 4 rows a warp, 16-byte loads (csrc/mixed.cu).
 - K10t ``h_traces_chunk`` (``_h_traces``): for the row chunk r0 .. r0 + c of
   H and H2r = H[r0:r0+c] @ H, adds (tr H, sum Hr o Hc^T, sum H2r o Hc^T,
   sum H2r^2) of the chunk to an f64 accumulator (csrc/streamed.cu).
@@ -35,7 +36,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .mixed import MATVEC_MAX_COLS, _F32, _check_cuda, _on_card, _square
+from .mixed import (MATVEC_MAX_COLS, _F32, _check_cuda, _on_card, _residual_panel_tiles_on,
+                    _residual_tile, _residual_tiles_on, _square)
 
 K10B_LAUNCHES = 0
 K10R_LAUNCHES = 0
@@ -150,16 +152,18 @@ def _check_l(name, L32, n):
 
 
 def streamed_residual_ff_cuda(K32, E32, L32):
-    """K10r on the card, from the pair: every lower tile in one launch."""
+    """K10r on the card, from the pair: K4's tiles in one launch."""
     global K10R_LAUNCHES
     dev = _check_cuda("K10r streamed_residual_ff", (K32, E32, L32), ((_F32,),) * 3)
     n = _square("K10r streamed_residual_ff", K32)
     _check_l("K10r", E32, n)
     _check_l("K10r", L32, n)
     lib = _build.load()
+    tiles = _residual_tiles_on(dev, n, _residual_tile(lib))
     R = torch.empty((n, n), dtype=_F32, device=dev)
     _build.launch("K10r streamed_residual_ff", lib.gpmp_streamed_residual_ff, dev,
-                  K32.data_ptr(), E32.data_ptr(), L32.data_ptr(), R.data_ptr(), n)
+                  K32.data_ptr(), E32.data_ptr(), L32.data_ptr(), R.data_ptr(),
+                  tiles.data_ptr(), tiles.shape[0], n)
     K10R_LAUNCHES += 1
     return R
 
@@ -175,15 +179,16 @@ def residual_panel_cuda(P, L32, c0, R):
     if P.ndim != 2 or w == 0 or P.shape[0] != n - c0 or not 0 <= c0 <= n - w:
         raise ValueError(f"K10r: panel {tuple(P.shape)} at c0={c0} does not fit n={n}")
     lib = _build.load()
+    tiles = _residual_panel_tiles_on(dev, n, c0, w, _residual_tile(lib))
     _build.launch("K10r residual_panel", lib.gpmp_streamed_residual_panel, dev, P.data_ptr(),
-                  L32.data_ptr(), R.data_ptr(), n, c0, w)
+                  L32.data_ptr(), R.data_ptr(), tiles.data_ptr(), tiles.shape[0], n, c0, w)
     K10R_LAUNCHES += 1
 
 
 def ff_residual_cuda(K32, E32, X, B):
     """K10m on the card: (R = B - (K32 + E32) X, [sum R^2, sum B^2]) in f64.
 
-    Two launches from one C entry (K3's): per-block partial sums, then a
+    Two launches from one C entry: per-block partial sums, then K3's
     fixed-order reduction (bitwise reproducible)."""
     global K10M_LAUNCHES
     dev = _check_cuda("K10m ff_residual", (K32, E32, X, B), ((_F32,), (_F32,), (_F64,), (_F64,)))
@@ -196,7 +201,7 @@ def ff_residual_cuda(K32, E32, X, B):
         raise ValueError(f"K10m takes 1..{MATVEC_MAX_COLS} columns; got {k}")
     lib = _build.load()
     R = torch.empty_like(B)
-    partial = torch.empty((lib.gpmp_residual_blocks(n), 2), dtype=_F64, device=dev)
+    partial = torch.empty((lib.gpmp_ff_residual_blocks(n), 2), dtype=_F64, device=dev)
     norms = torch.empty(2, dtype=_F64, device=dev)
     _build.launch("K10m ff_residual", lib.gpmp_ff_residual, dev, K32.data_ptr(), E32.data_ptr(),
                   X.data_ptr(), B.data_ptr(), R.data_ptr(), partial.data_ptr(),
