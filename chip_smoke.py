@@ -28,7 +28,8 @@ non-zero):
 2b. K3/K4/K5/K7 vs plain versions on the card, on noisy-Matern SPD
    matrices K (n in {1000, 1024, 4099}, cond(K) ~1e3 and ~1e6, set by the
    noise variance from the gram's largest eigenvalue), with the
-   tolerances and reasons given at TOL_MIXED.
+   tolerances and reasons given at TOL_MIXED; K3 at k in {1, 2, 3, 8}, in
+   f64 and in f32, each bitwise reproducible, and at n = 16384, k = 2.
 2c. K1d (scaled distance and its pullback, full and elementwise), K1m (the
    Matern polynomial and its backward), K7b (the LOO diagonal series, both
    branches) and K8s (the f64 sampling residual) vs their plain versions
@@ -54,7 +55,9 @@ non-zero):
    K9m (Murray's passes) vs their plain versions on the card: K8r/K8t on
    (b, b) panels, b in {3, 256, 488, 512} (3 and 488: the ragged last
    panels of n = 4099 and 1000), cond ~1e3 and ~1e6, K8t's upper triangle
-   exact zeros; K9u at n in
+   exact zeros, K8r bitwise reproducible, refined_cholesky's captured graph
+   (L and M) bitwise its launch sequence run as it is, each replay counting
+   3 K8r and 8 K8t; K9u at n in
    {1000, 4099, 16384, 51200} (phase 3e's sizes; n = 4099's odd rows take
    8-byte copies), panels of 512, at the first, a middle and the last
    panel (n = 4099's last leaves 3 rows), held entrywise by row blocks,
@@ -68,7 +71,8 @@ non-zero):
    and [2050, 4099) with a panel straddling them (f64 and f32), held
    entrywise in units of 2 b eps, only its lower trapezoid written, and
    bitwise K9u's lower triangle at one rank (f64); K9m's slab forms bitwise
-   their plain versions and the square form's rows; the slab forms of K3,
+   their plain versions and the square form's rows; the slab forms of K3
+   (k in {1, 2, 3, 8}, f64 and f32, reproducible),
    K6, K7 and K4s (the sharded mixed engine's) on n = 4099's slabs against
    their plain versions with phases 2b/2d's tolerances, K4s's blocks
    bitwise K4's rows; K4s at n in {1000, 4099, 8192}: bitwise K4 at one
@@ -173,7 +177,8 @@ non-zero):
    their plain versions at the main path's shapes; REML value+grad evals/s
    at n = 1000 and 8192 (kernels and plain gram); fit+predict wall-clock.
 4b. K3/K4/K5/K7: kernel, plain and library-call ms at the slice's shapes
-   (n = 1000); K4 at n in {1000, 4099, 8192} (events and profiler device
+   (n = 1000), K3's bound and host issue per call by layer, K3 at n = 16384
+   (k = 2) against an f64 addmm; K4 at n in {1000, 4099, 8192} (events and profiler device
    time) against an f64 addmm of the same product, with its bound; the noisy model's REML value+grad evals/s at n = 1000 and
    8192 on the mixed and f64 engines in turns; fit+LOO+predict wall-clock
    (first and warm); the rise of torch.cuda.max_memory_allocated over
@@ -195,8 +200,11 @@ non-zero):
    panel) and K9m (n = 16384): kernel (events and profiler device time),
    plain, library call (K8r: torch.addmm(A, L, L^T, alpha=-1); K8t:
    torch.matmul; K9u: torch.addmm on the same trailing block), bound;
-   K8t's host issue time per call (time.perf_counter over 300 calls, the
-   card kept busy) through each layer of its path, beside torch.matmul's;
+   K8t's and K8r's host issue time per call (time.perf_counter over 300
+   calls, the card kept busy) through each layer of its path, beside the
+   library call's; refined_cholesky's wall and host issue per call at
+   b = 512, its graph against its launch sequence; K8r's device time
+   against K4's 64-wide core (K8s) at b = 512 and 488;
    K9u's mma shape probe (m16n8k4, k8, k16 at the first panel: time and
    rate, each held to the plain version), the registers and spills of
    every instance of csrc/syrk_f64.cuh's kernel (K9u, K9s, K4, K4s, K8s),
@@ -217,14 +225,17 @@ non-zero):
    kernel group.
 
 ``python3 chip_smoke.py --compare ROOT`` instead times K8s (n = 1000 and
-8192) and K8t (b = 512, with its host issue time), runs phases 4b's and
-4f's timings of K4, K4s and K9s (f64, f32), and times K10m and K10r (from
-the pair) at n = 32768 and K10r's recompute pass at n = 51200, and runs
-one streamed REML value+grad per mode (ff at n = 32768, recompute at
-n = 51200), on the gpmp_tpu_torch package under ROOT alone, with digests
-of K8s's, K8t's, K8r's, K3's, K4's, K4s's, K9u's, K9s's, K10m's and
-K10r's outputs (compare_main), for setting two trees side by side in one
-call.
+8192), K8t and K8r (b = 512, with their host issue time), K3 (n = 1000,
+k = 2, with its host issue time) and refined_cholesky per call (b = 512),
+runs phases 4b's and 4f's timings of K4, K4s and K9s (f64, f32), and times
+K10m and K10r (from the pair) at n = 32768 and K10r's recompute pass at
+n = 51200, and runs the resident f64 REML value+grad at n = 4096 and
+16384, the
+mixed engine's value+grad rate at n = 1000 and one streamed REML
+value+grad per mode (ff at n = 32768, recompute at n = 51200), on the
+gpmp_tpu_torch package under ROOT alone, with digests of K8s's, K8t's,
+K8r's, K3's, K4's, K4s's, K9u's, K9s's, K10m's and K10r's outputs
+(compare_main), for setting two trees side by side in one call.
 
 The line before the last is {"kernels": [...]}, with each kernel's
 least time on the card (bound_ms) computed from this run's shapes against
@@ -260,8 +271,12 @@ PEAK_F32_FLOPS = 67e12         # f32 outside the tensor cores
 
 # phase 2b: kernel vs plain on the card, max|kernel - plain| / max|plain|
 TOL_MIXED = {
-    # f64 sums over n <= 4099 terms in another order: <= n eps64 relative
+    # f64 sums over n <= 16384 terms in another order: <= n eps64 relative
     "K3": 1e-12,
+    # the float32 build (GPMP_DTYPE=float32) against the plain version in f64
+    # on the same f32 inputs: the kernel sums in f64, so R is within one f32
+    # rounding of the f64 residual (and its norms of theirs)
+    "K3 f32": 1e-6,
     # R = K - L L^T ~ eps32 |K|; the f64 sums in another order differ by up
     # to ~n eps64 |K| ~ 5e-13 |K|, then one f32 rounding
     "K4": 1e-5,
@@ -273,6 +288,9 @@ TOL_MIXED = {
     "K7": 1e-12,
 }
 MIXED_SIZES = (1000, 1024, 4099)  # 4099: a ragged last block for K5
+# K3's k: one column, the engine's 2, an odd one, the most; and phase 3e's n
+K3_WIDTHS = (1, 2, 3, 8)
+K3_BIG_N = 16384
 MIXED_CONDS = (1e3, 1e6)          # the series and the two-level logdet branches
 # phase 3b: mixed vs the card's f64 engine at the fitted covparam
 TOL_SLICE = {
@@ -388,6 +406,14 @@ RESIDENT_N = 16384      # (a) f64 fit, predict, LOO; (b) the mixed branch
 RESIDENT_MODEL_N = 32768  # (b) the dispatcher's resident choice at phase 3d's n
 RESIDENT_BIG_N = 51200  # (c) bench_large_n.py --mode parity on one device
 RESIDENT_MAXITER = 2
+# --compare's resident f64 value+grad walls, n: timed calls: n = 4096 (8
+# panels of 512, whose trailing updates are short, so the panels' issue is
+# on the path; ~60 ms a call, so more calls against the host's spread) and
+# RESIDENT_N (32 panels, the updates long enough to hide it)
+RESIDENT_WALL_SIZES = {4096: 10, RESIDENT_N: 3}
+# phase 4e: the same value+grad at n = 4096, the panels' graph against their
+# launch sequence in turns in one process (pairs timed, after a warm pair)
+GRAPH_AB_N, GRAPH_AB_PAIRS = 4096, 10
 # PARITY_51200_r03.json's reml_oracle: bench_large_n.py's NumPy oracle on the
 # same data at its p0 (n = 51200, d = 3)
 REML_ORACLE_51200 = -62089.0810059355
@@ -779,6 +805,24 @@ def _k7b_inputs(torch, mixed, K, M32):
     return (M32.contiguous(), (D32 - D32 @ D32) @ M32), (G, W), series
 
 
+def _k3_errs(torch, mixed, K, X, B, K32):
+    """K3 on (K, X, B) in f64 and on their f32 roundings (K32 given), each
+    launched twice and held bitwise reproducible: (f64 rel err, f32 rel err
+    against the plain version in f64 on the f32 inputs, f64 max abs err)."""
+    R, nr = mixed.residual_cuda(K, X, B)
+    R2, nr2 = mixed.residual_cuda(K, X, B)
+    check(torch.equal(R, R2) and torch.equal(nr, nr2), "K3 (f64) not reproducible")
+    Rp, nrp = mixed.residual_plain(K, X, B)
+    e64 = max(rel_err(R, Rp), rel_err(nr, nrp))
+    d64 = float((R - Rp).abs().max())
+    X32, B32 = X.float(), B.float()
+    R, nr = mixed.residual_cuda(K32, X32, B32)
+    R2, nr2 = mixed.residual_cuda(K32, X32, B32)
+    check(torch.equal(R, R2) and torch.equal(nr, nr2), "K3 (f32) not reproducible")
+    Rp, nrp = mixed.residual_plain(K32.double(), X32.double(), B32.double())
+    return e64, max(rel_err(R.double(), Rp), rel_err(nr, nrp)), d64
+
+
 def phase_mixed_kernels_vs_plain(torch, gram, mixed):
     worst, main_abs, branches = {}, {}, set()
     worst_7b = {}
@@ -788,16 +832,16 @@ def phase_mixed_kernels_vs_plain(torch, gram, mixed):
             gen = torch.Generator(device=DEVICE).manual_seed(n + ci)
             L32, M32 = mixed._f32_preconditioner(K)
             errs = {}
-            for k in (2, 8):
+            K32 = K.float()
+            for k in K3_WIDTHS:
                 X = torch.randn(n, k, dtype=torch.float64, device=DEVICE, generator=gen)
                 B = torch.randn(n, k, dtype=torch.float64, device=DEVICE, generator=gen)
-                R, nr = mixed.residual_cuda(K, X, B)
-                Rp, nrp = mixed.residual_plain(K, X, B)
-                R2, nr2 = mixed.residual_cuda(K, X, B)
-                check(torch.equal(R, R2) and torch.equal(nr, nr2), "K3 not reproducible")
-                errs["K3"] = max(errs.get("K3", 0.0), rel_err(R, Rp), rel_err(nr, nrp))
+                e3, e3f, d3 = _k3_errs(torch, mixed, K, X, B, K32)
+                errs["K3"] = max(errs.get("K3", 0.0), e3)
+                errs["K3 f32"] = max(errs.get("K3 f32", 0.0), e3f)
                 if k == 2 and n == SLICE_N and ci == 0:
-                    main_abs["K3"] = float((R - Rp).abs().max())
+                    main_abs["K3"] = d3
+            del K32
             F = mixed.factorization_residual_cuda(K, L32)
             Fp = mixed.factorization_residual_plain(K, L32)
             check(torch.equal(F, F.T), f"K4 not symmetric at n={n}")
@@ -835,18 +879,15 @@ def phase_mixed_kernels_vs_plain(torch, gram, mixed):
             if n == SLICE_N and ci == 0:
                 main_abs["K7b"] = float((d_s - d_sp).abs().max())
             if n == SLICE_N and ci == 0:
-                # the float32 builds of K3/K4 (GPMP_DTYPE=float32), against the
-                # plain versions in f64 on the same f32 inputs: the kernels
-                # accumulate in f64, so K3 is within an f32 rounding of R and
-                # K4 within K4's own tolerance
+                # the float32 build of K4 (GPMP_DTYPE=float32), against the
+                # plain version in f64 on the same f32 inputs: the kernel
+                # accumulates in f64, so K4 is within its own tolerance (K3's
+                # float32 build is held above, at every n, cond and k)
                 K32 = K.float()
-                X32, B32 = X.float(), B.float()
-                e3 = rel_err(mixed.residual_cuda(K32, X32, B32)[0].double(),
-                             mixed.residual_plain(K32.double(), X32.double(), B32.double())[0])
                 e4 = rel_err(mixed.factorization_residual_cuda(K32, L32),
                              mixed.factorization_residual_plain(K32.double(), L32))
-                say(f"[phase 2b] float32 K3 {e3:.2e} (tol 1e-6), K4 {e4:.2e}")
-                check(e3 <= 1e-6 and e4 <= TOL_MIXED["K4"], "float32 K3/K4 vs plain")
+                say(f"[phase 2b] float32 K4 {e4:.2e} (tol {TOL_MIXED['K4']})")
+                check(e4 <= TOL_MIXED["K4"], "float32 K4 vs plain")
                 main_abs["K4"] = float((F - Fp).abs().max())
                 main_abs["K5"] = float((Bk - Bp).abs().max())
                 main_abs["K7"] = float(torch.max(torch.abs(torch.cat([t - tp, u - up]))))
@@ -869,6 +910,19 @@ def phase_mixed_kernels_vs_plain(torch, gram, mixed):
                 worst[key] = max(worst.get(key, 0.0), val)
             check(e_ld <= 1e-6 and e_x <= 1e-4, f"engine vs f64 at n={n} cond={cond:.0e}")
     check(branches == {"series", "two-level"}, f"logdet branches run: {sorted(branches)}")
+    # K3 at phase 3e's n (one column chunk), k = 2, on a random K (K3 needs
+    # no SPD K; a gram at this n costs an eigendecomposition)
+    gen = torch.Generator(device=DEVICE).manual_seed(K3_BIG_N)
+    K = torch.randn(K3_BIG_N, K3_BIG_N, dtype=torch.float64, device=DEVICE, generator=gen)
+    X = torch.randn(K3_BIG_N, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+    B = torch.randn(K3_BIG_N, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+    e3, e3f, _ = _k3_errs(torch, mixed, K, X, B, K.float())
+    say(f"[phase 2b] K3 n={K3_BIG_N} k=2 (random K): f64 {e3:.2e} (tol {TOL_MIXED['K3']}), "
+        f"f32 {e3f:.2e} (tol {TOL_MIXED['K3 f32']}), each bitwise reproducible")
+    for key, val in (("K3", e3), ("K3 f32", e3f)):
+        check(val <= TOL_MIXED[key], f"{key} n={K3_BIG_N}: {val:.3e} > {TOL_MIXED[key]}")
+        worst[key] = max(worst[key], val)
+    del K, X, B
     for key, val in sorted(worst.items()):
         say(f"[phase 2b] worst {key} rel err {val:.3e} (tol {TOL_MIXED[key]})")
     say(f"[phase 2c] worst K7b rel err, where held: {worst_7b}")
@@ -2111,6 +2165,36 @@ def _k9u_units(torch, A1, A2, T, off, b, rows=1024):
     return err, dmax, sym
 
 
+def _same(a, b):
+    """Equal entry by entry, NaN where NaN."""
+    if a.shape != b.shape:
+        return False
+    nan = a.isnan()
+    return bool((nan == b.isnan()).all()) and bool((a[~nan] == b[~nan]).all())
+
+
+def _refined_graph_vs_launches(torch, refine, A, tag):
+    """refined_cholesky(A, with_inverse=True) on the card (its captured
+    graph, replayed twice) against its launch sequence run as it is
+    (refine._refined_cholesky_launches, the sequence the graph captured):
+    L and M bitwise, each replay adding the graph's K8r and K8t launches
+    (3 and 2 + 3 steps) to the counters; a line for the log."""
+    steps, rtol2 = 2, refine._FACTOR_RTOL2
+    Le, Me = refine._refined_cholesky_launches(A, steps, True, rtol2)
+    refine.refined_cholesky(A, with_inverse=True)  # the capture, if not yet made
+    counts = refine.K8R_LAUNCHES, refine.K8T_LAUNCHES
+    Lg, Mg = refine.refined_cholesky(A, with_inverse=True)
+    added = refine.K8R_LAUNCHES - counts[0], refine.K8T_LAUNCHES - counts[1]
+    Lg2, Mg2 = refine.refined_cholesky(A, with_inverse=True)
+    same = _same(Lg, Le) and _same(Mg, Me)
+    check(same, f"refined_cholesky's graph is not bitwise its launch sequence ({tag})")
+    check(_same(Lg, Lg2) and _same(Mg, Mg2), f"refined_cholesky's graph not reproducible ({tag})")
+    check(added == (3, 2 + 3 * steps), f"a replay counted {added} K8r/K8t launches ({tag})")
+    finite = bool(torch.isfinite(Lg).all())
+    return (f"L and M bitwise the launch sequence {same}, a replay counts {added[0]} K8r and "
+            f"{added[1]} K8t, L finite {finite}")
+
+
 def phase_resident_kernels_vs_plain(gp, gnp, torch, gram, refine, ochol):
     """Phase 2e: K8r, K8t, K9u and K9m against their plain versions on the
     card, with the tolerances and reasons at TOL_2E."""
@@ -2132,6 +2216,8 @@ def phase_resident_kernels_vs_plain(gp, gnp, torch, gram, refine, ochol):
             L = L32.double().contiguous()
             M = torch.linalg.solve_triangular(L32, eye, upper=False).double().contiguous()
             E, sums = refine.refine_residual_cuda(A, L)
+            E2, sums2 = refine.refine_residual_cuda(A, L)
+            check(torch.equal(E, E2) and torch.equal(sums, sums2), f"K8r not reproducible ({tag})")
             Ep, sums_p = refine.refine_residual_plain(A, L)
             check(torch.equal(E, E.T), f"K8r not symmetric ({tag})")
             e_r = float((E - Ep).abs().max()) / float(A.abs().max())
@@ -2157,9 +2243,11 @@ def phase_resident_kernels_vs_plain(gp, gnp, torch, gram, refine, ochol):
                 held("K8t", e, tag)
             if b == CHOL_BLOCK and cond_req == MIXED_CONDS[0]:
                 absd["K8r"] = float((E - Ep).abs().max())
+            graph = _refined_graph_vs_launches(torch, refine, A, tag)
             say(f"[phase 2e] K8r/K8t {tag}: K8r max|dE|/max|A| {e_r:.2e}, sums {e_s[0]:.2e}/"
-                f"{e_s[1]:.2e}; K8t (units of 2 b eps64 |A||f(B)|) L M {e_t[0]:.2e}, "
-                f"2M - M P {e_t[1]:.2e}, L + L Phi(X) {e_t[2]:.2e}")
+                f"{e_s[1]:.2e}, reproducible; K8t (units of 2 b eps64 |A||f(B)|) L M "
+                f"{e_t[0]:.2e}, 2M - M P {e_t[1]:.2e}, L + L Phi(X) {e_t[2]:.2e}; "
+                f"refined_cholesky's graph: {graph}")
     b = CHOL_BLOCK
     for n in K9U_SIZES:
         A = (_noisy_matern_spd(torch, gram, n, MIXED_CONDS[0], 400 + n)[0] if n <= 4099
@@ -2538,8 +2626,9 @@ def _resident_bounds(n, b=CHOL_BLOCK):
     fma_r = sum((b - j) * (j + 1) for j in range(b))  # sum over i >= j of (j + 1)
     fma_t = b * (b + 1) * (b + 2) // 6                 # sum over i >= j of (i - j + 1)
     return {
-        # reads A and L (lower), writes E; the guard's sums
-        "K8r": bound(8 * (b * b + tri_b) + 8 * b * b, 2 * fma_r + 3 * tri_b,
+        # reads the lower triangles of A (symmetric: E and sum A^2 need no
+        # more) and L, writes E; the guard's sums
+        "K8r": bound(8 * 2 * tri_b + 8 * b * b, 2 * fma_r + 3 * tri_b,
                      PEAK_F64_TENSOR_FLOPS),
         # reads the lower triangles of A and B, writes C
         "K8t": bound(8 * 2 * tri_b + 8 * b * b, 2 * fma_t + 2 * tri_b, PEAK_F64_TENSOR_FLOPS),
@@ -2613,9 +2702,10 @@ def _ptxas_core_lines(log, mma_k):
     mma_tile_kernel (its mode, tile width, copy bytes and mma shape decoded
     from the mangled name; "path" where the mma shape is the built one,
     mma_k), of csrc/syrk_f32.cu's slab_update_f32_kernel (the f32 K9s), of
-    csrc/chol.cu's tri_product_kernel (K8t, by copy bytes) and of csrc/
-    mixed.cu's ff_residual_kernel (K10m, by k and load width), one line
-    each, from the text of a ptxas log."""
+    csrc/chol.cu's tri_product_kernel (K8t) and refine_residual_kernel
+    (K8r), by copy bytes, and of csrc/mixed.cu's ff_residual_kernel (K10m)
+    and residual_kernel (K3), by type, k and load width, one line each, from
+    the text of a ptxas log."""
     import re
 
     core = re.compile(r"mma_tile_kernelINS0_\d+([A-Za-z]+?(?:I[df]E)?)ENS0_3GeoILi(\d+)E"
@@ -2641,6 +2731,15 @@ def _ptxas_core_lines(log, mma_k):
             elif "tri_product_kernel" in line:
                 cpb = re.search(r"tri_product_kernelILi(\d+)E", line)
                 entry = f"K8t (tri_product_kernel, {cpb.group(1) if cpb else '?'}-byte copies)"
+            elif "refine_residual_kernel" in line:
+                cpb = re.search(r"refine_residual_kernelILi(\d+)E", line)
+                entry = f"K8r (refine_residual_kernel, {cpb.group(1) if cpb else '?'}-byte copies)"
+            elif "residual_kernel" in line:
+                kv = re.search(r"residual_kernelI([df])Li(\d+)ELb([01])E", line)
+                f64 = kv and kv.group(1) == "d"
+                entry = (f"K3 (residual_kernel, {'f64' if f64 else 'f32'}, k={kv.group(2)}, "
+                         f"{16 if kv.group(3) == '1' else 8 if f64 else 4}-byte loads)" if kv
+                         else "K3 (residual_kernel)")
             info = []
         elif entry and ("registers" in line or "spill" in line):
             info.append(line.split("info    :")[-1].strip())
@@ -2670,11 +2769,31 @@ def phase_resident_times(gp, gnp, torch, gram, refine, ochol, walls3e):
                     t(lambda: refine.tri_product_plain(L, M), 50),
                     t(lambda: torch.matmul(L, M), 50))
     device["K8t"] = _device_ms(torch, lambda: refine.tri_product_cuda(L, M), 20)
-    host = _k8t_host_path(torch, refine, L, M)
-    say(f"[phase 4e] K8t b={b}: events {times['K8t'][0] * 1e3:.2f} us, device "
-        f"{_fmt_ms(device['K8t'])}, torch.matmul events {times['K8t'][2] * 1e3:.2f} us; "
-        f"host issue per call ({HOST_ISSUE_CALLS} calls, the card kept busy): "
-        + ", ".join(f"{k} {v:.2f} us" for k, v in host.items()))
+    host = {"K8t": _k8t_host_path(torch, refine, L, M),
+            "K8r": _host_path(torch, _k8r_host_parts(torch, refine, A, L))}
+    for key in ("K8t", "K8r"):
+        say(f"[phase 4e] {key} b={b}: events {times[key][0] * 1e3:.2f} us, device "
+            f"{_fmt_ms(device[key])}, library events {times[key][2] * 1e3:.2f} us; "
+            f"host issue per call ({HOST_ISSUE_CALLS} calls, the card kept busy): "
+            + ", ".join(f"{k} {v:.2f} us" for k, v in host[key].items()))
+    host["refined_cholesky"] = _refined_cholesky_walls(torch, refine, A)
+    host[f"resident f64 value+grad n={GRAPH_AB_N} ms"] = _graph_value_grad_ab(gp, gnp, torch,
+                                                                             refine)
+    # K8r against the other candidate core, csrc/syrk_f64.cuh's 64-wide tiles
+    # (K4's geometry; 36 lower tiles at b = 512): its f32-operand instance
+    # K8s on the same panel stages half the bytes of an f64-operand one over
+    # the same tiles and k steps, so its time bounds that candidate's below
+    cand = {}
+    for bb in (b, 488):
+        Ab, _ = _noisy_matern_spd(torch, gram, bb, MIXED_CONDS[0], 300 + bb)
+        L32b = torch.linalg.cholesky(Ab.float()).contiguous()
+        Lb = L32b.double()
+        cand[bb] = (_device_ms(torch, lambda: refine.refine_residual_cuda(Ab, Lb), 20),
+                    _device_ms(torch, lambda: refine.sampling_residual_cuda(Ab, L32b), 20))
+    host["K8r candidates device ms (K8r, K4's core as K8s)"] = cand
+    say("[phase 4e] K8r against K4's 64-wide core (K8s on the same panel, f32 operands: a "
+        "lower bound of an f64-operand instance), device ms: " + ", ".join(
+            f"b={bb} K8r {_fmt_ms(v[0])} / K8s {_fmt_ms(v[1])}" for bb, v in cand.items()))
     K = _large_gram(gp, gnp, n)
     W = K.clone()
     bounds = _resident_bounds(n)
@@ -2840,6 +2959,71 @@ def _host_issue_us(torch, fn, calls=HOST_ISSUE_CALLS):
     return dt / calls * 1e6
 
 
+def _refined_cholesky_walls(torch, refine, A, reps=50):
+    """Phase 4e: refined_cholesky(A, with_inverse=True) per call on one panel,
+    its captured graph against its launch sequence run as it is: wall per
+    call (CUDA events around reps calls: the host's issue where it holds the
+    card back) and host issue per call; printed, {key: value}."""
+    steps, rtol2 = 2, refine._FACTOR_RTOL2
+    graph = lambda: refine.refined_cholesky(A, with_inverse=True)  # noqa: E731
+    launches = lambda: refine._refined_cholesky_launches(A, steps, True, rtol2)  # noqa: E731
+    out = {}
+    for turn in range(2):
+        for tag, fn in (("launch sequence", launches), ("graph", graph)):
+            out.setdefault(f"{tag} wall ms", []).append(_time_cuda(torch, fn, reps, warmup=2))
+    out["launch sequence host us"] = _host_issue_us(torch, launches, 100)
+    out["graph host us"] = _host_issue_us(torch, graph, 100)
+    say(f"[phase 4e] refined_cholesky b={A.shape[0]} per call (two turns): launch sequence "
+        f"{out['launch sequence wall ms']} ms, graph {out['graph wall ms']} ms; host issue: "
+        f"launch sequence "
+        f"{out['launch sequence host us']:.1f} us, graph {out['graph host us']:.1f} us")
+    return out
+
+
+def _graph_value_grad_ab(gp, gnp, torch, refine):
+    """Phase 4e: the resident f64 value+grad at n = GRAPH_AB_N through a
+    one-card mesh (phase 3e's workload at p0; 8 panels of 512), its panels
+    replaying refined_cholesky's graph as the program does, against the same
+    call with parallel.chol's panel factor patched to the graph's launch
+    sequence; one call of each in turn, so the host's drift falls on both;
+    printed, {tag: walls ms}."""
+    from gpmp_tpu_torch import parallel
+    from gpmp_tpu_torch.parallel import chol as pchol
+
+    def launches(A, steps=2, with_inverse=False, rtol2=refine._FACTOR_RTOL2):
+        return refine._refined_cholesky_launches(A, steps, with_inverse, rtol2)
+
+    gp.config.set_chol_engine("f64")
+    xi, zi, p0 = _large_data(GRAPH_AB_N)
+    vg, _ = _criterion(gp, _large_model(gp, gnp), xi, zi,
+                       parallel.make_mesh(1, axis_name="shard"))
+    walls, same = {"graph": [], "launch sequence": []}, True
+    for i in range(GRAPH_AB_PAIRS + 1):
+        p = p0 + 1e-3 * (i + 1)
+        (v, g), w = _timed(torch, lambda: vg(p))
+        with _Patched(pchol, refined_cholesky=launches):
+            (v2, g2), w2 = _timed(torch, lambda: vg(p))
+        same = same and float(v) == float(v2) and np.array_equal(np.asarray(g), np.asarray(g2))
+        if i:  # the first pair warms both
+            walls["graph"].append(w * 1e3)
+            walls["launch sequence"].append(w2 * 1e3)
+    gp.config.set_chol_engine("auto")
+    say(f"[phase 4e] resident f64 value+grad n={GRAPH_AB_N}, {GRAPH_AB_PAIRS} pairs in turns, "
+        f"ms: graph median {np.median(walls['graph']):.2f} {_fmt_list(walls['graph'])}, launch "
+        f"sequence median {np.median(walls['launch sequence']):.2f} "
+        f"{_fmt_list(walls['launch sequence'])}; value and grad equal: {same}")
+    return walls
+
+
+def _fmt_list(xs):
+    return "[" + ", ".join(f"{x:.2f}" for x in xs) + "]"
+
+
+def _host_path(torch, parts):
+    """{layer: host issue us a call} of each callable in parts."""
+    return {k: _host_issue_us(torch, fn) for k, fn in parts.items()}
+
+
 def _k8t_host_path(torch, refine, L, M):
     """Phase 4e: K8t's host issue time per call, through each layer of its
     path (the dispatcher, the wrapper, _build.launch with the wrapper's
@@ -2854,7 +3038,7 @@ def _k8t_host_path(torch, refine, L, M):
     args = (L.data_ptr(), M.data_ptr(), C.data_ptr(), plan.data_ptr(), plan.shape[0], b,
             0.0, 1.0, 0)
     stream = torch.cuda.current_stream().cuda_stream
-    parts = {
+    return _host_path(torch, {
         "dispatcher (refine.tri_product)": lambda: refine.tri_product(L, M),
         "wrapper (tri_product_cuda)": lambda: refine.tri_product_cuda(L, M),
         "_build.launch, arguments ready": lambda: build.launch(
@@ -2862,8 +3046,70 @@ def _k8t_host_path(torch, refine, L, M):
         "ctypes call alone": lambda: lib.gpmp_tri_product(*args, stream),
         "torch.empty_like": lambda: torch.empty_like(L),
         "library (torch.matmul)": lambda: torch.matmul(L, M),
+    })
+
+
+def _k3_host_parts(torch, mixed, K, X, B):
+    """K3's host path by layer (the dispatcher, the wrapper, the checks, the
+    workspace lookup, the outputs' two allocations, the device and stream
+    lookup, _build.launch with the arguments ready, the bare ctypes call),
+    beside torch.addmm's on the same operands: {layer: callable}."""
+    from gpmp_tpu_torch.ops import _build as build
+
+    dev, (rows, n), k = K.device, K.shape, X.shape[1]
+    fp = (torch.float64, torch.float32)
+    width, part, pairs, tickets, _ = mixed._residual_workspace(dev, rows, n, k)
+    fn = build.load().gpmp_residual_f64
+    R = torch.empty((rows, k), dtype=torch.float64, device=dev)
+    norms = torch.empty(2, dtype=torch.float64, device=dev)
+    args = (K.data_ptr(), X.data_ptr(), B.data_ptr(), R.data_ptr(), part, pairs, tickets,
+            norms.data_ptr(), rows, n, k, width)
+    stream = torch.cuda.current_stream().cuda_stream
+    return {
+        "dispatcher (mixed.residual)": lambda: mixed.residual(K, X, B),
+        "wrapper (residual_cuda)": lambda: mixed.residual_cuda(K, X, B),
+        "checks (_check_cuda)": lambda: mixed._check_cuda("K3 residual", (K, X, B),
+                                                          (fp, (K.dtype,), (K.dtype,))),
+        "workspace lookup": lambda: mixed._residual_workspace(dev, rows, n, k),
+        "allocations (torch.empty x 2)": lambda: (
+            torch.empty((rows, k), dtype=torch.float64, device=dev),
+            torch.empty(2, dtype=torch.float64, device=dev)),
+        "device and stream lookup": lambda: torch._C._cuda_getCurrentRawStream(
+            torch._C._cuda_getDevice()),
+        "_build.launch, arguments ready": lambda: build.launch("K3 residual", fn, dev, *args),
+        "ctypes call alone": lambda: fn(*args, stream),
+        "library (torch.addmm)": lambda: torch.addmm(B, K, X, alpha=-1),
     }
-    return {k: _host_issue_us(torch, fn) for k, fn in parts.items()}
+
+
+def _k8r_host_parts(torch, refine, A, L):
+    """K8r's host path by layer, as _k3_host_parts, beside torch.addmm(A, L,
+    L^T, alpha=-1)'s: {layer: callable}."""
+    from gpmp_tpu_torch.ops import _build as build
+
+    dev, b = A.device, A.shape[0]
+    fn, plan, ntiles, pairs, ticket, _ = refine._refine_residual_on(dev, b)
+    E = torch.empty_like(A)
+    sums = torch.empty(2, dtype=torch.float64, device=dev)
+    args = (A.data_ptr(), L.data_ptr(), E.data_ptr(), plan, ntiles, b, pairs, sums.data_ptr(),
+            ticket)
+    stream = torch.cuda.current_stream().cuda_stream
+    f64 = (torch.float64,)
+    return {
+        "dispatcher (refine.refine_residual)": lambda: refine.refine_residual(A, L),
+        "wrapper (refine_residual_cuda)": lambda: refine.refine_residual_cuda(A, L),
+        "checks (_check_cuda)": lambda: refine._check_cuda("K8r refine_residual", (A, L),
+                                                           (f64, f64)),
+        "workspace lookup": lambda: refine._refine_residual_on(dev, b),
+        "allocations (torch.empty x 2)": lambda: (
+            torch.empty_like(A), torch.empty(2, dtype=torch.float64, device=dev)),
+        "device and stream lookup": lambda: torch._C._cuda_getCurrentRawStream(
+            torch._C._cuda_getDevice()),
+        "_build.launch, arguments ready": lambda: build.launch("K8r refine_residual", fn, dev,
+                                                               *args),
+        "ctypes call alone": lambda: fn(*args, stream),
+        "library (torch.addmm)": lambda: torch.addmm(A, L, L.T, alpha=-1),
+    }
 
 
 def _noisy_evals_per_s(gp, gnp, torch, n, reps):
@@ -2917,10 +3163,17 @@ def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
         "K7": _device_ms(torch, lambda: (mixed.trace_sums_cuda(H),
                                          mixed.series_sums_cuda(H, H2)), 50),
     }
+    bound3 = _kernel_bounds(n)["K3"]
     for key, (t_k, t_p, t_l) in times.items():
         lib = "none" if t_l is None else f"{t_l:.4f} ms"
+        extra = (f", bound {bound3[0]:.4f} ms ({bound3[1]}; K stays in L2 between a solve's "
+                 f"sweeps), share {100 * bound3[0] / t_k:.1f}%" if key == "K3" else "")
         say(f"[phase 4b] {key} n={n}: kernel {t_k:.4f} ms (device {_fmt_ms(device[key])}), "
-            f"plain {t_p:.4f} ms, library {lib}")
+            f"plain {t_p:.4f} ms, library {lib}{extra}")
+    host = _host_path(torch, _k3_host_parts(torch, mixed, K, X, B))
+    say(f"[phase 4b] K3 n={n} k=2 host issue per call ({HOST_ISSUE_CALLS} calls, the card kept "
+        "busy): " + ", ".join(f"{k} {v:.2f} us" for k, v in host.items()))
+    big = _k3_big_times(torch, mixed)
     for n4 in K4_SIZES:
         _k4_times(torch, gram, mixed, n4, "4b")
 
@@ -2962,7 +3215,24 @@ def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
     say(f"[phase 4b] fit+LOO+predict n={SLICE_N} nt={SLICE_NT} mixed (warm) {t_warm:.3f} s, "
         f"nfev {info.nfev}")
     gp.config.set_chol_engine("auto")
-    return times, rates, mem, t_warm
+    return times, rates, mem, t_warm, {"K3 host_issue_us": host, **big}
+
+
+def _k3_big_times(torch, mixed, n=K3_BIG_N):
+    """K3 at phase 3e's n, k = 2, on a random K (one column chunk): events,
+    device time, torch.addmm on the same operands, bound and share; printed
+    and returned as {key: value}."""
+    gen = torch.Generator(device=DEVICE).manual_seed(n)
+    K = torch.randn(n, n, dtype=torch.float64, device=DEVICE, generator=gen)
+    X = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+    B = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+    t_k = _time_cuda(torch, lambda: mixed.residual_cuda(K, X, B), 20)
+    t_l = _time_cuda(torch, lambda: torch.addmm(B, K, X, alpha=-1), 20)
+    dev = _device_ms(torch, lambda: mixed.residual_cuda(K, X, B), 10)
+    b_ms, b_by = _kernel_bounds(n)["K3"]
+    say(f"[phase 4b] K3 n={n} k=2: kernel {t_k:.4f} ms (device {_fmt_ms(dev)}), library "
+        f"(f64 addmm) {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share {100 * b_ms / t_k:.1f}%")
+    return {f"K3 n={n} ms (kernel, library, device, bound)": (t_k, t_l, dev, b_ms)}
 
 
 def _k4_times(torch, gram, mixed, n, phase, digests=None):
@@ -3114,13 +3384,13 @@ _GROUPS = (  # the first group whose key is in a kernel's name takes it
     ("K4s slab factorization residual", ("syrk::residualslab",)),
     ("K8s sampling residual", ("syrk::samplingresidual",)),
     ("K4 factorization residual", ("syrk::residual<",)),
-    ("K8r refinement residual", ("fact_residual_kernel",)),
+    ("K8r refinement residual", ("refine_residual_kernel",)),
     ("K8t triangular product", ("tri_product",)),
     ("K9m Murray passes", ("murray_kernel",)),
     ("K3 residual", ("residual_kernel",)),
     ("K5 diag-block inverse", ("diag_block_inv",)),
     ("K7 trace sums", ("trace_sums", "series_sums")),
-    ("K3/K7 partial reduction", ("reduce_pairs",)),
+    ("K7/K10m partial reduction", ("reduce_pairs",)),
     ("Cholesky (cuSOLVER potrf: getrf_wo_pivot)", ("potrf", "getrf", "cholesky")),
     ("triangular solves (trsm)", ("trsm", "trsv")),
     ("matrix products (gemm)", ("gemm", "gemv", "xmma", "cutlass", "dot_kernel",
@@ -3335,7 +3605,8 @@ def phase_group_kernels_vs_plain(gp, gnp, torch, gram, mixed, ochol):
 def _mixed_slab_forms(torch, gram, mixed, n, bounds):
     """The slab forms of K3, K4s, K6 and K7 on every slab of a noisy-Matern K
     (cond ~1e3) and its f32 factor, against their plain versions, with phase
-    2b's and 2d's tolerances; K4s's blocks also against K4's square output."""
+    2b's and 2d's tolerances (K3 at every k of K3_WIDTHS, f64 and f32, each
+    bitwise reproducible); K4s's blocks also against K4's square output."""
     K = _noisy_matern_spd(torch, gram, n, MIXED_CONDS[0], 600 + n)[0]
     L32 = torch.linalg.cholesky(K.float()).contiguous()
     eye = torch.eye(n, dtype=torch.float32, device=DEVICE)
@@ -3346,14 +3617,19 @@ def _mixed_slab_forms(torch, gram, mixed, n, bounds):
     gen = np.random.default_rng(n)
     X = torch.as_tensor(gen.normal(size=(n, 3)), device=DEVICE)
     Bf = torch.as_tensor(gen.normal(size=(n, 3)), device=DEVICE)
+    X8 = torch.as_tensor(gen.normal(size=(n, max(K3_WIDTHS))), device=DEVICE)
+    B8 = torch.as_tensor(gen.normal(size=(n, max(K3_WIDTHS))), device=DEVICE)
     eps32 = float(np.finfo(np.float32).eps)
-    errs = {"K3": 0.0, "K4": 0.0, "K6": 0.0, "K7": 0.0}
+    errs = {"K3": 0.0, "K3 f32": 0.0, "K4": 0.0, "K6": 0.0, "K7": 0.0}
     same_k4 = True
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         Ks, Ls, Ms, Hs, H2s = (A[lo:hi].contiguous() for A in (K, L32, M32, H, H2))
-        R1, n1 = mixed.residual_cuda(Ks, X, Bf[lo:hi].contiguous())
-        R2, n2 = mixed.residual_plain(Ks, X, Bf[lo:hi])
-        errs["K3"] = max(errs["K3"], rel_err(R1, R2), rel_err(n1, n2))
+        Ks32 = Ks.float()
+        for k in K3_WIDTHS:
+            e3, e3f, _ = _k3_errs(torch, mixed, Ks, X8[:, :k].contiguous(),
+                                  B8[lo:hi, :k].contiguous(), Ks32)
+            errs["K3"], errs["K3 f32"] = max(errs["K3"], e3), max(errs["K3 f32"], e3f)
+        del Ks32
         Rs1 = torch.empty((hi - lo, n), dtype=torch.float32, device=DEVICE)
         Rs2 = torch.empty_like(Rs1)
         for slo, shi in zip(bounds[:-1], bounds[1:]):
@@ -3370,10 +3646,12 @@ def _mixed_slab_forms(torch, gram, mixed, n, bounds):
         s1, s2 = mixed.series_sums_cuda(Hs, H2s), mixed.series_sums_plain(Hs, H2s)
         errs["K7"] = max(errs["K7"], rel_err(t1, t2), rel_err(s1, s2))
     say(f"[phase 2f] slab forms n={n} slabs {bounds}: K3 {errs['K3']:.2e} (tol "
-        f"{TOL_MIXED['K3']}), K4s {errs['K4']:.2e} (tol {TOL_MIXED['K4']}; bitwise K4's rows "
+        f"{TOL_MIXED['K3']}; f32 {errs['K3 f32']:.2e}, tol {TOL_MIXED['K3 f32']}; k in "
+        f"{K3_WIDTHS}, reproducible), K4s {errs['K4']:.2e} (tol {TOL_MIXED['K4']}; bitwise K4's rows "
         f"{same_k4}), K6 {errs['K6']:.2e} units of n eps32 (tol {TOL_2D['K6']}), K7 "
         f"{errs['K7']:.2e} (tol {TOL_MIXED['K7']})")
-    check(errs["K3"] <= TOL_MIXED["K3"] and errs["K4"] <= TOL_MIXED["K4"]
+    check(errs["K3"] <= TOL_MIXED["K3"] and errs["K3 f32"] <= TOL_MIXED["K3 f32"]
+          and errs["K4"] <= TOL_MIXED["K4"]
           and errs["K6"] <= TOL_2D["K6"] and errs["K7"] <= TOL_MIXED["K7"],
           "a slab form of K3/K4s/K6/K7 against its plain version")
     check(same_k4, f"K4s's blocks on the slabs {bounds} are not bitwise K4's rows")
@@ -3946,11 +4224,13 @@ def _digest(t):
 
 
 def _compare_k8(torch, gram, mixed, refine, out):
-    """--compare's K8s (n = SLICE_N and PATHS_NT, phase 4c's inputs) and K8t
-    (b = CHOL_BLOCK, phase 4e's L and M): events, device time, the library
-    call (f64 addmm / torch.matmul), K8t's host issue time per call through
-    the wrapper and the dispatcher, and digests of the outputs (and of K8r's
-    and K3's on the same panel), into out."""
+    """--compare's K8s (n = SLICE_N and PATHS_NT, phase 4c's inputs), K8t and
+    K8r (b = CHOL_BLOCK, phase 4e's A, L and M) and K3 (n = SLICE_N, k = 2,
+    phase 4b's inputs): events, device time, the library call (f64 addmm /
+    torch.matmul), the host issue time per call through the wrapper and the
+    dispatcher, digests of the outputs (K8r's and K3's of two launches; K3's
+    on the panel too), and refined_cholesky's wall per call on the panel,
+    into out."""
     ms_out, dev_out = out["ms (kernel, plain, library)"], out["device_ms"]
     for n in (SLICE_N, PATHS_NT):
         K = _time_sqrt_inputs(torch, gram, n)
@@ -3985,16 +4265,54 @@ def _compare_k8(torch, gram, mixed, refine, out):
     X = (M @ A @ M.T).contiguous()
     out["digest"][key] = _digest(torch.stack([
         P, refine.tri_product_cuda(M, P, 2.0, -1.0), refine.tri_product_cuda(L, X, 1.0, 1.0, True)]))
-    # K8r and K3, which this tree's kernels of K10m and K10r sit beside: digests only
-    E, sums = refine.refine_residual_cuda(A, L)
-    out["digest"][f"K8r b={b}"] = _digest(torch.cat([E.reshape(-1), sums]))
-    Xr = torch.linspace(-1.0, 1.0, 2 * b, dtype=torch.float64, device=DEVICE).reshape(b, 2)
-    R3, norms3 = mixed.residual_cuda(A, Xr, Xr.flip(0).contiguous())
-    out["digest"][f"K3 n={b}"] = _digest(torch.cat([R3.reshape(-1), norms3]))
     say(f"[compare] {key}: kernel {ms_out[key][0] * 1e3:.2f} us (device "
         f"{_fmt_ms(dev_out[key])}), torch.matmul {ms_out[key][2] * 1e3:.2f} us; host issue "
         + ", ".join(f"{k} {v:.2f} us" for k, v in out["host_issue_us"][key].items()))
+    # K8r on the same panel: times, host issue through the public layers,
+    # digests (of two launches: they must repeat)
+    key = f"K8r b={b}"
+    ms_out[key] = (_time_cuda(torch, lambda: refine.refine_residual_cuda(A, L), 50, warmup=1),
+                   None, _time_cuda(torch, lambda: torch.addmm(A, L, L.T, alpha=-1), 50,
+                                    warmup=1))
+    dev_out[key] = _device_ms(torch, lambda: refine.refine_residual_cuda(A, L), 20)
+    out["host_issue_us"][key] = _host_path(torch, {
+        "dispatcher": lambda: refine.refine_residual(A, L),
+        "wrapper": lambda: refine.refine_residual_cuda(A, L)})
+    for turn in range(2):
+        E, sums = refine.refine_residual_cuda(A, L)
+        out["digest"][f"{key}{' (again)' if turn else ''}"] = _digest(
+            torch.cat([E.reshape(-1), sums]))
+    say(f"[compare] {key}: kernel {ms_out[key][0] * 1e3:.2f} us (device "
+        f"{_fmt_ms(dev_out[key])}), addmm {ms_out[key][2] * 1e3:.2f} us; host issue "
+        + ", ".join(f"{k} {v:.2f} us" for k, v in out["host_issue_us"][key].items()))
+    # refined_cholesky on the same panel (this tree: its graph; a tree before
+    # it: the launches as they are), wall per call
+    out["walls_s"][f"refined_cholesky b={b} per call"] = _time_cuda(
+        torch, lambda: refine.refined_cholesky(A, with_inverse=True), 50, warmup=2) / 1e3
+    # K3 at n = SLICE_N, k = 2 (phase 4b's inputs) and on the panel (digests)
+    Xr = torch.linspace(-1.0, 1.0, 2 * b, dtype=torch.float64, device=DEVICE).reshape(b, 2)
+    R3, norms3 = mixed.residual_cuda(A, Xr, Xr.flip(0).contiguous())
+    out["digest"][f"K3 n={b}"] = _digest(torch.cat([R3.reshape(-1), norms3]))
     del A, L32, L, M, P, X
+    n = SLICE_N
+    K, _ = _noisy_matern_spd(torch, gram, n, 1e3, 7)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    X = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+    B = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+    key = f"K3 n={n}"
+    ms_out[key] = (_time_cuda(torch, lambda: mixed.residual_cuda(K, X, B), 200), None,
+                   _time_cuda(torch, lambda: torch.addmm(B, K, X, alpha=-1), 200))
+    dev_out[key] = _device_ms(torch, lambda: mixed.residual_cuda(K, X, B), 50)
+    out["host_issue_us"][key] = _host_path(torch, {
+        "dispatcher": lambda: mixed.residual(K, X, B),
+        "wrapper": lambda: mixed.residual_cuda(K, X, B)})
+    for turn in range(2):
+        R3, norms3 = mixed.residual_cuda(K, X, B)
+        out["digest"][f"{key}{' (again)' if turn else ''}"] = _digest(
+            torch.cat([R3.reshape(-1), norms3]))
+    say(f"[compare] {key} k=2: kernel {ms_out[key][0] * 1e3:.2f} us (device "
+        f"{_fmt_ms(dev_out[key])}), addmm {ms_out[key][2] * 1e3:.2f} us; host issue "
+        + ", ".join(f"{k} {v:.2f} us" for k, v in out["host_issue_us"][key].items()))
 
 
 def _compare_streamed(gp, gnp, torch, out):
@@ -4044,8 +4362,24 @@ def _compare_walls(gp, gnp, torch, out):
     from gpmp_tpu_torch.parallel import streamed as st
 
     gp.config.set_device(DEVICE)
+    mesh = parallel.make_mesh(1, axis_name="shard")
+    # the resident f64 value+grad at RESIDENT_WALL_SIZES through the mesh
+    # (phase 3e's workload at p0; its refined panels) and the mixed engine's
+    # REML value+grad rate at n = SLICE_N (phase 4b's)
+    gp.config.set_chol_engine("f64")
+    for n, calls in RESIDENT_WALL_SIZES.items():
+        xi, zi, p0 = _large_data(n)
+        vg, _ = _criterion(gp, _large_model(gp, gnp), xi, zi, mesh)
+        vg(p0)
+        walls = [_timed(torch, lambda: vg(p0 + 1e-3 * (i + 1)))[1] for i in range(calls)]
+        out["walls_s"][f"resident f64 value+grad n={n}"] = walls
+        say(f"[compare] resident f64 value+grad n={n}: {walls} s")
+        del vg
     gp.config.set_chol_engine("mixed")
-    model, mesh = _large_model(gp, gnp), parallel.make_mesh(1, axis_name="shard")
+    rate = _noisy_evals_per_s(gp, gnp, torch, SLICE_N, NOISY_EVAL_SIZES[0][1])
+    out["walls_s"][f"mixed REML value+grad evals/s n={SLICE_N}"] = rate
+    say(f"[compare] mixed value+grad n={SLICE_N}: {rate:.1f} evals/s")
+    model = _large_model(gp, gnp)
     for n, tag, cutover in ((LARGE_N, "ff", LARGE_N), (LARGE_RC_N, "recompute", None)):
         xi, zi, p0 = _large_data(n)
         with _Patched(st, STREAM_MIN_N=cutover):
@@ -4059,14 +4393,16 @@ def _compare_walls(gp, gnp, torch, out):
 
 
 def compare_main(root):
-    """``python3 chip_smoke.py --compare ROOT``: K8s's and K8t's times
-    (_compare_k8), phases 4b's and 4f's times of K4 (K4_SIZES and n =
-    RESIDENT_N), K4s, K9s (f64 and f32), and K10m's and K10r's at phase 4d's
-    shapes (_compare_streamed) of the gpmp_tpu_torch package under ROOT (this
-    checkout, or another one unpacked beside it, e.g. a parent commit from
-    git archive), through the same helpers, with digests of K8s's, K8t's,
-    K9u's (first panel), K9s's, K4's and K4s's, K10m's and K10r's outputs,
-    and the streamed REML walls of phase 3d (_compare_walls).
+    """``python3 chip_smoke.py --compare ROOT``: K8s's, K8t's, K8r's and K3's
+    times and refined_cholesky's wall per panel (_compare_k8), phases 4b's
+    and 4f's times of K4 (K4_SIZES and n = RESIDENT_N), K4s, K9s (f64 and
+    f32), and K10m's and K10r's at phase 4d's shapes (_compare_streamed) of
+    the gpmp_tpu_torch package under ROOT (this checkout, or another one
+    unpacked beside it, e.g. a parent commit from git archive), through the
+    same helpers, with digests of K8s's, K8t's, K8r's, K3's, K9u's (first
+    panel), K9s's, K4's and K4s's, K10m's and K10r's outputs, and the walls
+    (_compare_walls): the resident f64 value+grad at RESIDENT_WALL_SIZES, the
+    mixed value+grad rate at n = SLICE_N, and the streamed REML of phase 3d.
     Run it for two trees in turns (parent, change, change, parent) in one
     call to compare them on one card; the last line is one JSON object."""
     import torch
@@ -4167,8 +4503,8 @@ def main():
     launches["K4s"] = grp_launches["K4s"]
     gloo_errs = phase_group_gloo(gp, gnp, torch)
     times, rates, t_warm = phase_times(gp, gnp, gram, torch, main_data)
-    mtimes, mrates, mem, t_slice_warm = phase_mixed_times(gp, gnp, gram, mixed, torch,
-                                                          slice_data)
+    mtimes, mrates, mem, t_slice_warm, k3_extra = phase_mixed_times(gp, gnp, gram, mixed, torch,
+                                                                    slice_data)
     ntimes, bounds, t_paths_warm, device_ms = phase_new_times(gp, gnp, gram, distance, mixed, refine,
                                                    torch, xt_paths, slice_data, t_paths_first)
     library = {k: v[2] for k, v in (*mtimes.items(), *ntimes.items())}
@@ -4203,12 +4539,13 @@ def main():
         "noisy_reml_value_grad_evals_per_s": {f"n={n} {e}": v for (n, e), v in mrates.items()},
         "max_memory_allocated_bytes_n8192": mem,
         "k6_launches_n1000": k6,
+        "k3": k3_extra,
         "large_n": {"n": LARGE_N, "wall_s": large_walls, "fit_nfev": int(large_info.nfev),
                     "fit_reml": [float(large_info.history_criterion[0]), float(large_info.fun)],
                     "peak_rise_bytes": {f"{w} n={nn}": b for (w, nn), b in large_mem.items()},
                     "launches_per_value_grad": large_launches},
         "resident": {"n": RESIDENT_N, "wall_s": res_walls, "factor_s": res_factor,
-                     "k8t_host_issue_us": res_host,
+                     "host_issue_us": res_host,
                      "launches_per_call": res_per_call,
                      "peak_rise_units": {k: v / (4 * RESIDENT_N ** 2) for k, v in res_mem.items()}},
         "group": {"n": RESIDENT_N, "wall_s": grp_walls, "launches": grp_launches,
@@ -4249,7 +4586,7 @@ def main():
         ("K10r", "streamed_residual_ff", res_src, "gpmp_tpu/parallel/streamed.py:322"),
         ("K10m", "ff_residual", mixed_src, "gpmp_tpu/parallel/streamed.py:481"),
         ("K10t", "h_traces", stream_src, "gpmp_tpu/parallel/streamed.py:394"),
-        ("K8r", "refine_residual", mixed_src, "gpmp_tpu/ops/refine.py:75"),
+        ("K8r", "refine_residual", chol_src, "gpmp_tpu/ops/refine.py:75"),
         ("K8t", "tri_product", chol_src, "gpmp_tpu/ops/refine.py:47"),
         ("K9u", "trailing_update", syrk_src, "gpmp_tpu/parallel/chol.py:158"),
         ("K9s", "slab_update", syrk_src, "gpmp_tpu/parallel/chol.py:270"),

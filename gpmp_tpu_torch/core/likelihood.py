@@ -5,6 +5,11 @@ Counterpart of gpmp_tpu/core/likelihood.py.  A non-PD covariance yields
 NaNs from the Cholesky (no exception); the criterion then evaluates to
 NaN, which is mapped to +inf.
 
+The entry points take NumPy arrays and Python sequences for covparam,
+meanparam, xi and zi, as the JAX package's do through ``jnp``
+(``gnp._tensor``: tensors as they are, anything else as a tensor on the
+configured device).
+
 REML has two implementations:
   * 'profiled' (default): the mean is profiled out analytically,
       L = 0.5 [ (n-q) log 2pi + log|K| + log|P'K^{-1}P| - log|P'P| + quad ],
@@ -31,6 +36,7 @@ def _nan_to_inf(L):
 
 def negative_log_likelihood_zero_mean(model, covparam, xi, zi):
     """NLL of zi ~ N(0, K(covparam)); +inf if K is not PD."""
+    covparam, xi, zi = map(gnp._tensor, (covparam, xi, zi))
     K = model.covariance(xi, xi, covparam)
     n = K.shape[0]
     Kinv_zi, ldetK = _solve_and_logdet(K, zi)
@@ -41,6 +47,7 @@ def negative_log_likelihood_zero_mean(model, covparam, xi, zi):
 
 def negative_log_likelihood(model, meanparam, covparam, xi, zi):
     """NLL with a parameterized mean: center then zero-mean NLL."""
+    meanparam, xi, zi = map(gnp._tensor, (meanparam, xi, zi))
     zi_prior_mean = model.mean(xi, meanparam).reshape(-1)
     centered_zi = zi - zi_prior_mean
     return negative_log_likelihood_zero_mean(model, covparam, xi, centered_zi)
@@ -88,6 +95,7 @@ def negative_log_restricted_likelihood(model, covparam, xi, zi, impl="profiled")
     impl='profiled' (one Cholesky, differentiable) or 'contrast'
     (contrast-space formula, values only).
     """
+    covparam, xi, zi = map(gnp._tensor, (covparam, xi, zi))
     if impl == "profiled":
         return _reml_profiled(model, covparam, xi, zi)
     if impl == "contrast":

@@ -4,7 +4,10 @@
 Counterpart of gpmp_tpu/core/model.py.  PyTorch runs eagerly, so there is
 no per-instance jit cache; each method calls the pure routines of
 ``kriging``, ``likelihood``, ``linalg``, ``loo`` and ``sample_paths``
-directly.  Not ported yet (ROADMAP queue 1 item 7): ``fisher_*``.
+directly.  Its methods take NumPy arrays and Python sequences for
+covparam, meanparam, xi, zi and xt, as the JAX package's do through
+``jnp`` (``gnp._tensor``).  Not ported yet (ROADMAP queue 1 item 7):
+``fisher_*``.
 """
 
 import warnings
@@ -83,11 +86,12 @@ class Model:
     # ------------------------------------------------------------------
     def kriging_predictor_with_zero_mean(self, xi, xt, return_type=0):
         return kriging.kriging_predictor_with_zero_mean(
-            self._bound(), xi, xt, return_type
+            self._bound(), gnp._tensor(xi), gnp._tensor(xt), return_type
         )
 
     def kriging_predictor(self, xi, xt, return_type=0):
-        return kriging.kriging_predictor(self._bound(), xi, xt, return_type)
+        return kriging.kriging_predictor(self._bound(), gnp._tensor(xi), gnp._tensor(xt),
+                                         return_type)
 
     # ------------------------------------------------------------------
     # Prediction
@@ -145,13 +149,13 @@ class Model:
         )
 
     def norm_k_sqrd_with_zero_mean(self, xi, zi, covparam):
-        return linalg.norm_k_sqrd_with_zero_mean(self, xi, zi, covparam)
+        return linalg.norm_k_sqrd_with_zero_mean(self, *map(gnp._tensor, (xi, zi, covparam)))
 
     def k_inverses(self, xi, zi, covparam):
-        return linalg.k_inverses(self, xi, zi, covparam)
+        return linalg.k_inverses(self, *map(gnp._tensor, (xi, zi, covparam)))
 
     def norm_k_sqrd(self, xi, zi, covparam):
-        return linalg.norm_k_sqrd(self, xi, zi, covparam)
+        return linalg.norm_k_sqrd(self, *map(gnp._tensor, (xi, zi, covparam)))
 
     # ------------------------------------------------------------------
     # Sampling

@@ -1,12 +1,11 @@
 // gpmp_tpu_torch/csrc/chol.cu
 //
-// K8t and K9m (square and slab forms): the hand-written kernels of the
+// K8r, K8t and K9m (square and slab forms): the hand-written kernels of the
 // blocked Cholesky with refined panels (gpmp_tpu_torch/parallel/chol.py;
 // wrappers in gpmp_tpu_torch/ops/refine.py and gpmp_tpu_torch/ops/chol.py)
 // for Hopper, sm_90a.  Plain C entry points, loaded with ctypes by
-// gpmp_tpu_torch/ops/_build.py.  The path's other kernels: K8r (the panel's
-// refinement residual) is csrc/mixed.cu's CUDA-core residual, K9u (the
-// trailing update) and K9s (its slab form) are csrc/syrk.cu's.
+// gpmp_tpu_torch/ops/_build.py.  The path's other kernels, K9u (the
+// trailing update) and K9s (its slab form), are csrc/syrk.cu's.
 //
 // K8t triangular product (replaces the products of gpmp_tpu/ops/refine.py
 //    newton_tri_inv, M (2I - L M), and the Ogita-Aishima update of
@@ -57,6 +56,41 @@
 //    or 16-column stages, and 16 warps: 8 warps with 8-column stages 4
 //    deep took the least device time at b = 512 and 256 (PERF.md §6).
 //
+// K8r refinement residual (replaces E = A - L L^T and the convergence
+//    guard's sums of gpmp_tpu/ops/refine.py refined_cholesky):
+//      E = A - L L^T for one (b, b) f64 diagonal panel and its f64 lower
+//      triangular factor L, computed on the lower triangle only and written
+//      at (i, j) and (j, i) from one value (E exactly symmetric), and
+//      [sum E^2, sum A^2] over the whole symmetric matrix, in f64, in one
+//      fixed order.
+//    Bound: b^3/6 f64 FMAs (0.67 us at b = 512) against reading A and L and
+//    writing E (6 MB, 1.9 us at 3.35 TB/s): bytes on paper, the longest
+//    tile's chain of k steps in practice, as K8t's.  It replaces the
+//    CUDA-core 32 x 32 residual (8 x 32 threads, two barriers per 32-wide k
+//    step, 5% of its bound at b = 512) and its second launch, a fixed-order
+//    sum of the tiles' partial sums.
+//    Design: K8t's geometry in NT form.
+//    - One block per lower 32 x 32 tile of a plan built by the wrapper
+//      (gpmp_tpu_torch/ops/refine.py refine_residual_plan, K8t's plan rows:
+//      (i0, j0, k_0 .. k_8, 0)), longest k range first; a tile sums over k
+//      in [0, min(j0 + 32, b)), past which L's rows j are zero, cut into 8
+//      contiguous chunks of whole 8-column steps, one a warp.
+//    - Each warp stages rows i0.. and j0.. of L (both by rows, 8 columns a
+//      stage, rows padded to 12 doubles) through its own 4-stage cp.async
+//      ring, and feeds f64 mma.sync m16n8k8 fragments from both: no mask,
+//      L being exactly lower triangular.
+//    - The partial tiles are summed in warp order, E = A - C goes out on
+//      i >= j, a warp on a row, and into a shared tile with odd rows, from
+//      which the mirror rows (j, i) are written: one value, two places.
+//    - The guard's sums go into the same launch: each block sums its
+//      entries' E^2 and A^2 (off the diagonal twice) over a fixed tree of
+//      its 256 threads and writes its pair; the last block to finish, found
+//      by an atomic ticket after a __threadfence, sums the pairs in index
+//      order with csrc/mixed.cu reduce_pairs_kernel's 256-thread arithmetic
+//      and resets the ticket.  Bitwise reproducible, one launch.
+//    - The pairs and the ticket sit in a workspace the wrapper caches per
+//      (device, b); the shared-memory attribute is set once per device.
+//
 // K9m Murray's elementwise passes (replace gpmp_tpu/parallel/chol.py
 //    _sharded_chol_bwd's Phi(L^T Lbar) and 0.5 (S + S^T)), in place on an
 //    (n, n) f64 matrix, one thread block per lower tile and its mirror:
@@ -81,12 +115,29 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "syrk_f64.cuh"
 
 namespace {
 
 constexpr int CT_TILE = 32;
 constexpr int CT_TY = 8;  // K9m's block (32, 8)
+
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, bytes) once per
+// device and kernel (a bit of ``done`` per device), not on every launch
+template <typename F>
+int smem_attribute_once(F kernel, int bytes, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (err) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_relaxed) & bit) return 0;
+  err = static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  if (!err) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
 
 // ---------------------------------------------------------------- K8t
 namespace tri {
@@ -245,15 +296,217 @@ template <int CPB>
 int launch_tri_product(const double* A, const double* B, double* C, const int* plan,
                        long long ntiles, long long n, double beta, double alpha, int phi,
                        cudaStream_t s) {
+  static std::atomic<unsigned long long> attribute_set{0};
   const auto kernel = tri_product_kernel<CPB>;
-  int err = static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM));
+  const int err = smem_attribute_once(kernel, SMEM, attribute_set);
   if (err) return err;
   kernel<<<static_cast<unsigned>(ntiles), THREADS, SMEM, s>>>(A, B, C, plan, n, beta, alpha, phi);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tri
+
+// ---------------------------------------------------------------- K8r
+namespace rres {
+
+using tri::KS;
+using tri::LDA;
+using tri::LDP;
+using tri::PLAN;
+using tri::STAGES;
+using tri::THREADS;
+using tri::TILE;
+using tri::WARPS;
+constexpr int STAGE = 2 * TILE * LDA;  // doubles a stage: rows i0.. of L, then rows j0..
+constexpr int RING = STAGES * STAGE;   // doubles a warp
+constexpr int PART = WARPS * TILE * LDP;  // the warps' partial tiles, doubles
+constexpr int LDE = TILE + 1;          // a row of the summed tile, odd
+constexpr int SMEM = WARPS * RING * static_cast<int>(sizeof(double));
+static_assert(PART + TILE * LDE + 2 * THREADS <= WARPS * RING,
+              "the partial tiles, the summed tile and the sums fit in the rings");
+static_assert(SMEM <= 232448, "the rings fit in 227 KB");
+static_assert(THREADS == 256, "the last block sums the pairs as reduce_pairs_kernel does");
+
+// one stage: L[i0 .. i0 + 32, k0 .. k0 + 8) and L[j0 .. j0 + 32, k0 .. k0 + 8)
+// into st (rows of LDA), CPB bytes a copy; entries at k >= kend or past the
+// (n, n) panel are zero-filled
+template <int CPB>
+__device__ __forceinline__ void load_stage(double* st, const double* L, long long n,
+                                           long long i0, long long j0, long long k0,
+                                           long long kend, int lane) {
+  constexpr int W = CPB / 8;  // doubles a copy
+  constexpr int ROW = KS / W, PER = TILE * ROW / 32;
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int c = lane + 32 * q, r = c / ROW, kc = (c % ROW) * W;
+    const long long gk = k0 + kc, gi = i0 + r, gj = j0 + r;
+    const bool oka = gi < n && gk < kend, okb = gj < n && gk < kend;
+    syrk::cp_async<CPB>(st + r * LDA + kc, oka ? L + gi * n + gk : L, oka);
+    syrk::cp_async<CPB>(st + TILE * LDA + r * LDA + kc, okb ? L + gj * n + gk : L, okb);
+  }
+}
+
+// the warp's 2 x 4 fragments over one staged step: a[2 v + h] =
+// L(i0 + 16 m + g + 8 h, k0 + t + 4 v), b[v] = L^T(k0 + t + 4 v, j0 + 8 f + g)
+__device__ __forceinline__ void mma_stage(const double* st, double (&acc)[2][4][4], int g,
+                                          int t) {
+  const double* sa = st;
+  const double* sb = st + TILE * LDA;
+  double bf[4][2];
+#pragma unroll
+  for (int f = 0; f < 4; ++f)
+#pragma unroll
+    for (int v = 0; v < 2; ++v) bf[f][v] = sb[(8 * f + g) * LDA + t + 4 * v];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    double af[4];
+#pragma unroll
+    for (int v = 0; v < 2; ++v)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) af[2 * v + h] = sa[(16 * m + g + 8 * h) * LDA + t + 4 * v];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) syrk::Mma<8>::run(acc[m][f], af, bf[f]);
+  }
+}
+
+// a fixed tree over the block's 256 threads: s0[0] and s1[0] hold the sums
+__device__ __forceinline__ void block_tree(double* s0, double* s1, int tid) {
+  __syncthreads();
+#pragma unroll
+  for (int h = THREADS / 2; h > 0; h >>= 1) {
+    if (tid < h) {
+      s0[tid] += s0[tid + h];
+      s1[tid] += s1[tid + h];
+    }
+    __syncthreads();
+  }
+}
+
+template <int CPB>
+__global__ void __launch_bounds__(THREADS, 1)
+refine_residual_kernel(const double* __restrict__ A, const double* __restrict__ L,
+                       double* __restrict__ E, const int* __restrict__ plan, long long n,
+                       double* __restrict__ pairs, double* __restrict__ sums,
+                       unsigned int* __restrict__ ticket) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last;
+  double* sm = reinterpret_cast<double*>(smem_raw);
+  const int* pl = plan + PLAN * blockIdx.x;
+  const long long i0 = pl[0], j0 = pl[1];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const long long kb = pl[2 + warp], ke = pl[3 + warp];  // this warp's chunk [kb, ke)
+  double* ring = sm + warp * RING;
+
+  double acc[2][4][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][f][e] = 0.0;
+
+  const int nk = static_cast<int>((ke - kb + KS - 1) / KS);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage<CPB>(ring + s * STAGE, L, n, i0, j0, kb + s * KS, ke, lane);
+    syrk::cp_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    syrk::cp_wait<STAGES - 2>();  // step kt has landed (this lane's copies)
+    __syncwarp();                 // ... every lane's; step kt - 1's stage is free
+    const int pf = kt + STAGES - 1;
+    if (pf < nk) load_stage<CPB>(ring + (pf % STAGES) * STAGE, L, n, i0, j0, kb + pf * KS, ke, lane);
+    syrk::cp_commit();
+    mma_stage(ring + (kt % STAGES) * STAGE, acc, g, t);
+  }
+  syrk::cp_wait<0>();
+  __syncthreads();  // every ring is free: the partial tiles go there
+
+  double* P = sm + warp * TILE * LDP;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int r = 16 * m + g, c = 8 * f + 2 * t;
+      *reinterpret_cast<double2*>(P + r * LDP + c) = make_double2(acc[m][f][0], acc[m][f][1]);
+      *reinterpret_cast<double2*>(P + (r + 8) * LDP + c) =
+          make_double2(acc[m][f][2], acc[m][f][3]);
+    }
+  __syncthreads();
+
+  // E = A - C on i >= j, the partials summed in warp order, a warp on a row;
+  // the same values into Et for the mirror; this thread's sums
+  double* Et = sm + PART;
+  double* s0 = Et + TILE * LDE;
+  double* s1 = s0 + THREADS;
+  double e2 = 0.0, a2 = 0.0;
+#pragma unroll
+  for (int q = 0; q < TILE / WARPS; ++q) {
+    const int r = warp + WARPS * q, c = lane;
+    const long long gi = i0 + r, gj = j0 + c;
+    if (gi < n && gj < n && gi >= gj) {
+      double s = sm[r * LDP + c];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) s += sm[w * TILE * LDP + r * LDP + c];
+      const double a = A[gi * n + gj];
+      const double e = a - s;
+      E[gi * n + gj] = e;
+      Et[r * LDE + c] = e;
+      const double w = gi == gj ? 1.0 : 2.0;
+      e2 += w * e * e;
+      a2 += w * a * a;
+    }
+  }
+  s0[tid] = e2;
+  s1[tid] = a2;
+  __syncthreads();
+  // the mirror: row j0 + r of E, columns i0 + c > j0 + r, from Et's column r
+#pragma unroll
+  for (int q = 0; q < TILE / WARPS; ++q) {
+    const int r = warp + WARPS * q, c = lane;
+    const long long gr = j0 + r, gc = i0 + c;
+    if (gr < n && gc < n && gc > gr) E[gr * n + gc] = Et[c * LDE + r];
+  }
+  block_tree(s0, s1, tid);
+  if (tid == 0) {
+    pairs[2 * blockIdx.x] = s0[0];
+    pairs[2 * blockIdx.x + 1] = s1[0];
+    __threadfence();  // the pair is visible before the ticket counts it
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: every pair, in index order
+  __threadfence();
+  double a = 0.0, b = 0.0;
+  for (long long i = tid; i < gridDim.x; i += THREADS) {
+    a += __ldcg(pairs + 2 * i);
+    b += __ldcg(pairs + 2 * i + 1);
+  }
+  s0[tid] = a;
+  s1[tid] = b;
+  block_tree(s0, s1, tid);
+  if (tid == 0) {
+    sums[0] = s0[0];
+    sums[1] = s1[0];
+    *ticket = 0u;  // ready for the next launch (and the next graph replay)
+  }
+}
+
+template <int CPB>
+int launch_refine_residual(const double* A, const double* L, double* E, const int* plan,
+                           long long ntiles, long long n, double* pairs, double* sums,
+                           unsigned int* ticket, cudaStream_t s) {
+  static std::atomic<unsigned long long> attribute_set{0};
+  const auto kernel = refine_residual_kernel<CPB>;
+  const int err = smem_attribute_once(kernel, SMEM, attribute_set);
+  if (err) return err;
+  kernel<<<static_cast<unsigned>(ntiles), THREADS, SMEM, s>>>(A, L, E, plan, n, pairs, sums,
+                                                             ticket);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace rres
 
 // ---------------------------------------------------------------- K9m
 __device__ void lower_tile(long long b, long long& bi, long long& bj) {
@@ -370,6 +623,35 @@ int gpmp_tri_product(const void* A, const void* B, void* C, const void* plan, lo
   if (n % 2 == 0 && a % 16 == 0 && b % 16 == 0)
     return tri::launch_tri_product<16>(pa, pb, pc, pp, ntiles, n, beta, alpha, phi, s);
   return tri::launch_tri_product<8>(pa, pb, pc, pp, ntiles, n, beta, alpha, phi, s);
+}
+
+// K8r: E = A - L L^T over the plan's ntiles lower tiles, mirrored, and
+// [sum E^2, sum A^2] into sums; pairs (2 ntiles doubles) and ticket (one
+// unsigned int, zero between launches) are the wrapper's cached workspace
+int gpmp_refine_residual(const void* A, const void* L, void* E, const void* plan,
+                         long long ntiles, long long n, void* pairs, void* sums, void* ticket,
+                         void* stream) {
+  if (n <= 0 || ntiles <= 0 || ntiles > 0x7fffffffLL || !A || !L || !E || !plan || !pairs ||
+      !sums || !ticket)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(A), l = reinterpret_cast<uintptr_t>(L);
+  if (a % 8 || l % 8 || reinterpret_cast<uintptr_t>(E) % 8 ||
+      reinterpret_cast<uintptr_t>(plan) % 4 || reinterpret_cast<uintptr_t>(pairs) % 8 ||
+      reinterpret_cast<uintptr_t>(sums) % 8 || reinterpret_cast<uintptr_t>(ticket) % 4)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const double* pa = static_cast<const double*>(A);
+  const double* pl = static_cast<const double*>(L);
+  double* pe = static_cast<double*>(E);
+  const int* pp = static_cast<const int*>(plan);
+  double* pr = static_cast<double*>(pairs);
+  double* ps = static_cast<double*>(sums);
+  unsigned int* pt = static_cast<unsigned int*>(ticket);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 16-byte copies: n even (every row and every chunk bound even) and L
+  // 16-byte aligned
+  if (n % 2 == 0 && l % 16 == 0)
+    return rres::launch_refine_residual<16>(pa, pl, pe, pp, ntiles, n, pr, ps, pt, s);
+  return rres::launch_refine_residual<8>(pa, pl, pe, pp, ntiles, n, pr, ps, pt, s);
 }
 
 int gpmp_murray(void* X, long long n, int sym, void* stream) {

@@ -2,24 +2,46 @@
 //
 // K3, K5, K6, K7 and K7b: the hand-written kernels of the mixed-precision
 // Cholesky engine (gpmp_tpu_torch/ops/mixed.py; its K4 and K4s, and K8s,
-// the residual of its sampling root, are csrc/residual.cu); K8r, the
-// residual of the refined panel factor (gpmp_tpu_torch/ops/refine.py);
-// K10m, the streamed engine's residual against its f32 pair
+// the residual of its sampling root, are csrc/residual.cu); K10m, the
+// streamed engine's residual against its f32 pair
 // (gpmp_tpu_torch/ops/streamed.py; its K10r is csrc/residual.cu's); for
 // Hopper, sm_90a.  Plain C entry points, loaded with ctypes by
 // gpmp_tpu_torch/ops/_build.py.
 //
 // K3 residual (replaces gpmp_tpu/ops/mixed.py _f64_matvec and the residual
 //    norms of refined_cholesky_solve):
-//      R = B - K X, and (sum R^2, sum B^2), K (n, n), X and B (n, k <= 8).
-//    Bound on the H100: reading K once (8 n^2 bytes in f64) against ~2 k
-//    flops per element read: memory-bound (8 MB, ~2.4 us at 3.35 TB/s, at
-//    n = 1000).  Design: one warp per row of K, read with consecutive
-//    lanes on consecutive columns; the k columns of X are staged in shared
-//    memory in 256-row tiles, so each block reads X from L2 once per tile;
-//    sums in f64 in registers, warp shuffles, per-block partials, and a
-//    second launch reduces the partials in a fixed order (no atomics:
-//    bitwise reproducible, so SLSQP sees the same numbers every run).
+//      R = B - K X, and (sum R^2, sum B^2) in f64, K (rows <= n, n) (the
+//      square K, or a rank's row slab), X (n, k <= 8), B and R (rows, k);
+//      K, X, B and R f64, or all f32 with the products and sums in f64.
+//    Bound on the H100: reading K once (8 n^2 bytes in f64) against 2 k
+//    flops per entry: memory-bound (8 MB, 2.4 us at 3.35 TB/s at n = 1000;
+//    at that n K stays in the 50 MB L2 between a refinement's sweeps, so
+//    the device time may go below it).  It replaces a kernel of one warp a
+//    row with a barrier every 256 columns to stage X in shared memory,
+//    and a second launch for the norms: 17% of its bound at n = 1000, 125
+//    blocks on 132 SMs with few bytes in flight.  Design, K10m's lines:
+//    - a warp owns 4 rows and reads them with 16-byte streaming loads (4
+//      consecutive entries a lane: one float4, or two double2), the next
+//      128 columns' loads issued before this step's products; X through
+//      the read-only path, a lane's 4 rows of X in 16-byte loads (scalar
+//      loads where a row of K is not 16-byte aligned, or past n); no
+//      barrier in the stream; 8 warps (32 rows) a block;
+//    - the columns of each row cut into a fixed number of chunks, whole
+//      128-column steps each, chosen by the wrapper from (rows, n, the
+//      card's SMs) so that small n fills the card (gpmp_tpu_torch/ops/
+//      mixed.py residual_column_chunks: 8 chunks of 128 at n = 1000, one
+//      from n = 8448 up); block (row block, chunk) writes its rows' partial
+//      sums of that chunk;
+//    - the combine and the norms in the same launch, by atomic tickets
+//      after a __threadfence: the last chunk of a row block to finish sums
+//      its rows' partials in chunk order, writes R and the row block's
+//      (sum R^2, sum B^2) over a fixed tree of its 256 threads; the last row
+//      block to finish sums those pairs in index order with
+//      reduce_pairs_kernel's arithmetic and resets the tickets.  Each sum
+//      runs in one fixed order (a lane's columns, a butterfly over the
+//      lanes, the chunks, the tree, the row blocks): bitwise reproducible.
+//      The partials, the pairs and the tickets sit in a workspace the
+//      wrapper caches per (device, rows, n, k).
 //
 // K10m streamed residual (replaces gpmp_tpu/parallel/streamed.py _matvec_ff
 //    and the residual of _refined_solve_streamed):
@@ -38,24 +60,8 @@
 //    no barrier until the epilogue; 8 warps (32 rows) a block, so X is read
 //    from L2 a quarter as often.  Sums in f64 on hi + lo (exact in f64)
 //    times x, in one fixed order: each lane's columns, a butterfly over the
-//    lanes, the block's warps, then the fixed-order second pass of K3.
-//
-// The CUDA-core factorization residual (fact_residual_kernel): E = A - L L^T
-//    in f64 on 32 x 32 lower-triangular tiles, the k loop stopping at the
-//    tile's last column (L is lower triangular), L staged in shared memory,
-//    each entry written at (i, j) and (j, i): exactly symmetric.  Plain f64
-//    FMAs on the vector units, about 1.25 shared loads per FMA: ~13% of the
-//    f64 tensor bound.  It was K4's, K8s's and K10r's kernel until each
-//    moved to the f64 tensor cores (csrc/residual.cu); K8r alone runs it.
-//
-// K8r refinement residual (replaces E = A - L L^T and the convergence
-//    guard's sums of gpmp_tpu/ops/refine.py refined_cholesky): the CUDA-core
-//    residual kernel with f64 L and an f64 output, on one (B, B) diagonal
-//    panel of the blocked Cholesky, plus per-tile partial sums of E^2 and A^2 over the
-//    symmetric matrix and the fixed-order second pass of K3.  Bound: B^3/6
-//    f64 FMAs (2.2e7 at B = 512, 0.7 us at 67 TFLOP/s) against reading A and
-//    L and writing E (6 MB, 1.9 us): memory-bound on paper, latency-bound in
-//    practice (136 tiles of 32 x 32 at B = 512, one wave).
+//    lanes, the block's warps, then a fixed-order second launch
+//    (reduce_pairs_kernel).
 //
 // Slab forms (the sharded mixed engine on a group mesh, gpmp_tpu_torch/
 //    parallel/mixed.py; the JAX package's per-device shares of the same
@@ -184,102 +190,266 @@ __device__ void block_pair_to_partial(double a, double b, double* __restrict__ p
   }
 }
 
-// ------------------------------------------------- K3's source of K(i, j)
-// the entry promoted to f64
+// ---------------------------------------------------------------- K3
+constexpr int RES_WARPS = 8;                        // warps a block
+constexpr int RES_ROWS = 4;                         // rows a warp
+constexpr int RES_BLOCK_ROWS = RES_WARPS * RES_ROWS;
+constexpr int RES_THREADS = 32 * RES_WARPS;
+constexpr int RES_STEP = 128;                       // columns a warp step: 4 a lane
+constexpr int RES_MAX_K = 8;
+static_assert(RES_THREADS == RED_THREADS, "the last block sums as reduce_pairs_kernel does");
+static_assert(RES_BLOCK_ROWS * RES_MAX_K <= RES_THREADS, "one combined entry a thread");
+
+// a lane's 4 consecutive entries c .. c + 3 of a row, 16 bytes a load (VEC:
+// the row 16-byte aligned; f64 needs n even, f32 n % 4 == 0), else scalar
+// loads; entries past n read as zeros; streaming (__ldcs): K is read once
 template <typename T>
-struct DenseK {  // K (n, n) in T, row-major
-  const T* __restrict__ K;
-  long long ld;
-  __device__ double operator()(long long i, long long j) const {
-    return static_cast<double>(K[i * ld + j]);
+struct Quad;
+template <>
+struct Quad<float> {
+  float4 v;
+  template <bool VEC>
+  __device__ __forceinline__ void load(const float* p, long long c, long long n) {
+    if (VEC) {
+      v = __ldcs(reinterpret_cast<const float4*>(p));
+    } else {
+      v = make_float4(__ldcs(p), c + 1 < n ? __ldcs(p + 1) : 0.f, c + 2 < n ? __ldcs(p + 2) : 0.f,
+                      c + 3 < n ? __ldcs(p + 3) : 0.f);
+    }
+  }
+  __device__ __forceinline__ double at(int e) const {
+    return static_cast<double>(e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w);
+  }
+};
+template <>
+struct Quad<double> {
+  double2 a, b;
+  template <bool VEC>
+  __device__ __forceinline__ void load(const double* p, long long c, long long n) {
+    if (VEC) {  // n even: c + 1 < n, and c + 2 < n iff c + 3 < n
+      a = __ldcs(reinterpret_cast<const double2*>(p));
+      b = c + 2 < n ? __ldcs(reinterpret_cast<const double2*>(p + 2)) : make_double2(0.0, 0.0);
+    } else {
+      a = make_double2(__ldcs(p), c + 1 < n ? __ldcs(p + 1) : 0.0);
+      b = make_double2(c + 2 < n ? __ldcs(p + 2) : 0.0, c + 3 < n ? __ldcs(p + 3) : 0.0);
+    }
+  }
+  __device__ __forceinline__ double at(int e) const {
+    return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? b.x : b.y;
   }
 };
 
-// ---------------------------------------------------------------- K3
-constexpr int RES_ROWS = 8;  // rows per block, one warp each
-constexpr int RES_THREADS = 32 * RES_ROWS;
-constexpr int RES_TILE = 256;  // rows of X staged per step
-constexpr int RES_MAX_K = 8;
-
-template <typename Src, typename T>
-__global__ void __launch_bounds__(RES_THREADS)
-residual_kernel(Src K, const T* __restrict__ X, const T* __restrict__ B,
-                T* __restrict__ R, double* __restrict__ partial, long long nrows, long long n,
-                int k) {
-  __shared__ double xs[RES_TILE * RES_MAX_K];
-  __shared__ double rows[RES_ROWS][2];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long row = static_cast<long long>(blockIdx.x) * RES_ROWS + warp;
-  double acc[RES_MAX_K];
+// rows c .. c + 3 of X (n, KC) row-major, promoted to f64, past n zeros; a
+// lane's 4 KC consecutive entries in 16-byte loads where X is 16-byte
+// aligned and all 4 rows lie inside (c is a multiple of 4)
+template <typename T, int KC>
+__device__ __forceinline__ void load_x(const T* __restrict__ X, long long c, long long n,
+                                       bool xvec, double (&x)[4][KC]) {
+  if (xvec && c + 3 < n) {
+    constexpr int PER = 16 / static_cast<int>(sizeof(T));  // entries a load
+    const T* base = X + c * KC;
 #pragma unroll
-  for (int c = 0; c < RES_MAX_K; ++c) acc[c] = 0.0;
-
-  for (long long c0 = 0; c0 < n; c0 += RES_TILE) {
-    const int w = static_cast<int>(n - c0 < RES_TILE ? n - c0 : RES_TILE);
-    __syncthreads();  // the previous tile is no longer read
-    for (int t = threadIdx.x; t < w * k; t += RES_THREADS)
-      xs[t] = static_cast<double>(X[c0 * k + t]);  // X is row-major (n, k)
-    __syncthreads();
-    if (row < nrows) {
-      for (int j = lane; j < w; j += 32) {
-        const double kv = K(row, c0 + j);
+    for (int q = 0; q < 4 * KC / PER; ++q) {
+      if constexpr (sizeof(T) == 8) {
+        const double2 v = __ldg(reinterpret_cast<const double2*>(base) + q);
+        x[(2 * q) / KC][(2 * q) % KC] = v.x;
+        x[(2 * q + 1) / KC][(2 * q + 1) % KC] = v.y;
+      } else {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(base) + q);
+        const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int c = 0; c < RES_MAX_K; ++c)
-          if (c < k) acc[c] += kv * xs[j * k + c];
+        for (int u = 0; u < 4; ++u) x[(4 * q + u) / KC][(4 * q + u) % KC] = e[u];
       }
     }
-  }
-
-  double rr = 0.0, bb = 0.0;
+  } else {
 #pragma unroll
-  for (int c = 0; c < RES_MAX_K; ++c) {
-    if (c < k) {
-      double v = acc[c];
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0 && row < nrows) {
-        const T b = B[row * k + c];
-        const T r = static_cast<T>(static_cast<double>(b) - v);
-        R[row * k + c] = r;
-        rr += static_cast<double>(r) * static_cast<double>(r);
-        bb += static_cast<double>(b) * static_cast<double>(b);
-      }
-    }
-  }
-  if (lane == 0) {
-    rows[warp][0] = rr;
-    rows[warp][1] = bb;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double a = 0.0, b = 0.0;
-    for (int wi = 0; wi < RES_ROWS; ++wi) {
-      a += rows[wi][0];
-      b += rows[wi][1];
-    }
-    partial[2 * blockIdx.x] = a;
-    partial[2 * blockIdx.x + 1] = b;
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int q = 0; q < KC; ++q)
+        x[e][q] = c + e < n ? static_cast<double>(__ldg(X + (c + e) * KC + q)) : 0.0;
   }
 }
 
-long long residual_blocks(long long n) { return (n + RES_ROWS - 1) / RES_ROWS; }
+// a fixed tree over the block's RES_THREADS threads: s0[0], s1[0] hold the sums
+__device__ __forceinline__ void res_tree(double* s0, double* s1, int tid) {
+  __syncthreads();
+#pragma unroll
+  for (int h = RES_THREADS / 2; h > 0; h >>= 1) {
+    if (tid < h) {
+      s0[tid] += s0[tid + h];
+      s1[tid] += s1[tid + h];
+    }
+    __syncthreads();
+  }
+}
 
-// rows of K (each n wide): n for the square K, n / R for a rank's row slab
-template <typename Src, typename T>
-int launch_residual(Src K, const void* X, const void* B, void* R, void* partial,
-                    void* norms, long long rows, long long n, int k, void* stream) {
-  if (rows <= 0 || n <= 0 || k < 1 || k > RES_MAX_K || residual_blocks(rows) > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long nb = residual_blocks(rows);
-  residual_kernel<Src, T><<<static_cast<unsigned>(nb), RES_THREADS, 0, s>>>(
-      K, static_cast<const T*>(X), static_cast<const T*>(B),
-      static_cast<T*>(R), static_cast<double*>(partial), rows, n, k);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  reduce_pairs_kernel<<<1, RED_THREADS, 0, s>>>(static_cast<const double*>(partial), nb,
-                                                static_cast<double*>(norms));
+// block (blockIdx.x, blockIdx.y) = (row block, column chunk): the partial
+// sums of K X over the chunk's columns [y cw, min((y + 1) cw, n)) of the
+// block's 32 rows into part[(y rows + i) KC + q]; then the tickets (see the
+// header).  tickets: gridDim.x row blocks' counters and the grid's, zero
+// between launches.  Rows past the slab read its last row; their sums are
+// dropped.
+// two blocks an SM (128 registers a thread) where that spills nothing: f32
+// K up to k = 4, f64 K (twice the registers a step's loads hold) up to k = 2
+template <typename T, int KC, bool VEC>
+__global__ void __launch_bounds__(RES_THREADS, KC <= (sizeof(T) == 4 ? 4 : 2) ? 2 : 1)
+residual_kernel(const T* __restrict__ K, const T* __restrict__ X, const T* __restrict__ B,
+                T* __restrict__ R, double* __restrict__ part, double* __restrict__ pairs,
+                unsigned int* __restrict__ tickets, double* __restrict__ norms, long long rows,
+                long long n, long long cw, bool xvec) {
+  __shared__ double s0[RES_THREADS], s1[RES_THREADS];
+  __shared__ int last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long rb = blockIdx.x;
+  const long long r0 = (rb * RES_WARPS + warp) * RES_ROWS;
+  const T* row[RES_ROWS];
+#pragma unroll
+  for (int r = 0; r < RES_ROWS; ++r) row[r] = K + (r0 + r < rows ? r0 + r : rows - 1) * n;
+  double acc[RES_ROWS][KC];
+#pragma unroll
+  for (int r = 0; r < RES_ROWS; ++r)
+#pragma unroll
+    for (int q = 0; q < KC; ++q) acc[r][q] = 0.0;
+
+  const long long cb = static_cast<long long>(blockIdx.y) * cw;
+  const long long ce = cb + cw < n ? cb + cw : n;
+  long long c = cb + 4 * lane;
+  Quad<T> h[RES_ROWS];
+  if (c < ce) {
+#pragma unroll
+    for (int r = 0; r < RES_ROWS; ++r) h[r].template load<VEC>(row[r] + c, c, n);
+  }
+  while (c < ce) {
+    const long long cn = c + RES_STEP;
+    Quad<T> hn[RES_ROWS];
+    if (cn < ce) {
+#pragma unroll
+      for (int r = 0; r < RES_ROWS; ++r) hn[r].template load<VEC>(row[r] + cn, cn, n);
+    }
+    double x[4][KC];
+    load_x<T, KC>(X, c, n, xvec, x);
+#pragma unroll
+    for (int r = 0; r < RES_ROWS; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const double kv = h[r].at(e);
+#pragma unroll
+        for (int q = 0; q < KC; ++q) acc[r][q] = fma(kv, x[e][q], acc[r][q]);
+      }
+#pragma unroll
+    for (int r = 0; r < RES_ROWS; ++r) h[r] = hn[r];
+    c = cn;
+  }
+#pragma unroll
+  for (int r = 0; r < RES_ROWS; ++r)
+#pragma unroll
+    for (int q = 0; q < KC; ++q) {
+      double v = acc[r][q];
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+      if (lane == 0 && r0 + r < rows) part[(blockIdx.y * rows + r0 + r) * KC + q] = v;
+    }
+  __threadfence();  // the partials are visible before the ticket counts them
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(tickets + rb, 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+
+  // the row block's last chunk: its rows' chunks summed in chunk order
+  __threadfence();
+  double rr = 0.0, bb = 0.0;
+  const long long i = rb * RES_BLOCK_ROWS + tid / KC;
+  const int q = tid % KC;
+  if (tid < RES_BLOCK_ROWS * KC && i < rows) {
+    double v = 0.0;
+    for (unsigned y = 0; y < gridDim.y; ++y) v += __ldcg(part + (y * rows + i) * KC + q);
+    const T b = B[i * KC + q];
+    const T r = static_cast<T>(static_cast<double>(b) - v);
+    R[i * KC + q] = r;
+    rr = static_cast<double>(r) * static_cast<double>(r);
+    bb = static_cast<double>(b) * static_cast<double>(b);
+  }
+  s0[tid] = rr;
+  s1[tid] = bb;
+  res_tree(s0, s1, tid);
+  if (tid == 0) {
+    pairs[2 * rb] = s0[0];
+    pairs[2 * rb + 1] = s1[0];
+    tickets[rb] = 0u;
+    __threadfence();
+    last = atomicAdd(tickets + gridDim.x, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // the last row block: the pairs in index order, reduce_pairs_kernel's sums
+  __threadfence();
+  double a = 0.0, b = 0.0;
+  for (long long t = tid; t < gridDim.x; t += RES_THREADS) {
+    a += __ldcg(pairs + 2 * t);
+    b += __ldcg(pairs + 2 * t + 1);
+  }
+  s0[tid] = a;
+  s1[tid] = b;
+  res_tree(s0, s1, tid);
+  if (tid == 0) {
+    norms[0] = s0[0];
+    norms[1] = s1[0];
+    tickets[gridDim.x] = 0u;
+  }
+}
+
+long long residual_row_blocks(long long rows) {
+  return (rows + RES_BLOCK_ROWS - 1) / RES_BLOCK_ROWS;
+}
+
+template <typename T, int KC>
+int launch_residual_k(const T* K, const T* X, const T* B, T* R, double* part, double* pairs,
+                      unsigned int* tickets, double* norms, long long rows, long long n,
+                      long long cw, dim3 grid, bool vec, bool xvec, cudaStream_t s) {
+  if (vec)
+    residual_kernel<T, KC, true><<<grid, RES_THREADS, 0, s>>>(K, X, B, R, part, pairs, tickets,
+                                                              norms, rows, n, cw, xvec);
+  else
+    residual_kernel<T, KC, false><<<grid, RES_THREADS, 0, s>>>(K, X, B, R, part, pairs, tickets,
+                                                               norms, rows, n, cw, xvec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3: one launch over (row blocks, column chunks of cw columns)
+template <typename T>
+int launch_residual(const void* K_, const void* X_, const void* B_, void* R_, void* part,
+                    void* pairs, void* tickets, void* norms, long long rows, long long n, int k,
+                    long long cw, void* stream) {
+  if (rows <= 0 || n <= 0 || k < 1 || k > RES_MAX_K || cw <= 0 || cw % RES_STEP ||
+      residual_row_blocks(rows) > 0x7fffffffLL || (n + cw - 1) / cw > 65535 || !K_ || !X_ ||
+      !B_ || !R_ || !part || !pairs || !tickets || !norms)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* K = static_cast<const T*>(K_);
+  const T* X = static_cast<const T*>(X_);
+  const T* B = static_cast<const T*>(B_);
+  T* R = static_cast<T*>(R_);
+  double* pt = static_cast<double*>(part);
+  double* pp = static_cast<double*>(pairs);
+  unsigned int* tk = static_cast<unsigned int*>(tickets);
+  double* nr = static_cast<double*>(norms);
+  const dim3 grid(static_cast<unsigned>(residual_row_blocks(rows)),
+                  static_cast<unsigned>((n + cw - 1) / cw));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 16-byte loads of K: every row 16-byte aligned; of X: X 16-byte aligned
+  constexpr long long W = 16 / sizeof(T);
+  const bool vec = n % W == 0 && reinterpret_cast<uintptr_t>(K) % 16 == 0;
+  const bool xvec = reinterpret_cast<uintptr_t>(X) % 16 == 0;
+  switch (k) {
+    case 1: return launch_residual_k<T, 1>(K, X, B, R, pt, pp, tk, nr, rows, n, cw, grid, vec, xvec, s);
+    case 2: return launch_residual_k<T, 2>(K, X, B, R, pt, pp, tk, nr, rows, n, cw, grid, vec, xvec, s);
+    case 3: return launch_residual_k<T, 3>(K, X, B, R, pt, pp, tk, nr, rows, n, cw, grid, vec, xvec, s);
+    case 4: return launch_residual_k<T, 4>(K, X, B, R, pt, pp, tk, nr, rows, n, cw, grid, vec, xvec, s);
+    case 5: return launch_residual_k<T, 5>(K, X, B, R, pt, pp, tk, nr, rows, n, cw, grid, vec, xvec, s);
+    case 6: return launch_residual_k<T, 6>(K, X, B, R, pt, pp, tk, nr, rows, n, cw, grid, vec, xvec, s);
+    case 7: return launch_residual_k<T, 7>(K, X, B, R, pt, pp, tk, nr, rows, n, cw, grid, vec, xvec, s);
+    default: return launch_residual_k<T, 8>(K, X, B, R, pt, pp, tk, nr, rows, n, cw, grid, vec, xvec, s);
+  }
 }
 
 // ---------------------------------------------------------------- K10m
@@ -456,110 +626,6 @@ int launch_ff_residual(const void* hi_, const void* lo_, const void* X_, const v
   if (err) return err;
   reduce_pairs_kernel<<<1, RED_THREADS, 0, s>>>(part, ff_residual_blocks(n),
                                                 static_cast<double*>(norms));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ------------------------------------------ the CUDA-core residual (K8r)
-constexpr int FR_TILE = 32;
-constexpr int FR_TY = 8;  // block (32, 8): each thread owns 4 rows of a column
-constexpr int FR_ROWS = FR_TILE / FR_TY;
-
-// E(i, j) = A(i, j) - sum_k L(i, k) L(j, k) for i >= j, written at (i, j)
-// and (j, i), A, L and E (n, n) f64; k runs over [0, tile's last column], L
-// being lower triangular.  blockIdx.x is the linear index of the lower tile
-// (bi, bj).  The block's sums of E^2 and A^2 over the whole symmetric
-// matrix (off-diagonal entries twice) go to partial[2 * blockIdx.x + {0, 1}].
-__global__ void __launch_bounds__(FR_TILE * FR_TY)
-fact_residual_kernel(const double* __restrict__ A, const double* __restrict__ L,
-                     double* __restrict__ E, long long n, double* __restrict__ partial) {
-  const long long b = blockIdx.x;
-  long long bi = static_cast<long long>((sqrt(8.0 * static_cast<double>(b) + 1.0) - 1.0) / 2.0);
-  while (bi * (bi + 1) / 2 > b) --bi;
-  while ((bi + 1) * (bi + 2) / 2 <= b) ++bi;
-  const long long bj = b - bi * (bi + 1) / 2;
-
-  __shared__ double As[FR_TILE][FR_TILE + 1];  // L[i0 + r, k0 + c]
-  __shared__ double Bs[FR_TILE][FR_TILE + 1];  // L[j0 + r, k0 + c]
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const long long i0 = bi * FR_TILE, j0 = bj * FR_TILE;
-  double acc[FR_ROWS];
-#pragma unroll
-  for (int q = 0; q < FR_ROWS; ++q) acc[q] = 0.0;
-
-  // triangular L (L[j, k] = 0 for k > j): the sum stops at the tile's last column
-  const long long kend = (j0 + FR_TILE < n) ? j0 + FR_TILE : n;
-  for (long long k0 = 0; k0 < kend; k0 += FR_TILE) {
-    const long long gk = k0 + tx;
-    for (int r = ty; r < FR_TILE; r += FR_TY) {
-      const long long gi = i0 + r, gj = j0 + r;
-      As[r][tx] = (gi < n && gk < kend) ? L[gi * n + gk] : 0.0;
-      Bs[r][tx] = (gj < n && gk < kend) ? L[gj * n + gk] : 0.0;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < FR_TILE; ++kk) {
-      const double bv = Bs[tx][kk];
-#pragma unroll
-      for (int q = 0; q < FR_ROWS; ++q) acc[q] += As[ty + FR_TY * q][kk] * bv;
-    }
-    __syncthreads();
-  }
-
-  double e2 = 0.0, a2 = 0.0;
-#pragma unroll
-  for (int q = 0; q < FR_ROWS; ++q) {
-    const long long gi = i0 + ty + FR_TY * q, gj = j0 + tx;
-    if (gi < n && gj < n && gi >= gj) {
-      const double kv = A[gi * n + gj];
-      const double rv = kv - acc[q];
-      E[gi * n + gj] = rv;
-      E[gj * n + gi] = rv;
-      const double w = gi == gj ? 1.0 : 2.0;
-      e2 += w * rv * rv;
-      a2 += w * kv * kv;
-    }
-  }
-  // the block's sums in a fixed order (tree over linear thread ids)
-  __shared__ double g0[FR_TILE * FR_TY];
-  __shared__ double g1[FR_TILE * FR_TY];
-  const int t = ty * FR_TILE + tx;
-  g0[t] = e2;
-  g1[t] = a2;
-  __syncthreads();
-  for (int h = FR_TILE * FR_TY / 2; h > 0; h >>= 1) {
-    if (t < h) {
-      g0[t] += g0[t + h];
-      g1[t] += g1[t + h];
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-    partial[2 * blockIdx.x] = g0[0];
-    partial[2 * blockIdx.x + 1] = g1[0];
-  }
-}
-
-long long lower_tiles(long long n) {
-  const long long nt = (n + FR_TILE - 1) / FR_TILE;
-  return nt * (nt + 1) / 2;
-}
-
-// K8r: E = A - L L^T for an f64 (n, n) panel and its factor, exactly
-// symmetric, and (sum E^2, sum A^2) by per-tile partials and a fixed-order
-// second pass
-int launch_refine_residual(const void* A, const void* L, void* E, void* partial, void* sums,
-                           long long n, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles = lower_tiles(n);
-  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fact_residual_kernel<<<static_cast<unsigned>(tiles), dim3(FR_TILE, FR_TY), 0, s>>>(
-      static_cast<const double*>(A), static_cast<const double*>(L), static_cast<double*>(E), n,
-      static_cast<double*>(partial));
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  reduce_pairs_kernel<<<1, RED_THREADS, 0, s>>>(static_cast<const double*>(partial), tiles,
-                                                static_cast<double*>(sums));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -967,20 +1033,26 @@ int launch_precond_wide(const void* M, const void* r, void* y, void* out, long l
 
 extern "C" {
 
-long long gpmp_residual_blocks(long long n) { return residual_blocks(n); }
-
-int gpmp_residual_f64(const void* K, const void* X, const void* B, void* R, void* partial,
-                      void* norms, long long rows, long long n, int k, void* stream) {
-  return launch_residual<DenseK<double>, double>(
-      DenseK<double>{static_cast<const double*>(K), n}, X, B, R, partial, norms, rows, n, k,
-      stream);
+// K3's geometry: the rows a block, the columns a warp step (ops/mixed.py
+// checks them)
+int gpmp_residual_geometry(int what) {
+  switch (what) {
+    case 0: return RES_BLOCK_ROWS;
+    case 1: return RES_STEP;
+    default: return -1;
+  }
 }
 
-int gpmp_residual_f32(const void* K, const void* X, const void* B, void* R, void* partial,
-                      void* norms, long long rows, long long n, int k, void* stream) {
-  return launch_residual<DenseK<float>, float>(
-      DenseK<float>{static_cast<const float*>(K), n}, X, B, R, partial, norms, rows, n, k,
-      stream);
+int gpmp_residual_f64(const void* K, const void* X, const void* B, void* R, void* part,
+                      void* pairs, void* tickets, void* norms, long long rows, long long n, int k,
+                      long long cw, void* stream) {
+  return launch_residual<double>(K, X, B, R, part, pairs, tickets, norms, rows, n, k, cw, stream);
+}
+
+int gpmp_residual_f32(const void* K, const void* X, const void* B, void* R, void* part,
+                      void* pairs, void* tickets, void* norms, long long rows, long long n, int k,
+                      long long cw, void* stream) {
+  return launch_residual<float>(K, X, B, R, part, pairs, tickets, norms, rows, n, k, cw, stream);
 }
 
 long long gpmp_ff_residual_blocks(long long n) { return ff_residual_blocks(n); }
@@ -988,13 +1060,6 @@ long long gpmp_ff_residual_blocks(long long n) { return ff_residual_blocks(n); }
 int gpmp_ff_residual(const void* hi, const void* lo, const void* X, const void* B, void* R,
                      void* partial, void* norms, long long n, int k, void* stream) {
   return launch_ff_residual(hi, lo, X, B, R, partial, norms, n, k, stream);
-}
-
-long long gpmp_refine_residual_blocks(long long n) { return lower_tiles(n); }
-
-int gpmp_refine_residual(const void* A, const void* L, void* E, void* partial, void* sums,
-                         long long n, void* stream) {
-  return launch_refine_residual(A, L, E, partial, sums, n, stream);
 }
 
 long long gpmp_precond_chunks(long long n) { return precond_chunks(n); }

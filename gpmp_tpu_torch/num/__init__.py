@@ -15,6 +15,11 @@ ops/distance.py), the RNG shim, and the criterion wrapper that hands
   criterion boundary maps to +inf, as the JAX package does.
 - Every tensor created here gets an explicit device (``config.get_device``,
   read at call time) and dtype (``GPMP_DTYPE``, fixed at import).
+- The ops take NumPy arrays and Python sequences wherever they take
+  arrays, as ``jnp`` converts them in the JAX package (``_tensor``): such
+  an operand becomes a tensor on the configured device, floats in the
+  working dtype.  A tensor is taken as it is, on its own device: nothing
+  here moves a tensor between the CPU and the card.
 
 - Random numbers come from a module-level ``torch.Generator`` on the
   configured device (``set_seed``); every draw also takes an explicit
@@ -116,16 +121,27 @@ def eye(n, m=None, dtype=None):
                      device=get_device())
 
 
+def _tensor(x, dtype=None):
+    """An operand of the ops below: a tensor as it is, on its own device;
+    anything else (a NumPy array, a Python sequence or scalar) as a tensor
+    on the configured device, in ``dtype`` if given, else floats in the
+    working dtype and ints and bools kept (``jnp``'s conversion in the JAX
+    package, which copies: the tensor never shares the caller's memory)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return _float_or_keep(torch.tensor(_onp.asarray(x)), dtype)
+
+
 def concatenate(tensors, axis=0):
-    return torch.cat(tuple(tensors), dim=axis)
+    return torch.cat([_tensor(t) for t in tensors], dim=axis)
 
 
 def stack(tensors, axis=0):
-    return torch.stack(tuple(tensors), dim=axis)
+    return torch.stack([_tensor(t) for t in tensors], dim=axis)
 
 
 def reshape(x, shape):
-    return torch.reshape(x, shape)
+    return torch.reshape(_tensor(x), shape)
 
 
 def to_np(x):
@@ -144,58 +160,58 @@ def to_scalar(x):
 # ----------------------------------------------------------------------------
 # Elementwise ops and reductions (JAX-style ``axis`` keywords)
 # ----------------------------------------------------------------------------
-def _tensor(x):
-    if isinstance(x, torch.Tensor):
-        return x
-    return torch.as_tensor(x, dtype=_dtype, device=get_device())
-
-
 def exp(x):
-    return torch.exp(_tensor(x))
+    return torch.exp(_tensor(x, _dtype))
 
 
 def log(x):
-    return torch.log(_tensor(x))
+    return torch.log(_tensor(x, _dtype))
 
 
 def sqrt(x):
-    return torch.sqrt(_tensor(x))
+    return torch.sqrt(_tensor(x, _dtype))
 
 
 def gammaln(x):
-    return torch.special.gammaln(_tensor(x))
+    return torch.special.gammaln(_tensor(x, _dtype))
 
 
 def sum(x, axis=None, keepdims=False):
+    x = _tensor(x)
     if axis is None:
         return torch.sum(x)
     return torch.sum(x, dim=axis, keepdim=keepdims)
 
 
 def max(x, axis=None, keepdims=False):
+    x = _tensor(x)
     if axis is None:
         return torch.amax(x)
     return torch.amax(x, dim=axis, keepdim=keepdims)
 
 
 def min(x, axis=None, keepdims=False):
+    x = _tensor(x)
     if axis is None:
         return torch.amin(x)
     return torch.amin(x, dim=axis, keepdim=keepdims)
 
 
 def any(x):
-    return torch.any(x)
+    return torch.any(_tensor(x))
 
 
 def maximum(a, b):
-    a = _tensor(a)
+    a = _tensor(a, _dtype)
     return torch.maximum(a, torch.as_tensor(b, dtype=a.dtype, device=a.device))
+
+
+def diag(v, k=0):
+    return torch.diag(_tensor(v), k)
 
 
 einsum = torch.einsum
 matmul = torch.matmul
-diag = torch.diag
 
 
 # ----------------------------------------------------------------------------
@@ -241,8 +257,8 @@ def cdist(x, y):
     in blocks so the (n, m, d) intermediate stays under
     ``_CDIST_BLOCK_BUDGET`` elements.
     """
-    x = torch.atleast_2d(x)
-    y = torch.atleast_2d(y)
+    x = torch.atleast_2d(_tensor(x))
+    y = torch.atleast_2d(_tensor(y))
     n, d = x.shape
     m = y.shape[0]
     if n * m * builtins.max(d, 1) <= _CDIST_BLOCK_BUDGET:
@@ -257,17 +273,20 @@ def scaled_distance(loginvrho, x, y):
     composition on CPU tensors (ops.distance)."""
     from gpmp_tpu_torch.ops import distance  # ops imports this module
 
-    return distance.scaled_distance(loginvrho, x, y)
+    xt = _tensor(x)
+    return distance.scaled_distance(_tensor(loginvrho), xt, xt if y is x else _tensor(y))
 
 
 def scaled_distance_elementwise(loginvrho, x, y):
     """||exp(loginvrho) * (x_i - y_i)|| row by row (K1d on CUDA tensors);
     zeros when y is x or None."""
-    if x is y or y is None:
+    same = x is y or y is None
+    x = _tensor(x)
+    if same:
         return torch.zeros((x.shape[0],), dtype=_dtype, device=x.device)
     from gpmp_tpu_torch.ops import distance  # ops imports this module
 
-    return distance.scaled_distance_elementwise(loginvrho, x, y)
+    return distance.scaled_distance_elementwise(_tensor(loginvrho), x, _tensor(y))
 
 
 # ----------------------------------------------------------------------------
@@ -280,7 +299,7 @@ def cholesky(A):
     do so); ``cholesky_ex`` reports failure in ``info`` instead, and the
     factor is masked on the device.
     """
-    L, info = torch.linalg.cholesky_ex(A)
+    L, info = torch.linalg.cholesky_ex(_tensor(A))
     return torch.where((info == 0)[..., None, None], L, torch.nan)
 
 
@@ -290,6 +309,7 @@ def solve_triangular(A, b, lower=False, trans=0):
     Keeps the JAX/SciPy signature: ``lower=`` rather than torch's
     ``upper=``, and a vector right-hand side is accepted.
     """
+    A, b = _tensor(A), _tensor(b)
     if trans in (1, "T", "C"):
         A, lower = A.mT, not lower
     elif trans not in (0, "N"):
@@ -310,12 +330,12 @@ def solve(A, b, **kwargs):
         kwargs.pop(k, None)
     if kwargs:
         raise TypeError(f"unexpected arguments {sorted(kwargs)}")
-    Q, R = torch.linalg.qr(A)
-    return solve_triangular(R, Q.mT @ b, lower=False)
+    Q, R = torch.linalg.qr(_tensor(A))
+    return solve_triangular(R, Q.mT @ _tensor(b), lower=False)
 
 
 def qr(a, mode="reduced"):
-    return torch.linalg.qr(a, mode=mode)
+    return torch.linalg.qr(_tensor(a), mode=mode)
 
 
 def logdet(A):
@@ -325,6 +345,7 @@ def logdet(A):
 
 
 def cholesky_inv(A):
+    A = _tensor(A)
     n = A.shape[-1]
     L = cholesky(A)
     T = solve_triangular(L, torch.eye(n, dtype=A.dtype, device=A.device), lower=True)
@@ -337,7 +358,7 @@ def cholesky_solve(A, b):
     On a non-PD matrix the factor and the solution are NaN; nothing raises.
     """
     L = cholesky(A)
-    y = solve_triangular(L, b, lower=True)
+    y = solve_triangular(L, _tensor(b), lower=True)
     x = solve_triangular(L.mT, y, lower=False)
     return x, L
 

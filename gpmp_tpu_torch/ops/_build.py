@@ -114,9 +114,10 @@ def _declare(lib):
         "gpmp_matern_pullback_blocks": ([ll, ll], ll),
         # ops/mixed.py: K3, K5, K6, K7, K7b
         "gpmp_precond_chunks": ([ll], ll),
+        # ops/mixed.py: K3
+        "gpmp_residual_geometry": ([i32], i32),
         # ops/refine.py: K8r, K8t; ops/chol.py: K9m
-        "gpmp_refine_residual_blocks": ([ll], ll),
-        "gpmp_refine_residual": ([vp, vp, vp, vp, vp, ll, vp], i32),
+        "gpmp_refine_residual": ([vp, vp, vp, vp, ll, ll, vp, vp, vp, vp], i32),
         "gpmp_tri_product_geometry": ([i32], i32),
         "gpmp_tri_product": ([vp, vp, vp, vp, ll, ll, f64, f64, i32, vp], i32),
         "gpmp_murray": ([vp, ll, i32, vp], i32),
@@ -146,7 +147,6 @@ def _declare(lib):
         "gpmp_ff_residual": ([vp, vp, vp, vp, vp, vp, vp, ll, i32, vp], i32),
         "gpmp_h_traces_blocks": ([ll, ll], ll),
         "gpmp_h_traces": ([vp, vp, vp, vp, ll, ll, ll, vp], i32),
-        "gpmp_residual_blocks": ([ll], ll),
         "gpmp_diag_block_inv_max_base": ([], i32),
         "gpmp_diag_block_inv": ([vp, vp, ll, i32, vp], i32),
         "gpmp_trace_sums_blocks": ([ll, ll], ll),
@@ -173,7 +173,8 @@ def _declare(lib):
             [vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp], i32)
         signatures[f"gpmp_matern_pullback_{suffix}"] = (
             [vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp], i32)
-        signatures[f"gpmp_residual_{suffix}"] = ([vp, vp, vp, vp, vp, vp, ll, ll, i32, vp], i32)
+        signatures[f"gpmp_residual_{suffix}"] = (
+            [vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, ll, vp], i32)
         signatures[f"gpmp_precond_apply_{suffix}"] = ([vp, vp, vp, vp, vp, ll, i32, vp], i32)
         signatures[f"gpmp_precond_apply_slab_{suffix}"] = (
             [vp, vp, vp, vp, vp, ll, ll, ll, i32, vp], i32)
@@ -200,8 +201,10 @@ def load():
 def launch(name, fn, device, *args):
     """Call a C entry on ``device``'s current stream; raise on its
     cudaGetLastError().  The device is made current only where it is not
-    already (the kernel launches on the host thread's current device)."""
-    index, current = device.index, torch.cuda.current_device()
+    already (the kernel launches on the host thread's current device).  The
+    lookups are torch._C's own (a CUDA tensor on ``device`` exists, so CUDA
+    is initialised)."""
+    index, current = device.index, torch._C._cuda_getDevice()
     if index is None or index == current:
         err = fn(*args, torch._C._cuda_getCurrentRawStream(current))
     else:

@@ -215,12 +215,63 @@ def _square(name, A):
     return A.shape[0]
 
 
+# K3's launch geometry (csrc/mixed.cu): blocks of RESIDUAL_BLOCK_ROWS rows
+# (8 warps of 4), each row's columns cut into chunks of whole
+# RESIDUAL_STEP-column warp steps; enough chunks that the grid holds about
+# RESIDUAL_BLOCKS_PER_SM blocks per SM (two run at once on an SM at the
+# engine's k = 2)
+RESIDUAL_BLOCK_ROWS, RESIDUAL_STEP, RESIDUAL_BLOCKS_PER_SM = 32, 128, 2
+
+
+def residual_column_chunks(rows, n, sms):
+    """K3's column split of a (rows, n) K, on the CPU: (chunks, width), each
+    row's columns [0, n) cut into ``chunks`` chunks [c w, min((c + 1) w, n)),
+    w a multiple of RESIDUAL_STEP, none empty; as many as the grid of row
+    blocks needs to reach RESIDUAL_BLOCKS_PER_SM blocks on each of ``sms``
+    SMs, at most one a step (n = 1000 on the H100's 132 SMs: 8 chunks of
+    128; n = 16384: one)."""
+    if rows <= 0 or n <= 0 or sms <= 0:
+        raise ValueError(f"residual_column_chunks: rows={rows}, n={n}, sms={sms}")
+    row_blocks = -(-rows // RESIDUAL_BLOCK_ROWS)
+    steps = -(-n // RESIDUAL_STEP)
+    want = max(1, min(steps, -(-RESIDUAL_BLOCKS_PER_SM * sms // row_blocks)))
+    width = RESIDUAL_STEP * -(-steps // want)
+    return -(-n // width), width
+
+
+def _residual_geometry(lib):
+    built = (lib.gpmp_residual_geometry(0), lib.gpmp_residual_geometry(1))
+    if built != (RESIDUAL_BLOCK_ROWS, RESIDUAL_STEP):
+        raise RuntimeError(f"csrc/mixed.cu's K3 geometry (rows a block, columns a step) is "
+                           f"{built}, not {(RESIDUAL_BLOCK_ROWS, RESIDUAL_STEP)}")
+
+
+@functools.lru_cache(maxsize=16)
+def _sms_on(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def _residual_workspace(device, rows, n, k):
+    """K3's per-(device, rows, n, k) workspace: the chunk width, and raw
+    pointers to the chunks' partial sums and the row blocks' pairs (f64)
+    and to the tickets (int32, zero between launches: each launch resets
+    them), beside the tensors that hold them."""
+    _residual_geometry(_build.load())
+    chunks, width = residual_column_chunks(rows, n, _sms_on(device))
+    row_blocks = -(-rows // RESIDUAL_BLOCK_ROWS)
+    part = torch.empty(chunks * rows * k + 2 * row_blocks, dtype=torch.float64, device=device)
+    tickets = torch.zeros(row_blocks + 1, dtype=torch.int32, device=device)
+    return (width, part.data_ptr(), part.data_ptr() + 8 * chunks * rows * k,
+            tickets.data_ptr(), (part, tickets))
+
+
 def residual_cuda(K, X, B):
     """K3 on the card: (R = B - K X, [sum R^2, sum B^2] in f64), K (n, n) or
     a (rows, n) row slab with B and R its rows.
 
-    Two launches from one C entry: per-block partial sums, then a
-    fixed-order reduction (bitwise reproducible)."""
+    One launch: per-chunk partial sums, combined in chunk order with the
+    norms by the last blocks to finish (bitwise reproducible)."""
     global K3_LAUNCHES
     fp = (torch.float64, torch.float32)
     dev = _check_cuda("K3 residual", (K, X, B), (fp, (K.dtype,), (K.dtype,)))
@@ -233,13 +284,13 @@ def residual_cuda(K, X, B):
     k = X.shape[1]
     if not 1 <= k <= MATVEC_MAX_COLS:
         raise ValueError(f"K3 residual takes 1..{MATVEC_MAX_COLS} columns; got {k}")
+    width, part, pairs, tickets, _ = _residual_workspace(dev, rows, n, k)
     lib = _build.load()
-    R = torch.empty_like(B)
-    partial = torch.empty((lib.gpmp_residual_blocks(rows), 2), dtype=torch.float64, device=dev)
+    R = torch.empty((rows, k), dtype=K.dtype, device=dev)
     norms = torch.empty(2, dtype=torch.float64, device=dev)
     fn = lib.gpmp_residual_f64 if K.dtype == torch.float64 else lib.gpmp_residual_f32
     _build.launch("K3 residual", fn, dev, K.data_ptr(), X.data_ptr(), B.data_ptr(),
-                  R.data_ptr(), partial.data_ptr(), norms.data_ptr(), rows, n, k)
+                  R.data_ptr(), part, pairs, tickets, norms.data_ptr(), rows, n, k, width)
     K3_LAUNCHES += 1
     return R, norms
 

@@ -40,8 +40,12 @@ csrc/chol.cu), each with a plain PyTorch version and a launch counter:
   for f32 K K4's f32 instance itself; it launches only the lower 64 x 64
   tiles, stops each tile's k loop at its last column, and writes (i, j)
   and (j, i) from one value, so E is exactly symmetric (``K8S_LAUNCHES``);
-- K8r ``refine_residual``: csrc/mixed.cu's CUDA-core residual with f64 L,
-  plus the guard's sums of E^2 and A^2 in a fixed order (``K8R_LAUNCHES``);
+- K8r ``refine_residual``: E = A - L L^T on the lower tiles, mirrored,
+  and the guard's [sum E^2, sum A^2] in a fixed order, in one launch
+  (``K8R_LAUNCHES``): K8t's geometry in NT form (``refine_residual_plan``:
+  the lower 32 x 32 tiles, each over k < min(j0 + 32, b) cut into a chunk a
+  warp), f64 mma.sync; the last block to finish sums the blocks' pairs
+  (its workspace cached per device and b);
 - K8t ``tri_product``: C = beta A + alpha A f(B) over the lower tiles only,
   f(B) = tril(B) or Phi(B), the upper triangle exact zeros: the two
   products of a Newton step and the Ogita-Aishima update
@@ -55,10 +59,18 @@ kernel for CUDA tensors (or raises); there is no fallback between them.
 JAX's ``jnp.linalg.cholesky`` and ``solve_triangular`` of the f32 panel are
 ``torch.linalg.cholesky_ex`` (a failed factorization is NaN, never an
 exception) and ``torch.linalg.solve_triangular``.
+
+On the card an f64 ``refined_cholesky`` replays one captured CUDA graph per
+(device, b, steps, with_inverse, rtol2) (``_PanelGraph``): its ~25 launches
+(cholesky_ex, the f32 inverse, 3 K8r, 8 K8t, the f64 products, the
+guards) cost one replay's host issue instead of each its own.  Each replay
+adds the graph's K8r and K8t launches to the counters.  A capture or replay
+error raises; nothing runs the panel eagerly instead.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
@@ -136,18 +148,18 @@ def refine_residual_plain(A, L):
 
 
 def refine_residual_cuda(A, L):
-    """K8r on the card: (symmetric E = A - L L^T, [sum E^2, sum A^2]), f64."""
+    """K8r on the card: (symmetric E = A - L L^T, [sum E^2, sum A^2]), f64,
+    one launch."""
     global K8R_LAUNCHES
     dev = _check_cuda("K8r refine_residual", (A, L), ((_F64,), (_F64,)))
     n = _square("K8r refine_residual", A)
     if L.shape != A.shape:
         raise ValueError(f"K8r: L must be {tuple(A.shape)}; got {tuple(L.shape)}")
-    lib = _build.load()
+    fn, plan, ntiles, pairs, ticket, _ = _refine_residual_on(dev, n)
     E = torch.empty_like(A)
-    partial = torch.empty((lib.gpmp_refine_residual_blocks(n), 2), dtype=_F64, device=dev)
     sums = torch.empty(2, dtype=_F64, device=dev)
-    _build.launch("K8r refine_residual", lib.gpmp_refine_residual, dev, A.data_ptr(),
-                  L.data_ptr(), E.data_ptr(), partial.data_ptr(), sums.data_ptr(), n)
+    _build.launch("K8r refine_residual", fn, dev, A.data_ptr(), L.data_ptr(), E.data_ptr(),
+                  plan, ntiles, n, pairs, sums.data_ptr(), ticket)
     K8R_LAUNCHES += 1
     return E, sums
 
@@ -187,19 +199,45 @@ def tri_product_plan(b):
     order among equals)."""
     if b <= 0:
         raise ValueError(f"tri_product_plan: b={b}")
-    tile, warps, ks = TRI_TILE, TRI_WARPS, TRI_KS
-    i0, j0 = torch.meshgrid(torch.arange(0, b, tile), torch.arange(0, b, tile), indexing="ij")
+    i0, j0 = _lower_tiles(b)
+    return _chunk_plan(i0, j0, j0, torch.clamp(i0 + TRI_TILE, max=b))
+
+
+def _lower_tiles(b):
+    """The corners (i0, j0), j0 <= i0, of the lower TRI_TILE-square tiles of a
+    (b, b) matrix, row by row."""
+    i0, j0 = torch.meshgrid(torch.arange(0, b, TRI_TILE), torch.arange(0, b, TRI_TILE),
+                            indexing="ij")
     keep = j0 <= i0
-    i0, j0 = i0[keep], j0[keep]
-    kend = torch.clamp(i0 + tile, max=b)
-    steps = -(-(kend - j0) // ks)
-    w = torch.arange(warps + 1)
-    bounds = torch.minimum(j0[:, None] + ks * (w[None, :] * steps[:, None] // warps),
+    return i0[keep], j0[keep]
+
+
+def _chunk_plan(i0, j0, kbeg, kend):
+    """Plan rows (i0, j0, k_0, .., k_TRI_WARPS, 0): each tile's k range
+    [kbeg, kend) cut into TRI_WARPS contiguous chunks of whole TRI_KS-column
+    steps, as even a split as the steps allow (the last chunk ends at kend;
+    empty chunks are allowed); int32, the longest range first (row order
+    among equals)."""
+    steps = -(-(kend - kbeg) // TRI_KS)
+    w = torch.arange(TRI_WARPS + 1)
+    bounds = torch.minimum(kbeg[:, None] + TRI_KS * (w[None, :] * steps[:, None] // TRI_WARPS),
                            kend[:, None])
     rows = torch.cat([i0[:, None], j0[:, None], bounds,
-                      torch.zeros((i0.shape[0], TRI_PLAN - warps - 3), dtype=i0.dtype)], 1)
-    order = torch.sort(-(kend - j0), stable=True).indices
+                      torch.zeros((i0.shape[0], TRI_PLAN - TRI_WARPS - 3), dtype=i0.dtype)], 1)
+    order = torch.sort(-(kend - kbeg), stable=True).indices
     return rows[order].to(torch.int32)
+
+
+def refine_residual_plan(b):
+    """K8r's launch plan for a (b, b) panel, on the CPU: K8t's rows (i0, j0,
+    k_0, .., k_TRI_WARPS, 0), one per lower TRI_TILE-square tile, each over
+    the k range [0, min(j0 + TRI_TILE, b)) (L lower: L[j, k] = 0 for k > j)
+    cut into contiguous chunks of whole TRI_KS-column steps, one a warp;
+    longest k range first (row order among equals)."""
+    if b <= 0:
+        raise ValueError(f"refine_residual_plan: b={b}")
+    i0, j0 = _lower_tiles(b)
+    return _chunk_plan(i0, j0, torch.zeros_like(j0), torch.clamp(j0 + TRI_TILE, max=b))
 
 
 def _tri_geometry(lib):
@@ -213,6 +251,21 @@ def _tri_geometry(lib):
 def _tri_plan_on(device, b):
     _tri_geometry(_build.load())
     return tri_product_plan(b).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _refine_residual_on(device, b):
+    """K8r's launch state per (device, b): the entry, the plan on the card,
+    its tile count, and the workspace, the tiles' pairs and the ticket
+    (zero between launches: the last block resets it), as raw pointers
+    beside the tensors that hold them."""
+    lib = _build.load()
+    _tri_geometry(lib)
+    plan = refine_residual_plan(b).to(device)
+    pairs = torch.empty(2 * plan.shape[0], dtype=_F64, device=device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    return (lib.gpmp_refine_residual, plan.data_ptr(), plan.shape[0], pairs.data_ptr(),
+            ticket.data_ptr(), (plan, pairs, ticket))
 
 
 def tri_product_cuda(A, B, beta=0.0, alpha=1.0, phi=False):
@@ -260,7 +313,16 @@ def refined_cholesky(A, steps=2, with_inverse=False, rtol2=_FACTOR_RTOL2):
 
     Returns L, or (L, M ~= L^{-1}) with with_inverse=True.  NaN when the f32
     factorization fails (non-PD) or the final relative factor residual^2
-    reaches ``rtol2``: 3 K8r and 2 + 3 steps K8t launches, no host read."""
+    reaches ``rtol2``: 3 K8r and 2 + 3 steps K8t launches, no host read.
+    An f64 panel on the card replays the sequence's captured graph
+    (``_PanelGraph``); other panels run it as it is."""
+    if A.is_cuda and A.dtype == _F64:
+        return _panel_graph(A.device, A.shape[0], steps, with_inverse, rtol2)(A)
+    return _refined_cholesky_launches(A, steps, with_inverse, rtol2)
+
+
+def _refined_cholesky_launches(A, steps, with_inverse, rtol2):
+    """``refined_cholesky``'s launch sequence, as the graph captures it."""
     L32, info = torch.linalg.cholesky_ex(A.to(_F32))
     L32 = torch.where(info == 0, L32, torch.nan)
     L = L32.to(A.dtype)
@@ -277,6 +339,70 @@ def refined_cholesky(A, steps=2, with_inverse=False, rtol2=_FACTOR_RTOL2):
     if with_inverse:
         return L, torch.where(ok, M, torch.nan)
     return L
+
+
+class _PanelGraph:
+    """``_refined_cholesky_launches`` on a (b, b) f64 panel of one card,
+    captured once as a CUDA graph and replayed per call.
+
+    Before the capture, what must not happen inside it happens once: the
+    library is built and loaded and K8t's and K8r's plans are copied to the
+    card and K8r's workspace is made (each cached per device and b), and
+    the sequence runs once on the capture stream, so that cuBLAS's and
+    cuSOLVER's handles and workspaces for that stream exist (PyTorch's
+    warm-up before capture; its launches count).  The capture records the
+    launches (cholesky_ex included) and their counts; a replay copies A into
+    the graph's input, replays, adds the counts to K8R_LAUNCHES and
+    K8T_LAUNCHES, and clones the outputs out of the graph's memory pool.
+
+    The graph holds the addresses of K8t's plan and of K8r's plan and
+    workspace, so it keeps those tensors itself (``held``): their caches
+    may drop them while the graph lives."""
+
+    def __init__(self, device, b, steps, with_inverse, rtol2):
+        global K8R_LAUNCHES, K8T_LAUNCHES
+        self.held = (_tri_plan_on(device, b), *_refine_residual_on(device, b)[-1])
+        args = (steps, with_inverse, rtol2)
+        self.A = torch.eye(b, dtype=_F64, device=device)
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.no_grad(), torch.cuda.stream(stream):
+            _refined_cholesky_launches(self.A, *args)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        counts = K8R_LAUNCHES, K8T_LAUNCHES
+        with torch.no_grad(), torch.cuda.graph(self.graph, stream=stream):
+            out = _refined_cholesky_launches(self.A, *args)
+        self.out = out if with_inverse else (out,)
+        self.k8r, self.k8t = K8R_LAUNCHES - counts[0], K8T_LAUNCHES - counts[1]
+        K8R_LAUNCHES, K8T_LAUNCHES = counts  # they run at each replay
+
+    def __call__(self, A):
+        global K8R_LAUNCHES, K8T_LAUNCHES
+        with torch.no_grad():
+            self.A.copy_(A)
+            self.graph.replay()
+            K8R_LAUNCHES += self.k8r
+            K8T_LAUNCHES += self.k8t
+            out = tuple(t.clone() for t in self.out)
+        return out if len(out) == 2 else out[0]
+
+
+_PANEL_GRAPHS = collections.OrderedDict()
+_PANEL_GRAPHS_KEPT = 8  # a factor meets one or two panel sizes
+
+
+def _panel_graph(device, b, steps, with_inverse, rtol2):
+    key = (device, b, steps, bool(with_inverse), float(rtol2))
+    graph = _PANEL_GRAPHS.get(key)
+    if graph is None:
+        graph = _PANEL_GRAPHS[key] = _PanelGraph(device, b, steps, bool(with_inverse),
+                                                 float(rtol2))
+        if len(_PANEL_GRAPHS) > _PANEL_GRAPHS_KEPT:
+            _PANEL_GRAPHS.popitem(last=False)
+    else:
+        _PANEL_GRAPHS.move_to_end(key)
+    return graph
 
 
 def refined_solve_lower(L, M, B, n_refine=1):
