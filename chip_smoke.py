@@ -29,7 +29,9 @@ non-zero):
    matrices K (n in {1000, 1024, 4099}, cond(K) ~1e3 and ~1e6, set by the
    noise variance from the gram's largest eigenvalue), with the
    tolerances and reasons given at TOL_MIXED; K3 at k in {1, 2, 3, 8}, in
-   f64 and in f32, each bitwise reproducible, and at n = 16384, k = 2.
+   f64 and in f32, each bitwise reproducible, and at n = 16384, k = 2; K5
+   at bases 1, 7, 64 and 128 (K5_BASES), exactly zero above the diagonal
+   and bitwise reproducible.
 2c. K1d (scaled distance and its pullback, full and elementwise), K1m (the
    Matern polynomial and its backward), K7b (the LOO diagonal series, both
    branches) and K8s (the f64 sampling residual) vs their plain versions
@@ -48,7 +50,7 @@ non-zero):
    five once more at n = 32768 on the engine's own residents at
    bench_large_n.py's p0; tolerances at TOL_2D.  K10r from the pair is
    bitwise K4 on hi + lo in f64 and its panels bitwise the pair's at every
-   n; K10m is bitwise reproducible.
+   n; K6 (narrow and wide) and K10m are bitwise reproducible.
 2e. K8r (the refined panel's residual and guard sums), K8t (the
    triangular products of the Newton step and the Ogita-Aishima update),
    K9u (the blocked factor's trailing update, on the f64 tensor cores) and
@@ -73,8 +75,9 @@ non-zero):
    bitwise K9u's lower triangle at one rank (f64); K9m's slab forms bitwise
    their plain versions and the square form's rows; the slab forms of K3
    (k in {1, 2, 3, 8}, f64 and f32, reproducible),
-   K6, K7 and K4s (the sharded mixed engine's) on n = 4099's slabs against
-   their plain versions with phases 2b/2d's tolerances, K4s's blocks
+   K6 (reproducible), K7 and K4s (the sharded mixed engine's) on n =
+   4099's slabs against their plain versions with phases 2b/2d's
+   tolerances, K4s's blocks
    bitwise K4's rows; K4s at n in {1000, 4099, 8192}: bitwise K4 at one
    rank, and at two ranks R[i, j] on one bitwise R[j, i] on the other.
 3. The main path: Hartmann6, n = 1000, d = 6, Matern p = 2, constant
@@ -176,20 +179,27 @@ non-zero):
 4. Times on the card (CUDA events / synchronised host clock): K1 and K2 vs
    their plain versions at the main path's shapes; REML value+grad evals/s
    at n = 1000 and 8192 (kernels and plain gram); fit+predict wall-clock.
-4b. K3/K4/K5/K7: kernel, plain and library-call ms at the slice's shapes
-   (n = 1000), K3's bound and host issue per call by layer, K3 at n = 16384
+4b. K3/K4/K6 (k = 2)/K7: kernel, plain and library-call ms at the slice's
+   shapes (n = 1000) with their bounds (a row whose warm device time is under
+   its bound timed again with L2 flushed before each launch), K3's host
+   issue per call by layer; K5 at n = 1000 and 8192 (events, device time,
+   plain, batched trsm, bound, and its longest dependent chain, counted
+   from its order, beside a substitution's); K3 at n = 16384
    (k = 2) against an f64 addmm; K4 at n in {1000, 4099, 8192} (events and profiler device
    time) against an f64 addmm of the same product, with its bound; the noisy model's REML value+grad evals/s at n = 1000 and
    8192 on the mixed and f64 engines in turns; fit+LOO+predict wall-clock
    (first and warm); the rise of torch.cuda.max_memory_allocated over
    what was held before at n = 8192, per engine, for one value+grad and
    for the engine alone (solve_and_logdet and its backward on a fixed K).
-4c. K1d, K1m, K7b, K8s and K6: kernel, plain and library-call ms at the
-   slice's shapes (n = 1000, and K8s at 8192), with bound and share; the
+4c. K1d, K1m, K7b, K8s and K6's wide variant: kernel, plain and
+   library-call ms at the slice's shapes (n = 1000, and K8s at 8192), with
+   bound and share (rows under their bound warm, K1m's backward among them:
+   device time again with L2 flushed before each launch); the
    full-width sample-paths call (nt = 8192, 1024 paths) per engine, first
    (phase 3c) and warm.
-4d. K6, K10b, K10r, K10m and K10t at n = 32768 (per 512-row chunk for K10b
-   and K10t): kernel (events and profiler device time), plain, library call
+4d. K6 (k = 2 and 8), K10b, K10r, K10m and K10t at n = 32768 (per 512-row
+   chunk for K10b and K10t), and K5 on the engine's f32 factor there: kernel
+   (events and profiler device time), plain, library call
    (K6: multi_dot of the two products; K10r: a dense f64 addmm; K10m: an f64
    addmm), bound; K4 on hi + lo beside K10r, and K10r's share of its bound;
    K10r's recompute pass at n = 51200 (100 panels of 512, random inputs of
@@ -217,7 +227,9 @@ non-zero):
    f32 (phase 3g's mixed engine; its bound at the f32 peak of the CUDA
    cores): kernel (events and profiler device time), plain, torch.addmm on
    the same trailing block, bound; K4s on the one-rank slab and K4 at the
-   same n (phase 3e(b)'s resident mixed branch) against an f64 addmm.
+   same n (phase 3e(b)'s resident mixed branch) against an f64 addmm; K6's
+   slab form (k = 2) on the one-rank slab and the second rank's of two
+   against multi_dot.
 5. Where the time goes: torch.profiler over the noisy model's REML
    value+grad at n = 1000 and 8192, mixed and f64 engines, over one
    streamed ff value+grad at n = 32768, and over one resident f64
@@ -227,6 +239,7 @@ non-zero):
 ``python3 chip_smoke.py --compare ROOT`` instead times K8s (n = 1000 and
 8192), K8t and K8r (b = 512, with their host issue time), K3 (n = 1000,
 k = 2, with its host issue time) and refined_cholesky per call (b = 512),
+K5 (n = 1000, 8192 and 32768) and K6 (k = 2, n = 1000 and 32768),
 runs phases 4b's and 4f's timings of K4, K4s and K9s (f64, f32), and times
 K10m and K10r (from the pair) at n = 32768 and K10r's recompute pass at
 n = 51200, and runs the resident f64 REML value+grad at n = 4096 and
@@ -234,7 +247,7 @@ n = 51200, and runs the resident f64 REML value+grad at n = 4096 and
 mixed engine's value+grad rate at n = 1000 and one streamed REML
 value+grad per mode (ff at n = 32768, recompute at n = 51200), on the
 gpmp_tpu_torch package under ROOT alone, with digests of K8s's, K8t's,
-K8r's, K3's, K4's, K4s's, K9u's, K9s's, K10m's and K10r's outputs
+K8r's, K3's, K5's, K6's, K4's, K4s's, K9u's, K9s's, K10m's and K10r's outputs
 (compare_main), for setting two trees side by side in one call.
 
 The line before the last is {"kernels": [...]}, with each kernel's
@@ -261,6 +274,7 @@ TOL_K2 = {"float64": 1e-9, "float32": 1e-3}
 TOL_PATH = 1e-8
 DEVICE_MS_ATTEMPTS = 6  # profiler windows _device_ms takes to find a whole one
 DEVICE_MS_PAD = 32      # spin kernels ahead of _device_ms's launches
+L2_FLUSH_BYTES = 64 << 20  # a copy larger than the H100's 50 MB L2, between cold launches
 EVAL_SIZES = ((1000, 30), (8192, 10))  # (n, evaluations) for the evals/s rates
 
 # H100 SXM data-sheet peaks (NVIDIA; dense, at the 700 W power limit)
@@ -280,14 +294,18 @@ TOL_MIXED = {
     # R = K - L L^T ~ eps32 |K|; the f64 sums in another order differ by up
     # to ~n eps64 |K| ~ 5e-13 |K|, then one f32 rounding
     "K4": 1e-5,
-    # f32 forward substitution in another order than the plain version's
-    # batched products: each is off by ~eps32 cond(L) <= 6e-8 * 1e3 = 6e-5
-    # (cond(L) = cond(K)^(1/2) <= 1e3)
+    # the kernel follows the plain version's order (8-wide leaves by
+    # substitution, then the doubling levels), but its products sum over k
+    # in order where torch's batched products do not: each is off by
+    # ~eps32 cond(L) <= 6e-8 * 1e3 = 6e-5 (cond(L) = cond(K)^(1/2) <= 1e3)
     "K5": 1e-4,
     # f64 sums of exact products of f32 values, in another order
     "K7": 1e-12,
 }
 MIXED_SIZES = (1000, 1024, 4099)  # 4099: a ragged last block for K5
+# K5's bases in phase 2b: the engine's TRI_INV_BASE, and a single column,
+# one short of a leaf and a power of two below the base (every working size)
+K5_BASES = (1, 7, 64, 128)
 # K3's k: one column, the engine's 2, an odd one, the most; and phase 3e's n
 K3_WIDTHS = (1, 2, 3, 8)
 K3_BIG_N = 16384
@@ -411,6 +429,10 @@ RESIDENT_MAXITER = 2
 # on the path; ~60 ms a call, so more calls against the host's spread) and
 # RESIDENT_N (32 panels, the updates long enough to hide it)
 RESIDENT_WALL_SIZES = {4096: 10, RESIDENT_N: 3}
+# --compare's K5 and K6 sizes (K5: phase 4b's and 4d's n; K6: the mixed
+# engine's refined solves at n = 1000 and the streamed engine's at 32768)
+COMPARE_K5_SIZES = (SLICE_N, 8192, 32768)
+COMPARE_K6_SIZES = (SLICE_N, 32768)
 # phase 4e: the same value+grad at n = 4096, the panels' graph against their
 # launch sequence in turns in one process (pairs timed, after a warm pair)
 GRAPH_AB_N, GRAPH_AB_PAIRS = 4096, 10
@@ -846,11 +868,21 @@ def phase_mixed_kernels_vs_plain(torch, gram, mixed):
             Fp = mixed.factorization_residual_plain(K, L32)
             check(torch.equal(F, F.T), f"K4 not symmetric at n={n}")
             errs["K4"] = rel_err(F, Fp)
-            base = mixed.TRI_INV_BASE
-            Bk = mixed.diag_block_inv_cuda(L32, base)
-            Bp = mixed.diag_block_inv_plain(L32, base)
-            check(bool((torch.triu(Bk, 1) == 0).all()), "K5 not lower triangular")
-            errs["K5"] = rel_err(Bk, Bp)
+            errs["K5"] = 0.0
+            for base in K5_BASES:
+                Bk = mixed.diag_block_inv_cuda(L32, base)
+                Bp = mixed.diag_block_inv_plain(L32, base)
+                check(bool((torch.triu(Bk, 1) == 0).all()),
+                      f"K5 base {base}: not exactly zero above the diagonal")
+                check(torch.equal(Bk, mixed.diag_block_inv_cuda(L32, base)),
+                      f"K5 base {base} is not bitwise reproducible")
+                e5 = rel_err(Bk, Bp)
+                check(math.isfinite(e5) and e5 <= TOL_MIXED["K5"],
+                      f"K5 n={n} cond={cond:.0e} base {base}: {e5:.3e}")
+                errs["K5"] = max(errs["K5"], e5)
+                if base == mixed.TRI_INV_BASE:
+                    k5_abs = float((Bk - Bp).abs().max())
+            del Bk, Bp
             H = M32 @ (Fp @ M32.T)
             H2 = H @ H
             t, tp = mixed.trace_sums_cuda(H), mixed.trace_sums_plain(H)
@@ -889,7 +921,7 @@ def phase_mixed_kernels_vs_plain(torch, gram, mixed):
                 say(f"[phase 2b] float32 K4 {e4:.2e} (tol {TOL_MIXED['K4']})")
                 check(e4 <= TOL_MIXED["K4"], "float32 K4 vs plain")
                 main_abs["K4"] = float((F - Fp).abs().max())
-                main_abs["K5"] = float((Bk - Bp).abs().max())
+                main_abs["K5"] = k5_abs
                 main_abs["K7"] = float(torch.max(torch.abs(torch.cat([t - tp, u - up]))))
             # the engine end to end on the card, against the f64 Cholesky
             z = torch.randn(n, dtype=torch.float64, device=DEVICE, generator=gen)
@@ -1772,7 +1804,9 @@ def phase_streamed_large(gp, gnp, torch, mixed, ops, st, plik):
     del Rk
     # K6 and K10m at the engine's k = 2 right-hand sides
     r = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
-    errs["K6"], absd["K6"] = _k6_err(torch, mixed, M32, r)
+    r8 = torch.randn(n, 8, dtype=torch.float64, device=DEVICE, generator=gen)
+    (e2, a2), (e8, a8) = _k6_err(torch, mixed, M32, r), _k6_err(torch, mixed, M32, r8)
+    errs["K6"], absd["K6"] = max(e2, e8), max(a2, a8)
     X = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
     B = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
     (R, nr), (Rq, nrq) = ops.ff_residual_cuda(K32, E32, X, B), ops.ff_residual_plain(K32, E32, X, B)
@@ -1794,6 +1828,11 @@ def phase_streamed_large(gp, gnp, torch, mixed, ops, st, plik):
                    t(lambda: mixed.precond_apply_plain(M32, r), 20),
                    t(lambda: torch.linalg.multi_dot((M32.T, M32, r32)), 20))
     device["K6"] = _device_ms(torch, lambda: mixed.precond_apply_cuda(M32, r), 10)
+    r8_32 = r8.float()
+    times["K6 k=8"] = (t(lambda: mixed.precond_apply_cuda(M32, r8), 20),
+                       t(lambda: mixed.precond_apply_plain(M32, r8), 20),
+                       t(lambda: torch.linalg.multi_dot((M32.T, M32, r8_32)), 20))
+    device["K6 k=8"] = _device_ms(torch, lambda: mixed.precond_apply_cuda(M32, r8), 10)
     times["K10t"] = (t(lambda: ops.h_traces_chunk_cuda(H, H2r, 0, acc), 20),
                      t(lambda: ops.h_traces_chunk_plain(H, H2r, 0, acc), 5), None)
     device["K10t"] = _device_ms(torch, lambda: ops.h_traces_chunk_cuda(H, H2r, 0, acc), 10)
@@ -1811,8 +1850,12 @@ def phase_streamed_large(gp, gnp, torch, mixed, ops, st, plik):
     del K32, E32
     L64 = L32.double()
     times["K10r"] = times["K10r"][:2] + (t(lambda: torch.addmm(K64, L64, L64.T, alpha=-1), 1),)
-    del K64, L64, L32
+    del K64, L64
+    # K5 on the engine's own f32 factor (the streamed engine's M = L32^-1)
+    k5 = _k5_times(torch, mixed, L32, "4d", reps=20)
+    del L32
     bounds = _stream_bounds(n)
+    bounds["K6 k=8"] = _kernel_bounds(n, k=8)["K6"]
     for key, (t_k, t_p, t_l) in times.items():
         b_ms, b_by = bounds[key]
         lib = "none" if t_l is None else f"{t_l:.4f} ms"
@@ -1824,6 +1867,7 @@ def phase_streamed_large(gp, gnp, torch, mixed, ops, st, plik):
         f"{_fmt_ms(t_k4[1])}); K10r's share of its {b_ms:.2f} ms bound: events "
         f"{100 * b_ms / times['K10r'][0]:.1f}%, device "
         + ("not measured" if device["K10r"] is None else f"{100 * b_ms / device['K10r']:.1f}%"))
+    times[f"K5 n={n}"], device[f"K5 n={n}"], bounds[f"K5 n={n}"] = k5
     panels = _k10r_panel_pass(torch, ops, LARGE_RC_N, STREAM_PANEL, gen)
     pb_ms, pb_by = panels["bound"]
     say(f"[phase 4d] K10r recompute pass n={LARGE_RC_N}, {panels['panels']} panels of "
@@ -2893,7 +2937,7 @@ def phase_profile_large(gp, gnp, torch):
     return summary
 
 
-def _device_ms(torch, fn, reps):
+def _device_ms(torch, fn, reps, flush=None):
     """Device time per call of the kernels fn launches, from torch.profiler:
     the kernels' own time, without the host's launch gaps that CUDA events
     around a loop of short launches also count.  Each kernel record of the
@@ -2906,7 +2950,11 @@ def _device_ms(torch, fn, reps):
     DEVICE_MS_PAD of PyTorch's spin kernels open each window (their records,
     where kept, are not counted), a window counts only when it holds exactly
     one kernel record for every kernel launch of fn, and it is taken again,
-    up to DEVICE_MS_ATTEMPTS times; None if no window was whole."""
+    up to DEVICE_MS_ATTEMPTS times; None if no window was whole.  With
+    ``flush`` (a device-to-device copy larger than the L2), it runs before
+    each call, so fn finds its operands in device memory rather than in L2;
+    a window then counts only if it also holds one copy record a call (the
+    copies are not counted)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2917,6 +2965,8 @@ def _device_ms(torch, fn, reps):
             for _ in range(DEVICE_MS_PAD):
                 torch.cuda._sleep(1)  # PyTorch's spin_kernel: a record to lose
             for _ in range(reps):
+                if flush is not None:
+                    flush()
                 fn()
             torch.cuda.synchronize()
         events = prof.events()
@@ -2926,13 +2976,36 @@ def _device_ms(torch, fn, reps):
                    and "spin_kernel" not in evt.name]
         launches = sum(1 for evt in events if evt.device_type == DeviceType.CPU
                        and "LaunchKernel" in evt.name) - DEVICE_MS_PAD
-        if kernels and len(kernels) == launches:
+        copies = sum(1 for evt in events if evt.device_type == DeviceType.CUDA
+                     and evt.name.startswith("Memcpy"))
+        if kernels and len(kernels) == launches and (flush is None or copies == reps):
             if attempt > 1:
                 say(f"[device_ms] a whole window at attempt {attempt}")
             return sum(evt.time_range.elapsed_us() for evt in kernels) / 1e3 / reps
     say(f"[device_ms] no whole window in {DEVICE_MS_ATTEMPTS} attempts (last: {len(kernels)} "
         f"kernel records for {launches} kernel launches): not measured")
     return None
+
+
+def _flushed_device_ms(torch, device, bounds, calls, phase):
+    """A row whose warm device time is under its bound read its operands
+    from L2, where they stay between launches at n = 1000: its device time
+    again with L2 flushed (a copy of L2_FLUSH_BYTES written) before each
+    launch, printed and added to ``device`` as "<key> (L2 flushed)"."""
+    over = [key for key, v in device.items() if v is not None and v < bounds[key][0]]
+    if not over:
+        return
+    src = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=DEVICE)
+    dst = torch.empty_like(src)
+    for key in over:
+        fn, reps = calls[key]
+        cold = _device_ms(torch, fn, reps, flush=lambda: dst.copy_(src))
+        device[f"{key} (L2 flushed)"] = cold
+        say(f"[phase {phase}] {key}: warm device {_fmt_ms(device[key])} under its bound "
+            f"{bounds[key][0]:.4f} ms ({bounds[key][1]}): its operands stay in L2; L2 flushed "
+            f"before each launch: device {_fmt_ms(cold)}"
+            + ("" if cold is None else f", share {100 * bounds[key][0] / cold:.1f}%"))
+    del src, dst
 
 
 def _fmt_ms(v):
@@ -3134,11 +3207,9 @@ def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
     B = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
     L32, M32 = mixed._f32_preconditioner(K)
     L64 = L32.double()
-    base = mixed.TRI_INV_BASE
-    blocks = mixed._diag_blocks(L32, base)
-    eye_b = torch.eye(base, device=DEVICE).expand(blocks.shape).contiguous()
     H = M32 @ (mixed.factorization_residual_plain(K, L32) @ M32.T)
     H2 = H @ H
+    R32 = X.float()
     times = {
         "K3": (_time_cuda(torch, lambda: mixed.residual_cuda(K, X, B), 200),
                _time_cuda(torch, lambda: mixed.residual_plain(K, X, B), 50),
@@ -3146,30 +3217,37 @@ def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
         "K4": (_time_cuda(torch, lambda: mixed.factorization_residual_cuda(K, L32), 50),
                _time_cuda(torch, lambda: mixed.factorization_residual_plain(K, L32), 50),
                _time_cuda(torch, lambda: torch.addmm(K, L64, L64.T, alpha=-1), 50)),
-        "K5": (_time_cuda(torch, lambda: mixed.diag_block_inv_cuda(L32, base), 50),
-               _time_cuda(torch, lambda: mixed.diag_block_inv_plain(L32, base), 5),
-               _time_cuda(torch, lambda: torch.linalg.solve_triangular(
-                   blocks, eye_b, upper=False), 50)),
+        # K6 at the engine's k = 2 (its refined solves at this n)
+        "K6": (_time_cuda(torch, lambda: mixed.precond_apply_cuda(M32, X), 200),
+               _time_cuda(torch, lambda: mixed.precond_apply_plain(M32, X), 200),
+               _time_cuda(torch, lambda: torch.linalg.multi_dot((M32.T, M32, R32)), 200)),
         "K7": (_time_cuda(torch, lambda: (mixed.trace_sums_cuda(H),
                                           mixed.series_sums_cuda(H, H2)), 200),
                _time_cuda(torch, lambda: (mixed.trace_sums_plain(H),
                                           mixed.series_sums_plain(H, H2)), 50),
                None),
     }
-    device = {
-        "K3": _device_ms(torch, lambda: mixed.residual_cuda(K, X, B), 50),
-        "K4": _device_ms(torch, lambda: mixed.factorization_residual_cuda(K, L32), 50),
-        "K5": _device_ms(torch, lambda: mixed.diag_block_inv_cuda(L32, base), 50),
-        "K7": _device_ms(torch, lambda: (mixed.trace_sums_cuda(H),
-                                         mixed.series_sums_cuda(H, H2)), 50),
-    }
-    bound3 = _kernel_bounds(n)["K3"]
+    calls = {"K3": (lambda: mixed.residual_cuda(K, X, B), 50),
+             "K4": (lambda: mixed.factorization_residual_cuda(K, L32), 50),
+             "K6": (lambda: mixed.precond_apply_cuda(M32, X), 50),
+             "K7": (lambda: (mixed.trace_sums_cuda(H), mixed.series_sums_cuda(H, H2)), 50)}
+    device = {key: _device_ms(torch, fn, reps) for key, (fn, reps) in calls.items()}
+    bounds = _kernel_bounds(n)
+    _flushed_device_ms(torch, device, bounds, calls, "4b")
     for key, (t_k, t_p, t_l) in times.items():
         lib = "none" if t_l is None else f"{t_l:.4f} ms"
-        extra = (f", bound {bound3[0]:.4f} ms ({bound3[1]}; K stays in L2 between a solve's "
-                 f"sweeps), share {100 * bound3[0] / t_k:.1f}%" if key == "K3" else "")
+        b_ms, b_by = bounds[key]
+        note = "; K stays in L2 between a solve's sweeps" if key == "K3" else ""
         say(f"[phase 4b] {key} n={n}: kernel {t_k:.4f} ms (device {_fmt_ms(device[key])}), "
-            f"plain {t_p:.4f} ms, library {lib}{extra}")
+            f"plain {t_p:.4f} ms, library {lib}, bound {b_ms:.4f} ms ({b_by}{note}), share "
+            f"{100 * b_ms / t_k:.1f}%")
+    # K5 at this n (the engine's L32) and at n = 8192 (K4's timing input's)
+    times["K5"], device["K5"], _ = _k5_times(torch, mixed, L32, "4b")
+    K8 = _time_sqrt_inputs(torch, gram, NOISY_EVAL_SIZES[-1][0])
+    L8 = torch.linalg.cholesky_ex(K8.float())[0].contiguous()
+    del K8
+    k5_big = _k5_times(torch, mixed, L8, "4b")
+    del L8
     host = _host_path(torch, _k3_host_parts(torch, mixed, K, X, B))
     say(f"[phase 4b] K3 n={n} k=2 host issue per call ({HOST_ISSUE_CALLS} calls, the card kept "
         "busy): " + ", ".join(f"{k} {v:.2f} us" for k, v in host.items()))
@@ -3215,7 +3293,44 @@ def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
     say(f"[phase 4b] fit+LOO+predict n={SLICE_N} nt={SLICE_NT} mixed (warm) {t_warm:.3f} s, "
         f"nfev {info.nfev}")
     gp.config.set_chol_engine("auto")
-    return times, rates, mem, t_warm, {"K3 host_issue_us": host, **big}
+    return times, rates, mem, t_warm, {"K3 host_issue_us": host, **big,
+                                       f"K5 n={NOISY_EVAL_SIZES[-1][0]} ms (kernel, plain, "
+                                       "library, device, bound)": (*k5_big[0], *k5_big[1:])}
+
+
+def _tri_inv_chain(mixed, base):
+    """The longest chain of dependent f32 steps of K5 on one diagonal block,
+    (multiply-adds, divisions), counted from its order (the leaves'
+    substitution, then two products s deep at each doubling level s), and
+    from one thread a column substituting down the block."""
+    size, leaf = mixed.tri_inv_size(base), mixed.TRI_INV_LEAF
+    return {"blocked": (leaf * (leaf - 1) // 2 + 2 * (size - leaf), leaf),
+            "substitution": (base * (base - 1) // 2, base)}
+
+
+def _k5_times(torch, mixed, L32, phase, reps=50):
+    """K5 at base TRI_INV_BASE on L32: kernel (CUDA events and profiler
+    device time), plain, the library call (a batched triangular solve of
+    the diagonal blocks against the identity), bound, and the longest chain
+    of dependent steps of the kernel's order against the substitution's;
+    printed, and returned as ((kernel, plain, library), device, bound)."""
+    n, base = L32.shape[0], mixed.TRI_INV_BASE
+    blocks = mixed._diag_blocks(L32, base)
+    eye_b = torch.eye(base, device=DEVICE).expand(blocks.shape).contiguous()
+    t = (_time_cuda(torch, lambda: mixed.diag_block_inv_cuda(L32, base), reps),
+         _time_cuda(torch, lambda: mixed.diag_block_inv_plain(L32, base), 5),
+         _time_cuda(torch, lambda: torch.linalg.solve_triangular(blocks, eye_b, upper=False),
+                    reps))
+    dev = _device_ms(torch, lambda: mixed.diag_block_inv_cuda(L32, base), min(reps, 20))
+    b_ms, b_by = _kernel_bounds(n)["K5"]
+    chain = _tri_inv_chain(mixed, base)
+    say(f"[phase {phase}] K5 n={n} base {base} ({blocks.shape[0]} blocks): kernel {t[0]:.4f} ms "
+        f"(device {_fmt_ms(dev)}), plain {t[1]:.4f} ms, library (batched trsm) {t[2]:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), share {100 * b_ms / t[0]:.2f}%; longest chain "
+        f"(multiply-adds, divisions): {chain['blocked']} (the substitution's "
+        f"{chain['substitution']})")
+    del blocks, eye_b
+    return t, dev, (b_ms, b_by)
 
 
 def _k3_big_times(torch, mixed, n=K3_BIG_N):
@@ -3270,8 +3385,11 @@ def _time_sqrt_inputs(torch, gram, n):
 
 def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, slice_data,
                     t_paths_first):
-    """Phase 4c: (kernel, plain, library) ms of K1d, K1m, K7b, K8s and K6 at
-    the slice's shapes; the full-width sample-paths call."""
+    """Phase 4c: (kernel, plain, library) ms of K1d, K1m, K7b, K8s and K6's
+    wide variant at the slice's shapes; the device time of the rows whose
+    operands stay in L2 between warm launches (their warm device time under
+    their bound) again with L2 flushed before each launch; the full-width
+    sample-paths call."""
     n = SLICE_N
     l, x, _y, dbar = _dist_inputs(torch, n, SLICE_D, torch.float64, 7)
     db = (dbar + dbar.T) / 2
@@ -3281,9 +3399,6 @@ def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, sli
     L32, M32 = mixed._f32_preconditioner(K)
     L64 = L32.double()
     (Ms, Bs), (G, W), _series = _k7b_inputs(torch, mixed, K, M32)
-    R = torch.randn(n, 2, dtype=torch.float64, device=DEVICE,
-                    generator=torch.Generator(device=DEVICE).manual_seed(4))
-    R32 = R.float()
     # K6's wide variant at predict's width (SLICE_NT right-hand sides)
     k6w = f"K6 wide k={SLICE_NT}"
     Rw = torch.randn(n, SLICE_NT, dtype=torch.float64, device=DEVICE,
@@ -3294,20 +3409,19 @@ def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, sli
     L8_64 = L8.double()
     t = lambda fn, reps: _time_cuda(torch, fn, reps)  # noqa: E731
     theta = torch.cat([torch.zeros(1, dtype=torch.float64, device=DEVICE), l])
-    device = {
-        "K1": _device_ms(torch, lambda: gram.matern_gram_cuda(x, x, 2, theta, True), 50),
-        "K1d": _device_ms(torch, lambda: distance.scaled_distance_cuda(l, x, x), 50),
-        "K1d pullback": _device_ms(
-            torch, lambda: distance.scaled_distance_pullback_cuda(db, l, x, x), 50),
-        "K1m": _device_ms(torch, lambda: gram.maternp_kernel_cuda(2, D), 50),
-        "K1m backward": _device_ms(torch, lambda: gram.maternp_kernel_backward_cuda(2, D, db), 50),
-        "K7b": _device_ms(torch, lambda: mixed.loo_diag_series_cuda(Ms, Bs, torch.float64), 50),
-        "K7b two-level": _device_ms(torch, lambda: mixed.loo_diag_pairs_cuda(G, W), 50),
-        "K8s": _device_ms(torch, lambda: refine.sampling_residual_cuda(K, L32), 50),
-        "K8s n=8192": _device_ms(torch, lambda: refine.sampling_residual_cuda(K8, L8), 5),
-        "K6": _device_ms(torch, lambda: mixed.precond_apply_cuda(M32, R), 50),
-        k6w: _device_ms(torch, lambda: mixed.precond_apply_cuda(M32, Rw), 20),
+    calls = {
+        "K1": (lambda: gram.matern_gram_cuda(x, x, 2, theta, True), 50),
+        "K1d": (lambda: distance.scaled_distance_cuda(l, x, x), 50),
+        "K1d pullback": (lambda: distance.scaled_distance_pullback_cuda(db, l, x, x), 50),
+        "K1m": (lambda: gram.maternp_kernel_cuda(2, D), 50),
+        "K1m backward": (lambda: gram.maternp_kernel_backward_cuda(2, D, db), 50),
+        "K7b": (lambda: mixed.loo_diag_series_cuda(Ms, Bs, torch.float64), 50),
+        "K7b two-level": (lambda: mixed.loo_diag_pairs_cuda(G, W), 50),
+        "K8s": (lambda: refine.sampling_residual_cuda(K, L32), 50),
+        "K8s n=8192": (lambda: refine.sampling_residual_cuda(K8, L8), 5),
+        k6w: (lambda: mixed.precond_apply_cuda(M32, Rw), 20),
     }
+    device = {key: _device_ms(torch, fn, reps) for key, (fn, reps) in calls.items()}
     say("[phase 4c] device time per call (torch.profiler, all kernels the call launches), "
         "ms: " + ", ".join(f"{k} {_fmt_ms(v)}" for k, v in device.items()))
     times = {
@@ -3331,19 +3445,17 @@ def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, sli
         "K8s n=8192": (t(lambda: refine.sampling_residual_cuda(K8, L8), 5),
                        t(lambda: refine.sampling_residual_plain(K8, L8), 5),
                        t(lambda: torch.addmm(K8, L8_64, L8_64.T, alpha=-1), 5)),
-        "K6": (t(lambda: mixed.precond_apply_cuda(M32, R), 200),
-               t(lambda: mixed.precond_apply_plain(M32, R), 200),
-               t(lambda: torch.linalg.multi_dot((M32.T, M32, R32)), 200)),
         k6w: (t(lambda: mixed.precond_apply_cuda(M32, Rw), 50),
               t(lambda: mixed.precond_apply_plain(M32, Rw), 50),
               t(lambda: torch.linalg.multi_dot((M32.T, M32, Rw32)), 50)),
     }
-    del K8, L8, L8_64
     bounds = _kernel_bounds(n)
     bounds[k6w] = _kernel_bounds(n, k=SLICE_NT)["K6"]
     bounds["K7b two-level"] = (max(16 * n * n / PEAK_BYTES_PER_S,
                                    2 * n * n / PEAK_F64_FLOPS) * 1e3, "bytes")
     bounds["K8s n=8192"] = _kernel_bounds(PATHS_NT)["K8s"]
+    _flushed_device_ms(torch, device, bounds, calls, "4c")
+    del K8, L8, L8_64
     for key, (t_k, t_p, t_l) in times.items():
         b_ms, b_by = bounds[key]
         kern = "none" if t_k is None else f"{t_k:.4f} ms (device {_fmt_ms(device[key])})"
@@ -3640,6 +3752,8 @@ def _mixed_slab_forms(torch, gram, mixed, n, bounds):
         same_k4 = same_k4 and torch.equal(Rs1, R_sq[lo:hi])
         z1 = mixed.precond_apply_slab_cuda(Ms, X, lo)
         z2 = mixed.precond_apply_slab_plain(Ms, X)
+        check(torch.equal(z1, mixed.precond_apply_slab_cuda(Ms, X, lo)),
+              f"K6's slab form on rows [{lo}, {hi}) is not bitwise reproducible")
         unit = n * eps32 * (Ms.abs().T @ (Ms.abs() @ X.abs().float()))
         errs["K6"] = max(errs["K6"], float(((z1 - z2).abs() / unit.clamp_min(1e-30)).max()))
         t1, t2 = mixed.trace_sums_cuda(Hs, lo), mixed.trace_sums_plain(Hs, lo)
@@ -3648,7 +3762,7 @@ def _mixed_slab_forms(torch, gram, mixed, n, bounds):
     say(f"[phase 2f] slab forms n={n} slabs {bounds}: K3 {errs['K3']:.2e} (tol "
         f"{TOL_MIXED['K3']}; f32 {errs['K3 f32']:.2e}, tol {TOL_MIXED['K3 f32']}; k in "
         f"{K3_WIDTHS}, reproducible), K4s {errs['K4']:.2e} (tol {TOL_MIXED['K4']}; bitwise K4's rows "
-        f"{same_k4}), K6 {errs['K6']:.2e} units of n eps32 (tol {TOL_2D['K6']}), K7 "
+        f"{same_k4}), K6 {errs['K6']:.2e} units of n eps32 (tol {TOL_2D['K6']}, reproducible), K7 "
         f"{errs['K7']:.2e} (tol {TOL_MIXED['K7']})")
     check(errs["K3"] <= TOL_MIXED["K3"] and errs["K3 f32"] <= TOL_MIXED["K3 f32"]
           and errs["K4"] <= TOL_MIXED["K4"]
@@ -4148,10 +4262,12 @@ def _slab_kernel_times(torch, mixed, ochol, K, phase, digests=None):
     """K9s on K's one-rank slab (the first, a middle and the last panel) and
     on the second rank's slab of two (first panel), in f64 and in f32 (phase
     3g's mixed engine), K4s on the one-rank slab and K4 on K (phase 3e(b)'s
-    resident mixed branch): kernel (events, profiler), plain, library call
-    (torch.addmm on the same inputs), bound; printed and returned as (times,
-    bounds, device) by case.  With a dict ``digests``, also each K9s case's
-    output from one launch on a fresh copy, K4s's and K4's, hashed into it."""
+    resident mixed branch), K6's slab form (k = 2) on the one-rank slab and
+    the second rank's: kernel (events, profiler), plain, library call
+    (torch.addmm, multi_dot for K6, on the same inputs), bound; printed and
+    returned as (times, bounds, device) by case.  With a dict ``digests``,
+    also each K9s case's output from one launch on a fresh copy, K4s's, K4's
+    and K6's, hashed into it."""
     b, n = CHOL_BLOCK, K.shape[0]
     t = lambda fn, reps: _time_cuda(torch, fn, reps, warmup=1)  # noqa: E731
     times, bounds, device = {}, {}, {}
@@ -4201,12 +4317,28 @@ def _slab_kernel_times(torch, mixed, ochol, K, phase, digests=None):
                    times["K4s R=1"][2])
     device["K4"] = _device_ms(torch, lambda: mixed.factorization_residual_cuda(K, L32), 3)
     bounds["K4"] = _kernel_bounds(n)["K4"]
-    del L32, L64
+    del L64
+    # K6's slab form (the group's refined solves, k = 2) on the one-rank slab
+    # and on the second rank's of two, the f32 factor as its lower-triangular
+    # M (the time does not depend on M's values)
+    r = torch.linspace(-1.0, 1.0, 2 * n, dtype=f64, device=K.device).reshape(n, 2)
+    r32 = r.float()
+    for tag, off, rows in (("K6 slab R=1", 0, n), ("K6 slab R=2 rank 1", n // 2, n - n // 2)):
+        Ms = L32[off:off + rows]
+        times[tag] = (t(lambda: mixed.precond_apply_slab_cuda(Ms, r, off), 20),
+                      t(lambda: mixed.precond_apply_slab_plain(Ms, r), 5),
+                      t(lambda: torch.linalg.multi_dot((Ms.T, Ms, r32)), 20))
+        device[tag] = _device_ms(torch, lambda: mixed.precond_apply_slab_cuda(Ms, r, off), 10)
+        tri = rows * off + rows * (rows + 1) // 2  # the slab's entries of the triangle
+        bounds[tag] = _bound(4 * tri + 8 * 2 * n + 4 * 2 * n, 4 * tri * 2, PEAK_F32_FLOPS)
+        if digests is not None:
+            digests[tag] = _digest(mixed.precond_apply_slab_cuda(Ms, r, off))
+    del L32, r, r32
     for tag, (t_k, t_p, t_l) in times.items():
         b_ms, b_by = bounds[tag]
-        name = tag if tag.startswith("K4") else f"K9s {tag}"
-        where = "" if ("c0=" in tag or tag.startswith("K4")) else " first panel"
-        lib = "addmm f64" if tag.startswith("K4") else (
+        name = tag if tag.startswith(("K4", "K6")) else f"K9s {tag}"
+        where = "" if ("c0=" in tag or tag.startswith(("K4", "K6"))) else " first panel"
+        lib = "addmm f64" if tag.startswith("K4") else "multi_dot" if tag.startswith("K6") else (
             "addmm f32" if "f32" in tag else "addmm")
         say(f"[phase {phase}] {name} n={n}{where}: kernel {t_k:.4f} ms (device "
             f"{_fmt_ms(device[tag])}), plain {t_p:.4f} ms, library ({lib}) {t_l:.4f} ms, bound {b_ms:.4f} ms "
@@ -4315,6 +4447,54 @@ def _compare_k8(torch, gram, mixed, refine, out):
         + ", ".join(f"{k} {v:.2f} us" for k, v in out["host_issue_us"][key].items()))
 
 
+def _compare_k5_k6(torch, gram, mixed, out):
+    """--compare's K5 (base 128) at n in COMPARE_K5_SIZES and K6 (k = 2) at
+    n in COMPARE_K6_SIZES on the f32 factor of a noisy Matern K (n = SLICE_N:
+    phase 4b's K; else _time_sqrt_inputs's), K6 with that factor as its
+    lower-triangular M (the time does not depend on M's values): events,
+    device time, the library call (batched trsm of the diagonal blocks /
+    multi_dot), digests of two launches (they must repeat), into out."""
+    ms_out, dev_out = out["ms (kernel, plain, library)"], out["device_ms"]
+    base = mixed.TRI_INV_BASE
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    for n in sorted(set(COMPARE_K5_SIZES) | set(COMPARE_K6_SIZES)):
+        K = (_noisy_matern_spd(torch, gram, n, 1e3, 7)[0] if n == SLICE_N
+             else _time_sqrt_inputs(torch, gram, n))
+        L32 = torch.linalg.cholesky_ex(K.float())[0].contiguous()
+        del K
+        reps = 50 if n <= 8192 else 10
+        if n in COMPARE_K5_SIZES:
+            key = f"K5 n={n}"
+            blocks = mixed._diag_blocks(L32, base)
+            eye_b = torch.eye(base, device=DEVICE).expand(blocks.shape).contiguous()
+            ms_out[key] = (_time_cuda(torch, lambda: mixed.diag_block_inv_cuda(L32, base), reps),
+                           None, _time_cuda(torch, lambda: torch.linalg.solve_triangular(
+                               blocks, eye_b, upper=False), reps))
+            dev_out[key] = _device_ms(torch, lambda: mixed.diag_block_inv_cuda(L32, base),
+                                      min(reps, 20))
+            for turn in range(2):
+                out["digest"][f"{key}{' (again)' if turn else ''}"] = _digest(
+                    mixed.diag_block_inv_cuda(L32, base))
+            del blocks, eye_b
+            say(f"[compare] {key}: kernel {ms_out[key][0]:.4f} ms (device "
+                f"{_fmt_ms(dev_out[key])}), batched trsm {ms_out[key][2]:.4f} ms")
+        if n in COMPARE_K6_SIZES:
+            key = f"K6 n={n}"
+            r = torch.randn(n, 2, dtype=torch.float64, device=DEVICE, generator=gen)
+            r32 = r.float()
+            ms_out[key] = (_time_cuda(torch, lambda: mixed.precond_apply_cuda(L32, r), reps),
+                           None, _time_cuda(torch, lambda: torch.linalg.multi_dot(
+                               (L32.T, L32, r32)), reps))
+            dev_out[key] = _device_ms(torch, lambda: mixed.precond_apply_cuda(L32, r),
+                                      min(reps, 20))
+            for turn in range(2):
+                out["digest"][f"{key}{' (again)' if turn else ''}"] = _digest(
+                    mixed.precond_apply_cuda(L32, r))
+            say(f"[compare] {key} k=2: kernel {ms_out[key][0]:.4f} ms (device "
+                f"{_fmt_ms(dev_out[key])}), multi_dot {ms_out[key][2]:.4f} ms")
+        del L32
+
+
 def _compare_streamed(gp, gnp, torch, out):
     """--compare's K10m and K10r (from the pair) at n = LARGE_N on the
     engine's residents at bench_large_n's p0 (phase 4d's inputs), and K10r's
@@ -4394,12 +4574,13 @@ def _compare_walls(gp, gnp, torch, out):
 
 def compare_main(root):
     """``python3 chip_smoke.py --compare ROOT``: K8s's, K8t's, K8r's and K3's
-    times and refined_cholesky's wall per panel (_compare_k8), phases 4b's
+    times and refined_cholesky's wall per panel (_compare_k8), K5's and K6's
+    (_compare_k5_k6), phases 4b's
     and 4f's times of K4 (K4_SIZES and n = RESIDENT_N), K4s, K9s (f64 and
     f32), and K10m's and K10r's at phase 4d's shapes (_compare_streamed) of
     the gpmp_tpu_torch package under ROOT (this checkout, or another one
     unpacked beside it, e.g. a parent commit from git archive), through the
-    same helpers, with digests of K8s's, K8t's, K8r's, K3's, K9u's (first
+    same helpers, with digests of K8s's, K8t's, K8r's, K3's, K5's, K6's, K9u's (first
     panel), K9s's, K4's and K4s's, K10m's and K10r's outputs, and the walls
     (_compare_walls): the resident f64 value+grad at RESIDENT_WALL_SIZES, the
     mixed value+grad rate at n = SLICE_N, and the streamed REML of phase 3d.
@@ -4425,13 +4606,15 @@ def compare_main(root):
     out = {"root": root, "build_s": time.perf_counter() - t0, "ms (kernel, plain, library)": {},
            "device_ms": {}, "host_issue_us": {}, "digest": {}, "walls_s": {}}
     _compare_k8(torch, gram, mixed, refine, out)
+    _compare_k5_k6(torch, gram, mixed, out)
     for n in K4_SIZES:
         ms, dev, _bound = _k4_times(torch, gram, mixed, n, "compare", out["digest"])
         out["ms (kernel, plain, library)"][f"K4 n={n}"], out["device_ms"][f"K4 n={n}"] = ms, dev
     K = _large_gram(gp, gnp, RESIDENT_N)
     times, _bounds, device = _slab_kernel_times(torch, mixed, ochol, K, "compare", out["digest"])
     for tag in times:
-        key = f"K4 n={RESIDENT_N}" if tag == "K4" else tag if tag.startswith("K4") else f"K9s {tag}"
+        key = (f"K4 n={RESIDENT_N}" if tag == "K4" else tag if tag.startswith(("K4", "K6"))
+               else f"K9s {tag}")
         out["ms (kernel, plain, library)"][key], out["device_ms"][key] = times[tag], device[tag]
     W = K.clone()
     ochol.trailing_update_cuda(W, 0, CHOL_BLOCK)

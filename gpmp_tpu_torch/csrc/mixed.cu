@@ -77,18 +77,32 @@
 //      package's rounding), out cast to r's type.
 //    Bound: the lower triangle of M read once plus r and out, (n^2/2 +
 //    2 n k) 4 bytes (0.64 ms at n = 32768): memory-bound for k <= 8.
-//    Design for k <= 8: two passes over the lower triangle, as the
-//    one-pass form needs the whole
-//    row i of M twice (once for y_i = m_i r, once for m_i^T y_i) and a row
-//    of 128 KB at n = 32768 does not stay on chip across many rows:
-//      launch 1: y = M r32, one warp per row, reading columns j <= i with
-//                consecutive lanes on consecutive words, r32 staged in
-//                shared memory in 256-row tiles;
-//      launch 2: per (32-column block, 512-row chunk) partial sums of
-//                M^T y over the chunk's rows i >= j (a warp reads 32
-//                consecutive words of a row; y_i is broadcast);
-//      launch 3: the chunks of each column summed in a fixed order (no
-//                atomics: bitwise reproducible) and cast to r's type.
+//    Design for k <= 8: two passes over the lower triangle (the one-pass
+//    form needs row i of M twice, for y_i = m_i r and for m_i^T y_i, and a
+//    band of rows tall enough to keep the partial sums few does not stay
+//    in the 50 MB L2 at n = 32768), each near bandwidth, in two launches.
+//    It replaces three launches (a warp a row with 4-byte loads and r
+//    staged through shared memory behind two barriers a 256-row tile; a
+//    thread a column with one 4-byte load in flight; a third launch for
+//    the sum of 64 chunks' partials, 16.8 MB written and read back at
+//    n = 32768): 2.41 ms device, half of each pass's bandwidth.
+//      pass 1: y = M r32, K10m's geometry: a warp owns 4 rows, 16-byte
+//              loads along them (masked at the triangle and the ragged
+//              end), the next 128 columns' loads issued before this step's
+//              products, r32 through the read-only path, no shared memory,
+//              no barrier; the block of the longest rows first;
+//      pass 2: M^T y by (128-column band, row chunk) blocks, whole rows of
+//              the triangle only (the rows and chunks above a band are
+//              skipped), a lane 16 bytes of a row, a warp 4 rows a step,
+//              the next step's loads issued before this step's products,
+//              4 columns x k sums a lane; the chunk's y in shared memory
+//              (one barrier before the rows: y in registers cost 16-64 of
+//              them and an SM's third block); the band's chunk partials (a
+//              chunk up to 1024 rows: 4 MB at n = 32768, k = 2) summed in
+//              chunk order by its last block to finish, by a ticket after
+//              a fence (K3's way).  The geometry is ops/mixed.py
+//              precond_plan's (chunks enough for two blocks an SM).
+//    Every sum runs in one fixed order: bitwise reproducible.
 //    Wider r (predict's right-hand sides, the LOO backward's [Xbar, I]):
 //    two tiled triangular products, Y = M r32 then out = M^T Y, each a
 //    64 x 64 output tile per block (4 x 4 per thread, 16-deep k steps
@@ -100,14 +114,29 @@
 //    _block_tri_inv, a batched triangular solve):
 //      for each base x base diagonal block A of lower-triangular L32,
 //      A^{-1}, a ragged last block completed with the identity.
-//    Bound: under 1 MB of traffic at n = 1000 (~0.3 us); in practice
-//    latency-bound by the base serial steps of the substitution.  Design:
-//    one thread block per diagonal block, A and A^{-1} in dynamic shared
-//    memory (2 x 64 KB at base = 128, above the 48 KB default, so the
-//    entry raises the limit with cudaFuncSetAttribute), one thread per
-//    column: thread c substitutes down its own column, reading row i of A
-//    (consecutive words across threads) and its own column of A^{-1}, so
-//    the threads never wait on each other.
+//    Bound: under 1 MB of traffic at n = 1000 (~0.2 us); in practice
+//    latency-bound by the longest chain of dependent steps.  It replaces a
+//    thread a column substituting down the 128 rows, a chain of 8128
+//    dependent shared-memory multiply-adds in warp 0 (0.126 ms at n =
+//    1000).  Design: one thread block of 256 threads a diagonal block, the
+//    block (its lower triangle, completed with the identity to P = 8 2^m >=
+//    base) in place in dynamic shared memory (P (P + 4) floats: 66 KB at
+//    base = 128, above the 48 KB default, set once per device), loaded by
+//    cp.async with all of a thread's copies in flight (16 bytes where the
+//    rows are 16-byte aligned), then blocked inversion with a short chain:
+//      the 8 x 8 diagonal leaves by substitution, a thread a column (28
+//      multiply-adds and 8 divisions deep);
+//      log2(P / 8) doubling levels s = 8 .. P / 2: each pair of inverted
+//      s-blocks gives its 2s-block, T = A21 X11 then X21 = -(X22 T) (the
+//      2 x 2 identity of _block_tri_inv), every thread on a register tile of
+//      each product (4 x 4 at s = 64, 16-byte shared-memory reads), its
+//      sums in order over k (s deep), written over A21 after a barrier;
+//    the chain is 28 + 2 (8 + 16 + 32 + 64) = 268 multiply-adds deep at
+//    base = 128.  f32 FMAs on the CUDA cores (TF32 would lose the f32
+//    accuracy the levels above and the refinement rely on).  Measured, the
+//    top level's products are bound by shared-memory wavefronts, the load
+//    by its latency.  ops/mixed.py diag_block_inv_plain follows the same
+//    order.
 //
 // K7 trace-series sums (replaces the traces of _mp_solve_and_logdet_core
 //    and its _series branch):
@@ -137,6 +166,10 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+
+#include "syrk_f64.cuh"  // cp.async
 
 namespace {
 
@@ -631,45 +664,212 @@ int launch_ff_residual(const void* hi_, const void* lo_, const void* X_, const v
 
 // ---------------------------------------------------------------- K5
 constexpr int TI_MAX_BASE = 128;
+constexpr int TI_LEAF = 8;     // leaves inverted by substitution
+constexpr int TI_WARPS = 8;
+constexpr int TI_THREADS = 32 * TI_WARPS;
 
-__global__ void __launch_bounds__(TI_MAX_BASE)
+// the working size: the smallest TI_LEAF * 2^m >= base (ops/mixed.py tri_inv_size)
+int tri_inv_size(int base) {
+  int p = TI_LEAF;
+  while (p < base) p <<= 1;
+  return p;
+}
+
+// The TI_LEAF-wide diagonal leaves of the (P, P) block in shared memory (row
+// stride ld), inverted in place: thread t takes column t % TI_LEAF of leaf
+// t / TI_LEAF and substitutes down it, X[c][c] = 1 / A[c][c], X[i][c] =
+// -(sum_{k < i} A[i][k] X[k][c]) / A[i][i] (X[k][c] = 0 for k < c), in
+// registers; written after the block's barrier.
+__device__ __forceinline__ void ti_leaves(float* A, int P, int ld) {
+  const int t = threadIdx.x;
+  const bool active = t < P;
+  const int o = t - t % TI_LEAF, c = t % TI_LEAF;
+  float x[TI_LEAF];
+  if (active) {
+    const float* a = A + o * ld + o;
+#pragma unroll
+    for (int i = 0; i < TI_LEAF; ++i) {
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < i; ++k) s = fmaf(a[i * ld + k], x[k], s);
+      const float d = a[i * ld + i];
+      x[i] = i < c ? 0.0f : i == c ? 1.0f / d : -s / d;
+    }
+  }
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < TI_LEAF; ++i) A[(o + i) * ld + o + c] = x[i];
+  }
+  __syncthreads();
+}
+
+// TC consecutive floats of shared memory (16-, 8- or 4-byte aligned)
+template <int TC>
+__device__ __forceinline__ void ti_row(const float* p, float (&r)[TC]) {
+  if constexpr (TC == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+  } else if constexpr (TC == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    r[0] = v.x; r[1] = v.y;
+  } else {
+    r[0] = *p;
+  }
+}
+
+// acc = Lm Rm over S-deep sums in order, Lm at a, Rm at b (row stride ld, a
+// multiple of 4; a and b 16-byte aligned), a thread's TR x TC outputs at
+// rows rt TR + u, columns ct TC + v: each step of 4 k reads 4 consecutive
+// k of each of its rows of Lm (16-byte loads) and TC consecutive columns of
+// 4 rows of Rm.  (The zeros of the triangular factors are multiplied as
+// they are: a warp spans all the columns and two row groups, so skipping
+// them would not shorten any warp's chain.)
+template <int S, int TR, int TC>
+__device__ __forceinline__ void ti_product(const float* a, const float* b, int ld, int rt,
+                                           int ct, float (&acc)[TR][TC]) {
+#pragma unroll
+  for (int u = 0; u < TR; ++u)
+#pragma unroll
+    for (int v = 0; v < TC; ++v) acc[u][v] = 0.0f;
+#pragma unroll 4
+  for (int k = 0; k < S; k += 4) {
+    float l[TR][4];
+#pragma unroll
+    for (int u = 0; u < TR; ++u) ti_row<4>(a + (rt * TR + u) * ld + k, l[u]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float r[TC];
+      ti_row<TC>(b + (k + kk) * ld + ct * TC, r);
+#pragma unroll
+      for (int u = 0; u < TR; ++u)
+#pragma unroll
+        for (int v = 0; v < TC; ++v) acc[u][v] = fmaf(l[u][kk], r[v], acc[u][v]);
+    }
+  }
+}
+
+// One doubling level: each pair of inverted S-blocks [[X11, 0], [A21, X22]]
+// on the diagonal becomes the inverse of its 2S-block, in place: T = A21 X11,
+// then X21 = -(X22 T), each product summed over k in order in registers,
+// written over A21 after a barrier.  P / (2 S) pairs, S^2 / (TR TC) threads
+// a pair: with P = TI_MAX_BASE all TI_THREADS threads at every level.
+template <int S, int TR, int TC>
+__device__ __forceinline__ void ti_level(float* A, int P, int ld) {
+  constexpr int RT = S / TR, CT = S / TC, PER_PAIR = RT * CT;
+  static_assert(TI_MAX_BASE / (2 * S) * PER_PAIR == TI_THREADS, "one tile a thread");
+  const int t = threadIdx.x;
+  const bool active = t < P / (2 * S) * PER_PAIR;
+  const int o = (t / PER_PAIR) * 2 * S;
+  const int rt = t % PER_PAIR / CT, ct = t % CT;
+  float* a21 = A + (o + S) * ld + o;
+  float acc[TR][TC];
+  if (active) ti_product<S, TR, TC>(a21, A + o * ld + o, ld, rt, ct, acc);
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int u = 0; u < TR; ++u)
+#pragma unroll
+      for (int v = 0; v < TC; ++v) a21[(rt * TR + u) * ld + ct * TC + v] = acc[u][v];
+  }
+  __syncthreads();
+  if (active) ti_product<S, TR, TC>(a21 + S, a21, ld, rt, ct, acc);
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int u = 0; u < TR; ++u)
+#pragma unroll
+      for (int v = 0; v < TC; ++v) a21[(rt * TR + u) * ld + ct * TC + v] = -acc[u][v];
+  }
+  __syncthreads();
+}
+
+// One thread block a diagonal block: its lower triangle (identity past the
+// matrix, and up to the working size P) into shared memory, the leaves,
+// the levels up to P, then its base x base corner out, zeros above the
+// diagonal.
+__global__ void __launch_bounds__(TI_THREADS)
 diag_block_inv_kernel(const float* __restrict__ L, float* __restrict__ out, long long n,
-                      int base) {
-  extern __shared__ float sm[];
-  float* A = sm;                // base x base, the diagonal block
-  float* Xs = sm + base * base;  // base x base, its inverse
+                      int base, int P) {
+  extern __shared__ __align__(16) float A[];
+  // row stride: a multiple of 4 (16-byte rows), 4 banks apart, so that the
+  // rows a warp reads at one k do not share banks
+  const int ld = P + 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long r0 = static_cast<long long>(blockIdx.x) * base;
   const int bsz = static_cast<int>(n - r0 < base ? n - r0 : base);
-  for (int t = threadIdx.x; t < base * base; t += blockDim.x) {
-    const int i = t / base, j = t % base;
-    A[t] = (i < bsz && j < bsz) ? L[(r0 + i) * n + r0 + j] : (i == j ? 1.0f : 0.0f);
-    Xs[t] = 0.0f;
-  }
+  // the lower triangle by cp.async, all of a thread's copies in flight at
+  // once: 16 bytes where 4 columns lie on or below the diagonal and the
+  // rows are 16-byte aligned (vec), else 4 a copy; the rest (the upper
+  // triangle, the identity past the matrix) stored
+  const bool vec = n % 4 == 0 && base % 4 == 0 && reinterpret_cast<uintptr_t>(L) % 16 == 0;
+  for (int i = warp; i < P; i += TI_WARPS)
+    for (int j = 4 * lane; j < P; j += 128) {
+      float* dst = A + i * ld + j;
+      const float* src = L + (r0 + i) * n + r0 + j;
+      if (vec && j + 3 <= i && i < bsz) {
+        syrk::cp_async<16>(dst, src, true);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (j + e <= i && i < bsz)
+            syrk::cp_async<4>(dst + e, src + e, true);
+          else
+            dst[e] = j + e == i ? 1.0f : 0.0f;
+        }
+      }
+    }
+  syrk::cp_commit();
+  syrk::cp_wait<0>();
   __syncthreads();
-  // thread c owns column c of the inverse: rows i >= c by forward
-  // substitution, X[i][c] = (delta_ic - sum_{c<=k<i} A[i][k] X[k][c]) / A[i][i]
-  const int c = threadIdx.x;
-  for (int i = c; i < base; ++i) {
-    float s = (i == c) ? 1.0f : 0.0f;
-    for (int k = c; k < i; ++k) s -= A[i * base + k] * Xs[k * base + c];
-    Xs[i * base + c] = s / A[i * base + i];
-  }
-  __syncthreads();
+  ti_leaves(A, P, ld);
+  if (P > 8) ti_level<8, 2, 1>(A, P, ld);
+  if (P > 16) ti_level<16, 2, 2>(A, P, ld);
+  if (P > 32) ti_level<32, 4, 2>(A, P, ld);
+  if (P > 64) ti_level<64, 4, 4>(A, P, ld);
   float* o = out + static_cast<long long>(blockIdx.x) * base * base;
-  for (int t = threadIdx.x; t < base * base; t += blockDim.x) o[t] = Xs[t];
+  if (base % 4 == 0) {  // 16-byte rows in and out
+    for (int i = warp; i < base; i += TI_WARPS)
+      for (int j = 4 * lane; j < base; j += 128) {
+        float4 v = *reinterpret_cast<const float4*>(A + i * ld + j);
+        if (j + 3 > i) {
+          v.w = 0.0f;
+          if (j + 2 > i) v.z = 0.0f;
+          if (j + 1 > i) v.y = 0.0f;
+          if (j > i) v.x = 0.0f;
+        }
+        *reinterpret_cast<float4*>(o + i * base + j) = v;
+      }
+  } else {
+    for (int i = warp; i < base; i += TI_WARPS)
+      for (int j = lane; j < base; j += 32) o[i * base + j] = j > i ? 0.0f : A[i * ld + j];
+  }
 }
 
 int launch_diag_block_inv(const void* L, void* out, long long n, int base, void* stream) {
-  if (n <= 0 || base < 1 || base > TI_MAX_BASE) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || base < 1 || base > TI_MAX_BASE || !L || !out)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long nb = (n + base - 1) / base;
   if (nb > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 2 * base * base * static_cast<int>(sizeof(float));
-  int err = static_cast<int>(cudaFuncSetAttribute(
-      diag_block_inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  const int P = tri_inv_size(base);
+  const int smem = P * (P + 4) * static_cast<int>(sizeof(float));
+  // the largest block's shared memory, above the 48 KB default: set once
+  // per device (a bit of ti_smem_set per device), not on every launch
+  static std::atomic<unsigned long long> ti_smem_set{0};
+  int dev = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
   if (err) return err;
-  diag_block_inv_kernel<<<static_cast<unsigned>(nb), base, smem,
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(ti_smem_set.load(std::memory_order_relaxed) & bit)) {
+    err = static_cast<int>(cudaFuncSetAttribute(
+        diag_block_inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TI_MAX_BASE * (TI_MAX_BASE + 4) * static_cast<int>(sizeof(float))));
+    if (err) return err;
+    ti_smem_set.fetch_or(bit, std::memory_order_relaxed);
+  }
+  diag_block_inv_kernel<<<static_cast<unsigned>(nb), TI_THREADS, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(L), static_cast<float*>(out), n, base);
+      static_cast<const float*>(L), static_cast<float*>(out), n, base, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -788,150 +988,314 @@ int launch_loo_diag(const void* A, const void* B, void* partial, void* out, long
 }
 
 // ---------------------------------------------------------------- K6
-constexpr int PA_ROWS = 8;  // launch 1: rows per block, one warp each
-constexpr int PA_THREADS = 32 * PA_ROWS;
-constexpr int PA_TILE = 256;  // rows of r32 staged per step
 constexpr int PA_MAX_K = 8;
-constexpr int PA_COLS = 32;  // launch 2: columns per block
-constexpr int PA_TY = 8;     // launch 2: rows in flight per block
-constexpr long long PA_CHUNK = 512;  // launch 2: rows per chunk
+constexpr int PA_ROWS = 4;                 // rows a warp (pass 1), a warp step (pass 2)
+constexpr int PA_STEP = 128;               // columns a warp covers: 4 a lane
+constexpr int PA_WARPS = 8;                // warps a block (pass 1: at most)
+constexpr int PA_THREADS = 32 * PA_WARPS;
+constexpr int PA_BAND = PA_STEP;           // pass 2: columns a block
+constexpr long long PA_MAX_HEIGHT = 1024;  // pass 2: rows a chunk at most
+static_assert(PA_MAX_HEIGHT <= PA_WARPS * PA_STEP, "a chunk's y fits the warps' sums' space");
 
-long long precond_chunks(long long n) { return (n + PA_CHUNK - 1) / PA_CHUNK; }
-
-// y = M r32 over the lower triangle: y_i = sum_{j <= i} M_ij f32(r_j), f32.
-// SLAB: M is the rows [off, off + rows) of the (n, n) lower-triangular M; y
-// has those rows, r all n.  Without SLAB, rows = n and off = 0 are constants
-// (the square form's code, as fast as before the slab form existed).
-template <typename T, bool SLAB>
-__global__ void __launch_bounds__(PA_THREADS)
-precond_rows_kernel(const float* __restrict__ M, const T* __restrict__ r,
-                    float* __restrict__ y, long long rows_, long long n, long long off_,
-                    int k) {
-  const long long rows = SLAB ? rows_ : n;
-  const long long off = SLAB ? off_ : 0;
-  __shared__ float rs[PA_TILE * PA_MAX_K];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long row0 = static_cast<long long>(blockIdx.x) * PA_ROWS;
-  const long long row = row0 + warp;
-  long long last = row0 + PA_ROWS - 1;  // the block's last row: its columns end there
-  if (last > rows - 1) last = rows - 1;
-  last += off;  // as a global row
-  float acc[PA_MAX_K];
+// rows c .. c + 3 of r (n, KC) row-major as f32 (r32), past n zeros; a
+// lane's 4 KC consecutive entries in 16-byte loads where r is 16-byte
+// aligned and all 4 rows lie inside (c is a multiple of 4); read-only path
+template <typename T, int KC>
+__device__ __forceinline__ void load_r32(const T* __restrict__ r, long long c, long long n,
+                                         bool rvec, float (&x)[4][KC]) {
+  if (rvec && c + 3 < n) {
+    constexpr int PER = 16 / static_cast<int>(sizeof(T));
+    const T* base = r + c * KC;
 #pragma unroll
-  for (int c = 0; c < PA_MAX_K; ++c) acc[c] = 0.0f;
-
-  for (long long c0 = 0; c0 <= last; c0 += PA_TILE) {
-    const int w = static_cast<int>(last + 1 - c0 < PA_TILE ? last + 1 - c0 : PA_TILE);
-    __syncthreads();  // the previous tile is no longer read
-    for (int t = threadIdx.x; t < w * k; t += PA_THREADS)
-      rs[t] = static_cast<float>(r[c0 * k + t]);  // r is row-major (n, k)
-    __syncthreads();
-    if (row < rows) {
-      const float* Mrow = M + row * n + c0;
-      const long long grow = off + row;
-      const int wr = static_cast<int>(grow + 1 - c0 < w ? grow + 1 - c0 : w);  // j <= grow
-#pragma unroll 4
-      for (int j = lane; j < wr; j += 32) {
-        const float mv = Mrow[j];
+    for (int q = 0; q < 4 * KC / PER; ++q) {
+      if constexpr (sizeof(T) == 8) {
+        const double2 v = __ldg(reinterpret_cast<const double2*>(base) + q);
+        x[(2 * q) / KC][(2 * q) % KC] = static_cast<float>(v.x);
+        x[(2 * q + 1) / KC][(2 * q + 1) % KC] = static_cast<float>(v.y);
+      } else {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(base) + q);
+        const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int c = 0; c < PA_MAX_K; ++c)
-          if (c < k) acc[c] = fmaf(mv, rs[j * k + c], acc[c]);
+        for (int u = 0; u < 4; ++u) x[(4 * q + u) / KC][(4 * q + u) % KC] = e[u];
       }
     }
-  }
+  } else {
 #pragma unroll
-  for (int c = 0; c < PA_MAX_K; ++c) {
-    if (c < k) {
-      float v = acc[c];
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0 && row < rows) y[row * k + c] = v;
-    }
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int q = 0; q < KC; ++q)
+        x[e][q] = c + e < n ? static_cast<float>(__ldg(r + (c + e) * KC + q)) : 0.0f;
   }
 }
 
-// partial[ch, j, c] = sum over the chunk's rows i (global off + i >= j) of
-// M_ij y_ic, f32; the chunks cut the slab's rows (SLAB as above)
-template <bool SLAB>
-__global__ void __launch_bounds__(PA_COLS * PA_TY)
+// a lane's entries c .. c + 3 of one row of M (p = the row's column c),
+// those past the row's last column ``last`` (its global row: the triangle)
+// read as zeros; 16-byte streaming loads (VEC: rows 16-byte aligned, n %
+// 4 == 0, so c <= last < n keeps c + 3 < n), else 4-byte ones
+template <bool VEC>
+__device__ __forceinline__ float4 load_m(const float* __restrict__ p, long long c,
+                                         long long last) {
+  if (c > last) return make_float4(0.f, 0.f, 0.f, 0.f);
+  if (VEC) {
+    float4 v = __ldcs(reinterpret_cast<const float4*>(p));
+    if (c + 3 > last) {
+      v.w = 0.f;
+      if (c + 2 > last) v.z = 0.f;
+      if (c + 1 > last) v.y = 0.f;
+    }
+    return v;
+  }
+  return make_float4(__ldcs(p), c + 1 <= last ? __ldcs(p + 1) : 0.f,
+                     c + 2 <= last ? __ldcs(p + 2) : 0.f, c + 3 <= last ? __ldcs(p + 3) : 0.f);
+}
+
+// Pass 1, y = M r32 over the lower triangle: y_i = sum_{j <= off + i} M_ij
+// f32(r_j) in f32, M the rows [off, off + rows) of the (n, n) M (the square
+// M: rows = n, off = 0).  K10m's geometry: a warp owns PA_ROWS rows, lane t
+// reads the columns 128 s + 4 t .. + 3 of each at step s in 16-byte
+// streaming loads, the next step's loads issued before this step's
+// products; r32 through the read-only path, shared by the warp's rows; no
+// shared memory and no barrier.  blockDim.x / 32 warps a block; the block
+// of the longest rows first.  Sums: a lane's columns in order, then a
+// butterfly over the lanes (bitwise reproducible).  k > 4: registers
+// capped for two blocks an SM (2.6 against 3.3 ms at n = 32768, k = 8, on
+// the H100).
+template <typename T, int KC, bool VEC>
+__global__ void __launch_bounds__(PA_THREADS, KC <= 4 ? 1 : 2)
+precond_rows_kernel(const float* __restrict__ M, const T* __restrict__ r, float* __restrict__ y,
+                    long long rows, long long n, long long off, bool rvec) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long rb = gridDim.x - 1 - blockIdx.x;
+  const long long r0 = (rb * (blockDim.x >> 5) + warp) * PA_ROWS;
+  if (r0 >= rows) return;
+  const float* row[PA_ROWS];
+  long long last[PA_ROWS];  // a row's last column; rows past the slab have none
+#pragma unroll
+  for (int u = 0; u < PA_ROWS; ++u) {
+    row[u] = M + (r0 + u < rows ? r0 + u : rows - 1) * n;
+    last[u] = r0 + u < rows ? off + r0 + u : -1;
+  }
+  const long long cend = off + (r0 + PA_ROWS < rows ? r0 + PA_ROWS : rows) - 1;
+  float acc[PA_ROWS][KC];
+#pragma unroll
+  for (int u = 0; u < PA_ROWS; ++u)
+#pragma unroll
+    for (int q = 0; q < KC; ++q) acc[u][q] = 0.0f;
+
+  long long c = 4 * lane;
+  float4 h[PA_ROWS];
+  if (c <= cend) {
+#pragma unroll
+    for (int u = 0; u < PA_ROWS; ++u) h[u] = load_m<VEC>(row[u] + c, c, last[u]);
+  }
+  while (c <= cend) {
+    const long long cn = c + PA_STEP;
+    float4 hn[PA_ROWS];
+    if (cn <= cend) {
+#pragma unroll
+      for (int u = 0; u < PA_ROWS; ++u) hn[u] = load_m<VEC>(row[u] + cn, cn, last[u]);
+    }
+    float x[4][KC];
+    load_r32<T, KC>(r, c, n, rvec, x);
+#pragma unroll
+    for (int u = 0; u < PA_ROWS; ++u) {
+      const float m[4] = {h[u].x, h[u].y, h[u].z, h[u].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int q = 0; q < KC; ++q) acc[u][q] = fmaf(m[e], x[e][q], acc[u][q]);
+    }
+#pragma unroll
+    for (int u = 0; u < PA_ROWS; ++u) h[u] = hn[u];
+    c = cn;
+  }
+#pragma unroll
+  for (int u = 0; u < PA_ROWS; ++u)
+#pragma unroll
+    for (int q = 0; q < KC; ++q) {
+      float v = acc[u][q];
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+      if (lane == 0 && r0 + u < rows) y[(r0 + u) * KC + q] = v;
+    }
+}
+
+// Pass 2, out = M^T y, and its chunk sum.  Block (band, chunk) owns the
+// columns [128 band, + 128) and the slab rows [chunk h, (chunk + 1) h),
+// from the band's first row of the triangle on (the rows above it, and the
+// chunks wholly above it, are skipped: those chunks' blocks return at
+// once).  The chunk's rows of y go to shared memory first (one barrier
+// before the rows, none in them).  Lane t reads 16 bytes, the columns
+// 128 band + 4 t .. + 3, of a row; warp w takes the rows rbeg + 4 w + u +
+// 32 s, the next step's loads issued before this step's products;
+// a lane sums 4 columns x KC over its rows in order.  The block's warps are
+// summed in order through shared memory; a band with one nonempty chunk
+// writes out there, else the chunk's partial sums go to part[chunk, j, q]
+// and the last of the band's nonempty blocks to finish (a ticket after a
+// fence) sums them in chunk order, writes out in Tout and resets the
+// ticket.  Bands no slab row reaches (columns past off + rows - 1) get
+// zeros from their chunk-0 block.  Bitwise reproducible.
+template <typename Tout, int KC, bool VEC>
+__global__ void __launch_bounds__(PA_THREADS)
 precond_cols_kernel(const float* __restrict__ M, const float* __restrict__ y,
-                    float* __restrict__ partial, long long rows_, long long n, long long off_,
-                    int k) {
-  const long long rows = SLAB ? rows_ : n;
-  const long long off = SLAB ? off_ : 0;
-  __shared__ float red[PA_TY][PA_COLS][PA_MAX_K];
-  const long long j0 = static_cast<long long>(blockIdx.x) * PA_COLS;
-  const long long j = j0 + threadIdx.x;
-  const long long ch = blockIdx.y;
-  long long r0 = ch * PA_CHUNK;
-  const long long r1 = r0 + PA_CHUNK < rows ? r0 + PA_CHUNK : rows;
-  if (r0 < j0 - off) r0 = j0 - off;  // rows above the block's first column hold zeros of M
-  float acc[PA_MAX_K];
-#pragma unroll
-  for (int c = 0; c < PA_MAX_K; ++c) acc[c] = 0.0f;
-  if (j < n) {
-    for (long long i = r0 + threadIdx.y; i < r1; i += PA_TY) {
-      if (off + i < j) continue;  // M_ij = 0 above the diagonal
-      const float mv = M[i * n + j];
-#pragma unroll
-      for (int c = 0; c < PA_MAX_K; ++c)
-        if (c < k) acc[c] = fmaf(mv, y[i * k + c], acc[c]);
+                    float* __restrict__ part, unsigned int* __restrict__ tickets,
+                    Tout* __restrict__ out, long long rows, long long n, long long off,
+                    long long height) {
+  constexpr int BR = PA_WARPS * PA_ROWS;  // rows a block step
+  // the chunk's rows of y, then the block's warps' sums
+  __shared__ float sm[PA_WARPS * PA_STEP * KC];
+  __shared__ int last_block;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long band = blockIdx.x, ch = blockIdx.y, chunks = gridDim.y;
+  const long long j0 = band * PA_BAND;
+  const long long rstar = j0 - off;  // the slab row of global row j0: the band's first
+  if (rstar >= rows) {
+    if (ch == 0) {
+      for (int t = tid; t < PA_BAND * KC; t += PA_THREADS)
+        if (j0 + t / KC < n) out[j0 * KC + t] = Tout(0);
     }
+    return;
   }
-#pragma unroll
-  for (int c = 0; c < PA_MAX_K; ++c) red[threadIdx.y][threadIdx.x][c] = acc[c];
+  const long long ch0 = rstar > 0 ? rstar / height : 0;  // the band's first nonempty chunk
+  if (ch < ch0) return;
+  const long long rbeg = ch * height > rstar ? ch * height : rstar;
+  const long long rend = (ch + 1) * height < rows ? (ch + 1) * height : rows;
+  for (long long t = tid; t < (rend - rbeg) * KC; t += PA_THREADS)
+    sm[t] = __ldg(y + rbeg * KC + t);
   __syncthreads();
-  if (threadIdx.y == 0 && j < n) {
-    for (int c = 0; c < k; ++c) {
-      float t = 0.0f;
-      for (int q = 0; q < PA_TY; ++q) t += red[q][threadIdx.x][c];
-      partial[(ch * n + j) * k + c] = t;
+  const long long c = j0 + 4 * lane;
+  float acc[4][KC];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int q = 0; q < KC; ++q) acc[e][q] = 0.0f;
+  auto load = [&](long long i0, float4 (&hh)[PA_ROWS]) {
+#pragma unroll
+    for (int u = 0; u < PA_ROWS; ++u) {
+      const long long ii = i0 + u;
+      hh[u] = ii < rend ? load_m<VEC>(M + ii * n + c, c, off + ii)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
     }
+  };
+  long long i = rbeg + PA_ROWS * warp;
+  float4 h[PA_ROWS];
+  load(i, h);
+  while (i < rend) {
+    float4 hn[PA_ROWS];
+    load(i + BR, hn);
+#pragma unroll
+    for (int u = 0; u < PA_ROWS; ++u) {
+      const float m[4] = {h[u].x, h[u].y, h[u].z, h[u].w};
+      const bool in = i + u < rend;
+      const float* yr = sm + (i + u - rbeg) * KC;
+#pragma unroll
+      for (int q = 0; q < KC; ++q) {
+        const float yq = in ? yr[q] : 0.0f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e][q] = fmaf(m[e], yq, acc[e][q]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < PA_ROWS; ++u) h[u] = hn[u];
+    i += BR;
   }
+  __syncthreads();  // y is no longer read: sm takes the warps' sums
+  float* red = sm + warp * PA_STEP * KC;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int q = 0; q < KC; ++q) red[(4 * lane + e) * KC + q] = acc[e][q];
+  __syncthreads();
+  // entry t of the band: column j0 + t / KC, right-hand side t % KC
+  const long long nonempty = chunks - ch0;
+  for (int t = tid; t < PA_BAND * KC; t += PA_THREADS) {
+    if (j0 + t / KC >= n) continue;
+    float v = 0.0f;
+#pragma unroll
+    for (int w = 0; w < PA_WARPS; ++w) v += sm[w * PA_STEP * KC + t];
+    if (nonempty == 1) out[j0 * KC + t] = static_cast<Tout>(v);
+    else part[(ch * n + j0) * KC + t] = v;
+  }
+  if (nonempty == 1) return;
+  __threadfence();  // the partials are visible before the ticket counts them
+  __syncthreads();
+  if (tid == 0) last_block = atomicAdd(tickets + band, 1u) == nonempty - 1;
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  for (int t = tid; t < PA_BAND * KC; t += PA_THREADS) {
+    if (j0 + t / KC >= n) continue;
+    float v = 0.0f;
+#pragma unroll 8
+    for (long long k = ch0; k < chunks; ++k) v += __ldcg(part + (k * n + j0) * KC + t);
+    out[j0 * KC + t] = static_cast<Tout>(v);
+  }
+  if (tid == 0) tickets[band] = 0u;
 }
 
-// out[j, c] = T(sum over the chunks in order of partial[ch, j, c])
-template <typename T>
-__global__ void __launch_bounds__(RED_THREADS)
-precond_reduce_kernel(const float* __restrict__ partial, long long chunks, long long n, int k,
-                      T* __restrict__ out) {
-  const long long t = static_cast<long long>(blockIdx.x) * RED_THREADS + threadIdx.x;
-  if (t >= n * k) return;
-  float s = 0.0f;
-  for (long long ch = 0; ch < chunks; ++ch) s += partial[ch * n * k + t];
-  out[t] = static_cast<T>(s);
+template <typename T, typename Tout, int KC>
+int launch_precond_k(const float* M, const T* r, float* y, float* part, unsigned int* tickets,
+                     Tout* out, long long rows, long long n, long long off, int warps,
+                     long long height, bool vec, bool rvec, cudaStream_t s) {
+  const long long row_warps = (rows + PA_ROWS - 1) / PA_ROWS;
+  const unsigned row_blocks = static_cast<unsigned>((row_warps + warps - 1) / warps);
+  if (vec)
+    precond_rows_kernel<T, KC, true><<<row_blocks, 32 * warps, 0, s>>>(M, r, y, rows, n, off,
+                                                                        rvec);
+  else
+    precond_rows_kernel<T, KC, false><<<row_blocks, 32 * warps, 0, s>>>(M, r, y, rows, n, off,
+                                                                         rvec);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const dim3 grid(static_cast<unsigned>((n + PA_BAND - 1) / PA_BAND),
+                  static_cast<unsigned>((rows + height - 1) / height));
+  if (vec)
+    precond_cols_kernel<Tout, KC, true><<<grid, PA_THREADS, 0, s>>>(M, y, part, tickets, out,
+                                                                    rows, n, off, height);
+  else
+    precond_cols_kernel<Tout, KC, false><<<grid, PA_THREADS, 0, s>>>(M, y, part, tickets, out,
+                                                                     rows, n, off, height);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // M^T (M r32) for M the rows [off, off + rows) of an (n, n) lower-triangular
 // f32 M (rows = n, off = 0: the whole product); r (n, k) in T; out (n, k) in
 // Tout: the whole M^T M r, or a rank's part of it, summed over the ranks by
-// the caller
-template <typename T, typename Tout, bool SLAB>
-int launch_precond_apply(const void* M, const void* r, void* y, void* partial, void* out,
-                         long long rows, long long n, long long off, int k, void* stream) {
-  const long long row_blocks = (rows + PA_ROWS - 1) / PA_ROWS;
-  const long long col_blocks = (n + PA_COLS - 1) / PA_COLS;
-  const long long chunks = precond_chunks(rows);
+// the caller.  Two launches; the geometry (pass 1's warps a block, pass
+// 2's chunk height) is ops/mixed.py precond_plan's; y (rows, k) f32, part
+// (chunks, n, k) f32 and tickets (one a band, zero between launches) are
+// the caller's workspace.
+template <typename T, typename Tout>
+int launch_precond_apply(const void* M_, const void* r_, void* y, void* part, void* tickets,
+                         void* out, long long rows, long long n, long long off, int k,
+                         int warps, long long height, void* stream) {
+  const long long chunks = height > 0 ? (rows + height - 1) / height : 0;
   if (rows <= 0 || n <= 0 || off < 0 || off + rows > n || k < 1 || k > PA_MAX_K ||
-      row_blocks > 0x7fffffffLL || col_blocks > 0x7fffffffLL || chunks > 65535)
+      (warps != 1 && warps != 2 && warps != 4 && warps != 8) || height <= 0 ||
+      height % PA_ROWS || height > PA_MAX_HEIGHT || chunks > 65535 ||
+      (n + PA_BAND - 1) / PA_BAND > 0x7fffffffLL || (rows + PA_ROWS - 1) / PA_ROWS > 0x7fffffffLL ||
+      !M_ || !r_ || !y || !part || !tickets || !out)
     return static_cast<int>(cudaErrorInvalidValue);
+  const float* M = static_cast<const float*>(M_);
+  const T* r = static_cast<const T*>(r_);
+  float* yy = static_cast<float*>(y);
+  float* pp = static_cast<float*>(part);
+  unsigned int* tk = static_cast<unsigned int*>(tickets);
+  Tout* o = static_cast<Tout*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  precond_rows_kernel<T, SLAB><<<static_cast<unsigned>(row_blocks), PA_THREADS, 0, s>>>(
-      static_cast<const float*>(M), static_cast<const T*>(r), static_cast<float*>(y), rows, n,
-      off, k);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  precond_cols_kernel<SLAB>
-      <<<dim3(static_cast<unsigned>(col_blocks), static_cast<unsigned>(chunks)),
-         dim3(PA_COLS, PA_TY), 0, s>>>(
-      static_cast<const float*>(M), static_cast<const float*>(y),
-      static_cast<float*>(partial), rows, n, off, k);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  precond_reduce_kernel<Tout><<<static_cast<unsigned>((n * k + RED_THREADS - 1) / RED_THREADS),
-                                RED_THREADS, 0, s>>>(static_cast<const float*>(partial), chunks,
-                                                     n, k, static_cast<Tout*>(out));
-  return static_cast<int>(cudaGetLastError());
+  // 16-byte loads of M: every row 16-byte aligned; of r: r 16-byte aligned
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(M) % 16 == 0;
+  const bool rvec = reinterpret_cast<uintptr_t>(r) % 16 == 0;
+#define PA_CASE(KC)                                                                        \
+  case KC:                                                                                 \
+    return launch_precond_k<T, Tout, KC>(M, r, yy, pp, tk, o, rows, n, off, warps, height, \
+                                         vec, rvec, s);
+  switch (k) {
+    PA_CASE(1) PA_CASE(2) PA_CASE(3) PA_CASE(4) PA_CASE(5) PA_CASE(6) PA_CASE(7)
+    default: return launch_precond_k<T, Tout, 8>(M, r, yy, pp, tk, o, rows, n, off, warps,
+                                                 height, vec, rvec, s);
+  }
+#undef PA_CASE
 }
 
 // K6 for wide r: C = op(M) B, op(M) = M (lower, TRANS false) or M^T
@@ -1062,31 +1426,48 @@ int gpmp_ff_residual(const void* hi, const void* lo, const void* X, const void* 
   return launch_ff_residual(hi, lo, X, B, R, partial, norms, n, k, stream);
 }
 
-long long gpmp_precond_chunks(long long n) { return precond_chunks(n); }
-
-int gpmp_precond_apply_f64(const void* M, const void* r, void* y, void* partial, void* out,
-                           long long n, int k, void* stream) {
-  return launch_precond_apply<double, double, false>(M, r, y, partial, out, n, n, 0, k, stream);
+// K6's geometry: rows a warp (step), columns a band, warps a pass-2 block,
+// rows a pass-2 chunk at most
+// (ops/mixed.py checks them)
+int gpmp_precond_geometry(int what) {
+  switch (what) {
+    case 0: return PA_ROWS;
+    case 1: return PA_BAND;
+    case 2: return PA_WARPS;
+    case 3: return static_cast<int>(PA_MAX_HEIGHT);
+    default: return -1;
+  }
 }
 
-int gpmp_precond_apply_f32(const void* M, const void* r, void* y, void* partial, void* out,
-                           long long n, int k, void* stream) {
-  return launch_precond_apply<float, float, false>(M, r, y, partial, out, n, n, 0, k, stream);
+int gpmp_precond_apply_f64(const void* M, const void* r, void* y, void* part, void* tickets,
+                           void* out, long long n, int k, int warps, long long height,
+                           void* stream) {
+  return launch_precond_apply<double, double>(M, r, y, part, tickets, out, n, n, 0, k, warps,
+                                              height, stream);
+}
+
+int gpmp_precond_apply_f32(const void* M, const void* r, void* y, void* part, void* tickets,
+                           void* out, long long n, int k, int warps, long long height,
+                           void* stream) {
+  return launch_precond_apply<float, float>(M, r, y, part, tickets, out, n, n, 0, k, warps,
+                                            height, stream);
 }
 
 // a rank's part of M^T (M r32), f32, from its row slab of M and all of r
-int gpmp_precond_apply_slab_f64(const void* M, const void* r, void* y, void* partial,
-                                void* out, long long rows, long long n, long long off, int k,
+int gpmp_precond_apply_slab_f64(const void* M, const void* r, void* y, void* part,
+                                void* tickets, void* out, long long rows, long long n,
+                                long long off, int k, int warps, long long height,
                                 void* stream) {
-  return launch_precond_apply<double, float, true>(M, r, y, partial, out, rows, n, off, k,
-                                                   stream);
+  return launch_precond_apply<double, float>(M, r, y, part, tickets, out, rows, n, off, k,
+                                             warps, height, stream);
 }
 
-int gpmp_precond_apply_slab_f32(const void* M, const void* r, void* y, void* partial,
-                                void* out, long long rows, long long n, long long off, int k,
+int gpmp_precond_apply_slab_f32(const void* M, const void* r, void* y, void* part,
+                                void* tickets, void* out, long long rows, long long n,
+                                long long off, int k, int warps, long long height,
                                 void* stream) {
-  return launch_precond_apply<float, float, true>(M, r, y, partial, out, rows, n, off, k,
-                                                  stream);
+  return launch_precond_apply<float, float>(M, r, y, part, tickets, out, rows, n, off, k,
+                                            warps, height, stream);
 }
 
 int gpmp_precond_apply_wide_f64(const void* M, const void* r, void* y, void* out, long long n,

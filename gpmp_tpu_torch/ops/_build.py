@@ -112,8 +112,8 @@ def _declare(lib):
         # ops/gram.py: K1, K2, K1m
         "gpmp_matern_max_d": ([], i32),
         "gpmp_matern_pullback_blocks": ([ll, ll], ll),
-        # ops/mixed.py: K3, K5, K6, K7, K7b
-        "gpmp_precond_chunks": ([ll], ll),
+        # ops/mixed.py: K6's geometry
+        "gpmp_precond_geometry": ([i32], i32),
         # ops/mixed.py: K3
         "gpmp_residual_geometry": ([i32], i32),
         # ops/refine.py: K8r, K8t; ops/chol.py: K9m
@@ -175,9 +175,10 @@ def _declare(lib):
             [vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp], i32)
         signatures[f"gpmp_residual_{suffix}"] = (
             [vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, ll, vp], i32)
-        signatures[f"gpmp_precond_apply_{suffix}"] = ([vp, vp, vp, vp, vp, ll, i32, vp], i32)
+        signatures[f"gpmp_precond_apply_{suffix}"] = (
+            [vp, vp, vp, vp, vp, vp, ll, i32, i32, ll, vp], i32)
         signatures[f"gpmp_precond_apply_slab_{suffix}"] = (
-            [vp, vp, vp, vp, vp, ll, ll, ll, i32, vp], i32)
+            [vp, vp, vp, vp, vp, vp, ll, ll, ll, i32, i32, ll, vp], i32)
         signatures[f"gpmp_precond_apply_wide_{suffix}"] = ([vp, vp, vp, vp, ll, ll, vp], i32)
     for name, (argtypes, restype) in signatures.items():
         fn = getattr(lib, name)

@@ -26,12 +26,13 @@ launch counter:
   (``_f64_matvec`` plus the residual norms of ``refined_cholesky_solve``);
 - K6 ``_apply`` (``precond_apply_*``): the preconditioner application
   M^T (M r) for any number of columns, r rounded to f32, f32 products,
-  cast back;
+  cast back (k <= 8: two bandwidth-bound passes, ``precond_plan``);
 - K4 ``factorization_residual``: R = K - L L^T over the lower triangle in
   f64, emitted in f32 and made symmetric (``_factorization_residual_f32``),
   on the f64 tensor cores over the tiles of ``residual_tiles``;
 - K5 ``diag_block_inv``: the inverses of the diagonal blocks of L32
-  (the base case of ``_block_tri_inv``);
+  (the base case of ``_block_tri_inv``), by substitution on 8-wide leaves
+  and doubling levels in shared memory;
 - K7 ``trace_sums`` / ``series_sums``: (tr H, sum H^2) and
   (sum H^2 o H, sum (H^2)^2) accumulated in f64 from f32 H and H^2 (the
   trace series of ``_mp_solve_and_logdet_core``);
@@ -86,8 +87,10 @@ _LOGDET_FTOL2 = 1e-8
 _SERIES_TAU = 1e-4
 # K3 takes at most this many right-hand sides; wider ones use torch.matmul
 MATVEC_MAX_COLS = 8
-# diagonal block size of the triangular inverse (K5)
+# diagonal block size of the triangular inverse (K5), and the leaves K5
+# inverts by substitution before its doubling levels
 TRI_INV_BASE = 128
+TRI_INV_LEAF = 8
 
 K3_LAUNCHES = 0
 K4_LAUNCHES = 0
@@ -131,27 +134,65 @@ def _diag_blocks(L, base):
     """(nb, base, base) diagonal blocks of L; a ragged last block is
     completed with the identity."""
     n = L.shape[0]
-    nb = -(-n // base)
+    nb, full = -(-n // base), n // base
     blocks = torch.eye(base, dtype=L.dtype, device=L.device).repeat(nb, 1, 1)
-    for b in range(nb):
-        r0, r1 = b * base, min(n, (b + 1) * base)
-        blocks[b, : r1 - r0, : r1 - r0] = L[r0:r1, r0:r1]
+    if full:
+        # views of the full blocks: [a, r, c] = L[a base + r, a base + c]
+        blocks[:full] = L[:full * base, :full * base].unfold(0, base, base).unfold(
+            1, base, base).diagonal(0, 0, 1).permute(2, 0, 1)
+    if full < nb:
+        blocks[full, : n - full * base, : n - full * base] = L[full * base:, full * base:]
     return blocks
+
+
+def tri_inv_size(base):
+    """K5's working size for a base: the smallest TRI_INV_LEAF * 2^m >= base
+    (each block is completed with the identity to it; its inverse is the
+    block's inverse completed the same way)."""
+    size = TRI_INV_LEAF
+    while size < base:
+        size *= 2
+    return size
 
 
 def diag_block_inv_plain(L32, base):
     """K5 plain: inverses of the diagonal blocks of lower-triangular L32,
     (ceil(n / base), base, base), a ragged last block padded with the
-    identity.  Row-by-row forward substitution, all blocks and columns at
-    once (the kernel's arithmetic)."""
-    A = _diag_blocks(L32, base)
-    X = torch.zeros_like(A)
-    eye = torch.eye(base, dtype=A.dtype, device=A.device)
-    for i in range(base):
-        # columns c > i stay exactly 0: X[k, c] = 0 for every k < i < c
-        s = eye[i] - torch.einsum("bk,bkc->bc", A[:, i, :i], X[:, :i, :])
-        X[:, i, :] = s / A[:, i, i : i + 1]
-    return X
+    identity; exact zeros above the diagonal.  The kernel's order, all
+    blocks at once: each block (its lower triangle) completed with the
+    identity to tri_inv_size(base); its TRI_INV_LEAF-wide diagonal leaves
+    inverted by row-by-row substitution; then the doubling levels s =
+    TRI_INV_LEAF, 2 TRI_INV_LEAF, ...: for each pair of s-blocks,
+    T = A21 X11 and X21 = -(X22 T) (the 2x2 identity of _block_tri_inv)."""
+    A = torch.tril(_diag_blocks(L32, base))
+    nb, size, leaf = A.shape[0], tri_inv_size(base), TRI_INV_LEAF
+    if size != base:
+        Ap = torch.eye(size, dtype=A.dtype, device=A.device).repeat(nb, 1, 1)
+        Ap[:, :base, :base] = A
+        A = Ap
+
+    def diagonal_blocks(s):  # (nb, size / s, s, s)
+        m = size // s
+        return A.reshape(nb, m, s, m, s).diagonal(0, 1, 3).permute(0, 3, 1, 2)
+
+    # the leaves: X[c, c] = 1 / A[c, c]; X[i, c] = -(sum_{c <= k < i} A[i, k]
+    # X[k, c]) / A[i, i] below (X[k, c] = 0 for k < c, so the sum runs over
+    # all k < i)
+    Lf = diagonal_blocks(leaf)
+    X = torch.zeros_like(Lf)
+    for i in range(leaf):
+        s = torch.einsum("...k,...kc->...c", Lf[..., i, :i], X[..., :i, :i])
+        X[..., i, :i] = -s / Lf[..., i, i:i + 1]
+        X[..., i, i] = 1 / Lf[..., i, i]
+    s = leaf
+    while s < size:
+        C = diagonal_blocks(2 * s)[..., s:, :s]
+        X11, X22 = X[:, 0::2], X[:, 1::2]
+        X21 = -(X22 @ (C @ X11))
+        X = torch.cat([torch.cat([X11, torch.zeros_like(X11)], -1),
+                       torch.cat([X21, X22], -1)], -2)
+        s *= 2
+    return X[:, 0, :base, :base]
 
 
 def trace_sums_plain(H, off=0):
@@ -295,13 +336,67 @@ def residual_cuda(K, X, B):
     return R, norms
 
 
+# K6's launch geometry (csrc/mixed.cu), k <= 8 columns: pass 1 (y = M r32)
+# gives each warp PRECOND_ROWS rows, PRECOND_WARPS warps a block, or fewer
+# where its blocks would not reach PRECOND_BLOCKS_PER_SM an SM; pass 2
+# (M^T y) gives each block of PRECOND_WARPS warps a band of PRECOND_BAND
+# columns and a chunk of rows, whole steps of PRECOND_WARPS * PRECOND_ROWS
+# rows, enough chunks that the blocks of the triangle reach
+# PRECOND_BLOCKS_PER_SM an SM and none taller than PRECOND_MAX_CHUNK
+PRECOND_ROWS, PRECOND_BAND, PRECOND_WARPS = 4, 128, 8
+PRECOND_BLOCKS_PER_SM, PRECOND_MAX_CHUNK = 2, 1024
+
+
+def precond_plan(rows, n, sms):
+    """K6's launch geometry for a (rows, n) slab of M (rows = n: the square
+    M), on the CPU: (warps, chunks, height) -- pass 1's warps a block, and
+    pass 2's row chunks [c h, min((c + 1) h, rows)), h a multiple of the
+    block step, none empty (n = 1000 on the H100's 132 SMs: 1 warp a
+    block, 32 chunks of 32 rows; n = 32768: 8 warps, 32 chunks of 1024)."""
+    if rows <= 0 or n <= 0 or rows > n or sms <= 0:
+        raise ValueError(f"precond_plan: rows={rows}, n={n}, sms={sms}")
+    target = PRECOND_BLOCKS_PER_SM * sms
+    row_warps = -(-rows // PRECOND_ROWS)
+    warps = PRECOND_WARPS
+    while warps > 1 and -(-row_warps // warps) < target:
+        warps //= 2
+    step = PRECOND_WARPS * PRECOND_ROWS
+    steps, bands = -(-rows // step), -(-n // PRECOND_BAND)
+    # about half of a square's (band, chunk) blocks lie above the triangle
+    want = max(-(-2 * target // bands), -(-steps * step // PRECOND_MAX_CHUNK))
+    height = step * -(-steps // max(1, min(steps, want)))
+    return warps, -(-rows // height), height
+
+
+def _precond_geometry(lib):
+    want = (PRECOND_ROWS, PRECOND_BAND, PRECOND_WARPS, PRECOND_MAX_CHUNK)
+    built = tuple(lib.gpmp_precond_geometry(q) for q in range(len(want)))
+    if built != want:
+        raise RuntimeError(f"csrc/mixed.cu's K6 geometry (rows a warp, band, warps, chunk "
+                           f"rows) is {built}, not {want}")
+
+
+@functools.lru_cache(maxsize=64)
+def _precond_workspace(device, rows, n, k):
+    """K6's per-(device, rows, n, k) workspace (k <= 8): the plan's warps and
+    height, and raw pointers to y (rows, k), the chunks' partial sums
+    (chunks, n, k), both f32, and the bands' tickets (int32, zero between
+    launches: each launch resets them), beside the tensors that hold them."""
+    _precond_geometry(_build.load())
+    warps, chunks, height = precond_plan(rows, n, _sms_on(device))
+    buf = torch.empty(rows * k + chunks * n * k, dtype=_F32, device=device)
+    tickets = torch.zeros(-(-n // PRECOND_BAND), dtype=torch.int32, device=device)
+    return (warps, height, buf.data_ptr(), buf.data_ptr() + 4 * rows * k, tickets.data_ptr(),
+            (buf, tickets))
+
+
 def precond_apply_cuda(M32, R):
     """K6 on the card: M^T (M r32) for lower-triangular f32 M and f64 or f32
     R (n, k), r32 = f32(R), f32 products and sums, the result in R's dtype.
 
-    k <= 8: three launches from one C entry, y = M r32 by rows, per-chunk
-    partial sums of M^T y by column blocks, then a fixed-order sum of the
-    chunks.  Wider R: two tiled triangular products from one C entry,
+    k <= 8: two launches from one C entry, y = M r32 by rows, then M^T y by
+    column bands and row chunks, the chunks summed in order by each band's
+    last block.  Wider R: two tiled triangular products from one C entry,
     y = M r32 then M^T y.  Both bitwise reproducible."""
     global K6_LAUNCHES
     dev = _check_cuda("K6 precond_apply", (M32, R), ((_F32,), (torch.float64, _F32)))
@@ -310,15 +405,15 @@ def precond_apply_cuda(M32, R):
         raise ValueError(f"K6 precond_apply: R must be ({n}, k >= 1); got {tuple(R.shape)}")
     k = R.shape[1]
     lib = _build.load()
-    y = torch.empty((n, k), dtype=_F32, device=dev)
     out = torch.empty((n, k), dtype=R.dtype, device=dev)
     f64 = R.dtype == torch.float64
     if k <= MATVEC_MAX_COLS:
-        partial = torch.empty((lib.gpmp_precond_chunks(n), n, k), dtype=_F32, device=dev)
+        warps, height, y, part, tickets, _ = _precond_workspace(dev, n, n, k)
         fn = lib.gpmp_precond_apply_f64 if f64 else lib.gpmp_precond_apply_f32
-        _build.launch("K6 precond_apply", fn, dev, M32.data_ptr(),
-                      R.data_ptr(), y.data_ptr(), partial.data_ptr(), out.data_ptr(), n, k)
+        _build.launch("K6 precond_apply", fn, dev, M32.data_ptr(), R.data_ptr(), y, part,
+                      tickets, out.data_ptr(), n, k, warps, height)
     else:
+        y = torch.empty((n, k), dtype=_F32, device=dev)
         fn = lib.gpmp_precond_apply_wide_f64 if f64 else lib.gpmp_precond_apply_wide_f32
         _build.launch("K6 precond_apply (wide)", fn, dev, M32.data_ptr(),
                       R.data_ptr(), y.data_ptr(), out.data_ptr(), n, k)
@@ -329,7 +424,7 @@ def precond_apply_cuda(M32, R):
 def precond_apply_slab_cuda(M32, R, off):
     """K6 on the card, slab form: this rank's part of M^T (M r32), f32 (n, k),
     from its (rows, n) row slab of M (global rows [off, off + rows)) and all
-    of r (n, k <= 8); three launches, as the square form's."""
+    of r (n, k <= 8); the square form's two launches."""
     global K6_LAUNCHES
     dev = _check_cuda("K6 precond_apply_slab", (M32, R), ((_F32,), (torch.float64, _F32)))
     rows, n = M32.shape
@@ -340,13 +435,12 @@ def precond_apply_slab_cuda(M32, R, off):
     if not 1 <= k <= MATVEC_MAX_COLS:
         raise ValueError(f"K6 precond_apply_slab takes 1..{MATVEC_MAX_COLS} columns; got {k}")
     lib = _build.load()
-    y = torch.empty((rows, k), dtype=_F32, device=dev)
+    warps, height, y, part, tickets, _ = _precond_workspace(dev, rows, n, k)
     out = torch.empty((n, k), dtype=_F32, device=dev)
-    partial = torch.empty((lib.gpmp_precond_chunks(rows), n, k), dtype=_F32, device=dev)
     fn = (lib.gpmp_precond_apply_slab_f64 if R.dtype == torch.float64
           else lib.gpmp_precond_apply_slab_f32)
-    _build.launch("K6 precond_apply_slab", fn, dev, M32.data_ptr(), R.data_ptr(), y.data_ptr(),
-                  partial.data_ptr(), out.data_ptr(), rows, n, int(off), k)
+    _build.launch("K6 precond_apply_slab", fn, dev, M32.data_ptr(), R.data_ptr(), y, part,
+                  tickets, out.data_ptr(), rows, n, int(off), k, warps, height)
     K6_LAUNCHES += 1
     return out
 
@@ -484,7 +578,8 @@ def factorization_residual_cuda(K, L32):
 
 def diag_block_inv_cuda(L32, base):
     """K5 on the card: (ceil(n / base), base, base) diagonal-block inverses,
-    one thread block per diagonal block, the block in shared memory."""
+    one thread block per diagonal block, in its shared memory: the leaves by
+    substitution, then the doubling levels (diag_block_inv_plain's order)."""
     global K5_LAUNCHES
     dev = _check_cuda("K5 diag_block_inv", (L32,), ((_F32,),))
     n = _square("K5 diag_block_inv", L32)
