@@ -31,7 +31,7 @@ non-zero):
    tolerances and reasons given at TOL_MIXED; K3 at k in {1, 2, 3, 8}, in
    f64 and in f32, each bitwise reproducible, and at n = 16384, k = 2; K5
    at bases 1, 7, 64 and 128 (K5_BASES), exactly zero above the diagonal
-   and bitwise reproducible.
+   and bitwise reproducible; K7's two calls bitwise reproducible.
 2c. K1d (scaled distance and its pullback, full and elementwise), K1m (the
    Matern polynomial and its backward), K7b (the LOO diagonal series, both
    branches) and K8s (the f64 sampling residual) vs their plain versions
@@ -50,7 +50,7 @@ non-zero):
    five once more at n = 32768 on the engine's own residents at
    bench_large_n.py's p0; tolerances at TOL_2D.  K10r from the pair is
    bitwise K4 on hi + lo in f64 and its panels bitwise the pair's at every
-   n; K6 (narrow and wide) and K10m are bitwise reproducible.
+   n; K6 (narrow and wide), K10m and K10t are bitwise reproducible.
 2e. K8r (the refined panel's residual and guard sums), K8t (the
    triangular products of the Newton step and the Ogita-Aishima update),
    K9u (the blocked factor's trailing update, on the f64 tensor cores) and
@@ -75,8 +75,9 @@ non-zero):
    bitwise K9u's lower triangle at one rank (f64); K9m's slab forms bitwise
    their plain versions and the square form's rows; the slab forms of K3
    (k in {1, 2, 3, 8}, f64 and f32, reproducible),
-   K6 (reproducible), K7 and K4s (the sharded mixed engine's) on n =
-   4099's slabs against their plain versions with phases 2b/2d's
+   K6 (reproducible), K7 (reproducible; the slab at row 2050 not 16-byte
+   aligned: its scalar-load instance) and K4s (the sharded mixed engine's)
+   on n = 4099's slabs against their plain versions with phases 2b/2d's
    tolerances, K4s's blocks
    bitwise K4's rows; K4s at n in {1000, 4099, 8192}: bitwise K4 at one
    rank, and at two ranks R[i, j] on one bitwise R[j, i] on the other.
@@ -186,7 +187,11 @@ non-zero):
    plain, batched trsm, bound, and its longest dependent chain, counted
    from its order, beside a substitution's); K3 at n = 16384
    (k = 2) against an f64 addmm; K4 at n in {1000, 4099, 8192} (events and profiler device
-   time) against an f64 addmm of the same product, with its bound; the noisy model's REML value+grad evals/s at n = 1000 and
+   time) against an f64 addmm of the same product, with its bound; K7 at
+   n = 1000 and 8192 per call (trace_sums, series_sums) and as the pair
+   (events, device time warm and with L2 flushed before each call) against
+   each call's bound, the pair's one-read bound (H and H^2 read once) and
+   its two-call floor (H read by both calls); the noisy model's REML value+grad evals/s at n = 1000 and
    8192 on the mixed and f64 engines in turns; fit+LOO+predict wall-clock
    (first and warm); the rise of torch.cuda.max_memory_allocated over
    what was held before at n = 8192, per engine, for one value+grad and
@@ -239,15 +244,17 @@ non-zero):
 ``python3 chip_smoke.py --compare ROOT`` instead times K8s (n = 1000 and
 8192), K8t and K8r (b = 512, with their host issue time), K3 (n = 1000,
 k = 2, with its host issue time) and refined_cholesky per call (b = 512),
-K5 (n = 1000, 8192 and 32768) and K6 (k = 2, n = 1000 and 32768),
-runs phases 4b's and 4f's timings of K4, K4s and K9s (f64, f32), and times
-K10m and K10r (from the pair) at n = 32768 and K10r's recompute pass at
+K5 (n = 1000, 8192 and 32768), K6 (k = 2, n = 1000 and 32768) and the K7
+pair (n = 1000 and 8192), runs phases 4b's and 4f's timings of K4, K4s and
+K9s (f64, f32), and times K10m, K10r (from the pair) and K10t (a 512-row
+chunk) at n = 32768 and K10r's recompute pass at
 n = 51200, and runs the resident f64 REML value+grad at n = 4096 and
 16384, the
 mixed engine's value+grad rate at n = 1000 and one streamed REML
 value+grad per mode (ff at n = 32768, recompute at n = 51200), on the
 gpmp_tpu_torch package under ROOT alone, with digests of K8s's, K8t's,
-K8r's, K3's, K5's, K6's, K4's, K4s's, K9u's, K9s's, K10m's and K10r's outputs
+K8r's, K3's, K5's, K6's, K7's, K4's, K4s's, K9u's, K9s's, K10m's, K10r's and
+K10t's outputs
 (compare_main), for setting two trees side by side in one call.
 
 The line before the last is {"kernels": [...]}, with each kernel's
@@ -327,6 +334,8 @@ TOL_SLICE = {
 PREDICT_SLACK = 2.0
 SLICE_N, SLICE_NT, SLICE_D, SLICE_SEED, SLICE_NOISE = 1000, 1000, 6, 7, 0.1
 NOISY_EVAL_SIZES = ((1000, 20), (8192, 3))  # (n, evaluations per window)
+# phase 4b's K7 times: the slice's n and the mixed n = 8192 path's
+K7_SIZES = (SLICE_N, NOISY_EVAL_SIZES[-1][0])
 # phase 2c: kernel vs plain on the card, max|kernel - plain| / max|plain|
 TOL_2C = {
     # forward: ~3d f64 operations and a sqrt or exp per entry, in another
@@ -887,7 +896,8 @@ def phase_mixed_kernels_vs_plain(torch, gram, mixed):
             H2 = H @ H
             t, tp = mixed.trace_sums_cuda(H), mixed.trace_sums_plain(H)
             u, up = mixed.series_sums_cuda(H, H2), mixed.series_sums_plain(H, H2)
-            check(torch.equal(t, mixed.trace_sums_cuda(H)), "K7 not reproducible")
+            check(torch.equal(t, mixed.trace_sums_cuda(H))
+                  and torch.equal(u, mixed.series_sums_cuda(H, H2)), "K7 not reproducible")
             errs["K7"] = float(torch.max(torch.abs(torch.cat([t - tp, u - up]))
                                          / torch.abs(torch.cat([tp, up]))))
             # K7b (phase 2c) on the same inputs: the series sums, held where the
@@ -1571,7 +1581,13 @@ def _kernel_bounds(n, k=2, base=128, d=6, p=2):
         "K4": bound(8 * tri + 4 * tri + 4 * n * n, 2 * fma_k4 + tri, PEAK_F64_TENSOR_FLOPS),
         "K5": bound(4 * sum(b * (b + 1) // 2 for b in sizes) + 4 * nb * base * base,
                     sum(b ** 3 // 3 + b * b for b in sizes), PEAK_F32_FLOPS),
+        # K7: H and H^2 read once (the one-read bound); the two calls read H
+        # twice, since the host reads trace_sums' sum H^2 before it calls
+        # series_sums (the two-call floor); and each call alone
         "K7": bound(8 * n * n + 32, 6 * n * n + n, PEAK_F64_FLOPS),
+        "K7 two-call": bound(12 * n * n + 32, 6 * n * n + n, PEAK_F64_FLOPS),
+        "K7 trace_sums": bound(4 * n * n + 16, 2 * n * n + n, PEAK_F64_FLOPS),
+        "K7 series_sums": bound(8 * n * n + 16, 4 * n * n, PEAK_F64_FLOPS),
     }
 
 
@@ -1622,14 +1638,18 @@ def _k6_err(torch, mixed, M32, R):
 
 def _k10t_err(torch, ops, H, chunk):
     """K10t over every row chunk of H against its plain version: max |diff|
-    over the sums of the absolute terms, and max|diff|."""
-    acc_k, acc_p, acc_a = (torch.zeros(4, dtype=torch.float64, device=DEVICE) for _ in range(3))
+    over the sums of the absolute terms, and max|diff|; each chunk's launch
+    twice, into two accumulators that must agree bitwise."""
+    acc_k, acc_k2, acc_p, acc_a = (torch.zeros(4, dtype=torch.float64, device=DEVICE)
+                                   for _ in range(4))
     Habs = H.abs()
     for r0 in range(0, H.shape[0], chunk):
         H2r = H[r0:r0 + chunk] @ H
         ops.h_traces_chunk_cuda(H, H2r, r0, acc_k)
+        ops.h_traces_chunk_cuda(H, H2r, r0, acc_k2)
         ops.h_traces_chunk_plain(H, H2r, r0, acc_p)
         ops.h_traces_chunk_plain(Habs, H2r.abs(), r0, acc_a)
+    check(torch.equal(acc_k, acc_k2), f"K10t is not bitwise reproducible at n={H.shape[0]}")
     diff = (acc_k - acc_p).abs()
     return float((diff / acc_a.clamp_min(1e-300)).max()), float(diff.max())
 
@@ -3248,6 +3268,9 @@ def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
     del K8
     k5_big = _k5_times(torch, mixed, L8, "4b")
     del L8
+    k7 = {}
+    for n7 in K7_SIZES:
+        k7.update(_k7_times(torch, gram, mixed, n7, "4b"))
     host = _host_path(torch, _k3_host_parts(torch, mixed, K, X, B))
     say(f"[phase 4b] K3 n={n} k=2 host issue per call ({HOST_ISSUE_CALLS} calls, the card kept "
         "busy): " + ", ".join(f"{k} {v:.2f} us" for k, v in host.items()))
@@ -3294,6 +3317,8 @@ def phase_mixed_times(gp, gnp, gram, mixed, torch, slice_data):
         f"nfev {info.nfev}")
     gp.config.set_chol_engine("auto")
     return times, rates, mem, t_warm, {"K3 host_issue_us": host, **big,
+                                       "K7 ms (events, device warm, device L2 flushed, bound, "
+                                       "two-call floor)": k7,
                                        f"K5 n={NOISY_EVAL_SIZES[-1][0]} ms (kernel, plain, "
                                        "library, device, bound)": (*k5_big[0], *k5_big[1:])}
 
@@ -3331,6 +3356,58 @@ def _k5_times(torch, mixed, L32, phase, reps=50):
         f"{chain['substitution']})")
     del blocks, eye_b
     return t, dev, (b_ms, b_by)
+
+
+def _k7_inputs(torch, gram, mixed, n):
+    """H = M (K - L L^T) M^T and H^2 in f32, as the mixed engine forms them,
+    for phase 4b's K (n = SLICE_N: the noisy Matern K at cond 1e3) or
+    _time_sqrt_inputs's (larger n)."""
+    K = (_noisy_matern_spd(torch, gram, n, 1e3, 7)[0] if n == SLICE_N
+         else _time_sqrt_inputs(torch, gram, n))
+    L32, M32 = mixed._f32_preconditioner(K)
+    H = M32 @ (mixed.factorization_residual_cuda(K, L32) @ M32.T)
+    return H, H @ H
+
+
+def _k7_times(torch, gram, mixed, n, phase):
+    """K7 at n per call (trace_sums, then series_sums) and as the pair the
+    logdet's series branch makes: CUDA events, device time warm and with L2
+    flushed before each call (a copy of L2_FLUSH_BYTES; at n = 1000 H is 4 MB
+    and stays in L2 between warm calls), against each call's bound and, for
+    the pair, the one-read bound (H and H^2 read once) and the two-call floor
+    (H read by both calls); printed, and returned as {key: (events, device
+    warm, device flushed, bound, floor)} in ms."""
+    H, H2 = _k7_inputs(torch, gram, mixed, n)
+    bounds = _kernel_bounds(n)
+    src = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=DEVICE)
+    dst = torch.empty_like(src)
+    calls = {"trace_sums": (lambda: mixed.trace_sums_cuda(H), "K7 trace_sums", None),
+             "series_sums": (lambda: mixed.series_sums_cuda(H, H2), "K7 series_sums", None),
+             "pair": (lambda: (mixed.trace_sums_cuda(H), mixed.series_sums_cuda(H, H2)), "K7",
+                      "K7 two-call")}
+    reps = 200 if n <= SLICE_N else 50
+    out = {}
+    for tag, (fn, bkey, fkey) in calls.items():
+        ev = _time_cuda(torch, fn, reps)
+        warm = _device_ms(torch, fn, min(reps, 50))
+        cold = _device_ms(torch, fn, 20, flush=lambda: dst.copy_(src))
+        b_ms = bounds[bkey][0]
+        f_ms = bounds[fkey][0] if fkey else None
+        out[f"K7 {tag} n={n}"] = (ev, warm, cold, b_ms, f_ms)
+        shares = [] if not cold else [f"{100 * b_ms / cold:.1f}% of the bound"] + (
+            [f"{100 * f_ms / cold:.1f}% of the floor"] if f_ms else [])
+        say(f"[phase {phase}] K7 {tag} n={n}: kernel {ev:.4f} ms (device {_fmt_ms(warm)} warm, "
+            f"{_fmt_ms(cold)} L2 flushed), bound {b_ms:.4f} ms (bytes"
+            + (f", one read of H and H^2), two-call floor {f_ms:.4f} ms (H read twice)"
+               if f_ms else ")") + f"; L2 flushed: {', '.join(shares) or 'not measured'}")
+    if n <= SLICE_N:
+        # the yardstick of a launch: a one-element PyTorch kernel's device time
+        one = torch.zeros(1, device=DEVICE)
+        out["one-element kernel"] = _device_ms(torch, lambda: one.add_(1), 50)
+        say(f"[phase {phase}] a one-element PyTorch kernel (add_): device "
+            f"{_fmt_ms(out['one-element kernel'])}, the floor of any launch")
+    del src, dst, H, H2
+    return out
 
 
 def _k3_big_times(torch, mixed, n=K3_BIG_N):
@@ -3502,7 +3579,7 @@ _GROUPS = (  # the first group whose key is in a kernel's name takes it
     ("K3 residual", ("residual_kernel",)),
     ("K5 diag-block inverse", ("diag_block_inv",)),
     ("K7 trace sums", ("trace_sums", "series_sums")),
-    ("K7/K10m partial reduction", ("reduce_pairs",)),
+    ("K10m partial reduction", ("reduce_pairs",)),
     ("Cholesky (cuSOLVER potrf: getrf_wo_pivot)", ("potrf", "getrf", "cholesky")),
     ("triangular solves (trsm)", ("trsm", "trsv")),
     ("matrix products (gemm)", ("gemm", "gemv", "xmma", "cutlass", "dot_kernel",
@@ -3756,14 +3833,20 @@ def _mixed_slab_forms(torch, gram, mixed, n, bounds):
               f"K6's slab form on rows [{lo}, {hi}) is not bitwise reproducible")
         unit = n * eps32 * (Ms.abs().T @ (Ms.abs() @ X.abs().float()))
         errs["K6"] = max(errs["K6"], float(((z1 - z2).abs() / unit.clamp_min(1e-30)).max()))
+        # the views' bases are 16-byte aligned only where lo n % 4 == 0 (at
+        # n = 4099 the slab at row 2050 is not: K7's scalar-load instance)
         t1, t2 = mixed.trace_sums_cuda(Hs, lo), mixed.trace_sums_plain(Hs, lo)
         s1, s2 = mixed.series_sums_cuda(Hs, H2s), mixed.series_sums_plain(Hs, H2s)
+        check(torch.equal(t1, mixed.trace_sums_cuda(Hs, lo))
+              and torch.equal(s1, mixed.series_sums_cuda(Hs, H2s)),
+              f"K7's slab form on rows [{lo}, {hi}) is not bitwise reproducible")
         errs["K7"] = max(errs["K7"], rel_err(t1, t2), rel_err(s1, s2))
     say(f"[phase 2f] slab forms n={n} slabs {bounds}: K3 {errs['K3']:.2e} (tol "
         f"{TOL_MIXED['K3']}; f32 {errs['K3 f32']:.2e}, tol {TOL_MIXED['K3 f32']}; k in "
         f"{K3_WIDTHS}, reproducible), K4s {errs['K4']:.2e} (tol {TOL_MIXED['K4']}; bitwise K4's rows "
         f"{same_k4}), K6 {errs['K6']:.2e} units of n eps32 (tol {TOL_2D['K6']}, reproducible), K7 "
-        f"{errs['K7']:.2e} (tol {TOL_MIXED['K7']})")
+        f"{errs['K7']:.2e} (tol {TOL_MIXED['K7']}, reproducible; 16-byte aligned slab bases "
+        f"{[lo * n % 4 == 0 for lo in bounds[:-1]]})")
     check(errs["K3"] <= TOL_MIXED["K3"] and errs["K3 f32"] <= TOL_MIXED["K3 f32"]
           and errs["K4"] <= TOL_MIXED["K4"]
           and errs["K6"] <= TOL_2D["K6"] and errs["K7"] <= TOL_MIXED["K7"],
@@ -4495,11 +4578,31 @@ def _compare_k5_k6(torch, gram, mixed, out):
         del L32
 
 
+def _compare_k7(torch, gram, mixed, out):
+    """--compare's K7 pair (trace_sums, then series_sums) at n in K7_SIZES on
+    phase 4b's inputs (_k7_inputs): events, device time, digests of two
+    pairs (they must repeat), into out."""
+    ms_out, dev_out = out["ms (kernel, plain, library)"], out["device_ms"]
+    for n in K7_SIZES:
+        H, H2 = _k7_inputs(torch, gram, mixed, n)
+        key = f"K7 n={n}"
+        pair = lambda: (mixed.trace_sums_cuda(H), mixed.series_sums_cuda(H, H2))  # noqa: E731
+        ms_out[key] = (_time_cuda(torch, pair, 200 if n <= SLICE_N else 50), None, None)
+        dev_out[key] = _device_ms(torch, pair, 20)
+        for turn in range(2):
+            out["digest"][f"{key}{' (again)' if turn else ''}"] = _digest(torch.cat(pair()))
+        say(f"[compare] {key} pair: kernel {ms_out[key][0]:.4f} ms (device "
+            f"{_fmt_ms(dev_out[key])})")
+        del H, H2
+
+
 def _compare_streamed(gp, gnp, torch, out):
-    """--compare's K10m and K10r (from the pair) at n = LARGE_N on the
-    engine's residents at bench_large_n's p0 (phase 4d's inputs), and K10r's
-    recompute pass at n = LARGE_RC_N (_k10r_panel_pass): events, device time,
-    digests, into out."""
+    """--compare's K10m, K10r (from the pair) and K10t (the first 512-row
+    chunk of H) at n = LARGE_N on the engine's residents at bench_large_n's
+    p0 (phase 4d's inputs), and K10r's recompute pass at n = LARGE_RC_N
+    (_k10r_panel_pass): events, device time, digests (K10t's of two
+    launches: they must repeat), into out."""
+    from gpmp_tpu_torch.ops import mixed
     from gpmp_tpu_torch.ops import streamed as ops
     from gpmp_tpu_torch.parallel import likelihood as plik
     from gpmp_tpu_torch.parallel import streamed as st
@@ -4520,15 +4623,33 @@ def _compare_streamed(gp, gnp, torch, out):
     ms_out[key] = (_time_cuda(torch, lambda: ops.streamed_residual_ff_cuda(K32, E32, L32), 2,
                               warmup=1), None, None)
     dev_out[key] = _device_ms(torch, lambda: ops.streamed_residual_ff_cuda(K32, E32, L32), 1)
-    out["digest"][key] = _digest(ops.streamed_residual_ff_cuda(K32, E32, L32))
-    del K32, E32, L32, X, B, R
+    Rk = ops.streamed_residual_ff_cuda(K32, E32, L32)
+    out["digest"][key] = _digest(Rk)
+    del K32, E32, X, B, R
+    # K10t on the engine's H at p0, its first row chunk (phase 4d's inputs)
+    c = STREAM_PANEL
+    M32 = mixed._block_tri_inv(L32, base=mixed.TRI_INV_BASE)
+    H = st._h_from_residual(M32, Rk, c)
+    del Rk, M32, L32
+    H2r = H[:c] @ H
+    acc = torch.zeros(4, dtype=torch.float64, device=DEVICE)
+    key = f"K10t n={n}"
+    ms_out[key] = (_time_cuda(torch, lambda: ops.h_traces_chunk_cuda(H, H2r, 0, acc), 20,
+                              warmup=1), None, None)
+    dev_out[key] = _device_ms(torch, lambda: ops.h_traces_chunk_cuda(H, H2r, 0, acc), 10)
+    for turn in range(2):
+        acc.zero_()
+        ops.h_traces_chunk_cuda(H, H2r, 0, acc)
+        out["digest"][f"{key}{' (again)' if turn else ''}"] = _digest(acc)
+    del H, H2r
     panels = _k10r_panel_pass(torch, ops, LARGE_RC_N, STREAM_PANEL, gen, out["digest"])
     ms_out[f"K10r recompute pass n={LARGE_RC_N}"] = (panels["pass_ms"], None, None)
     key = f"K10r panel n={LARGE_RC_N} c0={panels['c0']}"
     ms_out[key] = (panels["ms"], panels["plain_ms"], None)
     dev_out[key] = panels["device_ms"]
     say(f"[compare] K10m n={n}: {ms_out[f'K10m n={n}'][0]:.4f} ms (device "
-        f"{_fmt_ms(dev_out[f'K10m n={n}'])}); K10r n={n}: {ms_out[f'K10r n={n}'][0]:.2f} ms "
+        f"{_fmt_ms(dev_out[f'K10m n={n}'])}); K10t n={n}: {ms_out[f'K10t n={n}'][0]:.4f} ms "
+        f"(device {_fmt_ms(dev_out[f'K10t n={n}'])}); K10r n={n}: {ms_out[f'K10r n={n}'][0]:.2f} ms "
         f"(device {_fmt_ms(dev_out[f'K10r n={n}'])}); K10r recompute pass n={LARGE_RC_N}: "
         f"{panels['pass_ms']:.2f} ms, {key}: {panels['ms']:.4f} ms")
 
@@ -4607,6 +4728,7 @@ def compare_main(root):
            "device_ms": {}, "host_issue_us": {}, "digest": {}, "walls_s": {}}
     _compare_k8(torch, gram, mixed, refine, out)
     _compare_k5_k6(torch, gram, mixed, out)
+    _compare_k7(torch, gram, mixed, out)
     for n in K4_SIZES:
         ms, dev, _bound = _k4_times(torch, gram, mixed, n, "compare", out["digest"])
         out["ms (kernel, plain, library)"][f"K4 n={n}"], out["device_ms"][f"K4 n={n}"] = ms, dev

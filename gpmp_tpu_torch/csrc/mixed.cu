@@ -140,13 +140,24 @@
 //
 // K7 trace-series sums (replaces the traces of _mp_solve_and_logdet_core
 //    and its _series branch):
-//      launch 1: (tr H, sum H^2); launch 2: (sum H^2 o H, sum (H^2)^2),
-//      products and sums in f64 from f32 H and H^2.
-//    Bound: reading H and H^2 once (8 n^2 bytes, ~2.4 us at n = 1000):
-//    memory-bound.  Design: grid-stride loops with a grid fixed by n,
-//    f64 accumulators, block tree reduction, per-block partials, and the
-//    fixed-order second pass shared with K3.  Launch 1 alone lets the host
-//    choose the branch before launch 2 reads H^2.
+//      trace_sums: (tr H, sum H^2); series_sums: (sum H^2 o H,
+//      sum (H^2)^2), products and sums in f64 from f32 H and H^2 (over a
+//      rank's row slab: its part).  The host reads sum H^2 between the two
+//      calls to choose the branch, so they are two launches.
+//    Bound: reading H and H^2 once, 8 n^2 bytes (2.4 us at n = 1000); the
+//    two calls read H twice, 12 n^2 bytes: memory-bound.  It replaces two
+//    launches a call (a grid-stride pass with 4-byte loads on a fixed grid,
+//    then a second launch for the partials) whose host cost (two
+//    allocations and an extra library call) exceeded their device time at
+//    n = 1000.  Design: one launch a call; a flat grid-stride pass over the
+//    rows n entries in 16-byte streaming loads, 4 groups in flight a thread
+//    (4-byte loads where the slab's base is not 16-byte aligned: a slab
+//    at row r0 is aligned only if r0 n % 4 == 0), the diagonal in the same
+//    launch, f64 sums in a fixed order, and csrc/fixed_sum.cuh's grid_sum
+//    (the last block's ticket) to finish; the grid is ops/mixed.py
+//    trace_sums_plan's (245 blocks at n = 1000, four an SM at most), the
+//    partials and the ticket a workspace the wrapper caches per (device,
+//    rows, n).
 //
 // K7b LOO diagonal series (replaces the column sums of
 //    gpmp_tpu/ops/mixed.py mp_solve_and_inv_diag):
@@ -169,6 +180,7 @@
 
 #include <atomic>
 
+#include "fixed_sum.cuh"
 #include "syrk_f64.cuh"  // cp.async
 
 namespace {
@@ -199,27 +211,6 @@ reduce_pairs_kernel(const double* __restrict__ partial, long long nblocks,
   if (threadIdx.x == 0) {
     out[0] = s0[0];
     out[1] = s1[0];
-  }
-}
-
-// Sum of (a, b) over a block of RED_THREADS threads, in a fixed order,
-// written by thread 0 to partial[2 * blockIdx.x + {0, 1}].
-__device__ void block_pair_to_partial(double a, double b, double* __restrict__ partial) {
-  __shared__ double s0[RED_THREADS];
-  __shared__ double s1[RED_THREADS];
-  s0[threadIdx.x] = a;
-  s1[threadIdx.x] = b;
-  __syncthreads();
-  for (int h = RED_THREADS / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) {
-      s0[threadIdx.x] += s0[threadIdx.x + h];
-      s1[threadIdx.x] += s1[threadIdx.x + h];
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    partial[2 * blockIdx.x] = s0[0];
-    partial[2 * blockIdx.x + 1] = s1[0];
   }
 }
 
@@ -874,45 +865,78 @@ int launch_diag_block_inv(const void* L, void* out, long long n, int base, void*
 }
 
 // ---------------------------------------------------------------- K7
-constexpr long long TS_MAX_BLOCKS = 264;  // two per SM of the H100
-constexpr int TS_PER_THREAD = 8;
+constexpr int TS_THREADS = 256;
+constexpr int TS_UNROLL = 4;  // 16-byte groups a thread has in flight a step
 
-// blocks for a (rows, n) H: rows = n for the square H, n / R for a slab
-long long trace_sums_blocks(long long rows, long long n) {
-  const long long per_block = static_cast<long long>(RED_THREADS) * TS_PER_THREAD;
-  long long b = (rows * n + per_block - 1) / per_block;
-  if (b < 1) b = 1;
-  return b < TS_MAX_BLOCKS ? b : TS_MAX_BLOCKS;
+// group g (entries 4 g .. 4 g + 3 of the flat (rows n) array), widened to
+// f64; 16-byte streaming loads (VEC: the base 16-byte aligned, and the
+// group whole), else 4-byte ones, entries past the end zeros
+template <bool VEC>
+__device__ __forceinline__ float4 ts_group(const float* __restrict__ A, long long g,
+                                           long long total) {
+  const long long i = 4 * g;
+  if (VEC && i + 3 < total) return __ldcs(reinterpret_cast<const float4*>(A + i));
+  return make_float4(__ldcs(A + i), i + 1 < total ? __ldcs(A + i + 1) : 0.f,
+                     i + 2 < total ? __ldcs(A + i + 2) : 0.f,
+                     i + 3 < total ? __ldcs(A + i + 3) : 0.f);
 }
 
-__global__ void __launch_bounds__(RED_THREADS)
-trace_sums_kernel(const float* __restrict__ H, double* __restrict__ partial, long long rows,
-                  long long n, long long off) {
-  const long long stride = static_cast<long long>(gridDim.x) * RED_THREADS;
-  const long long first = static_cast<long long>(blockIdx.x) * RED_THREADS + threadIdx.x;
-  double tr = 0.0, sq = 0.0;
-  for (long long t = first; t < rows * n; t += stride) {
-    const double h = static_cast<double>(H[t]);
-    sq += h * h;
+// SERIES false (trace_sums): out = [sum_i A[i, off + i], sum A^2] over the
+// (rows, n) A; SERIES true (series_sums): out = [sum B o A, sum B^2].  A
+// flat grid-stride pass over the groups (thread j of the grid takes groups
+// j, j + S, j + 2 S, ..., S the grid's threads; TS_UNROLL of them loaded
+// before they are summed), the diagonal of trace_sums (entries i = j, j + S,
+// ...) after it, then fixed_sum::grid_sum: one launch, bitwise reproducible.
+template <bool VEC, bool SERIES>
+__global__ void __launch_bounds__(TS_THREADS)
+trace_sums_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                  double* __restrict__ partial, unsigned int* __restrict__ ticket,
+                  double* __restrict__ out, long long rows, long long n, long long off) {
+  __shared__ fixed_sum::Smem<2, TS_THREADS> sm;
+  const long long total = rows * n, groups = (total + 3) / 4;
+  const long long stride = static_cast<long long>(gridDim.x) * TS_THREADS;
+  const long long first = static_cast<long long>(blockIdx.x) * TS_THREADS + threadIdx.x;
+  double s[2] = {0.0, 0.0};
+  // trace_sums: the first diagonal entry of this thread, loaded now, added
+  // after the pass (its latency hidden behind the pass's loads)
+  const float d0 = !SERIES && first < rows ? A[first * n + off + first] : 0.f;
+  for (long long g0 = first; g0 < groups; g0 += TS_UNROLL * stride) {
+    float4 a[TS_UNROLL], b[TS_UNROLL];
+#pragma unroll
+    for (int u = 0; u < TS_UNROLL; ++u) {
+      const long long g = g0 + u * stride;
+      if (g < groups) {
+        a[u] = ts_group<VEC>(A, g, total);
+        if (SERIES) b[u] = ts_group<VEC>(B, g, total);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < TS_UNROLL; ++u) {
+      if (g0 + u * stride >= groups) break;
+      const float av[4] = {a[u].x, a[u].y, a[u].z, a[u].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const double x = static_cast<double>(av[e]);
+        if (SERIES) {
+          const float bv[4] = {b[u].x, b[u].y, b[u].z, b[u].w};
+          const double y = static_cast<double>(bv[e]);
+          s[0] += y * x;
+          s[1] += y * y;
+        } else {
+          s[1] += x * x;
+        }
+      }
+    }
   }
-  // the diagonal of the rows [off, off + rows) of the (n, n) H
-  for (long long i = first; i < rows; i += stride) tr += static_cast<double>(H[i * n + off + i]);
-  block_pair_to_partial(tr, sq, partial);
-}
-
-__global__ void __launch_bounds__(RED_THREADS)
-series_sums_kernel(const float* __restrict__ H, const float* __restrict__ H2,
-                   double* __restrict__ partial, long long rows, long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * RED_THREADS;
-  double s3 = 0.0, s4 = 0.0;
-  for (long long t = static_cast<long long>(blockIdx.x) * RED_THREADS + threadIdx.x;
-       t < rows * n; t += stride) {
-    const double h = static_cast<double>(H[t]);
-    const double h2 = static_cast<double>(H2[t]);
-    s3 += h2 * h;
-    s4 += h2 * h2;
+  if (!SERIES && first < rows) {
+    s[0] += static_cast<double>(d0);
+    for (long long i = first + stride; i < rows; i += stride)
+      s[0] += static_cast<double>(A[i * n + off + i]);
   }
-  block_pair_to_partial(s3, s4, partial);
+  if (fixed_sum::grid_sum(sm, s, partial, ticket)) {
+    out[0] = s[0];
+    out[1] = s[1];
+  }
 }
 
 // ---------------------------------------------------------------- K7b
@@ -1503,39 +1527,46 @@ int gpmp_diag_block_inv(const void* L, void* out, long long n, int base, void* s
   return launch_diag_block_inv(L, out, n, base, stream);
 }
 
-long long gpmp_trace_sums_blocks(long long rows, long long n) {
-  return trace_sums_blocks(rows, n);
+// K7's geometry: threads a block, 16-byte groups a thread step (ops/mixed.py
+// checks them)
+int gpmp_trace_sums_geometry(int what) {
+  switch (what) {
+    case 0: return TS_THREADS;
+    case 1: return TS_UNROLL;
+    default: return -1;
+  }
 }
 
-// [tr, sum H^2] of the rows [off, off + rows) of an (n, n) f32 H (rows = n,
-// off = 0: the whole H)
-int gpmp_trace_sums(const void* H, void* partial, void* out, long long rows, long long n,
-                    long long off, void* stream) {
-  if (rows <= 0 || n <= 0 || off < 0 || off + rows > n)
+// trace_sums (B null): [tr, sum A^2] of the rows [off, off + rows) of an
+// (n, n) f32 H, A its (rows, n) slab (rows = n, off = 0: the whole H);
+// series_sums: [sum B o A, sum B^2] over (rows, n) A and B.  One launch of
+// ``blocks`` blocks (ops/mixed.py trace_sums_plan), partial (2 blocks f64)
+// and ticket (zero) its workspace
+int gpmp_trace_sums(const void* A, const void* B, void* partial, void* ticket, void* out,
+                    long long rows, long long n, long long off, long long blocks, void* stream) {
+  if (rows <= 0 || n <= 0 || off < 0 || (!B && off + rows > n) || blocks <= 0 ||
+      blocks > 0x7fffffffLL || !A || !partial || !ticket || !out)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long nb = trace_sums_blocks(rows, n);
-  trace_sums_kernel<<<static_cast<unsigned>(nb), RED_THREADS, 0, s>>>(
-      static_cast<const float*>(H), static_cast<double*>(partial), rows, n, off);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  reduce_pairs_kernel<<<1, RED_THREADS, 0, s>>>(static_cast<const double*>(partial), nb,
-                                                static_cast<double*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int gpmp_series_sums(const void* H, const void* H2, void* partial, void* out, long long rows,
-                     long long n, void* stream) {
-  if (rows <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long nb = trace_sums_blocks(rows, n);
-  series_sums_kernel<<<static_cast<unsigned>(nb), RED_THREADS, 0, s>>>(
-      static_cast<const float*>(H), static_cast<const float*>(H2),
-      static_cast<double*>(partial), rows, n);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  reduce_pairs_kernel<<<1, RED_THREADS, 0, s>>>(static_cast<const double*>(partial), nb,
-                                                static_cast<double*>(out));
+  const float* a = static_cast<const float*>(A);
+  const float* b = static_cast<const float*>(B);
+  double* pt = static_cast<double*>(partial);
+  unsigned int* tk = static_cast<unsigned int*>(ticket);
+  double* o = static_cast<double*>(out);
+  const unsigned nb = static_cast<unsigned>(blocks);
+  const bool vec = reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   (!b || reinterpret_cast<uintptr_t>(b) % 16 == 0);
+  if (b) {
+    if (vec)
+      trace_sums_kernel<true, true><<<nb, TS_THREADS, 0, s>>>(a, b, pt, tk, o, rows, n, 0);
+    else
+      trace_sums_kernel<false, true><<<nb, TS_THREADS, 0, s>>>(a, b, pt, tk, o, rows, n, 0);
+  } else {
+    if (vec)
+      trace_sums_kernel<true, false><<<nb, TS_THREADS, 0, s>>>(a, a, pt, tk, o, rows, n, off);
+    else
+      trace_sums_kernel<false, false><<<nb, TS_THREADS, 0, s>>>(a, a, pt, tk, o, rows, n, off);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,20 +30,35 @@
 //      with Hr = H[r0:r0+c, :], Hc = H[:, r0:r0+c]: the JAX package's
 //      definitions (with Hc^T, not Hr again: H is symmetric only to f32
 //      roundoff), products and sums in f64 (exact products of f32 values).
-//    Bound: reading Hr, H2r and Hc once, 12 c n bytes per chunk (~0.2 ms
-//    for c = 512, n = 32768): memory-bound.  Design: 32 x 32 tiles of
-//    (a, m); the Hc tile H[m0 + mm, r0 + a0 + aa] is staged in shared
-//    memory with consecutive threads on consecutive aa (coalesced), then
-//    read transposed (padded rows: no bank conflicts) beside Hr and H2r
-//    read with consecutive threads on consecutive m; a fixed grid of at
-//    most two blocks per SM walks the tiles, block sums in a fixed order,
-//    per-block partials, and a second launch adds them to acc in a fixed
-//    order (no atomics: bitwise reproducible).
+//    Bound: reading Hr, H2r and Hc once, 12 c n bytes per chunk (0.060 ms
+//    for c = 512, n = 32768 at 3.35 TB/s): memory-bound.  It replaces a
+//    kernel of 32 x 32 tiles with 4-byte loads, a few KB in flight an SM,
+//    and a second launch whose one thread summed the 264 block partials in
+//    a chain (0.209 ms device, 29% of the bound).  Design: one launch a
+//    chunk; a persistent grid (ops/streamed.py h_traces_plan: two blocks an
+//    SM) walks tiles of 32 chunk rows x 128 columns; a warp owns 4 rows, a
+//    lane 4 consecutive columns of each, read from Hr and H2r with 16-byte
+//    streaming loads; the tile's Hc block H[m0 .. + 127, r0 + a0 .. + 31]
+//    (128-byte row segments) comes into shared memory by 16-byte cp.async
+//    copies, double-buffered, read back transposed as one 16-byte load a
+//    lane and column from rows whose units are swizzled (no bank
+//    conflicts); the next tile's copies and loads are in flight while this
+//    tile is summed (about 48 KB a block).  Rows not 16-byte aligned (n or
+//    r0 not a multiple of 4) take the same kernel with 4-byte loads and
+//    copies.  Each thread sums its entries in a fixed order, then
+//    csrc/fixed_sum.cuh's grid_sum: the block's sums, and the last block
+//    to take the ticket sums the partials and adds them to acc (bitwise
+//    reproducible; partials and ticket in a workspace cached by the
+//    wrapper per (device, c, n)).
 //
 // Tensor cores, TMA and wgmma are not used: these kernels are simple and
 // right first; making them fast is later work.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "fixed_sum.cuh"
+#include "syrk_f64.cuh"  // cp.async
 
 namespace {
 
@@ -99,72 +114,150 @@ int launch_split_rows(const void* k64, const void* corr, void* hi, void* lo, lon
 }
 
 // ---------------------------------------------------------------- K10t
-constexpr int HT_TILE = 32;
-constexpr int HT_TY = 8;  // block (32, 8): each thread owns 4 rows a of a tile
-constexpr int HT_THREADS = HT_TILE * HT_TY;
-constexpr long long HT_MAX_BLOCKS = 264;  // two per SM of the H100
+constexpr int HT_ROWS = 32;     // chunk rows a tile: 8 warps of 4
+constexpr int HT_COLS = 128;    // columns a tile: 4 a lane
+constexpr int HT_WARPS = 8;
+constexpr int HT_THREADS = 32 * HT_WARPS;
+constexpr int HT_UNITS = HT_ROWS / 4;  // 16-byte units of a staged Hc row
+static_assert(HT_WARPS * 4 == HT_ROWS && 32 * 4 == HT_COLS, "a warp 4 rows, a lane 4 columns");
 
-long long h_traces_blocks(long long c, long long n) {
-  const long long tiles = ((c + HT_TILE - 1) / HT_TILE) * ((n + HT_TILE - 1) / HT_TILE);
-  return tiles < HT_MAX_BLOCKS ? tiles : HT_MAX_BLOCKS;
+// The Hc tile in shared memory: hc[mm][.] = H[m0 + mm, r0 + a0 .. + 31], its
+// 16-byte unit u stored at unit u ^ ((mm >> 2) & 7), so that the 8 lanes of
+// a quarter warp, reading rows mm = 4 t + e (t = 0..7) at one unit, hit 8
+// distinct bank groups
+__device__ __forceinline__ int ht_slot(int mm, int u) { return 4 * (u ^ ((mm >> 2) & 7)); }
+
+// the Hc tile (a0, m0) into buf by cp.async: 16-byte copies (VEC: every row
+// of H 16-byte aligned and r0 % 4 == 0), else 4-byte ones; zeros past n and
+// past the chunk's c rows
+template <bool VEC>
+__device__ __forceinline__ void ht_stage(float (*buf)[HT_ROWS], const float* __restrict__ H,
+                                         long long r0, long long c, long long n, long long a0,
+                                         long long m0, int tid) {
+  if (VEC) {
+#pragma unroll
+    for (int i = 0; i < HT_COLS * HT_UNITS / HT_THREADS; ++i) {
+      const int q = tid + i * HT_THREADS, mm = q / HT_UNITS, u = q % HT_UNITS;
+      const bool ok = m0 + mm < n && a0 + 4 * u < c;
+      const float* src = ok ? H + (m0 + mm) * n + r0 + a0 + 4 * u : H;
+      syrk::cp_async<16>(&buf[mm][ht_slot(mm, u)], src, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < HT_COLS * HT_ROWS / HT_THREADS; ++i) {
+      const int q = tid + i * HT_THREADS, mm = q / HT_ROWS, aa = q % HT_ROWS;
+      const bool ok = m0 + mm < n && a0 + aa < c;
+      const float* src = ok ? H + (m0 + mm) * n + r0 + a0 + aa : H;
+      syrk::cp_async<4>(&buf[mm][ht_slot(mm, aa / 4) + aa % 4], src, ok);
+    }
+  }
+  syrk::cp_commit();
 }
 
-__global__ void __launch_bounds__(HT_THREADS)
+// a lane's 4 columns m .. m + 3 of the warp's 4 rows a0w .. a0w + 3 of Hr
+// and H2r (rows past c and columns past n read as zeros), streaming loads:
+// 16-byte ones (VEC: every row 16-byte aligned), else 4-byte ones
+template <bool VEC>
+__device__ __forceinline__ void ht_load(const float* __restrict__ H, const float* __restrict__ H2r,
+                                        long long r0, long long c, long long n, long long a0w,
+                                        long long m, float4 (&hr)[4], float4 (&h2)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const long long a = a0w + r;
+    hr[r] = h2[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (a >= c || m >= n) continue;
+    const float* ph = H + (r0 + a) * n + m;
+    const float* p2 = H2r + a * n + m;
+    if (VEC) {
+      hr[r] = __ldcs(reinterpret_cast<const float4*>(ph));
+      h2[r] = __ldcs(reinterpret_cast<const float4*>(p2));
+    } else {
+      hr[r] = make_float4(__ldcs(ph), m + 1 < n ? __ldcs(ph + 1) : 0.f,
+                          m + 2 < n ? __ldcs(ph + 2) : 0.f, m + 3 < n ? __ldcs(ph + 3) : 0.f);
+      h2[r] = make_float4(__ldcs(p2), m + 1 < n ? __ldcs(p2 + 1) : 0.f,
+                          m + 2 < n ? __ldcs(p2 + 2) : 0.f, m + 3 < n ? __ldcs(p2 + 3) : 0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ float ht_at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// block b walks the tiles t = b, b + blocks, ... (tile t: chunk rows
+// a0 = (t % ta) 32, columns m0 = (t / ta) 128); the next tile's Hc copies
+// and its Hr, H2r loads are issued before this tile's sums.  A thread sums
+// its entries in a fixed order (tiles, its 4 rows, its 4 columns), then
+// fixed_sum::grid_sum, and the last block adds the totals to acc.
+template <bool VEC>
+__global__ void __launch_bounds__(HT_THREADS, 2)
 h_traces_kernel(const float* __restrict__ H, const float* __restrict__ H2r,
-                double* __restrict__ partial, long long r0, long long c, long long n) {
-  __shared__ float hc[HT_TILE][HT_TILE + 1];  // hc[mm][aa] = H[m0 + mm, r0 + a0 + aa]
-  __shared__ double red[4][HT_THREADS];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const long long ta = (c + HT_TILE - 1) / HT_TILE;
-  const long long tiles = ta * ((n + HT_TILE - 1) / HT_TILE);
-  double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long a0 = (t % ta) * HT_TILE, m0 = (t / ta) * HT_TILE;
-    __syncthreads();  // the previous tile is no longer read
-    for (int mm = ty; mm < HT_TILE; mm += HT_TY) {
-      const long long m = m0 + mm, a = a0 + tx;
-      hc[mm][tx] = (m < n && a < c) ? H[m * n + r0 + a] : 0.0f;
+                double* __restrict__ partial, unsigned int* __restrict__ ticket,
+                double* __restrict__ acc, long long r0, long long c, long long n) {
+  __shared__ __align__(16) float hc[2][HT_COLS][HT_ROWS];
+  __shared__ fixed_sum::Smem<4, HT_THREADS> sm;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long ta = (c + HT_ROWS - 1) / HT_ROWS;
+  const long long tiles = ta * ((n + HT_COLS - 1) / HT_COLS);
+  double s[4] = {0.0, 0.0, 0.0, 0.0};
+  long long t = blockIdx.x;
+  float4 hr[4], h2[4];
+  if (t < tiles) {
+    const long long a0 = (t % ta) * HT_ROWS, m0 = (t / ta) * HT_COLS;
+    ht_stage<VEC>(hc[0], H, r0, c, n, a0, m0, tid);
+    ht_load<VEC>(H, H2r, r0, c, n, a0 + 4 * warp, m0 + 4 * lane, hr, h2);
+  }
+  for (int k = 0; t < tiles; ++k, t += gridDim.x) {
+    const long long a0 = (t % ta) * HT_ROWS, m0 = (t / ta) * HT_COLS;
+    const long long tn = t + gridDim.x;
+    const bool more = tn < tiles;
+    float4 hrn[4], h2n[4];
+    if (more) {
+      const long long a0n = (tn % ta) * HT_ROWS, m0n = (tn / ta) * HT_COLS;
+      ht_stage<VEC>(hc[(k + 1) & 1], H, r0, c, n, a0n, m0n, tid);
+      ht_load<VEC>(H, H2r, r0, c, n, a0n + 4 * warp, m0n + 4 * lane, hrn, h2n);
+      syrk::cp_wait<1>();  // this tile's copies (all but the newest group)
+    } else {
+      syrk::cp_wait<0>();
     }
     __syncthreads();
-    const long long m = m0 + tx;
-    if (m < n) {
-      for (int aa = ty; aa < HT_TILE; aa += HT_TY) {
-        const long long a = a0 + aa;
-        if (a >= c) break;
-        const double hr = static_cast<double>(H[(r0 + a) * n + m]);
-        const double h2 = static_cast<double>(H2r[a * n + m]);
-        const double hcv = static_cast<double>(hc[tx][aa]);
-        if (m == r0 + a) s0 += hr;
-        s1 += hr * hcv;
-        s2 += h2 * hcv;
-        s3 += h2 * h2;
+    const long long a0w = a0 + 4 * warp, m = m0 + 4 * lane;
+    // the tile holds diagonal entries (m == r0 + a) only where its columns
+    // meet r0 + a0 .. r0 + a0 + 31
+    const bool diag = r0 + a0 < m0 + HT_COLS && m0 < r0 + a0 + HT_ROWS;
+    float4 hv[4];  // hv[e] = Hc[m + e, a0w .. a0w + 3] (components: r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int mm = 4 * lane + e;
+      hv[e] = *reinterpret_cast<const float4*>(&hc[k & 1][mm][ht_slot(mm, warp)]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (a0w + r >= c) break;  // the warp's rows past the chunk (their Hc is not read)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const double x = static_cast<double>(ht_at(hr[r], e));
+        const double y = static_cast<double>(ht_at(h2[r], e));
+        const double z = static_cast<double>(ht_at(hv[e], r));
+        if (diag && m + e == r0 + a0w + r) s[0] += x;
+        s[1] += x * z;
+        s[2] += y * z;
+        s[3] += y * y;
+      }
+    }
+    __syncthreads();  // the next step refills this buffer
+    if (more) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        hr[r] = hrn[r];
+        h2[r] = h2n[r];
       }
     }
   }
-  const int tid = ty * HT_TILE + tx;
-  red[0][tid] = s0;
-  red[1][tid] = s1;
-  red[2][tid] = s2;
-  red[3][tid] = s3;
-  __syncthreads();
-  for (int h = HT_THREADS / 2; h > 0; h >>= 1) {
-    if (tid < h) {
+  if (fixed_sum::grid_sum(sm, s, partial, ticket)) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) red[q][tid] += red[q][tid + h];
-    }
-    __syncthreads();
+    for (int q = 0; q < 4; ++q) acc[q] += s[q];
   }
-  if (tid < 4) partial[4 * blockIdx.x + tid] = red[tid][0];
-}
-
-// acc[q] += sum_b partial[4 b + q], in a fixed order
-__global__ void h_traces_reduce_kernel(const double* __restrict__ partial, long long blocks,
-                                       double* __restrict__ acc) {
-  const int q = threadIdx.x;
-  if (q >= 4) return;
-  double s = 0.0;
-  for (long long b = 0; b < blocks; ++b) s += partial[4 * b + q];
-  acc[q] += s;
 }
 
 }  // namespace
@@ -176,20 +269,42 @@ int gpmp_split_rows(const void* k64, const void* corr, void* hi, void* lo, long 
   return launch_split_rows(k64, corr, hi, lo, r0, c, n, ridge, stream);
 }
 
-long long gpmp_h_traces_blocks(long long c, long long n) { return h_traces_blocks(c, n); }
+// K10t's geometry: chunk rows a tile, columns a tile, threads a block
+// (ops/streamed.py checks them)
+int gpmp_h_traces_geometry(int what) {
+  switch (what) {
+    case 0: return HT_ROWS;
+    case 1: return HT_COLS;
+    case 2: return HT_THREADS;
+    default: return -1;
+  }
+}
 
-int gpmp_h_traces(const void* H, const void* H2r, void* partial, void* acc, long long r0,
-                  long long c, long long n, void* stream) {
-  if (n <= 0 || c <= 0 || r0 < 0 || r0 + c > n) return static_cast<int>(cudaErrorInvalidValue);
+// acc[0..3] += the four sums of the row chunk [r0, r0 + c) of the (n, n) f32
+// H, H2r = H[r0:r0+c] H (c, n): one launch of ``blocks`` blocks (ops/
+// streamed.py h_traces_plan), partial (4 blocks f64) and ticket (zero) its
+// workspace
+int gpmp_h_traces(const void* H, const void* H2r, void* partial, void* ticket, void* acc,
+                  long long r0, long long c, long long n, long long blocks, void* stream) {
+  if (n <= 0 || c <= 0 || r0 < 0 || r0 + c > n || blocks <= 0 || !H || !H2r || !partial ||
+      !ticket || !acc)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = ((c + HT_ROWS - 1) / HT_ROWS) * ((n + HT_COLS - 1) / HT_COLS);
+  if (blocks > tiles || blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long nb = h_traces_blocks(c, n);
-  h_traces_kernel<<<static_cast<unsigned>(nb), dim3(HT_TILE, HT_TY), 0, s>>>(
-      static_cast<const float*>(H), static_cast<const float*>(H2r),
-      static_cast<double*>(partial), r0, c, n);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  h_traces_reduce_kernel<<<1, 32, 0, s>>>(static_cast<const double*>(partial), nb,
-                                          static_cast<double*>(acc));
+  const float* h = static_cast<const float*>(H);
+  const float* h2 = static_cast<const float*>(H2r);
+  const bool vec = n % 4 == 0 && r0 % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(h2) % 16 == 0;
+  double* pt = static_cast<double*>(partial);
+  unsigned int* tk = static_cast<unsigned int*>(ticket);
+  double* a = static_cast<double*>(acc);
+  if (vec)
+    h_traces_kernel<true><<<static_cast<unsigned>(blocks), HT_THREADS, 0, s>>>(h, h2, pt, tk, a,
+                                                                               r0, c, n);
+  else
+    h_traces_kernel<false><<<static_cast<unsigned>(blocks), HT_THREADS, 0, s>>>(h, h2, pt, tk, a,
+                                                                                r0, c, n);
   return static_cast<int>(cudaGetLastError());
 }
 

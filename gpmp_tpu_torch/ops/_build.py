@@ -145,13 +145,12 @@ def _declare(lib):
         "gpmp_split_rows": ([vp, vp, vp, vp, ll, ll, ll, ctypes.c_float, vp], i32),
         "gpmp_ff_residual_blocks": ([ll], ll),
         "gpmp_ff_residual": ([vp, vp, vp, vp, vp, vp, vp, ll, i32, vp], i32),
-        "gpmp_h_traces_blocks": ([ll, ll], ll),
-        "gpmp_h_traces": ([vp, vp, vp, vp, ll, ll, ll, vp], i32),
+        "gpmp_h_traces_geometry": ([i32], i32),
+        "gpmp_h_traces": ([vp, vp, vp, vp, vp, ll, ll, ll, ll, vp], i32),
         "gpmp_diag_block_inv_max_base": ([], i32),
         "gpmp_diag_block_inv": ([vp, vp, ll, i32, vp], i32),
-        "gpmp_trace_sums_blocks": ([ll, ll], ll),
-        "gpmp_trace_sums": ([vp, vp, vp, ll, ll, ll, vp], i32),
-        "gpmp_series_sums": ([vp, vp, vp, vp, ll, ll, vp], i32),
+        "gpmp_trace_sums_geometry": ([i32], i32),
+        "gpmp_trace_sums": ([vp, vp, vp, vp, vp, ll, ll, ll, ll, vp], i32),
         "gpmp_loo_diag_chunks": ([ll], ll),
         "gpmp_loo_diag_series": ([vp, vp, vp, vp, ll, vp], i32),
         # ops/distance.py: K1d

@@ -35,7 +35,8 @@ launch counter:
   and doubling levels in shared memory;
 - K7 ``trace_sums`` / ``series_sums``: (tr H, sum H^2) and
   (sum H^2 o H, sum (H^2)^2) accumulated in f64 from f32 H and H^2 (the
-  trace series of ``_mp_solve_and_logdet_core``);
+  trace series of ``_mp_solve_and_logdet_core``), one bandwidth-bound
+  launch each on the grid of ``trace_sums_plan``;
 - K7b ``loo_diag_series`` / ``loo_diag_pairs``: the column sums
   diag K^{-1} = sum_i M_ij^2 - sum_i M_ij B_ij (series) or sum_i G_ij W_ij
   (two-level) in f64 (``mp_solve_and_inv_diag``).
@@ -196,14 +197,14 @@ def diag_block_inv_plain(L32, base):
 
 
 def trace_sums_plain(H, off=0):
-    """K7 plain, first launch: [tr H, sum H^2] in f64 from f32 H (on a row
+    """K7 plain, first call: [tr H, sum H^2] in f64 from f32 H (on a row
     slab of global rows [off, off + rows): its part of both)."""
     H64 = H.double()
     return torch.stack([torch.sum(torch.diagonal(H64, off)), torch.sum(H64 * H64)])
 
 
 def series_sums_plain(H, H2):
-    """K7 plain, second launch: [sum H^2 o H, sum (H^2)^2] in f64."""
+    """K7 plain, second call: [sum H^2 o H, sum (H^2)^2] in f64."""
     H64, H2_64 = H.double(), H2.double()
     return torch.stack([torch.sum(H2_64 * H64), torch.sum(H2_64 * H2_64)])
 
@@ -593,38 +594,73 @@ def diag_block_inv_cuda(L32, base):
     return out
 
 
-def trace_sums_cuda(H, off=0):
-    """K7 on the card, first launch: [tr H, sum H^2] in f64; on a (rows, n)
-    row slab of global rows [off, off + rows), its part of both."""
-    global K7_LAUNCHES
-    dev = _check_cuda("K7 trace_sums", (H,), ((_F32,),))
-    rows, n = _slab_shape("K7 trace_sums", H, off)
+# K7's launch geometry (csrc/mixed.cu): blocks of TRACE_SUMS_THREADS threads
+# in a flat grid-stride pass over the 16-byte groups (4 entries) of a (rows,
+# n) H, TRACE_SUMS_UNROLL groups a thread step; enough blocks for one step a
+# thread, at most TRACE_SUMS_BLOCKS_PER_SM an SM
+TRACE_SUMS_THREADS, TRACE_SUMS_UNROLL, TRACE_SUMS_BLOCKS_PER_SM = 256, 4, 4
+
+
+def trace_sums_plan(rows, n, sms):
+    """K7's grid for a (rows, n) H or row slab, on the CPU: the number of
+    blocks; thread j of the grid takes the groups j, j + S, j + 2 S, ... (S
+    the grid's threads), group g the entries 4 g .. 4 g + 3 of the flat slab
+    (n = 1000 on the H100's 132 SMs: 245 blocks; n = 8192: 528)."""
+    if rows <= 0 or n <= 0 or sms <= 0:
+        raise ValueError(f"trace_sums_plan: rows={rows}, n={n}, sms={sms}")
+    groups = -(-rows * n // 4)
+    per_block = TRACE_SUMS_THREADS * TRACE_SUMS_UNROLL
+    return max(1, min(-(-groups // per_block), TRACE_SUMS_BLOCKS_PER_SM * sms))
+
+
+@functools.lru_cache(maxsize=64)
+def _trace_sums_workspace(device, rows, n):
+    """K7's per-(device, rows, n) workspace, shared by trace_sums and
+    series_sums: the plan's blocks, and raw pointers to the blocks' partial
+    pairs (f64) and to the ticket (int32, zero between launches: each launch
+    resets it), beside the tensors that hold them."""
     lib = _build.load()
-    partial = torch.empty((lib.gpmp_trace_sums_blocks(rows, n), 2), dtype=torch.float64,
-                          device=dev)
+    want = (TRACE_SUMS_THREADS, TRACE_SUMS_UNROLL)
+    built = (lib.gpmp_trace_sums_geometry(0), lib.gpmp_trace_sums_geometry(1))
+    if built != want:
+        raise RuntimeError(f"csrc/mixed.cu's K7 geometry (threads, groups a step) is {built}, "
+                           f"not {want}")
+    blocks = trace_sums_plan(rows, n, _sms_on(device))
+    part = torch.empty(2 * blocks, dtype=torch.float64, device=device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    return blocks, part.data_ptr(), ticket.data_ptr(), (part, ticket)
+
+
+def _trace_sums_launch(name, H, H2, off):
+    global K7_LAUNCHES
+    dev = H.device
+    rows, n = H.shape
+    blocks, part, ticket, _ = _trace_sums_workspace(dev, rows, n)
     out = torch.empty(2, dtype=torch.float64, device=dev)
-    _build.launch("K7 trace_sums", lib.gpmp_trace_sums, dev, H.data_ptr(),
-                  partial.data_ptr(), out.data_ptr(), rows, n, int(off))
+    _build.launch(name, _build.load().gpmp_trace_sums, dev, H.data_ptr(),
+                  None if H2 is None else H2.data_ptr(), part, ticket, out.data_ptr(), rows, n,
+                  off, blocks)
     K7_LAUNCHES += 1
     return out
+
+
+def trace_sums_cuda(H, off=0):
+    """K7 on the card: [tr H, sum H^2] in f64; on a (rows, n) row slab of
+    global rows [off, off + rows), its part of both.  One launch, finished
+    by its last block (bitwise reproducible)."""
+    _check_cuda("K7 trace_sums", (H,), ((_F32,),))
+    _slab_shape("K7 trace_sums", H, off)
+    return _trace_sums_launch("K7 trace_sums", H, None, int(off))
 
 
 def series_sums_cuda(H, H2):
-    """K7 on the card, second launch: [sum H^2 o H, sum (H^2)^2] in f64 (over
-    a row slab: its part)."""
-    global K7_LAUNCHES
-    dev = _check_cuda("K7 series_sums", (H, H2), ((_F32,), (_F32,)))
-    rows, n = _slab_shape("K7 series_sums", H, 0)
+    """K7 on the card: [sum H^2 o H, sum (H^2)^2] in f64 (over a row slab:
+    its part).  One launch, as trace_sums_cuda."""
+    _check_cuda("K7 series_sums", (H, H2), ((_F32,), (_F32,)))
+    _slab_shape("K7 series_sums", H, 0)
     if H2.shape != H.shape:
         raise ValueError(f"K7: H2 must be {tuple(H.shape)}; got {tuple(H2.shape)}")
-    lib = _build.load()
-    partial = torch.empty((lib.gpmp_trace_sums_blocks(rows, n), 2), dtype=torch.float64,
-                          device=dev)
-    out = torch.empty(2, dtype=torch.float64, device=dev)
-    _build.launch("K7 series_sums", lib.gpmp_series_sums, dev, H.data_ptr(), H2.data_ptr(),
-                  partial.data_ptr(), out.data_ptr(), rows, n)
-    K7_LAUNCHES += 1
-    return out
+    return _trace_sums_launch("K7 series_sums", H, H2, 0)
 
 
 def _slab_shape(name, H, off):

@@ -21,7 +21,8 @@ Counterpart of the device programs of gpmp_tpu/parallel/streamed.py:
   pair, 4 rows a warp, 16-byte loads (csrc/mixed.cu).
 - K10t ``h_traces_chunk`` (``_h_traces``): for the row chunk r0 .. r0 + c of
   H and H2r = H[r0:r0+c] @ H, adds (tr H, sum Hr o Hc^T, sum H2r o Hc^T,
-  sum H2r^2) of the chunk to an f64 accumulator (csrc/streamed.cu).
+  sum H2r^2) of the chunk to an f64 accumulator: one bandwidth-bound
+  launch a chunk over the tiles of ``h_traces_plan`` (csrc/streamed.cu).
 
 Each dispatcher takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors (or raises); there is no fallback between them.
@@ -33,11 +34,13 @@ count kernel launches; the plain versions count nothing.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 from .mixed import (MATVEC_MAX_COLS, _F32, _check_cuda, _on_card, _residual_panel_tiles_on,
-                    _residual_tile, _residual_tiles_on, _square)
+                    _residual_tile, _residual_tiles_on, _sms_on, _square)
 
 K10B_LAUNCHES = 0
 K10R_LAUNCHES = 0
@@ -210,20 +213,58 @@ def ff_residual_cuda(K32, E32, X, B):
     return R, norms
 
 
+# K10t's launch geometry (csrc/streamed.cu): tiles of H_TRACES_ROWS chunk rows
+# by H_TRACES_COLS columns, a block of H_TRACES_THREADS threads (8 warps of 4
+# rows, a lane 4 columns of each) a tile at a time; a persistent grid of at
+# most H_TRACES_BLOCKS_PER_SM blocks an SM
+H_TRACES_ROWS, H_TRACES_COLS, H_TRACES_THREADS, H_TRACES_BLOCKS_PER_SM = 32, 128, 256, 2
+
+
+def h_traces_plan(c, n, sms):
+    """K10t's launch geometry for a chunk of c rows of an (n, n) H, on the
+    CPU: (ta, tm, blocks) -- ta tiles over the chunk's rows and tm over the
+    columns, tile t at chunk rows (t % ta) H_TRACES_ROWS and columns
+    (t // ta) H_TRACES_COLS, block b walking the tiles b, b + blocks, ...
+    in order (c = 512, n = 32768 on the H100's 132 SMs: 16 x 256 tiles, 264
+    blocks)."""
+    if c <= 0 or n <= 0 or c > n or sms <= 0:
+        raise ValueError(f"h_traces_plan: c={c}, n={n}, sms={sms}")
+    ta, tm = -(-c // H_TRACES_ROWS), -(-n // H_TRACES_COLS)
+    return ta, tm, min(ta * tm, H_TRACES_BLOCKS_PER_SM * sms)
+
+
+@functools.lru_cache(maxsize=64)
+def _h_traces_workspace(device, c, n):
+    """K10t's per-(device, c, n) workspace: the plan's blocks, and raw
+    pointers to the blocks' partial sums (4 a block, f64) and to the ticket
+    (int32, zero between launches: each launch resets it), beside the
+    tensors that hold them."""
+    lib = _build.load()
+    want = (H_TRACES_ROWS, H_TRACES_COLS, H_TRACES_THREADS)
+    built = tuple(lib.gpmp_h_traces_geometry(q) for q in range(3))
+    if built != want:
+        raise RuntimeError(f"csrc/streamed.cu's K10t geometry (rows, columns, threads) is "
+                           f"{built}, not {want}")
+    blocks = h_traces_plan(c, n, _sms_on(device))[2]
+    part = torch.empty(4 * blocks, dtype=_F64, device=device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    return blocks, part.data_ptr(), ticket.data_ptr(), (part, ticket)
+
+
 def h_traces_chunk_cuda(H, H2r, r0, acc):
     """K10t on the card: adds the chunk's four sums to the f64 (4,) acc (in
-    place; two launches, fixed order)."""
+    place; one launch, finished by its last block: bitwise reproducible)."""
     global K10T_LAUNCHES
     dev = _check_cuda("K10t h_traces", (H, H2r, acc), ((_F32,), (_F32,), (_F64,)))
     n = _square("K10t h_traces", H)
     c = H2r.shape[0]
-    if H2r.ndim != 2 or H2r.shape[1] != n or not 0 <= r0 <= n - c or acc.shape != (4,):
+    if (H2r.ndim != 2 or c == 0 or H2r.shape[1] != n or not 0 <= r0 <= n - c
+            or acc.shape != (4,)):
         raise ValueError(f"K10t: H2r {tuple(H2r.shape)} at r0={r0}, acc {tuple(acc.shape)} "
                          f"do not fit n={n}")
-    lib = _build.load()
-    partial = torch.empty((lib.gpmp_h_traces_blocks(c, n), 4), dtype=_F64, device=dev)
-    _build.launch("K10t h_traces", lib.gpmp_h_traces, dev, H.data_ptr(), H2r.data_ptr(),
-                  partial.data_ptr(), acc.data_ptr(), r0, c, n)
+    blocks, part, ticket, _ = _h_traces_workspace(dev, c, n)
+    _build.launch("K10t h_traces", _build.load().gpmp_h_traces, dev, H.data_ptr(),
+                  H2r.data_ptr(), part, ticket, acc.data_ptr(), int(r0), c, n, blocks)
     K10T_LAUNCHES += 1
 
 

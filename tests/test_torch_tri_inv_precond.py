@@ -21,12 +21,17 @@ them to their plain versions there).  Here:
   rel 1e-6 (f32 sums in another order, tests/test_torch_streamed.py's bar),
   the slabs' parts summing to the square product;
 - the wrappers refuse CPU tensors.
+
+The inputs are built once per module (the ``inputs`` fixture), numpy's BLAS
+on one thread: beside the suite's other workers, its thread pool made each
+n = 1000 input take 15-40 s.
 """
 
 import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import gpmp_tpu.num as jgnp  # noqa: F401  (enables x64 in the JAX package)
 from gpmp_tpu.ops import mixed as jmixed
@@ -45,8 +50,9 @@ def _on_the_cpu():
 
 def _spd(n, cond, seed):
     rng = np.random.default_rng(seed)
-    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
-    return Q @ np.diag(np.logspace(0, -np.log10(cond), n)) @ Q.T
+    with threadpool_limits(1, user_api="blas"):
+        Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+        return Q @ np.diag(np.logspace(0, -np.log10(cond), n)) @ Q.T
 
 
 def _rel(a, b):
@@ -59,25 +65,55 @@ def _l32(n, seed):
     return L32
 
 
+class _Inputs:
+    """Each f32 factor (by n and seed), M = L32^{-1} and jitted JAX function
+    made once for the module (none of them is written to)."""
+
+    def __init__(self):
+        self._cache = {}
+
+    def _get(self, key, make):
+        if key not in self._cache:
+            self._cache[key] = make()
+        return self._cache[key]
+
+    def l32(self, n, seed):
+        return self._get(("l32", n, seed), lambda: _l32(n, seed))
+
+    def m32(self, n, seed):
+        return self._get(("m32", n, seed), lambda: mixed._block_tri_inv(self.l32(n, seed)))
+
+    def jax_base_case(self, blocks):
+        """gpmp_tpu's _block_tri_inv on each (base, base) block: its base
+        case, one triangular solve."""
+        base = blocks.shape[-1]
+        fn = self._get(("base case", base), lambda: jax.jit(
+            jax.vmap(lambda A: jmixed._block_tri_inv(A, base))))
+        return np.asarray(fn(blocks))
+
+    def jax_block_tri_inv(self, L32, base):
+        fn = self._get("block_tri_inv", lambda: jax.jit(jmixed._block_tri_inv,
+                                                        static_argnums=1))
+        return np.asarray(fn(L32, base))
+
+    def jax_apply(self, M32, R):
+        return np.asarray(self._get("apply", lambda: jax.jit(jmixed._apply))(M32, R))
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    return _Inputs()
+
+
 # ---------------------------------------------------------------------------
 # K5
 # ---------------------------------------------------------------------------
-_JAX_BASE_CASE = {}
-
-
-def _jax_base_case(blocks):
-    """gpmp_tpu's _block_tri_inv on each (base, base) block: its base case,
-    one triangular solve."""
-    base = blocks.shape[-1]
-    if base not in _JAX_BASE_CASE:
-        _JAX_BASE_CASE[base] = jax.jit(jax.vmap(lambda A: jmixed._block_tri_inv(A, base)))
-    return np.asarray(_JAX_BASE_CASE[base](blocks))
 
 
 @pytest.mark.parametrize("n", [100, 300, 1000])
 @pytest.mark.parametrize("base", [7, 64, 128])
-def test_k5_plain_matches_solve_and_jax(n, base):
-    L32 = _l32(n, n + base)
+def test_k5_plain_matches_solve_and_jax(n, base, inputs):
+    L32 = inputs.l32(n, n + base)
     X = mixed.diag_block_inv_plain(L32, base)
     nb = -(-n // base)
     assert X.dtype == torch.float32 and X.shape == (nb, base, base)
@@ -86,7 +122,7 @@ def test_k5_plain_matches_solve_and_jax(n, base):
     ref = torch.linalg.solve_triangular(A.double(), torch.eye(base, dtype=torch.float64).expand(
         A.shape), upper=False)
     assert _rel(X.numpy(), ref.numpy()) <= 1e-5
-    assert _rel(X.numpy(), _jax_base_case(A.numpy())) <= 1e-5
+    assert _rel(X.numpy(), inputs.jax_base_case(A.numpy())) <= 1e-5
     r = n - (nb - 1) * base  # the last block's rows of L; the rest identity
     if r < base:
         assert torch.equal(X[-1, r:, r:], torch.eye(base - r))
@@ -107,13 +143,13 @@ def test_k5_diag_blocks_and_sizes():
     assert sizes == {1: 8, 7: 8, 8: 8, 9: 16, 64: 64, 65: 128, 100: 128, 128: 128}
 
 
-def test_k5_block_tri_inv_on_the_plain_blocks():
+def test_k5_block_tri_inv_on_the_plain_blocks(inputs):
     """The port's _block_tri_inv (K5's plain version, then the products)
     against gpmp_tpu's at n = 1000, base 128 (8 blocks, a ragged last one of
     104 rows), rel 1e-5."""
-    L32 = _l32(1000, 5)
-    M = mixed._block_tri_inv(L32).numpy()
-    Mj = np.asarray(jax.jit(jmixed._block_tri_inv, static_argnums=1)(L32.numpy(), 128))
+    L32 = inputs.l32(1000, 5)
+    M = inputs.m32(1000, 5).numpy()
+    Mj = inputs.jax_block_tri_inv(L32.numpy(), 128)
     assert np.all(np.triu(M, 1) == 0) and _rel(M, Mj) <= 1e-5
 
 
@@ -193,27 +229,38 @@ def test_k6_blocks_cover_the_triangle_once(rows, n, off):
 def _k6_walk(M32, R, off=0):
     """K6 as the kernel cuts it, on a (rows, n) slab of M at global rows
     [off, off + rows): y = M r32 over each row's triangle, then each band's
-    chunks of M^T y summed alone and in chunk order (f32)."""
+    chunks of M^T y summed alone and in chunk order (f32).  Every (band,
+    chunk) block's product at once; a block's rows above the band's
+    triangle (and the chunks before its first, _band_chunks) hold only the
+    zeros of tril, so their products are exact zeros, which the sum in
+    chunk order adds unchanged."""
     rows, n = M32.shape
-    _, _, height = mixed.precond_plan(rows, n, H100_SMS)
+    _, chunks, height = mixed.precond_plan(rows, n, H100_SMS)
+    band = mixed.PRECOND_BAND
+    bands = -(-n // band)
     Mt = torch.tril(M32, off)  # the entries the kernel reads: j <= off + i
     y = Mt @ R.float()
-    out = torch.zeros((n, R.shape[1]), dtype=torch.float32)
-    for b, (ch0, count) in enumerate(_band_chunks(rows, n, off, height)):
-        j0, j1 = b * mixed.PRECOND_BAND, min(n, (b + 1) * mixed.PRECOND_BAND)
-        for ch in range(ch0, ch0 + count):
-            r0, r1 = max(ch * height, j0 - off), min((ch + 1) * height, rows)
-            out[j0:j1] += Mt[r0:r1, j0:j1].T @ y[r0:r1]
-    return out
+    k = R.shape[1]
+    Mp = torch.zeros((chunks * height, bands * band), dtype=torch.float32)
+    Mp[:rows, :n] = Mt
+    yp = torch.zeros((chunks * height, k), dtype=torch.float32)
+    yp[:rows] = y
+    # blocks[b, ch] = Mt[chunk ch's rows, band b's columns]^T y[chunk ch's rows]
+    blocks = Mp.reshape(chunks, height, bands, band).permute(2, 0, 3, 1) @ yp.reshape(
+        chunks, height, k)
+    out = torch.zeros((bands, band, k), dtype=torch.float32)
+    for ch in range(chunks):
+        out += blocks[:, ch]
+    return out.reshape(bands * band, k)[:n]
 
 
 @pytest.mark.parametrize("n,k", [(300, 2), (1000, 1), (1000, 8), (1001, 3)])
-def test_k6_walk_matches_plain_and_jax(n, k):
-    M32 = mixed._block_tri_inv(_l32(n, 3 * n + k))
+def test_k6_walk_matches_plain_and_jax(n, k, inputs):
+    M32 = inputs.m32(n, 3 * n + k)
     R = torch.as_tensor(np.random.default_rng(n + k).normal(size=(n, k)))
     walk = _k6_walk(M32, R)
     plain = mixed.precond_apply_plain(M32, R)
-    ref = np.asarray(jax.jit(jmixed._apply)(M32.numpy(), R.numpy()))
+    ref = inputs.jax_apply(M32.numpy(), R.numpy())
     assert _rel(walk.double().numpy(), plain.numpy()) <= 1e-6
     assert _rel(walk.double().numpy(), ref) <= 1e-6
     # two ranks' slabs: their parts sum to the square product
