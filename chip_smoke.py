@@ -35,8 +35,11 @@ non-zero):
 2c. K1d (scaled distance and its pullback, full and elementwise), K1m (the
    Matern polynomial and its backward), K7b (the LOO diagonal series, both
    branches) and K8s (the f64 sampling residual) vs their plain versions
-   on the card: K1d/K1m at n in {1000, 4099}, d in {1, 6}, p in {0, 2, 3},
-   with coincident points, in f64 and f32; K7b on phase 2b's inputs; K8s
+   on the card: K1d/K1m at n in {1000, 4099}, d in {1, 6, 9}, p in {0, 2,
+   3}, with coincident points, in f64 and f32, D(x, x) exactly symmetric,
+   the pullback bitwise reproducible and bitwise the same from a Dbar whose
+   base is not 16-byte aligned (its scalar-access instance); K7b on phase
+   2b's inputs; K8s
    at n in {1000, 4099, 8192}, cond(K) ~1e3 and ~1e6; tolerances at
    TOL_2C; K4 (the f64 tensor-core residual) on K8s's inputs, exactly
    symmetric and within TOL_MIXED["K4"] of its plain version; K8s (K4's
@@ -199,9 +202,13 @@ non-zero):
 4c. K1d, K1m, K7b, K8s and K6's wide variant: kernel, plain and
    library-call ms at the slice's shapes (n = 1000, and K8s at 8192), with
    bound and share (rows under their bound warm, K1m's backward among them:
-   device time again with L2 flushed before each launch); the
-   full-width sample-paths call (nt = 8192, 1024 paths) per engine, first
-   (phase 3c) and warm.
+   device time again with L2 flushed before each launch); K1d and its
+   pullback at n = 1000 (d = 6) and 16384 (d = 3): events, device time warm
+   and with L2 flushed, host issue per call, plain, torch.cdist, the byte
+   bound and the pullback's f64 instruction floor (its f64 instructions an
+   entry counted in the built instance's SASS, cuobjdump -sass, over the
+   f64 rate); the full-width sample-paths call (nt = 8192, 1024 paths) per
+   engine, first (phase 3c) and warm.
 4d. K6 (k = 2 and 8), K10b, K10r, K10m and K10t at n = 32768 (per 512-row
    chunk for K10b and K10t), and K5 on the engine's f32 factor there: kernel
    (events and profiler device time), plain, library call
@@ -244,8 +251,10 @@ non-zero):
 ``python3 chip_smoke.py --compare ROOT`` instead times K8s (n = 1000 and
 8192), K8t and K8r (b = 512, with their host issue time), K3 (n = 1000,
 k = 2, with its host issue time) and refined_cholesky per call (b = 512),
-K5 (n = 1000, 8192 and 32768), K6 (k = 2, n = 1000 and 32768) and the K7
-pair (n = 1000 and 8192), runs phases 4b's and 4f's timings of K4, K4s and
+K5 (n = 1000, 8192 and 32768), K6 (k = 2, n = 1000 and 32768), the K7
+pair (n = 1000 and 8192) and K1d and its pullback (phase 4c's K1d timings:
+n = 1000, d = 6 and n = 16384, d = 3, with their host issue time), runs
+phases 4b's and 4f's timings of K4, K4s and
 K9s (f64, f32), and times K10m, K10r (from the pair) and K10t (a 512-row
 chunk) at n = 32768 and K10r's recompute pass at
 n = 51200, and runs the resident f64 REML value+grad at n = 4096 and
@@ -253,9 +262,11 @@ n = 51200, and runs the resident f64 REML value+grad at n = 4096 and
 mixed engine's value+grad rate at n = 1000 and one streamed REML
 value+grad per mode (ff at n = 32768, recompute at n = 51200), on the
 gpmp_tpu_torch package under ROOT alone, with digests of K8s's, K8t's,
-K8r's, K3's, K5's, K6's, K7's, K4's, K4s's, K9u's, K9s's, K10m's, K10r's and
-K10t's outputs
+K8r's, K3's, K5's, K6's, K7's, K1d's, the K1d pullback's, K4's, K4s's,
+K9u's, K9s's, K10m's, K10r's and K10t's outputs
 (compare_main), for setting two trees side by side in one call.
+``python3 chip_smoke.py --compare ROOT --k1d`` times K1d and its pullback
+alone (with their digests), for trees that differ only there.
 
 The line before the last is {"kernels": [...]}, with each kernel's
 least time on the card (bound_ms) computed from this run's shapes against
@@ -263,6 +274,7 @@ the H100 SXM's data-sheet peaks (PEAK_*); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import functools
 import gc
 import json
 import math
@@ -351,7 +363,10 @@ TOL_2C = {
     # E = K - L L^T in f64, sums in another order: max|dE| <= 1e-12 max|K|
     ("K8s", "float64"): 1e-12,
 }
-DIST_SIZES, DIST_DIMS, DIST_P = (1000, 4099), (1, 6), (0, 2, 3)
+# d = 1, 3 (bench_large_n's), 6 (the slice's): instances of their own (each
+# d <= 8 has one); d = 9: the one for d up to MAX_D; 4099: odd rows, the
+# scalar-access instances
+DIST_SIZES, DIST_DIMS, DIST_P = (1000, 4099), (1, 3, 6, 9), (0, 2, 3)
 K8S_SIZES = (1000, 4099, 8192)
 # phase 3c: conditional sample paths at full width
 PATHS_NT, PATHS_COUNT, PATHS_SEED = 8192, 1024, 8
@@ -1006,6 +1021,15 @@ def phase_new_kernels_vs_plain(torch, gram, distance, mixed, refine):
                 gp_ = distance.scaled_distance_pullback_plain(dbar, l, x, y)
                 check(torch.equal(g, distance.scaled_distance_pullback_cuda(dbar, l, x, y)),
                       "K1d pullback is not bitwise reproducible")
+                # D(x, x) exactly symmetric; the pullback at x is y; Dbar at a
+                # base that is not 16-byte aligned takes the scalar-access
+                # instance, which sums in the same order: bitwise the same
+                Ds = distance.scaled_distance_cuda(l, x, x)
+                gs = distance.scaled_distance_pullback_cuda(dbar, l, x, x)
+                gsp = distance.scaled_distance_pullback_plain(dbar, l, x, x)
+                dbo = torch.empty(n * n + 1, dtype=dtype, device=DEVICE)[1:].view(n, n)
+                dbo.copy_(dbar)
+                go = distance.scaled_distance_pullback_cuda(dbo, l, x, y)
                 db1 = dbar[:, 0].contiguous()
                 De = distance.scaled_distance_elementwise_cuda(l, x, y)
                 Dep = distance.scaled_distance_elementwise_plain(l, x, y)
@@ -1013,14 +1037,19 @@ def phase_new_kernels_vs_plain(torch, gram, distance, mixed, refine):
                 gep = distance.scaled_distance_elementwise_pullback_plain(db1, l, x, y)
                 torch.cuda.synchronize()
                 check(bool((D.diagonal()[:5] == 0).all() and (D[10:15, :5].diagonal() == 0).all()
-                           and (De[:5] == 0).all()),
+                           and (De[:5] == 0).all() and (Ds.diagonal() == 0).all()),
                       f"K1d {tag}: coincident points do not give 0")
+                check(torch.equal(Ds, Ds.T), f"K1d {tag}: D(x, x) is not exactly symmetric")
+                check(torch.equal(go, g), f"K1d pullback {tag}: Dbar not 16-byte aligned gives "
+                      f"another result")
                 errs = [held("K1d", dname, rel_err(D, Dp), tag),
                         held("K1d pullback", dname, rel_err(g, gp_), tag),
+                        held("K1d pullback", dname, rel_err(gs, gsp), tag + " x is y"),
                         held("K1d", dname, rel_err(De, Dep), tag + " elementwise"),
                         held("K1d pullback", dname, rel_err(ge, gep), tag + " elementwise")]
-                line = (f"[phase 2c] {tag}: K1d {errs[0]:.2e} pullback {errs[1]:.2e} "
-                        f"elementwise {errs[2]:.2e}/{errs[3]:.2e}; K1m")
+                line = (f"[phase 2c] {tag}: K1d {errs[0]:.2e} pullback {errs[1]:.2e} (x is y "
+                        f"{errs[2]:.2e}; D(x, x) exactly symmetric, Dbar's base unaligned bitwise "
+                        f"the same) elementwise {errs[3]:.2e}/{errs[4]:.2e}; K1m")
                 if dname == "float64" and n == SLICE_N and d == SLICE_D:
                     main_abs["K1d"] = float((D - Dp).abs().max())
                     main_abs["K1d pullback"] = float((g - gp_).abs().max())
@@ -1036,7 +1065,7 @@ def phase_new_kernels_vs_plain(torch, gram, distance, mixed, refine):
                         main_abs["K1m"] = float((K - Kp).abs().max())
                         main_abs["K1m backward"] = float((b - bp).abs().max())
                 say(line)
-                del D, Dp, dbar
+                del D, Dp, dbar, Ds, dbo
 
     for n in K8S_SIZES:
         fam = _noisy_matern_family(torch, gram, n, MIXED_CONDS, 77 + n)
@@ -3460,18 +3489,194 @@ def _time_sqrt_inputs(torch, gram, n):
     return K
 
 
+# phase 4c and --compare: K1d and its pullback at the noisy slice's shape and
+# at bench_large_n's (d = 3) resident n = 16384
+K1D_TIME_SIZES = ((SLICE_N, SLICE_D), (16384, 3))
+# the SASS opcodes that issue to the f64 pipes (at PEAK_F64_FLOPS / 2 a second)
+FP64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET")
+
+
+def _k1d_inputs(torch, n, d, seed=7):
+    """(loginvrho, x, Dbar) at (n, d): l and x from numpy, Dbar (n, n) from
+    the card's generator."""
+    rng = np.random.default_rng(seed + n + d)
+    l = torch.as_tensor(rng.uniform(-0.5, 1.5, size=d), device=DEVICE)
+    x = torch.as_tensor(rng.uniform(size=(n, d)), device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + n)
+    return l, x, torch.randn(n, n, dtype=torch.float64, device=DEVICE, generator=gen)
+
+
+def _sass_loop_counts(sass, name):
+    """Opcode counts of the innermost loop of the function whose mangled name
+    matches ``name`` (a regex), among its innermost loops the one with the
+    most f64 instructions, from ``cuobjdump -sass`` text: {opcode: count}
+    or None.  A loop is a backward branch and the instructions from its
+    target to it; every loop's size is printed."""
+    import re
+
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            cur = funcs.setdefault(head.group(1), [])
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if cur is not None and ins:
+            cur.append((int(ins.group(1), 16), ins.group(2)))
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if cur is not None and label:
+            cur.append((None, label.group(1)))
+    hits = [k for k in funcs if re.search(name, k)]
+    if len(hits) != 1:
+        return None
+    body, labels, nxt = [], {}, None
+    for addr, text in reversed(funcs[hits[0]]):  # a label's address is the next instruction's
+        if addr is None:
+            labels[text] = nxt
+        else:
+            body.append((addr, text))
+            nxt = addr
+    body.reverse()
+
+    def opcode(text):
+        return re.sub(r"^@!?U?P[T0-9]+\s+", "", text).split()[0].split(".")[0]
+
+    loops = []
+    for addr, text in body:
+        if opcode(text) != "BRA":
+            continue
+        tgt = re.search(r"(0x[0-9a-f]+)|(\.L_x_\d+)", text.split(None, 1)[-1])
+        if tgt is None:
+            continue
+        t = int(tgt.group(1), 16) if tgt.group(1) else labels.get(tgt.group(2))
+        if t is not None and t <= addr:
+            loops.append((t, addr))
+    best, seen = None, []
+    for a, b in loops:
+        ops = [opcode(text) for addr, text in body if a <= addr <= b]
+        counts = {o: ops.count(o) for o in set(ops)}
+        f64 = sum(counts.get(o, 0) for o in FP64_OPCODES)
+        seen.append(f"{a:#06x}-{b:#06x}: {len(ops)}/{f64}")
+        inner = not any((c, e) != (a, b) and a <= c and e <= b for c, e in loops)
+        if inner and (best is None or f64 > best[0]):
+            best = (f64, counts)
+    say(f"[phase 4c] {hits[0]}: loops (instructions/f64) " + ", ".join(seen))
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=2)
+def _sass_dump(path):
+    """cuobjdump -sass of the built library, or None."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        return subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                              timeout=300).stdout
+    except (OSError, subprocess.SubprocessError) as exc:
+        say(f"[phase 4c] cuobjdump -sass failed: {exc}")
+        return None
+
+
+def _pullback_f64_floor(build, distance, n, d):
+    """The K1d pullback's f64 instruction floor at (n, n, d): the f64
+    instructions an entry in the innermost loop of its built f64 16-byte
+    instance for d (cuobjdump -sass; one MUFU.RSQ64H an entry, so the loop's
+    MUFU count is its entries), times the n^2 entries, over the f64 pipes'
+    issue rate PEAK_F64_FLOPS / 2: (floor_ms, per entry, entries a loop
+    iteration, the loop's opcode counts), or None where the SASS cannot be
+    read."""
+    sass = _sass_dump(str(build.build_dir() / "libgpmp_tpu_torch.so"))
+    inst = d if d <= distance.EXACT_MAX_D else distance.MAX_D
+    counts = sass and _sass_loop_counts(sass, rf"distance_pullback_kernelIdLi{inst}ELb1E")
+    if not counts or not counts.get("MUFU"):
+        return None
+    entries = counts["MUFU"]
+    per_entry = sum(counts.get(o, 0) for o in FP64_OPCODES) / entries
+    floor_ms = per_entry * n * n / (PEAK_F64_FLOPS / 2) * 1e3
+    return floor_ms, per_entry, entries, counts
+
+
+def _k1d_times(torch, distance, phase, out=None, plain=True, build=None):
+    """K1d and its pullback at K1D_TIME_SIZES, on (l, x, x) as a gram's call:
+    CUDA events, profiler device time warm and with L2 flushed before each
+    call, the host issue per call (_host_issue_us), and with ``plain`` the
+    plain versions and torch.cdist of the scaled points; with ``build`` the
+    pullback's f64 instruction floor beside its byte bound.  Into ``out``
+    (--compare's dict, with digests of D and of two pullbacks) or returned
+    as {key: {...}}."""
+    res = {}
+    src = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=DEVICE)
+    dst = torch.empty_like(src)
+    for n, d in K1D_TIME_SIZES:
+        l, x, dbar = _k1d_inputs(torch, n, d)
+        small = n <= SLICE_N
+        bounds = _kernel_bounds(n, d=d)
+        xs = torch.exp(l) * x
+        for key, fn, plain_fn, lib_fn in (
+                ("K1d", lambda: distance.scaled_distance_cuda(l, x, x),
+                 lambda: distance.scaled_distance_plain(l, x, x), lambda: torch.cdist(xs, xs)),
+                ("K1d pullback", lambda: distance.scaled_distance_pullback_cuda(dbar, l, x, x),
+                 lambda: distance.scaled_distance_pullback_plain(dbar, l, x, x), None)):
+            tag = f"{key} n={n} d={d}"
+            r = {"ms": _time_cuda(torch, fn, 200 if small else 20),
+                 "device": _device_ms(torch, fn, 20 if small else 5),
+                 "flushed": _device_ms(torch, fn, 20 if small else 5,
+                                       flush=lambda: dst.copy_(src)),
+                 "host_us": _host_issue_us(torch, fn, HOST_ISSUE_CALLS if small else 50),
+                 "bound": bounds[key]}
+            if plain:
+                r["plain_ms"] = _time_cuda(torch, plain_fn, 20 if small else 2, warmup=1)
+                r["library_ms"] = None if lib_fn is None else _time_cuda(
+                    torch, lib_fn, 200 if small else 20)
+                r["err"] = rel_err(fn(), plain_fn())
+                tol = TOL_2C[(key, "float64")]
+                check(math.isfinite(r["err"]) and r["err"] <= tol,
+                      f"{tag}: {r['err']:.3e} from plain > {tol}")
+            if build is not None and key == "K1d pullback":
+                r["floor"] = _pullback_f64_floor(build, distance, n, d)
+            dev = r["device"]
+            line = (f"[{phase}] {tag}: events {r['ms']:.4f} ms, device {_fmt_ms(dev)} warm / "
+                    f"{_fmt_ms(r['flushed'])} L2 flushed, host issue {r['host_us']:.2f} us a "
+                    f"call, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})"
+                    + ("" if dev is None else f", {100 * r['bound'][0] / dev:.1f}% of it"))
+            if plain:
+                line += (f"; plain {r['plain_ms']:.4f} ms (kernel within {r['err']:.2e} of it)"
+                         + ("" if lib_fn is None else f", cdist {r['library_ms']:.4f} ms"))
+            if r.get("floor"):
+                f_ms, per, entries, counts = r["floor"]
+                line += (f"; f64 instruction floor {f_ms:.4f} ms ({per:.2f} f64 instructions "
+                         f"an entry in the d={d} instance's loop of {entries} entries: "
+                         + ", ".join(f"{k} {v}" for k, v in sorted(counts.items())) + ")")
+            elif build is not None and key == "K1d pullback":
+                line += "; f64 instruction floor not measured (SASS not read)"
+            say(line)
+            if out is not None:
+                out["ms (kernel, plain, library)"][tag] = (r["ms"], None, None)
+                out["device_ms"][tag] = dev
+                out["device_ms"][f"{tag} (L2 flushed)"] = r["flushed"]
+                out["host_issue_us"][tag] = r["host_us"]
+                for turn in range(2 if key == "K1d pullback" else 1):
+                    out["digest"][f"{tag}{' (again)' if turn else ''}"] = _digest(fn())
+            res[tag] = r
+        del l, x, dbar, xs
+    del src, dst
+    return res
+
+
 def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, slice_data,
                     t_paths_first):
     """Phase 4c: (kernel, plain, library) ms of K1d, K1m, K7b, K8s and K6's
     wide variant at the slice's shapes; the device time of the rows whose
     operands stay in L2 between warm launches (their warm device time under
-    their bound) again with L2 flushed before each launch; the full-width
-    sample-paths call."""
+    their bound) again with L2 flushed before each launch; K1d and its
+    pullback also at n = 16384 (d = 3), each warm and flushed, with its host
+    issue per call and the pullback's f64 instruction floor (_k1d_times);
+    the full-width sample-paths call."""
     n = SLICE_N
     l, x, _y, dbar = _dist_inputs(torch, n, SLICE_D, torch.float64, 7)
     db = (dbar + dbar.T) / 2
     D = distance.scaled_distance_cuda(l, x, x)
-    xs = torch.exp(l) * x
     K = _time_sqrt_inputs(torch, gram, n)
     L32, M32 = mixed._f32_preconditioner(K)
     L64 = L32.double()
@@ -3488,8 +3693,6 @@ def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, sli
     theta = torch.cat([torch.zeros(1, dtype=torch.float64, device=DEVICE), l])
     calls = {
         "K1": (lambda: gram.matern_gram_cuda(x, x, 2, theta, True), 50),
-        "K1d": (lambda: distance.scaled_distance_cuda(l, x, x), 50),
-        "K1d pullback": (lambda: distance.scaled_distance_pullback_cuda(db, l, x, x), 50),
         "K1m": (lambda: gram.maternp_kernel_cuda(2, D), 50),
         "K1m backward": (lambda: gram.maternp_kernel_backward_cuda(2, D, db), 50),
         "K7b": (lambda: mixed.loo_diag_series_cuda(Ms, Bs, torch.float64), 50),
@@ -3502,12 +3705,6 @@ def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, sli
     say("[phase 4c] device time per call (torch.profiler, all kernels the call launches), "
         "ms: " + ", ".join(f"{k} {_fmt_ms(v)}" for k, v in device.items()))
     times = {
-        "K1d": (t(lambda: distance.scaled_distance_cuda(l, x, x), 200),
-                t(lambda: distance.scaled_distance_plain(l, x, x), 50),
-                t(lambda: torch.cdist(xs, xs), 200)),
-        "K1d pullback": (t(lambda: distance.scaled_distance_pullback_cuda(db, l, x, x), 200),
-                         t(lambda: distance.scaled_distance_pullback_plain(db, l, x, x), 20),
-                         None),
         "K1m": (t(lambda: gram.maternp_kernel_cuda(2, D), 200),
                 t(lambda: gram.maternp_kernel_plain(2, D), 50), None),
         "K1m backward": (t(lambda: gram.maternp_kernel_backward_cuda(2, D, db), 200),
@@ -3533,6 +3730,17 @@ def phase_new_times(gp, gnp, gram, distance, mixed, refine, torch, xt_paths, sli
     bounds["K8s n=8192"] = _kernel_bounds(PATHS_NT)["K8s"]
     _flushed_device_ms(torch, device, bounds, calls, "4c")
     del K8, L8, L8_64
+    # K1d and its pullback at n = 1000 (the rows below and the kernels' line)
+    # and 16384, with L2 flushed, their host issue and the pullback's floor
+    from gpmp_tpu_torch.ops import _build as build
+
+    for tag, r in _k1d_times(torch, distance, "phase 4c", build=build).items():
+        key = tag.split(" n=")[0]
+        if tag.endswith(f"n={n} d={SLICE_D}"):
+            times[key] = (r["ms"], r["plain_ms"], r["library_ms"])
+            device[key], device[f"{key} (L2 flushed)"] = r["device"], r["flushed"]
+        else:
+            device[tag], device[f"{tag} (L2 flushed)"] = r["device"], r["flushed"]
     for key, (t_k, t_p, t_l) in times.items():
         b_ms, b_by = bounds[key]
         kern = "none" if t_k is None else f"{t_k:.4f} ms (device {_fmt_ms(device[key])})"
@@ -4693,10 +4901,11 @@ def _compare_walls(gp, gnp, torch, out):
     gp.config.set_chol_engine("auto")
 
 
-def compare_main(root):
+def compare_main(root, k1d_only=False):
     """``python3 chip_smoke.py --compare ROOT``: K8s's, K8t's, K8r's and K3's
     times and refined_cholesky's wall per panel (_compare_k8), K5's and K6's
-    (_compare_k5_k6), phases 4b's
+    (_compare_k5_k6), K7's (_compare_k7), K1d's and its pullback's
+    (_k1d_times, with digests of D and of two pullbacks), phases 4b's
     and 4f's times of K4 (K4_SIZES and n = RESIDENT_N), K4s, K9s (f64 and
     f32), and K10m's and K10r's at phase 4d's shapes (_compare_streamed) of
     the gpmp_tpu_torch package under ROOT (this checkout, or another one
@@ -4706,7 +4915,8 @@ def compare_main(root):
     (_compare_walls): the resident f64 value+grad at RESIDENT_WALL_SIZES, the
     mixed value+grad rate at n = SLICE_N, and the streamed REML of phase 3d.
     Run it for two trees in turns (parent, change, change, parent) in one
-    call to compare them on one card; the last line is one JSON object."""
+    call to compare them on one card; the last line is one JSON object.
+    With ``k1d_only``, K1d's and its pullback's times alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4717,7 +4927,7 @@ def compare_main(root):
     import gpmp_tpu_torch.num as gnp
     from gpmp_tpu_torch.ops import _build as build
     from gpmp_tpu_torch.ops import chol as ochol
-    from gpmp_tpu_torch.ops import gram, mixed, refine
+    from gpmp_tpu_torch.ops import distance, gram, mixed, refine
 
     check(os.path.abspath(build.__file__).startswith(root + os.sep),
           f"gpmp_tpu_torch was not imported from {root}")
@@ -4726,9 +4936,14 @@ def compare_main(root):
     build.load()
     out = {"root": root, "build_s": time.perf_counter() - t0, "ms (kernel, plain, library)": {},
            "device_ms": {}, "host_issue_us": {}, "digest": {}, "walls_s": {}}
+    if k1d_only:
+        _k1d_times(torch, distance, "compare", out, plain=False)
+        say(json.dumps(out))
+        return
     _compare_k8(torch, gram, mixed, refine, out)
     _compare_k5_k6(torch, gram, mixed, out)
     _compare_k7(torch, gram, mixed, out)
+    _k1d_times(torch, distance, "compare", out, plain=False)
     for n in K4_SIZES:
         ms, dev, _bound = _k4_times(torch, gram, mixed, n, "compare", out["digest"])
         out["ms (kernel, plain, library)"][f"K4 n={n}"], out["device_ms"][f"K4 n={n}"] = ms, dev
@@ -4911,7 +5126,7 @@ def main():
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--compare":
-        compare_main(sys.argv[2])
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--compare" and sys.argv[3:] in ([], ["--k1d"]):
+        compare_main(sys.argv[2], k1d_only=sys.argv[3:] == ["--k1d"])
     else:
         main()

@@ -154,17 +154,16 @@ def _declare(lib):
         "gpmp_loo_diag_chunks": ([ll], ll),
         "gpmp_loo_diag_series": ([vp, vp, vp, vp, ll, vp], i32),
         # ops/distance.py: K1d
-        "gpmp_distance_max_d": ([], i32),
-        "gpmp_distance_pullback_blocks": ([ll, ll], ll),
-        "gpmp_distance_elementwise_blocks": ([ll], ll),
+        "gpmp_distance_geometry": ([i32], i32),
     }
     for suffix in ("f64", "f32"):
-        signatures[f"gpmp_distance_{suffix}"] = ([vp, vp, vp, vp, ll, ll, i32, vp], i32)
+        signatures[f"gpmp_distance_{suffix}"] = (
+            [vp, vp, vp, vp, ll, ll, i32, ll, ll, ll, vp], i32)
         signatures[f"gpmp_distance_pullback_{suffix}"] = (
-            [vp, vp, vp, vp, vp, vp, ll, ll, i32, vp], i32)
+            [vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, ll, ll, ll, vp], i32)
         signatures[f"gpmp_distance_elementwise_{suffix}"] = ([vp, vp, vp, vp, ll, i32, vp], i32)
         signatures[f"gpmp_distance_elementwise_pullback_{suffix}"] = (
-            [vp, vp, vp, vp, vp, vp, ll, i32, vp], i32)
+            [vp, vp, vp, vp, vp, vp, vp, ll, i32, ll, vp], i32)
         signatures[f"gpmp_maternp_{suffix}"] = ([vp, vp, vp, ll, i32, vp], i32)
         signatures[f"gpmp_maternp_backward_{suffix}"] = ([vp, vp, vp, vp, ll, i32, vp], i32)
         signatures[f"gpmp_loo_diag_pairs_{suffix}"] = ([vp, vp, vp, vp, ll, vp], i32)

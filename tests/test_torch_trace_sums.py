@@ -40,6 +40,7 @@ import torch
 import gpmp_tpu.num as jgnp  # noqa: F401  (enables x64 in the JAX package)
 import gpmp_tpu.parallel.streamed as jst
 
+from _fixed_sum_walk import grid_sum as _grid_sum
 from gpmp_tpu_torch import config
 from gpmp_tpu_torch.ops import mixed
 from gpmp_tpu_torch.ops import streamed as ops
@@ -66,35 +67,6 @@ def _h(n, seed, scale=1e-3):
 
 def _err(walk, plain, scale):
     return float(np.max(np.abs(np.asarray(walk) - np.asarray(plain)) / np.maximum(scale, 1e-300)))
-
-
-# ---------------------------------------------------------------------------
-# csrc/fixed_sum.cuh, in numpy
-# ---------------------------------------------------------------------------
-def _block_sum(v):
-    """block_sum over the last axis (THREADS threads): a butterfly over each
-    warp's 32 lanes (v[l] + v[l ^ m], m = 16 .. 1), then the warps' lane-0
-    values in warp order."""
-    w = v.reshape(v.shape[:-1] + (THREADS // 32, 32))
-    lane = np.arange(32)
-    for m in (16, 8, 4, 2, 1):
-        w = w + w[..., lane ^ m]
-    s = w[..., 0, 0]
-    for k in range(1, THREADS // 32):
-        s = s + w[..., k, 0]
-    return s
-
-
-def _grid_sum(v):
-    """grid_sum of v (blocks, THREADS, Q): each block's block_sum into its
-    partials; the last block's thread t sums the partials of blocks t,
-    t + THREADS, ... in order, then block_sum."""
-    part = _block_sum(np.moveaxis(v, 1, -1))  # (blocks, Q)
-    t = np.zeros((THREADS, v.shape[2]))
-    for b0 in range(0, part.shape[0], THREADS):
-        chunk = part[b0:b0 + THREADS]
-        t[:len(chunk)] += chunk
-    return _block_sum(t.T)
 
 
 # ---------------------------------------------------------------------------
