@@ -21,10 +21,12 @@ non-zero):
    parallel), ptxas register/spill lines.
 2. K1/K2 vs plain versions on the card: K1 (Matern gram) and K2 (its
    parameter pullback) in float64 and float32 against the plain PyTorch
-   versions on the same CUDA tensors, (n, m, d) in {(1000, 1000, 6) same,
-   (1000, 1000, 6) cross, (997, 503, 3) cross}, p in {0, 1, 2, 3}, with
-   duplicated rows.  Errors are max|kernel - plain| / max|plain|;
-   tolerances K1 1e-12 (f64) / 1e-5 (f32), K2 1e-9 (f64) / 1e-3 (f32).
+   versions on the same CUDA tensors at GRAM_CASES (n, m up to 4099, x is
+   y and the cross form, d in {1, 3, 6, 9}), p in {0, 1, 2, 3, 5}, with
+   duplicated rows and a non-symmetric Kbar.  Errors are max|kernel -
+   plain| / max|plain|; tolerances K1 1e-12 (f64) / 1e-5 (f32), K2 1e-9
+   (f64) / 1e-3 (f32); K(x, x) exactly symmetric with the plain version's
+   diagonal; K2 bitwise reproducible.
 2b. K3/K4/K5/K7 vs plain versions on the card, on noisy-Matern SPD
    matrices K (n in {1000, 1024, 4099}, cond(K) ~1e3 and ~1e6, set by the
    noise variance from the gram's largest eigenvalue), with the
@@ -180,9 +182,12 @@ non-zero):
    collectives on CUDA tensors probed first, then REML value+grad at p0,
    predict and LOO at n = 8192, panels of 512, against the one-card path on
    the same card (1e-11), the ranks bitwise equal.
-4. Times on the card (CUDA events / synchronised host clock): K1 and K2 vs
-   their plain versions at the main path's shapes; REML value+grad evals/s
-   at n = 1000 and 8192 (kernels and plain gram); fit+predict wall-clock.
+4. Times on the card (CUDA events / synchronised host clock): K1 and K2 at
+   n = 1000 and 8192 (x is y) and 1000 x 1000 (cross), d = 6, p = 2: events,
+   device time warm and with L2 flushed, host issue per call, the byte
+   bound and the f64 instruction floor (counted in the built instance's
+   SASS), the plain versions; REML value+grad evals/s at n = 1000 and 8192
+   (kernels and plain gram); fit+predict wall-clock.
 4b. K3/K4/K6 (k = 2)/K7: kernel, plain and library-call ms at the slice's
    shapes (n = 1000) with their bounds (a row whose warm device time is under
    its bound timed again with L2 flushed before each launch), K3's host
@@ -248,7 +253,9 @@ non-zero):
    value+grad at n = 16384 through the mesh, device time per evaluation by
    kernel group.
 
-``python3 chip_smoke.py --compare ROOT`` instead times K8s (n = 1000 and
+``python3 chip_smoke.py --compare ROOT`` instead times K1 and K2 (phase
+4's timings, with digests, and phase 4's REML value+grad rates through
+them), K8s (n = 1000 and
 8192), K8t and K8r (b = 512, with their host issue time), K3 (n = 1000,
 k = 2, with its host issue time) and refined_cholesky per call (b = 512),
 K5 (n = 1000, 8192 and 32768), K6 (k = 2, n = 1000 and 32768), the K7
@@ -266,7 +273,8 @@ K8r's, K3's, K5's, K6's, K7's, K1d's, the K1d pullback's, K4's, K4s's,
 K9u's, K9s's, K10m's, K10r's and K10t's outputs
 (compare_main), for setting two trees side by side in one call.
 ``python3 chip_smoke.py --compare ROOT --k1d`` times K1d and its pullback
-alone (with their digests), for trees that differ only there.
+alone (with their digests), for trees that differ only there, and
+``--compare ROOT --gram`` K1 and K2 alone.
 
 The line before the last is {"kernels": [...]}, with each kernel's
 least time on the card (bound_ms) computed from this run's shapes against
@@ -550,6 +558,9 @@ def phase_device_and_build(torch, build):
     say(f"[phase 1] kernels built/loaded in {t_build:.2f} s "
         f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'} s) "
         f"from {build.build_dir()}")
+    if build.source_seconds:
+        say("[phase 1] each source's nvcc ended at (s, all started together): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in sorted(build.source_seconds.items(), key=lambda kv: kv[1])))
     log = (build.build_dir() / "ptxas.log").read_text() if (
         build.build_dir() / "ptxas.log").exists() else ""
     for line in log.splitlines():
@@ -576,14 +587,24 @@ def _inputs(torch, n, m, d, dtype, seed, same):
             torch.as_tensor(kbar, dtype=dtype, device=dev))
 
 
+# (n, m, d, same): the main path's shapes (1000, d = 6, x is y and the
+# cross form), odd and ragged ones (997, 503, 4099: scalar stores and
+# copies, ragged tiles), an instance for each d of 1, 3, 6 and the run-time
+# d one (9); with GRAM_PS, the degree-3 Horner (p <= 3) and the run-time p
+# one (5)
+GRAM_CASES = ((1000, 1000, 6, True), (1000, 1000, 6, False), (997, 503, 3, False),
+              (1000, 1000, 1, True), (997, 997, 3, True), (1000, 1000, 9, True),
+              (1000, 1000, 9, False), (4099, 4099, 6, True), (4099, 1000, 3, False))
+GRAM_PS = (0, 1, 2, 3, 5)
+
+
 def phase_kernels_vs_plain(torch, gram):
-    cases = [(1000, 1000, 6, True), (1000, 1000, 6, False), (997, 503, 3, False)]
     worst = {}
     main_abs = {}
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).replace("torch.", "")
-        for ci, (n, m, d, same) in enumerate(cases):
-            for p in (0, 1, 2, 3):
+        for ci, (n, m, d, same) in enumerate(GRAM_CASES):
+            for p in GRAM_PS:
                 x, y, theta, kbar = _inputs(torch, n, m, d, dtype, 100 + ci, same)
                 K = gram.matern_gram_cuda(x, y, p, theta, same)
                 Kp = gram.matern_gram_plain(x, y, p, theta, same)
@@ -603,16 +624,24 @@ def phase_kernels_vs_plain(torch, gram):
                 check(torch.isfinite(g).all().item(), f"K2 non-finite: {tag}")
                 check(e1 <= TOL_K1[dname], f"K1 {tag}: rel {e1:.3e} > {TOL_K1[dname]}")
                 check(e2 <= TOL_K2[dname], f"K2 {tag}: rel {e2:.3e} > {TOL_K2[dname]}")
+                if same:
+                    # each pair computed once, written to both places; K_ii
+                    # rounded as the plain version rounds it
+                    check(torch.equal(K, K.T), f"K1 {tag}: K(x, x) is not exactly symmetric")
+                    check(torch.equal(K.diagonal(), Kp.diagonal()),
+                          f"K1 {tag}: the diagonal is not the plain version's")
                 for key, val in (("K1", e1), ("K2", e2)):
                     worst[(key, dname)] = max(worst.get((key, dname), 0.0), val)
                 if dname == "float64" and ci == 0 and p == 2:
                     main_abs["K1"] = float((K - Kp).abs().max())
                     main_abs["K2"] = float((g - gp_).abs().max())
-    # K2 reproducibility: same inputs, bitwise same gradient
-    x, y, theta, kbar = _inputs(torch, 1000, 1000, 6, torch.float64, 100, True)
-    g1 = gram.matern_gram_pullback_cuda(kbar, x, y, 2, theta, True)
-    g2 = gram.matern_gram_pullback_cuda(kbar, x, y, 2, theta, True)
-    check(torch.equal(g1, g2), "K2 is not bitwise reproducible")
+    # K2 reproducibility: same inputs, bitwise same gradient (x is y, cross)
+    for ci in (0, 1):
+        n, m, d, same = GRAM_CASES[ci]
+        x, y, theta, kbar = _inputs(torch, n, m, d, torch.float64, 100 + ci, same)
+        g1 = gram.matern_gram_pullback_cuda(kbar, x, y, 2, theta, same)
+        g2 = gram.matern_gram_pullback_cuda(kbar, x, y, 2, theta, same)
+        check(torch.equal(g1, g2), f"K2 is not bitwise reproducible (same={same})")
     for (key, dname), val in sorted(worst.items()):
         say(f"[phase 2] worst {key} {dname} rel err {val:.3e}")
     return main_abs
@@ -767,25 +796,14 @@ def _evals_per_s(gp, gnp, torch, n, reps):
 
 
 def phase_times(gp, gnp, gram, torch, main_data):
-    times = {}
-    x, _, theta, kbar = _inputs(torch, 1000, 1000, 6, torch.float64, 7, True)
-    kb = (kbar + kbar.T) / 2
-    times["K1"] = (
-        _time_cuda(torch, lambda: gram.matern_gram_cuda(x, x, 2, theta, True), 200),
-        _time_cuda(torch, lambda: gram.matern_gram_plain(x, x, 2, theta, True), 50),
-    )
-    times["K2"] = (
-        _time_cuda(torch, lambda: gram.matern_gram_pullback_cuda(kb, x, x, 2, theta, True), 200),
-        _time_cuda(torch, lambda: gram.matern_gram_pullback_plain(kb, x, x, 2, theta, True), 50),
-    )
-    device = {
-        "K1": _device_ms(torch, lambda: gram.matern_gram_cuda(x, x, 2, theta, True), 50),
-        "K2": _device_ms(torch, lambda: gram.matern_gram_pullback_cuda(kb, x, x, 2, theta, True),
-                         50),
-    }
-    for k, (t_k, t_p) in times.items():
-        say(f"[phase 4] {k} n=m=1000 d=6 p=2 f64: kernel {t_k:.4f} ms (device "
-            f"{_fmt_ms(device[k])}), plain {t_p:.4f} ms")
+    """Phase 4: K1 and K2 (_gram_times: n = 1000 and 8192 x is y, the cross
+    1000 x 1000, with the f64 instruction floor), the REML value+grad
+    rates with the kernels and with the plain gram, fit+predict warm."""
+    from gpmp_tpu_torch.ops import _build as build
+
+    res = _gram_times(torch, gram, "phase 4", build=build)
+    times = {key: (res[f"{key} n={SLICE_N} m={SLICE_N} same"]["ms"],
+                   res[f"{key} n={SLICE_N} m={SLICE_N} same"]["plain_ms"]) for key in ("K1", "K2")}
 
     import gpmp_tpu_torch.kernel.matern as matern_mod
 
@@ -3496,6 +3514,97 @@ K1D_TIME_SIZES = ((SLICE_N, SLICE_D), (16384, 3))
 FP64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET")
 
 
+GRAM_TIME_CASES = ((SLICE_N, SLICE_N, True), (8192, 8192, True), (SLICE_N, SLICE_N, False))
+
+
+def _gram_inputs(torch, n, m, same, d=SLICE_D, seed=11):
+    """(x, y, theta, Kbar) at (n, m, d): x, y and theta from numpy, Kbar (n,
+    m; not symmetric) from the card's generator."""
+    rng = np.random.default_rng(seed + n + m)
+    x = torch.as_tensor(rng.uniform(size=(n, d)), device=DEVICE)
+    y = x if same else torch.as_tensor(rng.uniform(size=(m, d)), device=DEVICE)
+    theta = torch.as_tensor(np.concatenate([[0.3], rng.uniform(-0.5, 1.5, size=d)]),
+                            device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + n)
+    return x, y, theta, torch.randn(n, m, dtype=torch.float64, device=DEVICE, generator=gen)
+
+
+def _gram_f64_floor(build, gram, key, n, m, same, d=SLICE_D):
+    """K1's or K2's f64 instruction floor at (n, m, d), p = 2: the f64
+    instructions an entry in the item loop of its built f64 instance
+    (cuobjdump -sass; its unmasked and masked paths' entries each take one
+    MUFU.RSQ64H: K1's sqrt, K2's rsqrt), times the entries computed (x is
+    y: n (n + 1) / 2 pairs), over the f64 pipes' issue rate, as
+    _pullback_f64_floor; or None."""
+    inst = d if d <= gram.EXACT_MAX_D else gram.MAX_D
+    name = "11gram_kernel" if key == "K1" else "15pullback_kernel"
+    entries = n * (n + 1) // 2 if same else n * m
+    return _sass_f64_floor(build, rf"{name}IdLi{inst}ELb1E", entries)
+
+
+def _gram_times(torch, gram, phase, out=None, plain=True, build=None):
+    """K1 and K2 at GRAM_TIME_CASES (d = 6, p = 2, f64): CUDA events,
+    profiler device time warm and with L2 flushed before each call, the host
+    issue per call (_host_issue_us), the byte bound, with ``plain`` the plain
+    versions (the kernels held to them), with ``build`` the f64 instruction
+    floor.  Into ``out`` (--compare's dict, with digests of K and of two
+    pullbacks) or returned as {tag: {...}}."""
+    res = {}
+    src = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=DEVICE)
+    dst = torch.empty_like(src)
+    for n, m, same in GRAM_TIME_CASES:
+        x, y, theta, kbar = _gram_inputs(torch, n, m, same)
+        small = n <= SLICE_N
+        bounds = _kernel_bounds(n)
+        for key, fn, plain_fn, tol in (
+                ("K1", lambda: gram.matern_gram_cuda(x, y, 2, theta, same),
+                 lambda: gram.matern_gram_plain(x, y, 2, theta, same), TOL_K1["float64"]),
+                ("K2", lambda: gram.matern_gram_pullback_cuda(kbar, x, y, 2, theta, same),
+                 lambda: gram.matern_gram_pullback_plain(kbar, x, y, 2, theta, same),
+                 TOL_K2["float64"])):
+            tag = f"{key} n={n} m={m} {'same' if same else 'cross'}"
+            r = {"ms": _time_cuda(torch, fn, 200 if small else 20),
+                 "device": _device_ms(torch, fn, 20 if small else 5),
+                 "flushed": _device_ms(torch, fn, 20 if small else 5,
+                                       flush=lambda: dst.copy_(src)),
+                 "host_us": _host_issue_us(torch, fn, HOST_ISSUE_CALLS if small else 50),
+                 "bound": bounds[key]}
+            if plain:
+                r["plain_ms"] = _time_cuda(torch, plain_fn, 20 if small else 2, warmup=1)
+                r["err"] = rel_err(fn(), plain_fn())
+                check(math.isfinite(r["err"]) and r["err"] <= tol,
+                      f"{tag}: {r['err']:.3e} from plain > {tol}")
+            if build is not None:
+                r["floor"] = _gram_f64_floor(build, gram, key, n, m, same)
+            dev = r["device"]
+            line = (f"[{phase}] {tag} d={SLICE_D} p=2: events {r['ms']:.4f} ms, device "
+                    f"{_fmt_ms(dev)} warm / {_fmt_ms(r['flushed'])} L2 flushed, host issue "
+                    f"{r['host_us']:.2f} us a call, bound {r['bound'][0]:.4f} ms "
+                    f"({r['bound'][1]})"
+                    + ("" if dev is None else f", {100 * r['bound'][0] / dev:.1f}% of it"))
+            if plain:
+                line += f"; plain {r['plain_ms']:.4f} ms (kernel within {r['err']:.2e} of it)"
+            if r.get("floor"):
+                f_ms, per, entries, counts = r["floor"]
+                line += (f"; f64 instruction floor {f_ms:.4f} ms ({per:.2f} f64 instructions "
+                         f"an entry in the d={SLICE_D} instance's loop of {entries} entries: "
+                         + ", ".join(f"{k} {v}" for k, v in sorted(counts.items())) + ")")
+            elif build is not None:
+                line += "; f64 instruction floor not measured (SASS not read)"
+            say(line)
+            if out is not None:
+                out["ms (kernel, plain, library)"][tag] = (r["ms"], None, None)
+                out["device_ms"][tag] = dev
+                out["device_ms"][f"{tag} (L2 flushed)"] = r["flushed"]
+                out["host_issue_us"][tag] = r["host_us"]
+                for turn in range(2 if key == "K2" else 1):
+                    out["digest"][f"{tag}{' (again)' if turn else ''}"] = _digest(fn())
+            res[tag] = r
+        del x, y, theta, kbar
+    del src, dst
+    return res
+
+
 def _k1d_inputs(torch, n, d, seed=7):
     """(loginvrho, x, Dbar) at (n, d): l and x from numpy, Dbar (n, n) from
     the card's generator."""
@@ -3578,23 +3687,28 @@ def _sass_dump(path):
         return None
 
 
-def _pullback_f64_floor(build, distance, n, d):
-    """The K1d pullback's f64 instruction floor at (n, n, d): the f64
-    instructions an entry in the innermost loop of its built f64 16-byte
-    instance for d (cuobjdump -sass; one MUFU.RSQ64H an entry, so the loop's
-    MUFU count is its entries), times the n^2 entries, over the f64 pipes'
-    issue rate PEAK_F64_FLOPS / 2: (floor_ms, per entry, entries a loop
-    iteration, the loop's opcode counts), or None where the SASS cannot be
-    read."""
+def _sass_f64_floor(build, pattern, entries):
+    """An f64 instruction floor: the f64 instructions an entry in the
+    innermost loop of the built function matching ``pattern`` (cuobjdump
+    -sass; one MUFU an entry, so the loop's MUFU count is its entries),
+    times ``entries``, over the f64 pipes' issue rate PEAK_F64_FLOPS / 2:
+    (floor_ms, per entry, entries a loop iteration, the loop's opcode
+    counts), or None where the SASS cannot be read."""
     sass = _sass_dump(str(build.build_dir() / "libgpmp_tpu_torch.so"))
-    inst = d if d <= distance.EXACT_MAX_D else distance.MAX_D
-    counts = sass and _sass_loop_counts(sass, rf"distance_pullback_kernelIdLi{inst}ELb1E")
+    counts = sass and _sass_loop_counts(sass, pattern)
     if not counts or not counts.get("MUFU"):
         return None
-    entries = counts["MUFU"]
-    per_entry = sum(counts.get(o, 0) for o in FP64_OPCODES) / entries
-    floor_ms = per_entry * n * n / (PEAK_F64_FLOPS / 2) * 1e3
-    return floor_ms, per_entry, entries, counts
+    per_loop = counts["MUFU"]
+    per_entry = sum(counts.get(o, 0) for o in FP64_OPCODES) / per_loop
+    return per_entry * entries / (PEAK_F64_FLOPS / 2) * 1e3, per_entry, per_loop, counts
+
+
+def _pullback_f64_floor(build, distance, n, d):
+    """The K1d pullback's f64 instruction floor at (n, n, d): _sass_f64_floor
+    of its built f64 16-byte instance for d (one MUFU.RSQ64H an entry) over
+    the n^2 entries."""
+    inst = d if d <= distance.EXACT_MAX_D else distance.MAX_D
+    return _sass_f64_floor(build, rf"distance_pullback_kernelIdLi{inst}ELb1E", n * n)
 
 
 def _k1d_times(torch, distance, phase, out=None, plain=True, build=None):
@@ -4901,7 +5015,7 @@ def _compare_walls(gp, gnp, torch, out):
     gp.config.set_chol_engine("auto")
 
 
-def compare_main(root, k1d_only=False):
+def compare_main(root, only=None):
     """``python3 chip_smoke.py --compare ROOT``: K8s's, K8t's, K8r's and K3's
     times and refined_cholesky's wall per panel (_compare_k8), K5's and K6's
     (_compare_k5_k6), K7's (_compare_k7), K1d's and its pullback's
@@ -4916,7 +5030,10 @@ def compare_main(root, k1d_only=False):
     mixed value+grad rate at n = SLICE_N, and the streamed REML of phase 3d.
     Run it for two trees in turns (parent, change, change, parent) in one
     call to compare them on one card; the last line is one JSON object.
-    With ``k1d_only``, K1d's and its pullback's times alone."""
+    K1's and K2's times come first (_gram_times, with digests of K and of
+    two pullbacks), with the built-in covariance's REML value+grad rates at
+    EVAL_SIZES.  With ``only`` "k1d" or "gram", K1d's and its pullback's or
+    K1's and K2's times (and those rates) alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4936,8 +5053,14 @@ def compare_main(root, k1d_only=False):
     build.load()
     out = {"root": root, "build_s": time.perf_counter() - t0, "ms (kernel, plain, library)": {},
            "device_ms": {}, "host_issue_us": {}, "digest": {}, "walls_s": {}}
-    if k1d_only:
-        _k1d_times(torch, distance, "compare", out, plain=False)
+    if only != "k1d":
+        _gram_times(torch, gram, "compare", out, plain=False)
+        for n, reps in EVAL_SIZES:  # the built-in covariance's REML through K1/K2
+            out["walls_s"][f"REML value+grad evals/s n={n}"] = _evals_per_s(gp, gnp, torch, n,
+                                                                            reps)
+    if only is not None:
+        if only == "k1d":
+            _k1d_times(torch, distance, "compare", out, plain=False)
         say(json.dumps(out))
         return
     _compare_k8(torch, gram, mixed, refine, out)
@@ -5126,7 +5249,8 @@ def main():
 
 
 if __name__ == "__main__":
-    if len(sys.argv) in (3, 4) and sys.argv[1] == "--compare" and sys.argv[3:] in ([], ["--k1d"]):
-        compare_main(sys.argv[2], k1d_only=sys.argv[3:] == ["--k1d"])
+    if (len(sys.argv) in (3, 4) and sys.argv[1] == "--compare"
+            and sys.argv[3:] in ([], ["--k1d"], ["--gram"])):
+        compare_main(sys.argv[2], only=sys.argv[3][2:] if len(sys.argv) == 4 else None)
     else:
         main()

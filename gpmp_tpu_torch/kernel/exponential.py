@@ -3,7 +3,9 @@
 
 import torch
 
+import gpmp_tpu_torch.num as gnp
+
 
 def exponential_kernel(h):
     """k(h) = exp(-h)."""
-    return torch.exp(-h)
+    return torch.exp(-gnp._tensor(h))

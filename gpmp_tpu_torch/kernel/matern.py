@@ -23,7 +23,7 @@ from gpmp_tpu_torch.ops.gram import (  # noqa: F401  (public names)
 def matern32_kernel(h):
     """Matern 3/2 kernel: K(h) = (1 + 2*sqrt(3/2)*h) * exp(-2*sqrt(3/2)*h)."""
     c = 2.0 * math.sqrt(3.0 / 2.0)
-    t = c * h
+    t = c * gnp._tensor(h)
     return (1.0 + t) * torch.exp(-t)
 
 
@@ -32,7 +32,9 @@ def maternp_covariance_ii_or_tt(x, p, param, pairwise=False):
 
     covparam layout: param = [log(sigma2), log(1/rho_1), ..., log(1/rho_d)].
     Adds the fixed relative nugget 10 * sigma2 * eps on the diagonal.
+    NumPy operands are taken as gnp's ops take them.
     """
+    x, param = gnp._tensor(x), gnp._tensor(param)
     if pairwise:
         return torch.exp(param[0]) * torch.ones(
             (x.shape[0],), dtype=x.dtype, device=x.device
@@ -42,6 +44,7 @@ def maternp_covariance_ii_or_tt(x, p, param, pairwise=False):
 
 def maternp_covariance_it(x, y, p, param, pairwise=False):
     """Cross-covariance between observations x and prediction points y."""
+    x, y, param = gnp._tensor(x), gnp._tensor(y), gnp._tensor(param)
     if pairwise:
         D = gnp.scaled_distance_elementwise(param[1:], x, y)
         return torch.exp(param[0]) * maternp_kernel(p, D)

@@ -42,6 +42,7 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall-clock of this process's build, None if not built here
+source_seconds = {}   # source name -> seconds from the build's start to its nvcc's end
 
 
 def _sources():
@@ -87,7 +88,17 @@ def _compile(out_dir: Path) -> Path:
     procs = [_run_nvcc([*NVCC_FLAGS, "-c", f"-I{_CSRC}",
                         "-o", str(obj), str(src)])
              for src, obj in zip(cu, objs)]
-    logs = [p.communicate()[0] for p in procs]
+    logs = [""] * len(procs)
+
+    def drain(i):  # each source's output, and when its nvcc ended
+        logs[i] = procs[i].communicate()[0]
+        source_seconds[cu[i].name] = time.perf_counter() - t0
+
+    drains = [threading.Thread(target=drain, args=(i,)) for i in range(len(procs))]
+    for th in drains:
+        th.start()
+    for th in drains:
+        th.join()
     failed = [(src.name, p.returncode) for src, p in zip(cu, procs) if p.returncode]
     if not failed:
         link = _run_nvcc([*LINK_FLAGS, "-o", str(tmp_dir / lib_path.name),
@@ -109,9 +120,8 @@ def _compile(out_dir: Path) -> Path:
 def _declare(lib):
     vp, ll, i32, f64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
     signatures = {
-        # ops/gram.py: K1, K2, K1m
-        "gpmp_matern_max_d": ([], i32),
-        "gpmp_matern_pullback_blocks": ([ll, ll], ll),
+        # ops/gram.py: K1's and K2's geometry
+        "gpmp_matern_geometry": ([i32], i32),
         # ops/mixed.py: K6's geometry
         "gpmp_precond_geometry": ([i32], i32),
         # ops/mixed.py: K3
@@ -168,9 +178,9 @@ def _declare(lib):
         signatures[f"gpmp_maternp_backward_{suffix}"] = ([vp, vp, vp, vp, ll, i32, vp], i32)
         signatures[f"gpmp_loo_diag_pairs_{suffix}"] = ([vp, vp, vp, vp, ll, vp], i32)
         signatures[f"gpmp_matern_gram_{suffix}"] = (
-            [vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp], i32)
+            [vp, vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, ll, ll, ll, vp], i32)
         signatures[f"gpmp_matern_pullback_{suffix}"] = (
-            [vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, vp], i32)
+            [vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, ll, ll, ll, vp], i32)
         signatures[f"gpmp_residual_{suffix}"] = (
             [vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, ll, vp], i32)
         signatures[f"gpmp_precond_apply_{suffix}"] = (

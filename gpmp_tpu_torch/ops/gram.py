@@ -21,6 +21,13 @@ tensors take the plain PyTorch versions (``matern_gram_plain``,
 raise.  There is no fallback from one to the other, and the plain versions
 call only plain versions.
 
+K1 and K2 share one launch geometry, ``gram_plan``: a persistent grid
+walking TILE x TILE output tiles, for ``same`` (x is y) only the pairs
+I <= J, each computed once and, by K1, written to both places; K2 weighs
+such a pair by Kbar_ij + Kbar_ji and is finished by its last block
+(csrc/fixed_sum.cuh) into a workspace cached per shape.  Each is one
+launch.
+
 ``K1_LAUNCHES``, ``K2_LAUNCHES``, ``K1M_LAUNCHES`` and
 ``K1M_BACKWARD_LAUNCHES`` count kernel launches (one per wrapper call that
 launched); the plain versions count nothing.
@@ -31,6 +38,8 @@ working dtype when the tensors come from ``gnp``).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from functools import partial
 
@@ -39,7 +48,7 @@ import torch
 import gpmp_tpu_torch.num as gnp
 from . import _build, distance
 from .autograd import plain_vjp
-from .mixed import _on_card
+from .mixed import _on_card, _sms_on
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
@@ -154,6 +163,73 @@ def matern_gram_pullback_plain(kbar, x, y, p, theta, same=False):
 # ----------------------------------------------------------------------------
 # Kernel wrappers (CUDA tensors only)
 # ----------------------------------------------------------------------------
+# K1's and K2's geometry (csrc/matern_gram.cu, checked against the built
+# library once): blocks of THREADS threads on TILE x TILE output tiles, a
+# thread C = 16 / itemsize consecutive columns (one 16-byte access) of
+# TILE C / THREADS rows (lane l the columns C (l % (TILE / C)) .., rows
+# RW warp + l // (TILE / C) + s RW THREADS / 32, RW = 32 C / TILE); for
+# p up to FIXED_P (the zero-padded degree-FIXED_P Horner, the coefficients
+# by value) an instance for each d up to EXACT_MAX_D, else one for d up
+# to MAX_D; BLOCKS_PER_SM blocks an SM (the instances are built for it:
+# 128 registers a thread).
+THREADS, TILE, EXACT_MAX_D, MAX_D, FIXED_P = 128, 32, 8, 32, 3
+BLOCKS_PER_SM = 4
+
+
+def gram_plan(n, m, same, itemsize, sms):
+    """The K1/K2 grid for K (n, m) in ``itemsize``-byte entries, on the
+    CPU: (tile, items, blocks).
+
+    Items are TILE x TILE output tiles (I, J): for ``same`` (x is y, n = m)
+    the pairs I <= J, item t = J (J + 1) / 2 + I; else every (I, J), item
+    t = I tj + J (tj = ceil(m / TILE)).  Block b takes the items b,
+    b + blocks, ... in order; there are at most BLOCKS_PER_SM blocks an SM
+    (n = 1000, same, on the H100's 132 SMs: 528 items on 528 blocks; the
+    cross 1000 x 1000: 1024 items)."""
+    if n <= 0 or m <= 0 or itemsize not in (4, 8) or sms <= 0 or (same and n != m):
+        raise ValueError(f"gram_plan: n={n}, m={m}, same={same}, itemsize={itemsize}, "
+                         f"sms={sms}")
+    ti, tj = -(-n // TILE), -(-m // TILE)
+    items = ti * (ti + 1) // 2 if same else ti * tj
+    return TILE, items, min(items, BLOCKS_PER_SM * sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    """The kernel library, its K1/K2 geometry checked against this module's
+    once."""
+    lib = _build.load()
+    want = (THREADS, TILE, EXACT_MAX_D, MAX_D, FIXED_P, BLOCKS_PER_SM)
+    built = tuple(lib.gpmp_matern_geometry(q) for q in range(len(want)))
+    if built != want:
+        raise RuntimeError(f"csrc/matern_gram.cu's K1/K2 geometry (threads, tile, exact d, "
+                           f"max d, fixed p, blocks an SM) is {built}, not {want}")
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_on(device, n, m, same, itemsize):
+    _library()
+    return gram_plan(n, m, same, itemsize, _sms_on(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _pullback_workspace(device, n, m, d, dtype, same):
+    """K2's per-(device, n, m, d, dtype, same) workspace: its plan, and raw
+    pointers to the blocks' partial sums (1 + MAX_D f64 a block) and to the
+    ticket (int32, zero between launches: each launch resets it), beside
+    the tensors that hold them."""
+    plan = _plan_on(device, n, m, same, torch.finfo(dtype).bits // 8)
+    part = torch.empty(plan[-1] * (1 + MAX_D), dtype=torch.float64, device=device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    return plan, part.data_ptr(), ticket.data_ptr(), (part, ticket)
+
+
+def _coef_values(p):
+    """[c, a_0..a_p, b_0..b_p], c = 2 sqrt(p + 1/2)."""
+    return [2.0 * math.sqrt(p + 0.5), *_maternp_poly_coeffs(p), *_maternp_dpoly_coeffs(p)]
+
+
 _COEF = {}  # (p, device) -> float64 [c, a_0..a_p, b_0..b_p] on the device
 
 
@@ -161,10 +237,21 @@ def _coef_tensor(p, device):
     key = (p, device)
     t = _COEF.get(key)
     if t is None:
-        vals = [2.0 * math.sqrt(p + 0.5), *_maternp_poly_coeffs(p),
-                *_maternp_dpoly_coeffs(p)]
-        t = _COEF[key] = torch.tensor(vals, dtype=torch.float64, device=device)
+        t = _COEF[key] = torch.tensor(_coef_values(p), dtype=torch.float64, device=device)
     return t
+
+
+@functools.lru_cache(maxsize=None)
+def _host_coef(p):
+    """The coefficients on the host (a ctypes array the launch reads)."""
+    vals = _coef_values(p)
+    return (ctypes.c_double * len(vals))(*vals)
+
+
+def _coef_args(p, device):
+    """(host, device) coefficient pointers of a K1/K2 launch: the device
+    array only where the kernels read it (p > FIXED_P)."""
+    return _host_coef(p), (_coef_tensor(p, device).data_ptr() if p > FIXED_P else None)
 
 
 def _check_cuda_args(x, y, theta, p, same, kbar=None):
@@ -185,38 +272,32 @@ def _check_cuda_args(x, y, theta, p, same, kbar=None):
     m = y.shape[0]
     if d < 1:
         raise ValueError("the kernels need d >= 1")
+    if d > MAX_D:
+        raise ValueError(f"d={d} exceeds the kernels' compile-time maximum {MAX_D}")
     if theta.shape != (d + 1,):
         raise ValueError(f"theta must have shape ({d + 1},); got {tuple(theta.shape)}")
     if p < 0:
         raise ValueError(f"p must be >= 0; got {p}")
-    if same and n != m:
-        raise ValueError("same=True needs x and y with the same rows")
+    if same and (y.data_ptr() != x.data_ptr() or y.shape != x.shape):
+        raise ValueError("same=True needs y to be x")
     if kbar is not None and kbar.shape != (n, m):
         raise ValueError(f"kbar must be ({n}, {m}); got {tuple(kbar.shape)}")
     return n, m, d
 
 
-def _load_for(d):
-    lib = _build.load()
-    max_d = lib.gpmp_matern_max_d()
-    if d > max_d:
-        raise ValueError(f"d={d} exceeds the kernels' compile-time maximum {max_d}")
-    return lib
-
-
 def matern_gram_cuda(x, y, p, theta, same=False):
-    """K1: the gram matrix on the card (launches one kernel)."""
+    """K1: the gram matrix on the card, one launch on gram_plan's grid
+    (``same``: y is x, each pair computed once and written to both places)."""
     global K1_LAUNCHES
     n, m, d = _check_cuda_args(x, y, theta, p, same)
-    lib = _load_for(d)
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
     if n == 0 or m == 0:
         return out
-    fn = lib.gpmp_matern_gram_f64 if x.dtype == torch.float64 else lib.gpmp_matern_gram_f32
-    coef = _coef_tensor(p, x.device)
-    _build.launch("K1 matern_gram", fn, x.device, x.data_ptr(), y.data_ptr(), theta.data_ptr(),
-            coef.data_ptr(), out.data_ptr(), n, m, d, p, int(same),
-            torch.finfo(x.dtype).eps)
+    plan = _plan_on(x.device, n, m, bool(same), x.element_size())
+    _build.launch("K1 matern_gram", getattr(_library(), f"gpmp_matern_gram_{distance._suffix(x)}"),
+                  x.device, x.data_ptr(), y.data_ptr(), theta.data_ptr(),
+                  *_coef_args(p, x.device), out.data_ptr(), n, m, d, p, int(same),
+                  torch.finfo(x.dtype).eps, *plan)
     K1_LAUNCHES += 1
     return out
 
@@ -224,23 +305,19 @@ def matern_gram_cuda(x, y, p, theta, same=False):
 def matern_gram_pullback_cuda(kbar, x, y, p, theta, same=False):
     """K2: grad_theta <kbar, K(theta)> on the card, float64 of shape (1 + d,).
 
-    Two launches from one source: per-block partial sums, then a
-    fixed-order reduction (no atomics, bitwise reproducible).
-    """
+    One launch on gram_plan's grid, finished by its last block (fixed
+    order, no atomics on values: bitwise reproducible)."""
     global K2_LAUNCHES
     n, m, d = _check_cuda_args(x, y, theta, p, same, kbar=kbar)
-    lib = _load_for(d)
-    out = torch.zeros(d + 1, dtype=torch.float64, device=x.device)
     if n == 0 or m == 0:
-        return out
-    nblocks = lib.gpmp_matern_pullback_blocks(n, m)
-    partial = torch.empty((nblocks, d + 1), dtype=torch.float64, device=x.device)
-    fn = (lib.gpmp_matern_pullback_f64 if x.dtype == torch.float64
-          else lib.gpmp_matern_pullback_f32)
-    coef = _coef_tensor(p, x.device)
-    _build.launch("K2 matern_gram_pullback", fn, x.device, kbar.data_ptr(), x.data_ptr(),
-            y.data_ptr(), theta.data_ptr(), coef.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), n, m, d, p, int(same), torch.finfo(x.dtype).eps)
+        return torch.zeros(d + 1, dtype=torch.float64, device=x.device)
+    plan, part, ticket, _ = _pullback_workspace(x.device, n, m, d, x.dtype, bool(same))
+    out = torch.empty(d + 1, dtype=torch.float64, device=x.device)
+    _build.launch("K2 matern_gram_pullback",
+                  getattr(_library(), f"gpmp_matern_pullback_{distance._suffix(x)}"), x.device,
+                  kbar.data_ptr(), x.data_ptr(), y.data_ptr(), theta.data_ptr(),
+                  *_coef_args(p, x.device), part, ticket, out.data_ptr(), n, m, d, p,
+                  int(same), torch.finfo(x.dtype).eps, *plan)
     K2_LAUNCHES += 1
     return out
 
@@ -319,8 +396,9 @@ class _MaternpKernel(torch.autograd.Function):
 
 def maternp_kernel(p: int, h):
     """Matern kernel with half-integer regularity nu = p + 1/2, elementwise
-    on a tensor of distances h; K(inf) = 0; differentiable in h."""
-    return _MaternpKernel.apply(h, int(p))
+    on a tensor of distances h (or a NumPy array, as gnp's ops take it);
+    K(inf) = 0; differentiable in h."""
+    return _MaternpKernel.apply(gnp._tensor(h), int(p))
 
 
 class MaternGram(torch.autograd.Function):
@@ -335,7 +413,7 @@ class MaternGram(torch.autograd.Function):
         ctx.save_for_backward(x, y, theta)
         ctx.p, ctx.same = p, same
         if x.is_cuda:
-            return matern_gram_cuda(x.contiguous(), y.contiguous(), p, theta.contiguous(), same)
+            return matern_gram_cuda(*_contiguous_pair(x, y), p, theta.contiguous(), same)
         return matern_gram_plain(x, y, p, theta, same)
 
     @staticmethod
@@ -352,12 +430,22 @@ class MaternGram(torch.autograd.Function):
                                   (*ctx.needs_input_grad[:2], False), kbar, create_graph=False)
         if ctx.needs_input_grad[2]:
             if kbar.is_cuda:
-                g = matern_gram_pullback_cuda(kbar.contiguous(), x.contiguous(), y.contiguous(),
-                                              ctx.p, theta.contiguous(), ctx.same)
+                g = matern_gram_pullback_cuda(kbar.contiguous(), *_contiguous_pair(x, y), ctx.p,
+                                              theta.contiguous(), ctx.same)
             else:
                 g = matern_gram_pullback_plain(kbar, x, y, ctx.p, theta, ctx.same)
             g = g.to(theta.dtype)
         return gx, gy, g, None, None
+
+
+def _contiguous_pair(x, y):
+    """x and y contiguous, y still x where it was x (the same tensor, or a
+    saved copy of it): the kernels' ``same`` form takes y to be x."""
+    xc = x.contiguous()
+    if y is x or (y.data_ptr() == x.data_ptr() and y.shape == x.shape
+                  and y.stride() == x.stride()):
+        return xc, xc
+    return xc, y.contiguous()
 
 
 def _gram_plain_xyt(p, same, x, y, theta):

@@ -4,8 +4,8 @@
 gpmp_tpu takes a NumPy array (or a Python sequence) wherever it takes an
 array, because ``jnp`` converts it; the port converts at the same public
 boundary (``gnp._tensor``): the Model methods that take covparam,
-meanparam, xi, zi or xt, the ``core.likelihood`` entry points, and the
-``gnp`` ops.  Each call here gets NumPy operands on both sides, on the CPU,
+meanparam, xi, zi or xt, the ``core.likelihood`` entry points, the
+``gnp`` ops, and the covariance functions of ``kernel``.  Each call here gets NumPy operands on both sides, on the CPU,
 in f64, gpmp_tpu's criteria under ``jax.jit``, and the port's result is
 held bitwise to the same call on tensors (the conversion changes nothing
 else) and to gpmp_tpu at 1e-12 relative (max |diff| / max |value|).  At
@@ -214,6 +214,34 @@ def test_gnp_ops_take_numpy(case):
         else:
             assert a.dtype == torch.float64
             assert _relmax(a, b) <= 1e-12
+
+
+_PARAM = np.concatenate([[0.3], _RHO])
+_H = np.abs(_M)
+KERNEL_CASES = {
+    "maternp_covariance x is x": ("maternp_covariance", (_X, _X, P_SMOOTH, _PARAM)),
+    "maternp_covariance y None": ("maternp_covariance", (_X, None, P_SMOOTH, _PARAM)),
+    "maternp_covariance cross": ("maternp_covariance", (_X, _Y, P_SMOOTH, _PARAM)),
+    "maternp_covariance pairwise": ("maternp_covariance", (_X, _X, P_SMOOTH, _PARAM, True)),
+    "maternp_covariance pairwise cross": ("maternp_covariance",
+                                          (_X, _X[::-1].copy(), P_SMOOTH, _PARAM, True)),
+    "maternp_covariance_ii_or_tt": ("maternp_covariance_ii_or_tt", (_X, 3, _PARAM)),
+    "maternp_covariance_it": ("maternp_covariance_it", (_X, _Y, 0, _PARAM)),
+    "maternp_kernel": ("maternp_kernel", (5, _H)),
+    "matern32_kernel": ("matern32_kernel", (_H,)),
+    "exponential_kernel": ("exponential_kernel", (_H,)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
+def test_kernel_functions_take_numpy(case):
+    """The covariance functions of ``kernel`` take NumPy operands as
+    gpmp_tpu's do (they raised AttributeError or TypeError before)."""
+    name, args = KERNEL_CASES[case]
+    tout = getattr(tgp.kernel, name)(*args)
+    jout = np.asarray(getattr(jgp.kernel, name)(*args))
+    assert isinstance(tout, torch.Tensor) and tout.dtype == torch.float64
+    assert _relmax(tout, jout) <= 1e-12
 
 
 def test_tensors_are_taken_as_they_are():
