@@ -182,6 +182,21 @@ non-zero):
    collectives on CUDA tensors probed first, then REML value+grad at p0,
    predict and LOO at n = 8192, panels of 512, against the one-card path on
    the same card (1e-11), the ranks bitwise equal.
+3i. The diagnosis of phase 3's fit (example02's flow at full width): on the
+   card, modeldiagnosis.diag (its report printed to a buffer), the
+   parameter statistics over PHASE3I_POINTS-point profiles of the seven
+   parameters through evaluate_batch, compute_performance (LOO and the
+   nt = 1000 test set, with PIT), the CRPS and the CRPS truncated to the
+   test values' 10%-90% range, and Model.fisher_information and
+   fisher_information_torch at the fitted covparam; then the same calls on
+   the CPU at that covparam.  The card's part runs with the plain versions
+   of the gram, distance, mixed and refine kernels raising on CUDA tensors,
+   except inside the Fisher functions, whose second derivatives go through
+   the gram's plain composition by design (ops/autograd.py).  Checks: each
+   number within rel 1e-8 of the CPU's (max|diff|/max|CPU| for vectors and
+   matrices), K1 launched at least once per row of the profile grid and K2
+   at least once (counts of K1, K2, K1d and K1m printed), and no matplotlib
+   imported; its walls printed.
 4. Times on the card (CUDA events / synchronised host clock): K1 and K2 at
    n = 1000 and 8192 (x is y) and 1000 x 1000 (cross), d = 6, p = 2: events,
    device time warm and with L2 flushed, host issue per call, the byte
@@ -282,6 +297,7 @@ the H100 SXM's data-sheet peaks (PEAK_*); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import functools
 import gc
 import json
@@ -299,6 +315,9 @@ DEVICE = "cuda"
 TOL_K1 = {"float64": 1e-12, "float32": 1e-5}
 TOL_K2 = {"float64": 1e-9, "float32": 1e-3}
 TOL_PATH = 1e-8
+# phase 3i: the points of each parameter's profile (selection_criterion_statistics_fast);
+# the CPU side evaluates the same 7 x PHASE3I_POINTS grid
+PHASE3I_POINTS = 50
 DEVICE_MS_ATTEMPTS = 6  # profiler windows _device_ms takes to find a whole one
 DEVICE_MS_PAD = 32      # spin kernels ahead of _device_ms's launches
 L2_FLUSH_BYTES = 64 << 20  # a copy larger than the H100's 50 MB L2, between cold launches
@@ -677,7 +696,8 @@ def _fit_predict(gp, gnp, torch, xi, zi, xt):
 
 
 class _PlainGuard:
-    """Makes the plain versions raise on CUDA tensors while active."""
+    """Makes the plain versions raise on CUDA tensors while active, outside
+    an ``exempt()`` block."""
 
     PLAIN = {
         "gram": ("matern_gram_plain", "matern_gram_pullback_plain",
@@ -706,7 +726,8 @@ class _PlainGuard:
                 self.saved.append((mod, name, orig))
 
                 def guarded(*args, _orig=orig, _name=name, **kw):
-                    if any(getattr(a, "is_cuda", False) for a in args):
+                    if _PlainGuard._exempt == 0 and any(getattr(a, "is_cuda", False)
+                                                        for a in args):
                         raise AssertionError(f"{_name} reached with CUDA tensors")
                     return _orig(*args, **kw)
 
@@ -716,6 +737,17 @@ class _PlainGuard:
     def __exit__(self, *exc):
         for mod, name, orig in self.saved:
             setattr(mod, name, orig)
+
+    _exempt = 0
+
+    @staticmethod
+    @contextlib.contextmanager
+    def exempt():
+        _PlainGuard._exempt += 1
+        try:
+            yield
+        finally:
+            _PlainGuard._exempt -= 1
 
 
 def phase_main_path(gp, gnp, gram, torch):
@@ -759,7 +791,104 @@ def phase_main_path(gp, gnp, gram, torch):
     check(e_v <= TOL_PATH, f"REML card vs CPU rel {e_v:.3e}")
     check(e_m <= TOL_PATH, f"predict mean card vs CPU rel {e_m:.3e}")
     check(e_s <= TOL_PATH, f"predict variance card vs CPU rel {e_s:.3e}")
-    return launches, (xi, zi, xt), t_fp
+    return launches, (xi, zi, xt), t_fp, (model, info, zt)
+
+
+def _diagnosis_numbers(gp, gnp, torch, model, xi, zi, xt, zt, crit_nograd, crit, p_init):
+    """Phase 3i's numbers on the configured device: name -> float or array."""
+    from gpmp_tpu_torch import modeldiagnosis as md
+    from gpmp_tpu_torch.misc import scoringrules as sr
+
+    covparam = gnp.to_np(model.covparam)
+    out = {"initial_val": np.array(crit(p_init))}
+    stats = md.selection_criterion_statistics_fast(
+        model=model, xi=xi, selection_criterion=crit_nograd, covparam=covparam,
+        n_points=PHASE3I_POINTS)
+    out["parameter_statistics"] = stats["parameter_statistics"].data
+    out["stats fisher_information"] = gnp.to_np(stats["fisher_information"])
+    perf = md.compute_performance(model, xi, zi, xtzt=(xt, zt), compute_pit=True)
+    out.update({f"perf {k}": np.asarray(gnp.to_np(v), dtype=float) for k, v in perf.items()})
+    zpm, zpv = model.predict(xi, zi, xt, convert_out=False)
+    sigma = torch.sqrt(zpv)
+    lo, hi = float(np.quantile(zt, 0.1)), float(np.quantile(zt, 0.9))
+    out["crps"] = gnp.to_np(sr.crps_gaussian(zpm, sigma, zt))
+    out["tcrps"] = gnp.to_np(sr.tcrps_gaussian(zpm, sigma, zt, lo, hi))
+    out["fisher_information"] = gnp.to_np(model.fisher_information(xi))
+    out["fisher_information_torch"] = gnp.to_np(
+        model.fisher_information_torch(xi, model.covparam))
+    return out
+
+
+def _exempted(fn):
+    def run(*args, **kw):
+        with _PlainGuard.exempt():
+            return fn(*args, **kw)
+    return run
+
+
+def phase_diagnosis(gp, gnp, gram, distance, mixed, refine, torch, main_data, fit):
+    """Phase 3i: the diagnosis of phase 3's fit, on the card and on the CPU."""
+    import io
+
+    from gpmp_tpu_torch import modeldiagnosis as md
+    from gpmp_tpu_torch.core import fisher
+
+    xi, zi, xt = main_data
+    model, info, zt = fit
+    covparam = gnp.to_np(model.covparam)
+    counters = {"K1": (gram, "K1_LAUNCHES"), "K2": (gram, "K2_LAUNCHES"),
+                "K1d": (distance, "K1D_LAUNCHES"), "K1m": (gram, "K1M_LAUNCHES")}
+    # Fisher's dK/dtheta and Hessian differentiate the gram twice: under
+    # create_graph the gram Functions' backward is their plain composition's
+    # VJP (ops/autograd.py), on the card by design, so only those calls may
+    # reach a plain version
+    fisher_calls = {name: _exempted(getattr(fisher, name)) for name in (
+        "fisher_information", "fisher_information_cpd", "fisher_information_torch")}
+    _reset(counters)
+    t0 = time.perf_counter()
+    report = io.StringIO()
+    with _PlainGuard(gram, distance, mixed, refine), _Patched(fisher, **fisher_calls):
+        with contextlib.redirect_stdout(report):
+            md.diag(model, info, xi, zi)
+        card = _diagnosis_numbers(gp, gnp, torch, model, xi, zi, xt, zt,
+                                  info.selection_criterion_nograd, info.selection_criterion,
+                                  info.initial_params)
+        torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    launches = _read(counters)
+    say(f"[phase 3i] diagnosis on the card {t_card:.3f} s; launches {launches}; report "
+        f"{len(report.getvalue().splitlines())} lines")
+    check("[Model diagnosis]" in report.getvalue() and "delta_over_sigma" in report.getvalue(),
+          "diag printed no report")
+    grid_rows = covparam.size * PHASE3I_POINTS
+    check(launches["K1"] >= grid_rows,
+          f"K1 launched {launches['K1']} times for a profile grid of {grid_rows} rows")
+    check(launches["K2"] > 0, "K2 was not launched in the diagnosis phase")
+
+    gp.config.set_device("cpu")
+    t0 = time.perf_counter()
+    try:
+        model_cpu = _model(gp, gnp, covparam=covparam)
+        crit_cpu, _, crit_ng, _ = gp.kernel.make_selection_criterion_with_gradient(
+            model_cpu, gp.kernel.negative_log_restricted_likelihood, xi, zi)
+        cpu = _diagnosis_numbers(gp, gnp, torch, model_cpu, xi, zi, xt, zt, crit_ng,
+                                 crit_cpu, info.initial_params)
+    finally:
+        gp.config.set_device(DEVICE)
+    t_cpu = time.perf_counter() - t0
+    say(f"[phase 3i] the same on the CPU {t_cpu:.3f} s")
+    errs = {}
+    for key, ref in cpu.items():
+        a = torch.as_tensor(np.asarray(card[key], dtype=float))
+        b = torch.as_tensor(np.asarray(ref, dtype=float))
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+              f"diagnosis {key}: shape {tuple(a.shape)} vs {tuple(b.shape)} or not finite")
+        errs[key] = rel_err(a, b)
+    say("[phase 3i] card vs CPU rel: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    for key, e in errs.items():
+        check(e <= TOL_PATH, f"diagnosis {key} card vs CPU rel {e:.3e}")
+    check("matplotlib" not in sys.modules, "the diagnosis phase imported matplotlib")
+    return launches, {"card": t_card, "cpu": t_cpu}, errs
 
 
 # ----------------------------------------------------------------------------
@@ -5125,7 +5254,9 @@ def main():
     main_abs.update(phase_group_kernels_vs_plain(gp, gnp, torch, gram, mixed, ochol))
     _errs, large_abs, large_times, large_bounds, large_device = phase_streamed_large(
         gp, gnp, torch, mixed, ops, st, plik)
-    launches, main_data, t_first = phase_main_path(gp, gnp, gram, torch)
+    launches, main_data, t_first, fit = phase_main_path(gp, gnp, gram, torch)
+    diag_launches, diag_walls, diag_errs = phase_diagnosis(
+        gp, gnp, gram, distance, mixed, refine, torch, main_data, fit)
     slice_launches, slice_data, t_slice_first, k6 = phase_slice(
         gp, gnp, gram, distance, mixed, refine, torch)
     launches.update(slice_launches)
@@ -5177,6 +5308,8 @@ def main():
     say(json.dumps({
         "card": card,
         "fit_predict_s": {"first": t_first, "warm": t_warm},
+        "diagnosis_3i": {"wall_s": diag_walls, "launches": diag_launches,
+                         "rel_err_vs_cpu": diag_errs},
         "reml_value_grad_evals_per_s": {f"n={n} {k}": v for (n, k), v in rates.items()},
         "noisy_fit_loo_predict_s": {"mixed first": t_slice_first, "mixed warm": t_slice_warm},
         "noisy_reml_value_grad_evals_per_s": {f"n={n} {e}": v for (n, e), v in mrates.items()},

@@ -31,7 +31,10 @@ __all__ = [
     "num",
     "kernel",
     "core",
+    "modeldiagnosis",
+    "parameter",
     "misc",
+    "plot",
     "ops",
     "interop",
     "parallel",
@@ -39,7 +42,10 @@ __all__ = [
 
 __version__ = "0.1.0"
 
-_LAZY_SUBMODULES: Final[set] = {"num", "kernel", "misc", "ops", "interop", "parallel"}
+_LAZY_SUBMODULES: Final[set] = {
+    "num", "kernel", "modeldiagnosis", "parameter", "misc", "plot", "ops", "interop",
+    "parallel",
+}
 
 
 def __getattr__(name: str):

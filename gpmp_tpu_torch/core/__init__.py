@@ -1,8 +1,9 @@
 # gpmp_tpu_torch/core/__init__.py
 """Core GP math: Model facade + pure numerical routines (counterpart of
-gpmp_tpu/core; fisher is not ported yet)."""
+gpmp_tpu/core)."""
 
 from .model import Model
-from . import kriging, likelihood, linalg, loo, sample_paths, utils
+from . import fisher, kriging, likelihood, linalg, loo, sample_paths, utils
 
-__all__ = ["Model", "kriging", "likelihood", "linalg", "loo", "sample_paths", "utils"]
+__all__ = ["Model", "fisher", "kriging", "likelihood", "linalg", "loo", "sample_paths",
+           "utils"]

@@ -28,6 +28,7 @@ from .linalg import (
     compute_contrast_matrix,
     solve_and_logdet as _solve_and_logdet,
 )
+from .utils import meanparam_of
 
 
 def _nan_to_inf(L):
@@ -56,7 +57,7 @@ def negative_log_likelihood(model, meanparam, covparam, xi, zi):
 def _reml_profiled(model, covparam, xi, zi):
     """REML via analytic profiling of the linear-predictor mean."""
     K = model.covariance(xi, xi, covparam)
-    P = model.mean(xi, model.meanparam)
+    P = model.mean(xi, meanparam_of(model))
     n, q = P.shape
     rhs = torch.cat([zi.reshape(-1, 1), P], dim=1)
     X, ldetK = _solve_and_logdet(K, rhs)  # K^{-1} [z P]
@@ -77,7 +78,7 @@ def _reml_profiled(model, covparam, xi, zi):
 def _reml_contrast(model, covparam, xi, zi):
     """REML in contrast space."""
     K = model.covariance(xi, xi, covparam)
-    P = model.mean(xi, model.meanparam)
+    P = model.mean(xi, meanparam_of(model))
     W = compute_contrast_matrix(P)
     Wzi = W.T @ zi
     G = compute_contrast_covariance(W, K)

@@ -13,6 +13,7 @@ import torch
 import gpmp_tpu_torch.num as gnp
 from gpmp_tpu_torch.config import get_chol_engine
 from gpmp_tpu_torch.ops import mixed
+from .utils import meanparam_of
 
 # below this size the f64 factorization is already cheap
 _MIXED_MIN_N = 192
@@ -127,7 +128,7 @@ def norm_k_sqrd(model, xi, zi, covparam):
     f64 path keeps the CPD-safe contrast formulation.
     """
     K = model.covariance(xi, xi, covparam)
-    P = model.mean(xi, model.meanparam)
+    P = model.mean(xi, meanparam_of(model))
     if _engine_for(K) == "mixed":
         A = engine_cholesky_solve(K, torch.cat([zi.reshape(-1, 1), P], dim=1))
         a, U = A[:, 0], A[:, 1:]  # K^{-1}z, K^{-1}P

@@ -6,8 +6,7 @@ no per-instance jit cache; each method calls the pure routines of
 ``kriging``, ``likelihood``, ``linalg``, ``loo`` and ``sample_paths``
 directly.  Its methods take NumPy arrays and Python sequences for
 covparam, meanparam, xi, zi and xt, as the JAX package's do through
-``jnp`` (``gnp._tensor``).  Not ported yet (ROADMAP queue 1 item 7):
-``fisher_*``.
+``jnp`` (``gnp._tensor``).
 """
 
 import warnings
@@ -16,7 +15,7 @@ import torch
 
 import gpmp_tpu_torch.num as gnp
 
-from . import kriging, likelihood, linalg, loo, utils
+from . import fisher, kriging, likelihood, linalg, loo, utils
 from . import sample_paths as sample_paths_mod
 
 
@@ -156,6 +155,20 @@ class Model:
 
     def norm_k_sqrd(self, xi, zi, covparam):
         return linalg.norm_k_sqrd(self, *map(gnp._tensor, (xi, zi, covparam)))
+
+    # ------------------------------------------------------------------
+    # Fisher information
+    # ------------------------------------------------------------------
+    def fisher_information(self, xi, covparam=None, epsilon=1e-3):
+        return fisher.fisher_information(self._bound(), xi, covparam=covparam,
+                                         epsilon=epsilon)
+
+    def fisher_information_cpd(self, xi, covparam=None, epsilon=1e-3):
+        return fisher.fisher_information_cpd(self._bound(), xi, covparam=covparam,
+                                             epsilon=epsilon)
+
+    def fisher_information_torch(self, xi, covparam):
+        return fisher.fisher_information_torch(self._bound(), xi, covparam)
 
     # ------------------------------------------------------------------
     # Sampling

@@ -41,6 +41,12 @@ def ensure_shapes_and_type(*, xi=None, zi=None, xt=None, convert=True):
     return xi, zi, xt
 
 
+def meanparam_of(model):
+    """The model's meanparam as a tensor (``gnp._tensor``), None kept: the
+    attribute may hold a NumPy array or a Python scalar."""
+    return None if model.meanparam is None else gnp._tensor(model.meanparam)
+
+
 def validate_model_mean(meantype, mean, meanparam):
     """Validate the (meantype, mean, meanparam) combination at Model init."""
     if meantype not in {"zero", "parameterized", "linear_predictor"}:

@@ -1,6 +1,6 @@
 # gpmp_tpu_torch/misc/__init__.py
-"""Miscellaneous utilities: designs and test functions (host-side NumPy)."""
+"""Miscellaneous utilities: designs, test functions, scoring rules, tables."""
 
-from . import designs, testfunctions
+from . import dataframe, designs, scoringrules, testfunctions
 
-__all__ = ["designs", "testfunctions"]
+__all__ = ["dataframe", "designs", "scoringrules", "testfunctions"]

@@ -50,6 +50,10 @@ def plain_vjp(fn, inputs, need, cot, create_graph=True):
     return res
 
 
+class SecondOrderNotImplemented(RuntimeError):
+    """A first-order-only Function was asked for a differentiable gradient."""
+
+
 def first_order_only(name):
     """Decorator of a Function's backward without a second-order rule: it
     runs without a graph, and raises when asked for one (create_graph=True:
@@ -62,7 +66,7 @@ def first_order_only(name):
         @functools.wraps(backward)
         def wrapper(ctx, *grads):
             if torch.is_grad_enabled():
-                raise RuntimeError(msg)
+                raise SecondOrderNotImplemented(msg)
             return backward(ctx, *grads)
 
         return wrapper

@@ -44,6 +44,7 @@ import gpmp_tpu_torch.num as gnp
 from gpmp_tpu_torch.ops.autograd import first_order_only
 from gpmp_tpu_torch.core.likelihood import _nan_to_inf
 from gpmp_tpu_torch.core.linalg import chol_engine
+from gpmp_tpu_torch.core.utils import meanparam_of
 from . import comm
 from .chol import sharded_solve_and_logdet, value_only_wrt
 
@@ -213,8 +214,8 @@ def sharded_negative_log_restricted_likelihood(
     O(n^3) refactorization; VALUE ONLY: differentiating with respect to
     covparam raises.  On a group mesh the inputs and the value are
     replicated."""
-    covparam = gnp.asarray(covparam)
-    Pd = model.mean(xi, model.meanparam)
+    covparam, xi, zi = gnp.asarray(covparam), gnp.asarray(xi), gnp.asarray(zi)
+    Pd = model.mean(xi, meanparam_of(model))
     n, q = Pd.shape
     z_loc, P_loc = comm.slab(zi, mesh), comm.slab(Pd, mesh)
     rhs = torch.cat([z_loc.reshape(-1, 1), P_loc], dim=1)
@@ -243,6 +244,7 @@ def sharded_negative_log_likelihood_zero_mean(
 ):
     """Zero-mean NLL on the mesh (the engines as above; replicated inputs
     and value on a group mesh)."""
+    xi, zi = gnp.asarray(xi), gnp.asarray(zi)
     n = xi.shape[0]
     z_loc = comm.slab(zi, mesh)
     Kinv_z, ldetK = _solve_and_logdet(model, comm.replicate(gnp.asarray(covparam), mesh), xi,

@@ -48,9 +48,20 @@ SUBMODULES = (
     "gpmp_tpu_torch.core.loo",
     "gpmp_tpu_torch.core.sample_paths",
     "gpmp_tpu_torch.core.utils",
+    "gpmp_tpu_torch.core.fisher",
     "gpmp_tpu_torch.misc",
     "gpmp_tpu_torch.misc.designs",
     "gpmp_tpu_torch.misc.testfunctions",
+    "gpmp_tpu_torch.misc.dataframe",
+    "gpmp_tpu_torch.misc.scoringrules",
+    "gpmp_tpu_torch.parameter",
+    "gpmp_tpu_torch.parameter.param",
+    "gpmp_tpu_torch.modeldiagnosis",
+    "gpmp_tpu_torch.modeldiagnosis.un1ddist",
+    "gpmp_tpu_torch.modeldiagnosis.utils",
+    "gpmp_tpu_torch.modeldiagnosis.param_stats",
+    "gpmp_tpu_torch.modeldiagnosis.performance",
+    "gpmp_tpu_torch.modeldiagnosis.report",
     "gpmp_tpu_torch.interop",
     "gpmp_tpu_torch.parallel",
     "gpmp_tpu_torch.parallel.mesh",
@@ -79,6 +90,44 @@ def test_import_pulls_no_jax():
         "    importlib.import_module(name)\n"
         "import gpmp_tpu_torch as gp\n"
         "assert gp.Model is gp.core.Model\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'gpmp_tpu.')) or m == 'gpmp_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+# the example twins, and the modules that import matplotlib
+EXAMPLE_TWINS = (
+    "examples.gpmp_tpu_torch_example02_1d_interpolation",
+    "examples.gpmp_tpu_torch_example03_2d",
+    "examples.gpmp_tpu_torch_example04_nd",
+    "examples.gpmp_tpu_torch_example07_nd_regression",
+)
+PLOTTING = ("gpmp_tpu_torch.plot", "gpmp_tpu_torch.plot.plotutils",
+            "gpmp_tpu_torch.modeldiagnosis.plotting")
+
+
+def test_import_pulls_no_matplotlib():
+    """Only the plotting modules import matplotlib (an installation without
+    it must run the rest): the package, its diagnosis, Fisher and the
+    example twins do not;
+    the plotting names of modeldiagnosis load it when asked for, and the
+    plotting modules pull no JAX either."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in {SUBMODULES + EXAMPLE_TWINS!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import gpmp_tpu_torch as gp\n"
+        "assert gp.modeldiagnosis.diag and gp.parameter.Param and gp.core.fisher\n"
+        "assert 'matplotlib' not in sys.modules\n"
+        "import matplotlib; matplotlib.use('Agg')\n"
+        "assert callable(gp.modeldiagnosis.plot_selection_criterion_crosssections)\n"
+        f"for name in {PLOTTING!r}:\n"
+        "    importlib.import_module(name)\n"
+        "assert gp.plot.Figure\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'gpmp_tpu.')) or m == 'gpmp_tpu')\n"
         "assert not bad, bad\n"
         "print('ok')\n"
