@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke test of gpmp_tpu_torch on one CUDA card: REML fit + predict, noisy
-REML fit + LOO + predict on the mixed Cholesky engine, conditional sample
-paths, large-n REML on the streamed engine through a one-card mesh, the
+"""Smoke test of gpmp_tpu_torch on one CUDA card: REML fit + predict, its
+diagnosis, a batched REMAP fit through a DataLoader, noisy REML fit + LOO +
+predict on the mixed Cholesky engine, conditional sample paths, large-n REML on the streamed engine through a one-card mesh, the
 mesh's resident branch (the blocked Cholesky with refined panels: fit,
 predict, LOO, the sharded mixed engine, n = 51200 parity), the repaired
 second derivatives, and the group mesh on torch.distributed (the
@@ -181,7 +181,11 @@ non-zero):
 3h. Two ranks sharing the card over gloo (spawned processes): gloo's
    collectives on CUDA tensors probed first, then REML value+grad at p0,
    predict and LOO at n = 8192, panels of 512, against the one-card path on
-   the same card (1e-11), the ranks bitwise equal.
+   the same card (1e-11), the ranks bitwise equal; and phase 3j's
+   data-parallel REMAP criterion (make_data_parallel_criterion) over
+   PHASE3J_GLOO_BATCHES batches of 250, half a rank, at 3j's optimum,
+   against its one-card value and gradient (1e-12), the ranks bitwise
+   equal.
 3i. The diagnosis of phase 3's fit (example02's flow at full width): on the
    card, modeldiagnosis.diag (its report printed to a buffer), the
    parameter statistics over PHASE3I_POINTS-point profiles of the seven
@@ -197,6 +201,21 @@ non-zero):
    matrices), K1 launched at least once per row of the profile grid and K2
    at least once (counts of K1, K2, K1d and K1m printed), and no matplotlib
    imported; its walls printed.
+3j. The REMAP and dataloader slice (example30's flow at full width), with
+   the plain versions of the gram, distance, mixed and refine kernels
+   raising on CUDA tensors throughout, then the same on the CPU: (a)
+   Hartmann6 at n = 1000, d = 6, a shuffled DataLoader of 200 (drop_last),
+   select_parameters_with_remap through it (launch counters reset just
+   before and read just after: K1 and K2 at least 5 x nfev, K1d and K1m
+   printed), LOO on the first 400 points and modeldiagnosis.perf; (b) the
+   default REMAP on phase 3's arrays (n = 1000); (c) method='lbfgs-device'
+   on phase 3's REML from its start (best value returned, J at most SciPy
+   L-BFGS-B's + 1e-6 max(1, |J|)); (d) make_data_parallel_criterion on
+   make_mesh() over the loader's stacked batches at (a)'s optimum against
+   (a)'s criterion on the same batches (1e-12). Card vs CPU (TOL_3J): each
+   criterion's value and gradient at a fixed p 1e-10, the fitted criteria
+   1e-9, covparam 1e-4 (SciPy's flatness). Walls, nfev and ms per
+   evaluation printed beside the card's name and power limit.
 4. Times on the card (CUDA events / synchronised host clock): K1 and K2 at
    n = 1000 and 8192 (x is y) and 1000 x 1000 (cross), d = 6, p = 2: events,
    device time warm and with L2 flushed, host issue per call, the byte
@@ -318,6 +337,13 @@ TOL_PATH = 1e-8
 # phase 3i: the points of each parameter's profile (selection_criterion_statistics_fast);
 # the CPU side evaluates the same 7 x PHASE3I_POINTS grid
 PHASE3I_POINTS = 50
+# phase 3j: example30's batched REMAP fit (n, d = 6, batch size, LOO's first
+# points), the batches of phase 3h's two ranks (4 of 250, 2 a rank), and its
+# tolerances: card vs CPU at a fixed p (value and gradient), the fitted
+# criteria, covparam (SciPy's flatness), the data-parallel criterion against
+# the loader's on the same batches
+PHASE3J_N, PHASE3J_BATCH, PHASE3J_LOO, PHASE3J_GLOO_BATCHES = 1000, 200, 400, 4
+TOL_3J = {"fixed": 1e-10, "fit": 1e-9, "param": 1e-4, "dp": 1e-12}
 DEVICE_MS_ATTEMPTS = 6  # profiler windows _device_ms takes to find a whole one
 DEVICE_MS_PAD = 32      # spin kernels ahead of _device_ms's launches
 L2_FLUSH_BYTES = 64 << 20  # a copy larger than the H100's 50 MB L2, between cold launches
@@ -889,6 +915,222 @@ def phase_diagnosis(gp, gnp, gram, distance, mixed, refine, torch, main_data, fi
         check(e <= TOL_PATH, f"diagnosis {key} card vs CPU rel {e:.3e}")
     check("matplotlib" not in sys.modules, "the diagnosis phase imported matplotlib")
     return launches, {"card": t_card, "cpu": t_cpu}, errs
+
+
+def _remap_prior_args(gp, covparam0_prior, xi):
+    """The default REMAP's resolved prior hyperparameters as host values (the
+    anchor covparam0_prior, logrho_min from xi), for building its criterion
+    outside the selection procedure (phase 3h's ranks)."""
+    from gpmp_tpu_torch.kernel.prior_helpers import resolve_logsigma2_logrho_prior_args
+
+    (gamma, coverage, alpha, _factor, log_s2_0, logrho_0, logrho_min) = (
+        resolve_logsigma2_logrho_prior_args(covparam0_prior=covparam0_prior, xi=xi))
+    return {"log_sigma2_0": float(log_s2_0), "gamma": gamma, "sigma2_coverage": coverage,
+            "alpha": alpha, "logrho_min": gp.num.to_np(logrho_min),
+            "logrho_0": gp.num.to_np(logrho_0)}
+
+
+def _remap_criterion(gp, gnp, args):
+    """functools.partial of the default REMAP objective on ``args``
+    (_remap_prior_args' values, as tensors on the configured device)."""
+    return functools.partial(
+        gp.kernel.neg_log_restricted_posterior_logsigma2_and_logrho_prior,
+        log_sigma2_0=gnp.asarray(args["log_sigma2_0"])[0], gamma=args["gamma"],
+        sigma2_coverage=args["sigma2_coverage"], alpha=args["alpha"],
+        logrho_min=gnp.asarray(args["logrho_min"]), logrho_0=gnp.asarray(args["logrho_0"]))
+
+
+def _remap_slice(gp, gnp, torch, on_card, counters=None, p_fixed=None):
+    """Phase 3j's (a)-(d) on the configured device: numbers, fits and walls.
+
+    (a) example30's flow: Hartmann6 at PHASE3J_N, d = 6, a shuffled
+    DataLoader of PHASE3J_BATCH (drop_last), select_parameters_with_remap
+    through it, LOO on the first PHASE3J_LOO points and modeldiagnosis.perf;
+    (b) the default REMAP on phase 3's arrays; (c) method='lbfgs-device' on
+    phase 3's REML from its start, beside SciPy's L-BFGS-B; (d)
+    make_data_parallel_criterion on make_mesh() over the loader's stacked
+    batches at (a)'s optimum, against (a)'s criterion on the same batches
+    (shuffle=False); and the value and gradient of each at ``p_fixed``.
+    SciPy's L-BFGS-B fit of (c) and the ms per evaluation run on the card
+    only."""
+    import io
+
+    from gpmp_tpu_torch import parallel
+    from gpmp_tpu_torch.dataloader import DataLoader, Dataset
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out, fits, walls = {}, {}, {}
+    rng = np.random.default_rng(0)
+    x30 = rng.uniform(size=(PHASE3J_N, 6))
+    z30 = np.asarray(gp.misc.testfunctions.hartmann6(x30))
+    dataset = Dataset(gnp.asarray(x30), gnp.asarray(z30))
+    loader = DataLoader(dataset, batch_size=PHASE3J_BATCH, shuffle=True, seed=0, drop_last=True)
+    if counters is not None:
+        _reset(counters)
+    t0 = time.perf_counter()
+    model_a, info_a = gp.kernel.select_parameters_with_remap(
+        _model(gp, gnp), dataloader=loader, info=True)
+    sync()
+    walls["(a) fit"] = time.perf_counter() - t0
+    if counters is not None:
+        out["launches"] = _read(counters)
+    t0 = time.perf_counter()
+    xe, ze = x30[:PHASE3J_LOO], z30[:PHASE3J_LOO]
+    loo = model_a.loo(xe, ze)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        gp.modeldiagnosis.perf(model_a, xe, ze, loo_res=loo)
+    sync()
+    walls["(a) loo+perf"] = time.perf_counter() - t0
+    out["perf_lines"] = len(report.getvalue().splitlines())
+    out["loo"] = [gnp.to_np(v) for v in loo]
+    fits["a"] = (info_a.fun, gnp.to_np(model_a.covparam), info_a.nfev)
+
+    xi, zi, _xt, _zt = _problem(gp, 1000, 1)
+    t0 = time.perf_counter()
+    model_b, info_b = gp.kernel.select_parameters_with_remap(_model(gp, gnp), xi, zi, info=True)
+    sync()
+    walls["(b) fit"] = time.perf_counter() - t0
+    fits["b"] = (info_b.fun, gnp.to_np(model_b.covparam), info_b.nfev)
+
+    model_c = _model(gp, gnp)
+    crit, pre, _ng, grad = gp.kernel.make_selection_criterion_with_gradient(
+        model_c, gp.kernel.negative_log_restricted_likelihood, xi, zi)
+    p0 = gnp.to_np(gp.kernel.anisotropic_parameters_initial_guess(model_c, xi, zi))
+    t0 = time.perf_counter()
+    _x, r_dev = gp.kernel.autoselect_parameters(p0, pre, grad, method="lbfgs-device", info=True)
+    sync()
+    walls["(c) lbfgs-device"] = time.perf_counter() - t0
+    fits["c"] = (r_dev.fun, r_dev.x, r_dev.nfev)
+    out["c"] = (r_dev.best_value_returned, r_dev.nit, r_dev.nfev)
+    if on_card:
+        t0 = time.perf_counter()
+        _x, r_sci = gp.kernel.autoselect_parameters(p0, pre, grad, method="L-BFGS-B",
+                                                    info=True)
+        walls["(c) L-BFGS-B"] = time.perf_counter() - t0
+        out["c L-BFGS-B"] = (r_sci.fun, r_sci.nit, r_sci.nfev)
+
+    mesh = parallel.make_mesh()
+    ordered = DataLoader(dataset, batch_size=PHASE3J_BATCH, shuffle=False, drop_last=True)
+    crit_a = info_a.selection_criterion.__self__.crit  # (a)'s criterion of (p, xb, zb)
+    batch_crit = gnp.BatchDifferentiableSelectionCriterion(crit_a, ordered)
+    xb, zb = ordered.as_stacked_batches(mesh=mesh)
+    vg = parallel.make_data_parallel_criterion(crit_a, mesh)
+    p_a = fits["a"][1]
+    v, g = vg(p_a, xb, zb)
+    out["(d) dp"] = (float(v), gnp.to_np(g))
+    out["(d) loader"] = (batch_crit.evaluate(p_a), batch_crit.gradient(p_a))
+    # the criterion rebuilt from host values, over phase 3h's batches
+    args = _remap_prior_args(gp, info_a["covparam0"], x30)
+    crit_h = _remap_criterion(gp, gnp, args)
+    vg_h = parallel.make_data_parallel_criterion(
+        lambda p, x, z: crit_h(model_a, p, x, z), mesh)
+    v5, g5 = vg_h(p_a, xb, zb)
+    out["(d) rebuilt"] = (float(v5), gnp.to_np(g5))
+    xb4, zb4 = parallel.shard_batches(x30, z30, PHASE3J_GLOO_BATCHES, mesh=mesh)
+    v4, g4 = vg_h(p_a, xb4, zb4)
+    out["(d) 4 batches"] = (float(v4), gnp.to_np(g4))
+    out["gloo_args"] = (args, p_a, x30, z30)
+
+    # ms per evaluation: (a)'s loader criterion (5 batches), (d), (b)'s dense REMAP
+    def per_eval(fn, reps=10):
+        fn()
+        sync()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    if on_card:
+        walls["ms/eval (a) loader"] = per_eval(lambda: batch_crit.evaluate(p_a))
+        walls["ms/eval (d) data-parallel"] = per_eval(lambda: vg(p_a, xb, zb))
+        walls["ms/eval (b) dense REMAP"] = per_eval(
+            lambda: info_b.selection_criterion(fits["b"][1]))
+    if p_fixed is not None:
+        out["fixed"] = {
+            "(a) loader": (batch_crit.evaluate(p_fixed), batch_crit.gradient(p_fixed)),
+            "(b) REMAP": (info_b.selection_criterion(p_fixed),
+                          info_b.selection_criterion.__self__.gradient(p_fixed)),
+            "(c) REML": (crit(p_fixed), grad(p_fixed)),
+            "(d) data-parallel": tuple(np.asarray(gnp.to_np(t), dtype=float)
+                                       for t in vg(p_fixed, xb, zb)),
+        }
+    return out, fits, walls
+
+
+def phase_remap(gp, gnp, gram, distance, mixed, refine, torch, card):
+    """Phase 3j: the REMAP and dataloader slice on the card (the plain
+    versions raising on CUDA tensors throughout), then on the CPU."""
+    counters = {"K1": (gram, "K1_LAUNCHES"), "K2": (gram, "K2_LAUNCHES"),
+                "K1d": (distance, "K1D_LAUNCHES"), "K1m": (gram, "K1M_LAUNCHES")}
+    p_fixed = np.array([math.log(0.5)] + [math.log(1 / 0.4)] * 6)
+    gp.config.set_device(DEVICE)
+    gp.config.set_chol_engine("auto")
+    t0 = time.perf_counter()
+    with _PlainGuard(gram, distance, mixed, refine):
+        card_out, card_fits, card_walls = _remap_slice(gp, gnp, torch, True, counters, p_fixed)
+    t_card = time.perf_counter() - t0
+    gp.config.set_device("cpu")
+    t0 = time.perf_counter()
+    try:
+        cpu_out, cpu_fits, cpu_walls = _remap_slice(gp, gnp, torch, False, None, p_fixed)
+    finally:
+        gp.config.set_device(DEVICE)
+    t_cpu = time.perf_counter() - t0
+
+    launches, nfev_a = card_out["launches"], card_fits["a"][2]
+    say(f"[phase 3j] card {card} | (a) example30 n={PHASE3J_N} d=6 batch {PHASE3J_BATCH}: "
+        f"nfev {nfev_a}, REMAP {card_fits['a'][0]!r}, launches {launches}; LOO on "
+        f"{PHASE3J_LOO} and perf ({card_out['perf_lines']} lines)")
+    say(f"[phase 3j] card {card} | walls on the card {t_card:.3f} s: "
+        + ", ".join(f"{k} {v:.3f}" + (" ms" if k.startswith("ms") else " s")
+                    for k, v in card_walls.items()))
+    say(f"[phase 3j] card {card} | walls on the CPU {t_cpu:.3f} s: "
+        + ", ".join(f"{k} {v:.3f}" + (" ms" if k.startswith("ms") else " s")
+                    for k, v in cpu_walls.items()))
+    j_sci, nit_sci, nfev_sci = card_out["c L-BFGS-B"]
+    say(f"[phase 3j] (b) REMAP n=1000 nfev {card_fits['b'][2]} J {card_fits['b'][0]!r}; (c) "
+        f"lbfgs-device best_value_returned/nit/nfev {card_out['c']} J "
+        f"{card_fits['c'][0]!r}, L-BFGS-B nit/nfev ({nit_sci}, {nfev_sci}) J {j_sci!r}")
+    check(launches["K1"] >= 5 * nfev_a, f"K1 launched {launches['K1']} times for nfev {nfev_a}")
+    check(launches["K2"] >= 5 * nfev_a, f"K2 launched {launches['K2']} times for nfev {nfev_a}")
+    check(card_out["perf_lines"] > 0, "perf printed nothing")
+    for v in card_out["loo"]:
+        check(v.shape == (PHASE3J_LOO,) and np.all(np.isfinite(v)), "LOO shapes or values")
+    best, j_dev = card_out["c"][0], card_fits["c"][0]
+    check(best, "lbfgs-device did not return its best value")
+    check(j_dev <= j_sci + 1e-6 * max(1.0, abs(j_sci)),
+          f"lbfgs-device J {j_dev!r} above L-BFGS-B's {j_sci!r} + 1e-6 max(1, |J|)")
+
+    errs = {}
+    for tag in ("(d) dp", "(d) rebuilt"):
+        (v, g), (v_l, g_l) = card_out[tag], card_out["(d) loader"]
+        errs[f"{tag} vs loader value"] = abs(v - v_l) / abs(v_l)
+        errs[f"{tag} vs loader grad"] = rel_err_np(g, g_l)
+    for key in errs:
+        check(errs[key] <= TOL_3J["dp"], f"phase 3j {key} rel {errs[key]:.3e}")
+    for key, (cv, cg) in card_out["fixed"].items():
+        pv, pg = cpu_out["fixed"][key]
+        errs[f"fixed {key} value"] = abs(float(cv) - float(pv)) / abs(float(pv))
+        errs[f"fixed {key} grad"] = rel_err_np(np.asarray(cg, dtype=float),
+                                               np.asarray(pg, dtype=float))
+        check(errs[f"fixed {key} value"] <= TOL_3J["fixed"]
+              and errs[f"fixed {key} grad"] <= TOL_3J["fixed"],
+              f"phase 3j card vs CPU at the fixed p, {key}")
+    for key, (j_card, c_card, _n) in card_fits.items():
+        j_cpu, c_cpu, _n = cpu_fits[key]
+        errs[f"fit {key} J"] = abs(j_card - j_cpu) / abs(j_cpu)
+        errs[f"fit {key} covparam"] = float(np.max(np.abs(np.asarray(c_card) - c_cpu)))
+        check(errs[f"fit {key} J"] <= TOL_3J["fit"], f"phase 3j fit {key}: J card vs CPU")
+        check(errs[f"fit {key} covparam"] <= TOL_3J["param"],
+              f"phase 3j fit {key}: covparam card vs CPU")
+    say("[phase 3j] errors (rel; covparam max abs): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    args, p_a, x30, z30 = card_out["gloo_args"]
+    ref = {"args": args, "p": p_a, "x": x30, "z": z30, "value": card_out["(d) 4 batches"][0],
+           "grad": card_out["(d) 4 batches"][1]}
+    return launches, {"card": t_card, "cpu": t_cpu, **card_walls}, errs, ref
 
 
 # ----------------------------------------------------------------------------
@@ -4652,7 +4894,7 @@ def _mesh_results(gp, gnp, torch, mesh, n, block):
     return out, {"value+grad": t_vg, "predict": t_p, "loo": t_l}
 
 
-def _gloo_rank(rank, world, port, queue, n, block, device):
+def _gloo_rank(rank, world, port, queue, n, block, device, dp):
     """One rank of phase 3h: gloo on the one card."""
     import datetime
     import traceback
@@ -4684,6 +4926,16 @@ def _gloo_rank(rank, world, port, queue, n, block, device):
         res["probe"], res["walls"], res["mesh"] = probe, walls, repr(mesh)
         res["k9s"] = ochol.K9S_LAUNCHES
         res["comm"] = {k: (comm.CALLS[k], comm.BYTES[k]) for k in comm.CALLS}
+        # phase 3j's data-parallel REMAP criterion, this rank's share of the batches
+        gp.config.set_chol_engine("auto")
+        dp_mesh = gp.parallel.make_mesh(world)
+        xb, zb = gp.parallel.shard_batches(dp["x"], dp["z"], PHASE3J_GLOO_BATCHES, mesh=dp_mesh)
+        crit = _remap_criterion(gp, gnp, dp["args"])
+        model = _model(gp, gnp)
+        vg = gp.parallel.make_data_parallel_criterion(
+            lambda p, x, z: crit(model, p, x, z), dp_mesh)
+        v, g = vg(dp["p"], xb, zb)
+        res["dp"] = (float(v), g.cpu().numpy(), int(xb.shape[0]))
         queue.put((rank, res))
     except BaseException:  # noqa: BLE001  (the parent fails the phase with it)
         queue.put((rank, traceback.format_exc()))
@@ -4692,9 +4944,11 @@ def _gloo_rank(rank, world, port, queue, n, block, device):
             dist.destroy_process_group()
 
 
-def phase_group_gloo(gp, gnp, torch):
+def phase_group_gloo(gp, gnp, torch, dp_ref):
     """Phase 3h: two ranks on the one card over gloo (spawned), n =
-    GROUP_GLOO_N, against the one-card resident path on the same card."""
+    GROUP_GLOO_N, against the one-card resident path on the same card; and
+    phase 3j's data-parallel REMAP criterion over PHASE3J_GLOO_BATCHES
+    batches, half a rank, against its one-card value (``dp_ref``)."""
     import multiprocessing as mp
     import queue as _queue
 
@@ -4711,7 +4965,8 @@ def phase_group_gloo(gp, gnp, torch):
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     port = _free_port()
-    procs = [ctx.Process(target=_gloo_rank, args=(r, world, port, q, n, block, DEVICE))
+    dp = {k: dp_ref[k] for k in ("args", "p", "x", "z")}
+    procs = [ctx.Process(target=_gloo_rank, args=(r, world, port, q, n, block, DEVICE, dp))
              for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
@@ -4747,6 +5002,19 @@ def phase_group_gloo(gp, gnp, torch):
     check(r0["k9s"] > 0 and r1["k9s"] > 0, "K9s was not launched on both gloo ranks")
     check(same, "the two ranks' replicated results differ")
     check(max(errs.values()) <= TOL_GROUP["gloo"], "the gloo group against the one-card path")
+    (v0, g0, nb0), (v1, g1, nb1) = r0["dp"], r1["dp"]
+    dp_errs = {"value": abs(v0 - dp_ref["value"]) / abs(dp_ref["value"]),
+               "grad": rel_err_np(g0, dp_ref["grad"])}
+    dp_same = v0 == v1 and np.array_equal(g0, g1)
+    say(f"[phase 3h] data-parallel REMAP criterion, {PHASE3J_GLOO_BATCHES} batches of "
+        f"{PHASE3J_N // PHASE3J_GLOO_BATCHES} ({nb0}/{nb1} a rank): against one card value "
+        f"{dp_errs['value']:.2e}, grad {dp_errs['grad']:.2e} (tol {TOL_3J['dp']}); the ranks "
+        f"bitwise equal {dp_same}")
+    check(nb0 == nb1 == PHASE3J_GLOO_BATCHES // world, "each rank's share of the batches")
+    check(dp_same, "the two ranks' data-parallel criteria differ")
+    check(max(dp_errs.values()) <= TOL_3J["dp"], "the data-parallel criterion on the gloo ranks "
+          "against one card")
+    errs.update({f"data-parallel {k}": v for k, v in dp_errs.items()})
     say(f"[phase 3h] phase seconds {time.perf_counter() - t_phase:.1f}")
     return errs
 
@@ -5257,6 +5525,8 @@ def main():
     launches, main_data, t_first, fit = phase_main_path(gp, gnp, gram, torch)
     diag_launches, diag_walls, diag_errs = phase_diagnosis(
         gp, gnp, gram, distance, mixed, refine, torch, main_data, fit)
+    remap_launches, remap_walls, remap_errs, dp_ref = phase_remap(
+        gp, gnp, gram, distance, mixed, refine, torch, card)
     slice_launches, slice_data, t_slice_first, k6 = phase_slice(
         gp, gnp, gram, distance, mixed, refine, torch)
     launches.update(slice_launches)
@@ -5275,7 +5545,7 @@ def main():
     launches["K9s"] = grp_launches["K9s"]
     launches["K9s f32"] = grp_launches["K9s f32"]
     launches["K4s"] = grp_launches["K4s"]
-    gloo_errs = phase_group_gloo(gp, gnp, torch)
+    gloo_errs = phase_group_gloo(gp, gnp, torch, dp_ref)
     times, rates, t_warm = phase_times(gp, gnp, gram, torch, main_data)
     mtimes, mrates, mem, t_slice_warm, k3_extra = phase_mixed_times(gp, gnp, gram, mixed, torch,
                                                                     slice_data)
@@ -5310,6 +5580,7 @@ def main():
         "fit_predict_s": {"first": t_first, "warm": t_warm},
         "diagnosis_3i": {"wall_s": diag_walls, "launches": diag_launches,
                          "rel_err_vs_cpu": diag_errs},
+        "remap_3j": {"walls": remap_walls, "launches": remap_launches, "errs": remap_errs},
         "reml_value_grad_evals_per_s": {f"n={n} {k}": v for (n, k), v in rates.items()},
         "noisy_fit_loo_predict_s": {"mixed first": t_slice_first, "mixed warm": t_slice_warm},
         "noisy_reml_value_grad_evals_per_s": {f"n={n} {e}": v for (n, e), v in mrates.items()},

@@ -31,6 +31,7 @@ __all__ = [
     "num",
     "kernel",
     "core",
+    "dataloader",
     "modeldiagnosis",
     "parameter",
     "misc",
@@ -43,8 +44,8 @@ __all__ = [
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES: Final[set] = {
-    "num", "kernel", "modeldiagnosis", "parameter", "misc", "plot", "ops", "interop",
-    "parallel",
+    "num", "kernel", "dataloader", "modeldiagnosis", "parameter", "misc", "plot", "ops",
+    "interop", "parallel",
 }
 
 

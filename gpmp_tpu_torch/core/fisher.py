@@ -7,6 +7,13 @@ JAX package takes them by forward mode, and here they are p reverse passes
 through the covariance's double backward (``_dK_stack``), which the gram
 kernels' Functions have (ops/autograd.py).  ``epsilon`` is kept for the
 API and used only by the finite-difference variant ``fisher_information_fd``.
+
+``fisher_information`` given a covparam that requires grad (grad mode on)
+returns a differentiable result: dK/dtheta keeps its graph, so its gradient
+is a third derivative of the covariance, which the gram Functions give
+through their plain composition (the reference prior
+``kernel.priors.log_prior_reference`` differentiates it).  Otherwise the
+result is computed without a graph.
 """
 
 import numpy as np
@@ -17,15 +24,17 @@ from .linalg import compute_contrast_matrix
 from .utils import meanparam_of
 
 
-def _dK_stack(model, xi, theta):
-    """dK/dtheta as a (p, n, n) stack.
+def _dK_stack(model, xi, theta, create_graph=False):
+    """dK/dtheta as a (p, n, n) stack; with ``create_graph`` it keeps its
+    graph to ``theta`` (which then requires grad), else it is detached.
 
     The vjp g(V) = sum_ab V_ab dK_ab/dtheta is linear in the cotangent V, so
     the gradient of its k-th entry with respect to V is dK/dtheta_k: one
     reverse pass of the double backward per parameter, never a Jacobian
     over the n^2 entries of K.
     """
-    theta = theta.detach().requires_grad_(True)
+    if not create_graph:
+        theta = theta.detach().requires_grad_(True)
     with torch.enable_grad():
         K = model.covariance(xi, xi, theta)
         V = torch.zeros_like(K, requires_grad=True)
@@ -33,9 +42,11 @@ def _dK_stack(model, xi, theta):
         p = theta.shape[0]
         rows = []
         for k in range(p):
-            (dK,) = torch.autograd.grad(g[k], V, retain_graph=k < p - 1, allow_unused=True)
+            (dK,) = torch.autograd.grad(g[k], V, retain_graph=create_graph or k < p - 1,
+                                        create_graph=create_graph, allow_unused=True)
             rows.append(torch.zeros_like(K) if dK is None else dK)
-    return torch.stack(rows).detach()
+    dK = torch.stack(rows)
+    return dK if create_graph else dK.detach()
 
 
 def _half_trace_products(F, dA):
@@ -51,6 +62,10 @@ def _theta(model, covparam):
 def fisher_information(model, xi, covparam=None, epsilon=1e-3):
     """I_ij = 0.5 Tr(K^{-1} dK_i K^{-1} dK_j) with exact autodiff dK."""
     theta, xi = _theta(model, covparam), gnp._tensor(xi)
+    if torch.is_grad_enabled() and theta.requires_grad:
+        K = model.covariance(xi, xi, theta)
+        dK = _dK_stack(model, xi, theta, create_graph=True)
+        return _half_trace_products(gnp.cholesky(K), dK)
     with torch.no_grad():
         K = model.covariance(xi, xi, theta)
     return _half_trace_products(gnp.cholesky(K), _dK_stack(model, xi, theta))

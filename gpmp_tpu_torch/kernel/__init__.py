@@ -1,6 +1,8 @@
 # gpmp_tpu_torch/kernel/__init__.py
-"""GP kernels and parameter selection (counterpart of gpmp_tpu/kernel;
-REMAP, priors and bounds factories are not ported yet)."""
+"""GP kernels and parameter selection (counterpart of gpmp_tpu/kernel):
+the covariance functions, the initial guesses, the selection criteria and
+procedures (ML, REML, REMAP), the priors, their defaults and the empirical
+bounds."""
 
 from .exponential import exponential_kernel
 from .matern import (
@@ -27,7 +29,31 @@ from .parameter_selection import (
     update_parameters_with_ml_constant_mean,
     select_parameters_with_reml,
     update_parameters_with_reml,
+    select_parameters_with_remap_with_power_laws_prior,
+    update_parameters_with_remap_with_power_laws_prior,
+    select_parameters_with_remap,
+    update_parameters_with_remap,
+    select_parameters_with_remap_gaussian_logsigma2,
+    update_parameters_with_remap_gaussian_logsigma2,
+    select_parameters_with_remap_gaussian_logsigma2_and_logrho_prior,
+    update_parameters_with_remap_gaussian_logsigma2_and_logrho_prior,
 )
+from .prior_helpers import compute_logrho_min_from_xi
+from .priors import (
+    log_prior_jeffreys_variance,
+    log_prior_power_law,
+    log_prior_gaussian_logsigma2,
+    neglog_f_logrho,
+    log_prior_logrho_barrier_linear,
+    log_prior_reference,
+    neg_log_restricted_posterior_with_jeffreys_prior,
+    neg_log_restricted_posterior_power_laws_prior,
+    neg_log_restricted_posterior_logsigma2_prior,
+    neg_log_restricted_posterior_with_logrho_prior,
+    neg_log_restricted_posterior_logsigma2_and_logrho_prior,
+)
+from .bounds import empirical_bounds_factory
+from . import bounds, prior_defaults, prior_helpers, priors  # noqa: F401
 
 __all__ = [
     "exponential_kernel",
@@ -50,4 +76,26 @@ __all__ = [
     "update_parameters_with_ml_constant_mean",
     "select_parameters_with_reml",
     "update_parameters_with_reml",
+    "select_parameters_with_remap_with_power_laws_prior",
+    "update_parameters_with_remap_with_power_laws_prior",
+    "select_parameters_with_remap",
+    "update_parameters_with_remap",
+    "select_parameters_with_remap_gaussian_logsigma2",
+    "update_parameters_with_remap_gaussian_logsigma2",
+    "select_parameters_with_remap_gaussian_logsigma2_and_logrho_prior",
+    "update_parameters_with_remap_gaussian_logsigma2_and_logrho_prior",
+    "compute_logrho_min_from_xi",
+    "log_prior_jeffreys_variance",
+    "log_prior_power_law",
+    "log_prior_gaussian_logsigma2",
+    "neglog_f_logrho",
+    "log_prior_logrho_barrier_linear",
+    "log_prior_reference",
+    "neg_log_restricted_posterior_with_jeffreys_prior",
+    "neg_log_restricted_posterior_power_laws_prior",
+    "neg_log_restricted_posterior_logsigma2_prior",
+    "neg_log_restricted_posterior_with_logrho_prior",
+    "neg_log_restricted_posterior_logsigma2_and_logrho_prior",
+    "empirical_bounds_factory",
+    "prior_defaults",
 ]

@@ -1,6 +1,8 @@
 # gpmp_tpu_torch/parallel/__init__.py
 """gpmp_tpu.parallel on PyTorch: meshes (one card, or the ranks of a
-torch.distributed process group); the blocked Cholesky with refined panels
+torch.distributed process group); the data-parallel batched criterion
+(``make_data_parallel_criterion`` over ``shard_batches``' stacked
+batches); the blocked Cholesky with refined panels
 and its solves (K8/K9; on a group mesh the row-sharded factor with K9s);
 the row-sharded gram and matvec; the large-n likelihoods on the resident
 branch (the blocked f64 Cholesky or the sharded mixed engine) and on the
@@ -13,12 +15,12 @@ solves, ``sharded_gram``, ``sharded_matvec``, ``sharded_covariance``,
 ``sharded_cross_covariance``) take and return this rank's row slab; the
 criteria, predict, kriging weights, sample paths, LOO and the view take
 replicated inputs and return the same replicated results on every rank.
-
-Not ported yet: the data-parallel batched criteria (ROADMAP queue 1 item
-9).
+``shard_batches`` gives this rank's share of the batches, and
+``make_data_parallel_criterion`` the replicated value and gradient.
 """
 
 from .mesh import default_mesh, make_mesh
+from .batched import make_data_parallel_criterion, shard_batches
 from .chol import (
     blocked_solve_lower,
     blocked_solve_upper_t,
@@ -46,6 +48,8 @@ from .view import ShardedModelView, auto_shard_block
 __all__ = [
     "make_mesh",
     "default_mesh",
+    "make_data_parallel_criterion",
+    "shard_batches",
     "sharded_cholesky",
     "sharded_cholesky_solve",
     "sharded_solve_and_logdet",

@@ -40,6 +40,11 @@ SUBMODULES = (
     "gpmp_tpu_torch.kernel.init",
     "gpmp_tpu_torch.kernel.utils",
     "gpmp_tpu_torch.kernel.parameter_selection",
+    "gpmp_tpu_torch.kernel.bounds",
+    "gpmp_tpu_torch.kernel.priors",
+    "gpmp_tpu_torch.kernel.prior_defaults",
+    "gpmp_tpu_torch.kernel.prior_helpers",
+    "gpmp_tpu_torch.dataloader",
     "gpmp_tpu_torch.core",
     "gpmp_tpu_torch.core.model",
     "gpmp_tpu_torch.core.kriging",
@@ -72,6 +77,7 @@ SUBMODULES = (
     "gpmp_tpu_torch.parallel.mixed",
     "gpmp_tpu_torch.parallel.predict",
     "gpmp_tpu_torch.parallel.loo",
+    "gpmp_tpu_torch.parallel.batched",
 )
 
 
@@ -105,6 +111,8 @@ EXAMPLE_TWINS = (
     "examples.gpmp_tpu_torch_example03_2d",
     "examples.gpmp_tpu_torch_example04_nd",
     "examples.gpmp_tpu_torch_example07_nd_regression",
+    "examples.gpmp_tpu_torch_example20_1d_interpolation_variation_remap",
+    "examples.gpmp_tpu_torch_example30_dataloader",
 )
 PLOTTING = ("gpmp_tpu_torch.plot", "gpmp_tpu_torch.plot.plotutils",
             "gpmp_tpu_torch.modeldiagnosis.plotting")
@@ -204,19 +212,22 @@ def test_params_from_numpy():
 
 
 def test_unported_options_raise():
+    """The refusals of the selection procedures' options (name kept from when
+    lbfgs-device and dataloader sources were not ported: they are now,
+    tests/test_torch_remap.py): exactly one data source, arrays or a
+    dataloader; a mesh of make_mesh only."""
     gp = gpmp_tpu_torch
     model = gp.Model(lambda x, p: torch.ones((x.shape[0], 1), dtype=torch.float64),
                      lambda x, y, c, pairwise=False: None)
     xi = np.zeros((3, 1))
     zi = np.zeros(3)
-    with pytest.raises(NotImplementedError, match="lbfgs-device"):
-        gp.kernel.select_parameters_with_reml(model, xi, zi, covparam0=np.zeros(2),
-                                              method="lbfgs-device")
+    with pytest.raises(ValueError, match="not both"):
+        gp.kernel.select_parameters_with_reml(model, xi, zi, dataloader=object(),
+                                              covparam0=np.zeros(2))
     # any make_mesh mesh is taken now (one card, or a process group's ranks:
     # tests/test_torch_mesh.py); anything else is refused
     with pytest.raises(TypeError, match="mesh"):
         gp.kernel.select_parameters_with_reml(model, xi, zi, covparam0=np.zeros(2),
                                               mesh=object())
-    with pytest.raises(NotImplementedError, match="dataloader"):
-        gp.kernel.select_parameters_with_reml(model, dataloader=object(),
-                                              covparam0=np.zeros(2))
+    with pytest.raises(ValueError, match=r"Provide either \(xi, zi\) or dataloader\.$"):
+        gp.kernel.select_parameters_with_reml(model, xi, covparam0=np.zeros(2))

@@ -19,7 +19,9 @@ Tolerances, each with its reason:
   factorization): 1e-10;
 - sample paths: the factor's own draws exactly (L eps from the same
   generator), and the empirical covariance of 20000 paths within 5 standard
-  errors of K.
+  errors of K;
+- REMAP's mesh mode against the port's dense REMAP (the fitted criteria
+  1e-9, covparam 1e-4: the criterion's flatness).
 """
 
 import jax
@@ -46,6 +48,7 @@ import gpmp_tpu_torch as tgp
 import gpmp_tpu_torch.kernel  # noqa: F401
 import gpmp_tpu_torch.num as tgnp
 from gpmp_tpu_torch import config
+from gpmp_tpu_torch.dataloader import DataLoader, Dataset
 from gpmp_tpu_torch.parallel import (
     ShardedModelView,
     make_mesh,
@@ -312,3 +315,34 @@ def test_factor_refuses_gradient(data, engine):
     zpm, _zpv = sharded_predict(tmodel, xi, zi, xt, mesh, block=BLOCK, factor=L)
     with pytest.raises(ValueError, match="factor="):
         torch.autograd.grad(zpm.sum(), p)
+
+
+def test_remap_mesh_mode_matches_dense():
+    """REMAP through the one-card mesh (ShardedModelView, panels of 64, the
+    anchor from the mesh mode's subsampled guess) against the port's dense
+    REMAP: the fitted criteria to 1e-9, covparam at the criterion's flatness
+    (1e-4); a mesh with a dataloader is refused."""
+    rng = np.random.default_rng(0)
+    n = 128
+    xi = rng.uniform(size=(n, 2))
+    zi = np.sin(4 * xi[:, 0]) + 0.7 * np.cos(6 * xi[:, 1]) + 0.05 * rng.normal(size=n)
+
+    def model():
+        def mean(x, p):
+            return tgnp.ones((x.shape[0], 1))
+
+        def kernel(x, y, c, pairwise=False):
+            return tgp.kernel.maternp_covariance(x, y, 2, c, pairwise)
+
+        return tgp.Model(mean, kernel)
+
+    m1, i1 = tgp.kernel.select_parameters_with_remap(model(), xi, zi, info=True)
+    m2, i2 = tgp.kernel.select_parameters_with_remap(
+        model(), xi, zi, info=True, mesh=make_mesh(1, axis_name="shard"), shard_block=64)
+    assert not isinstance(m2, ShardedModelView)
+    assert abs(i1.fun - i2.fun) <= 1e-9 * abs(i1.fun)
+    np.testing.assert_allclose(tgnp.to_np(m2.covparam), tgnp.to_np(m1.covparam), atol=1e-4)
+    loader = DataLoader(Dataset(xi, zi), 64)
+    for proc in ("select_parameters_with_remap", "select_parameters_with_reml"):
+        with pytest.raises(ValueError, match="mesh mode takes arrays"):
+            getattr(tgp.kernel, proc)(model(), dataloader=loader, mesh=make_mesh(1))
