@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of gpmp_tpu_torch on one CUDA card: REML fit + predict, its
-diagnosis, a batched REMAP fit through a DataLoader, noisy REML fit + LOO +
+diagnosis, a batched REMAP fit through a DataLoader, MH and NUTS on a REMAP
+posterior, noisy REML fit + LOO +
 predict on the mixed Cholesky engine, conditional sample paths, large-n REML on the streamed engine through a one-card mesh, the
 mesh's resident branch (the blocked Cholesky with refined panels: fit,
 predict, LOO, the sharded mixed engine, n = 51200 parity), the repaired
@@ -216,6 +217,31 @@ non-zero):
    criterion's value and gradient at a fixed p 1e-10, the fitted criteria
    1e-9, covparam 1e-4 (SciPy's flatness). Walls, nfev and ms per
    evaluation printed beside the card's name and power limit.
+3k. The posterior samplers (example23's flow at the example's own width
+   and budget, PHASE3K): twobumps at ni = 10, d = 1, Matern p = 3, seed 0;
+   select_parameters_with_remap, then sample_from_selection_criterion_mh
+   (3000 steps, 1200 of burn-in, 2 chains) and _nuts (400 samples after
+   300 of warmup, 2 chains), on the card with the launch counters reset
+   just before and every plain version raising on CUDA tensors (the log
+   target and its value+grad replay CUDA graphs: every MH evaluation and
+   NUTS leaf must).  The same NUTS run (nuts_sample) and an MH run of 1000
+   steps with the entry point's options are stopped by their log target
+   just after their first checkpoint (half way) and resumed (nuts_resume;
+   restore_checkpoint, continue_run): both bitwise their uninterrupted
+   runs.  Then on the CPU from the card's MAP: the REMAP covparam (1e-10),
+   the log target at the MAP and 8 points around it (1e-11, the
+   criterion's f64 floor here, TOL_3K), the MH chains of one seed at every
+   step (1e-9, the accept flags identical); the NUTS run's 798
+   sampling-phase transitions run again through nuts_transition from its
+   states with seeded generators, on the card and on the CPU (q_new 1e-9,
+   accept_stat 1e-10; n_leapfrog, depth and divergent identical).  K1 and
+   K2 launched, K1d and K1m not; the samples finite.  The samplers under
+   the mixed engine at n = 256 (phase 3b's data and user kernel, REML):
+   the log target not captured (no graph replay; the engine reads the card
+   back), its kernels launched, the samples finite, the log target at p0
+   within 1e-6 of the f64 engine's.  Printed beside the card's name and
+   power limit: MH steps/s, NUTS transitions/s, ms per value+grad and per
+   value, the walls on the card and on the CPU.
 4. Times on the card (CUDA events / synchronised host clock): K1 and K2 at
    n = 1000 and 8192 (x is y) and 1000 x 1000 (cross), d = 6, p = 2: events,
    device time warm and with L2 flushed, host issue per call, the byte
@@ -317,8 +343,10 @@ the H100 SXM's data-sheet peaks (PEAK_*); the last line is
 """
 
 import contextlib
+import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -344,6 +372,23 @@ PHASE3I_POINTS = 50
 # the loader's on the same batches
 PHASE3J_N, PHASE3J_BATCH, PHASE3J_LOO, PHASE3J_GLOO_BATCHES = 1000, 200, 400, 4
 TOL_3J = {"fixed": 1e-10, "fit": 1e-9, "param": 1e-4, "dp": 1e-12}
+# phase 3k: example23's flow at the example's own width and budget
+PHASE3K = {"ni": 10, "n_steps_total": 3000, "burnin": 1200, "num_samples": 400,
+           "num_warmup": 300, "seed": 0, "max_depth": 10, "delta_max": 1000.0,
+           "ckpt_steps": 1000, "ckpt_burnin": 400, "ckpt_blocks": 10,
+           # the mixed engine's case: n (>= 192, where it engages), MH steps
+           # (half of them burn-in), NUTS samples after as many of warmup
+           "mixed_n": 256, "mixed_mh_steps": 200, "mixed_nuts": 10}
+# the log target card vs CPU, relative to max(1, |value|): the REMAP
+# criterion's f64 floor at this data, not 1e-12: the card's and the CPU's
+# factorizations of the same gram differ at ~3e-12; gpmp_tpu's own two
+# criteria differ by up to 2.4e-12 at these points, and the port and
+# gpmp_tpu on the CPU by up to 8.3e-12 (tests/test_torch_mcmc.py's
+# test_remap_criteria_probe)
+TOL_3K = {"covparam": 1e-10, "log_target": 1e-11, "mh": 1e-9, "nuts": 1e-9,
+          # NUTS accept_stat averages exp(-(H1 - H0)) over a tree's leaves:
+          # the log target's floor above, summed over up to 2^10 leaves
+          "accept_stat": 1e-10}
 DEVICE_MS_ATTEMPTS = 6  # profiler windows _device_ms takes to find a whole one
 DEVICE_MS_PAD = 32      # spin kernels ahead of _device_ms's launches
 L2_FLUSH_BYTES = 64 << 20  # a copy larger than the H100's 50 MB L2, between cold launches
@@ -1131,6 +1176,379 @@ def phase_remap(gp, gnp, gram, distance, mixed, refine, torch, card):
     ref = {"args": args, "p": p_a, "x": x30, "z": z30, "value": card_out["(d) 4 batches"][0],
            "grad": card_out["(d) 4 batches"][1]}
     return launches, {"card": t_card, "cpu": t_cpu, **card_walls}, errs, ref
+
+
+def _posterior_points(map_p):
+    """The MAP and 8 fixed points around it (radius 0.5, every 45 degrees)."""
+    angles = np.arange(8) * np.pi / 4
+    return [np.asarray(map_p, dtype=float)] + [
+        np.asarray(map_p, dtype=float) + 0.5 * np.array([np.cos(a), np.sin(a)]) for a in angles]
+
+
+class _Interrupted(Exception):
+    """A sampler stopped on purpose just after a checkpoint."""
+
+
+class _StopAfterCheckpoint:
+    """A log target that stops its sampler at its first evaluation once the
+    checkpoint file exists: a run interrupted just after its first
+    checkpoint.  Evaluations go to ``log_prob`` (and its own
+    ``potential_and_grad``, the captured graphs)."""
+
+    def __init__(self, log_prob, path):
+        self.log_prob, self.path = log_prob, path
+
+    def _check(self):
+        if os.path.exists(self.path):
+            raise _Interrupted(self.path)
+
+    def __call__(self, q):
+        self._check()
+        return self.log_prob(q)
+
+    def potential_and_grad(self, q):
+        self._check()
+        return self.log_prob.potential_and_grad(q)
+
+
+def _nuts_rerun(gp, gnp, torch, log_prob, samples, info):
+    """The sampling phase's transitions run again one by one through the
+    public nuts_transition, each from the run's own state (the sample of
+    step t - 1 to step t, chain by chain), at the run's final step size and
+    mass, with a generator seeded by (t, chain): the same inputs and draws
+    on any device.  ``samples`` (num_samples, chains, dim)."""
+    n, chains, _dim = samples.shape
+    imd = gnp.asarray(1.0 / np.asarray(info["mass_diag_final"], dtype=float))
+    out = []
+    for t in range(1, n):
+        for c in range(chains):
+            q, a, nlf, depth, div = gp.mcmc.nuts_transition(
+                log_prob, gnp.asarray(samples[t - 1, c]), info["step_size_final"], imd,
+                PHASE3K["max_depth"], PHASE3K["delta_max"],
+                generator=torch.Generator().manual_seed(t * chains + c))
+            out.append((gnp.to_np(q), a, nlf, depth, div))
+    return out
+
+
+def _posterior_flow(gp, gnp, torch, on_card, tmp, counters=None, start=None, rerun=None):
+    """Phase 3k's flow on the configured device: example23's REMAP fit,
+    the log target at the MAP and around it, adaptive MH and NUTS through
+    the param_posterior entry points.  On the card a NUTS run and an MH run
+    are interrupted just after their first checkpoint (half way) and
+    resumed, and the NUTS run's sampling-phase transitions are run again
+    from its states (``_nuts_rerun``).  On the CPU (``start``: the card's
+    MAP, where its samplers start) MH runs whole, and ``rerun`` (the card's
+    NUTS samples and final step size and mass) is run again from the same
+    states: a NUTS run amplifies rounding (its U-turn and adoption
+    decisions flip on a change in the last bits, and the trees part), so
+    two devices' NUTS are compared one transition at a time."""
+    import gpmp_tpu_torch.mcmc  # noqa: F401
+    from gpmp_tpu_torch.mcmc import nuts as mnuts
+    from gpmp_tpu_torch.mcmc import param_posterior as pp
+
+    P = PHASE3K
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out, walls = {}, {}
+
+    def stage(name):
+        sync()
+        walls[name] = time.perf_counter() - t0
+        if counters is not None:
+            out[f"launches {name}"] = _read(counters)
+            _reset(counters)
+
+    def mean(x, param):
+        return gnp.ones((x.shape[0], 1))
+
+    def kernel(x, y, covparam, pairwise=False):
+        return gp.kernel.maternp_covariance(x, y, 3, covparam, pairwise)
+
+    xi = gp.misc.designs.ldrandunif(1, P["ni"], [[-1], [1]], seed=P["seed"])
+    zi = gp.misc.testfunctions.twobumps(xi)
+    if counters is not None:
+        _reset(counters)
+    t0 = time.perf_counter()
+    model, info = gp.kernel.select_parameters_with_remap(gp.Model(mean, kernel), xi, zi,
+                                                         info=True)
+    stage("REMAP")
+    map_p = np.asarray(gnp.to_np(info["covparam"]), dtype=float)
+    out["map"], out["nfev"] = map_p, int(info.nfev)
+    init = map_p if start is None else start
+    lp_mh = pp._make_log_prob(pp._resolve_selection_criterion(
+        info, None, require_differentiable=False), None, None)
+    lp_nuts = pp._make_log_prob(pp._resolve_selection_criterion(
+        info, None, require_differentiable=True), None, None)
+    with torch.no_grad():
+        out["log_target"] = [float(lp_mh(gnp.asarray(p))) for p in _posterior_points(init)]
+        K = model.covariance(gnp.asarray(xi), gnp.asarray(xi), gnp.asarray(init))
+        out["cond K"] = float(torch.linalg.cond(K.cpu()))
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # the burn-in's diagnostics
+        s_mh, mh = gp.mcmc.sample_from_selection_criterion_mh(
+            info=info, param_initial_states=init, n_steps_total=P["n_steps_total"],
+            burnin_period=P["burnin"], n_chains=2, silent=True, plot_chains=False,
+            plot_empirical_distributions=False, seed=P["seed"])
+    stage("MH")
+    out["mh"] = (mh.x.copy(), mh.accept.copy(), mh.burnin_period)
+    out["mh_samples"] = gnp.to_np(s_mh)
+
+    if not on_card:
+        t0 = time.perf_counter()
+        out["nuts rerun"] = _nuts_rerun(gp, gnp, torch, lp_nuts, *rerun)
+        stage("NUTS rerun")
+        return out, walls
+
+    nuts_kw = dict(num_warmup=P["num_warmup"], target_accept=0.8,
+                   max_depth=P["max_depth"], delta_max=P["delta_max"], seed=P["seed"],
+                   progress=False, verbose=0)
+    t0 = time.perf_counter()
+    s_nuts, info_nuts = gp.mcmc.sample_from_selection_criterion_nuts(
+        info=info, param_initial_states=init, num_samples=P["num_samples"], n_chains=2,
+        **nuts_kw)
+    stage("NUTS")
+    s_nuts = np.swapaxes(gnp.to_np(s_nuts), 0, 1)  # (num_samples, chains, dim)
+    out["nuts"] = (s_nuts, info_nuts)
+    t0 = time.perf_counter()
+    out["nuts rerun"] = _nuts_rerun(gp, gnp, torch, lp_nuts, s_nuts, info_nuts)
+    stage("NUTS rerun")
+
+    # the same NUTS run (nuts_sample, as the entry point calls it) stopped
+    # just after its checkpoint half way through the sampling phase, then
+    # resumed from that checkpoint
+    path = os.path.join(tmp, "nuts.npz")
+    t0 = time.perf_counter()
+    try:
+        gp.mcmc.nuts_sample(
+            _StopAfterCheckpoint(lp_nuts, path), np.tile(init, (2, 1)), P["num_samples"],
+            options=gp.mcmc.NUTSOptions(checkpoint_path=path,
+                                        checkpoint_every=P["num_samples"] // 2), **nuts_kw)
+        fail("phase 3k: the NUTS run was not interrupted at its checkpoint")
+    except _Interrupted:
+        pass
+    stage("NUTS interrupted")
+    t0 = time.perf_counter()
+    s_res, info_res = gp.mcmc.nuts_resume(lp_nuts, path, verbose=0)
+    stage("NUTS resumed")
+    out["nuts resumed"] = (gnp.to_np(s_res), info_res)
+
+    # an MH run with the entry point's options, whole and stopped just after
+    # its first checkpoint (ckpt_blocks adaptation blocks), then resumed
+    path = os.path.join(tmp, "mh.npz")
+    whole = dataclasses.replace(mh.options, init_msg=None)
+    stopped = dataclasses.replace(whole, checkpoint_path=path,
+                                  checkpoint_every=P["ckpt_blocks"])
+    mh_w = gp.mcmc.MetropolisHastings(lp_mh, options=whole)
+    mh_s = gp.mcmc.MetropolisHastings(_StopAfterCheckpoint(lp_mh, path), options=stopped)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        mh_w.scheduler(init, P["ckpt_steps"], P["ckpt_burnin"])
+        try:
+            mh_s.scheduler(init, P["ckpt_steps"], P["ckpt_burnin"])
+            fail("phase 3k: the MH run was not interrupted at its checkpoint")
+        except _Interrupted:
+            pass
+    stage("MH whole and interrupted")
+    mh_r = gp.mcmc.MetropolisHastings(lp_mh, options=whole)
+    mh_r.restore_checkpoint(path)
+    out["mh resumed from"] = mh_r.global_iter
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        mh_r.continue_run()
+    stage("MH resumed")
+    out["mh whole"] = (mh_w.x.copy(), mh_w.accept.copy())
+    out["mh resumed"] = (mh_r.x.copy(), mh_r.accept.copy())
+
+    # ms per NUTS value+grad and per log-target value, each read back (as a
+    # leaf and an MH block's first evaluation are)
+    q = gnp.asarray(map_p)
+    reps = 100
+    for name, fn in (("ms per value+grad", lambda: mnuts.potential_and_grad(lp_nuts, q)[0]),
+                     ("ms per value", lambda: lp_mh(q))):
+        with torch.no_grad() if name == "ms per value" else contextlib.nullcontext():
+            for _ in range(5):
+                float(fn())
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                float(fn())
+        out[name] = (time.perf_counter() - t0) / reps * 1e3
+    if counters is not None:
+        _reset(counters)
+    return out, walls
+
+
+def _posterior_mixed(gp, gnp, torch, pp, counters):
+    """The samplers on the card under the mixed Cholesky engine at n =
+    PHASE3K["mixed_n"] (>= 192, where it engages): phase 3b's data and user
+    kernel at its p0, REML through the param_posterior entry points (a
+    short MH and NUTS run, 2 chains).  The engine reads the card back during
+    an evaluation, so the log target is not captured as a graph: it must
+    run as written, launch the engine's kernels, and give finite samples;
+    its value at p0 is held to the f64 engine's (TOL_SLICE["reml"])."""
+    P = PHASE3K
+    xi, zi, p0 = _bench_data(P["mixed_n"])
+    crit = gp.kernel.make_selection_criterion_with_gradient(
+        _bench_model(gp, gnp), gp.kernel.negative_log_restricted_likelihood,
+        gnp.asarray(xi), gnp.asarray(zi))[0]
+    values = {}
+    try:
+        for engine in ("auto", "mixed"):
+            gp.config.set_chol_engine(engine)
+            lp = pp._make_log_prob(pp._resolve_selection_criterion(
+                None, crit, require_differentiable=False), None, None)
+            with torch.no_grad():
+                values[engine] = float(lp(gnp.asarray(p0)))
+        replays = pp.GRAPH_REPLAYS
+        _reset(counters)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            s_mh, _mh = gp.mcmc.sample_from_selection_criterion_mh(
+                selection_criterion=crit, param_initial_states=p0,
+                n_steps_total=P["mixed_mh_steps"], burnin_period=P["mixed_mh_steps"] // 2,
+                n_chains=2, silent=True, plot_chains=False,
+                plot_empirical_distributions=False, seed=P["seed"])
+            s_nuts, info_nuts = gp.mcmc.sample_from_selection_criterion_nuts(
+                selection_criterion=crit, param_initial_states=p0,
+                num_samples=P["mixed_nuts"], num_warmup=P["mixed_nuts"], n_chains=2,
+                seed=P["seed"], progress=False, verbose=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        gp.config.set_chol_engine("auto")
+    return {"values": values, "launches": _read(counters), "wall": wall,
+            "graph replays": pp.GRAPH_REPLAYS - replays,
+            "samples": (gnp.to_np(s_mh), gnp.to_np(s_nuts)),
+            "leapfrogs": int(info_nuts["n_leapfrog"].sum()
+                             + info_nuts["warmup_n_leapfrog"].sum())}
+
+
+def phase_posterior(gp, gnp, gram, distance, mixed, refine, torch, card):
+    """Phase 3k: example23's flow (REMAP, adaptive MH, NUTS, checkpoint and
+    resume) on the card with the plain versions raising on CUDA tensors,
+    then on the CPU from the card's MAP; the samplers on the card under the
+    mixed engine (not captured); gates at TOL_3K."""
+    import tempfile
+
+    from gpmp_tpu_torch.mcmc import param_posterior as pp
+
+    counters = {"K1": (gram, "K1_LAUNCHES"), "K2": (gram, "K2_LAUNCHES"),
+                "K1d": (distance, "K1D_LAUNCHES"), "K1m": (gram, "K1M_LAUNCHES"),
+                "graph replays": (pp, "GRAPH_REPLAYS")}
+    P = PHASE3K
+    gp.config.set_device(DEVICE)
+    gp.config.set_chol_engine("auto")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with _PlainGuard(gram, distance, mixed, refine):
+            card_out, card_walls = _posterior_flow(gp, gnp, torch, True, tmp, counters)
+        t_card = time.perf_counter() - t0
+    mixed_counters = {k: v for k, v in _counters(gram, distance, mixed, refine).items()
+                      if k in ("K1d", "K1m", "K3", "K4", "K5", "K6", "K7")}
+    with _PlainGuard(gram, distance, mixed, refine):
+        mixed_out = _posterior_mixed(gp, gnp, torch, pp, mixed_counters)
+    s_c, info_c = card_out["nuts"]
+    gp.config.set_device("cpu")
+    t0 = time.perf_counter()
+    try:
+        cpu_out, cpu_walls = _posterior_flow(gp, gnp, torch, False, None,
+                                             start=card_out["map"], rerun=(s_c, info_c))
+    finally:
+        gp.config.set_device(DEVICE)
+    t_cpu = time.perf_counter() - t0
+
+    launches = {name: sum(card_out[f"launches {st}"][name]
+                          for st in ("REMAP", "MH", "NUTS"))
+                for name in counters}
+    by_stage = {st: card_out[f"launches {st}"] for st in
+                ("REMAP", "MH", "NUTS", "NUTS rerun", "NUTS interrupted", "NUTS resumed",
+                 "MH whole and interrupted", "MH resumed")}
+    x_c, acc_c, burn_c = card_out["mh"]
+    x_h, acc_h, burn_h = cpu_out["mh"]
+    nuts_steps = 2 * (P["num_warmup"] + P["num_samples"])
+    leapfrogs = int(info_c["n_leapfrog"].sum() + info_c["warmup_n_leapfrog"].sum())
+    rates = {"MH steps/s": P["n_steps_total"] / card_walls["MH"],
+             "NUTS transitions/s": nuts_steps / card_walls["NUTS"],
+             "NUTS leapfrogs": leapfrogs,
+             "ms per NUTS value+grad": card_out["ms per value+grad"],
+             "ms per log-target value": card_out["ms per value"],
+             "CPU MH steps/s": P["n_steps_total"] / cpu_walls["MH"],
+             "CPU NUTS transitions/s (rerun)": len(cpu_out["nuts rerun"])
+             / cpu_walls["NUTS rerun"],
+             "mixed n=%d wall s" % P["mixed_n"]: mixed_out["wall"]}
+    say(f"[phase 3k] card {card} | example23 ni={P['ni']} d=1 p=3: REMAP nfev "
+        f"{card_out['nfev']} MAP {card_out['map'].tolist()} cond(K) {card_out['cond K']:.3e}; "
+        f"MH {P['n_steps_total']} steps (burn-in {burn_c}) x 2 chains; NUTS "
+        f"{P['num_samples']} after {P['num_warmup']} x 2 chains, {leapfrogs} leapfrogs; "
+        f"launches {launches}, by stage {by_stage}")
+    say(f"[phase 3k] card {card} | " + ", ".join(f"{k} {v:.6g}" for k, v in rates.items()))
+    say(f"[phase 3k] card {card} | walls on the card {t_card:.3f} s: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in card_walls.items()))
+    say(f"[phase 3k] card {card} | walls on the CPU {t_cpu:.3f} s: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in cpu_walls.items()))
+
+    errs = {"REMAP covparam": float(np.max(np.abs(card_out["map"] - cpu_out["map"]))
+                                    / np.max(np.abs(cpu_out["map"])))}
+    lt_c, lt_h = np.array(card_out["log_target"]), np.array(cpu_out["log_target"])
+    errs["log target"] = float(np.max(np.abs(lt_c - lt_h) / np.maximum(1.0, np.abs(lt_h))))
+    errs["MH x"] = float(np.max(np.abs(x_c - x_h)))
+    rer_c, rer_h = card_out["nuts rerun"], cpu_out["nuts rerun"]
+    errs["NUTS q (rerun)"] = max(float(np.max(np.abs(a[0] - b[0]))) for a, b in zip(rer_c, rer_h))
+    errs["NUTS accept_stat (rerun)"] = max(abs(a[1] - b[1]) for a, b in zip(rer_c, rer_h))
+    rer_same = len(rer_c) == len(rer_h) == 2 * (P["num_samples"] - 1) and all(
+        a[2:] == b[2:] for a, b in zip(rer_c, rer_h))
+    v64, vmx = mixed_out["values"]["auto"], mixed_out["values"]["mixed"]
+    errs["mixed vs f64 log target"] = abs(vmx - v64) / max(1.0, abs(v64))
+    say("[phase 3k] card vs CPU: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; {len(rer_c)} NUTS transitions run again on both, trees identical {rer_same} "
+        f"(tol {TOL_3K})")
+    say(f"[phase 3k] card {card} | mixed engine n={P['mixed_n']}: log target {vmx!r} "
+        f"(f64 {v64!r}); MH {P['mixed_mh_steps']} steps, NUTS {P['mixed_nuts']} after "
+        f"{P['mixed_nuts']}, {mixed_out['leapfrogs']} leapfrogs, 2 chains: launches "
+        f"{mixed_out['launches']}, graph replays {mixed_out['graph replays']}, wall "
+        f"{mixed_out['wall']:.3f} s")
+    x_r, acc_r = card_out["mh resumed"]
+    x_w, acc_w = card_out["mh whole"]
+    s_r, info_r = card_out["nuts resumed"]
+    resumed = {
+        f"MH resumed at {card_out['mh resumed from']} of {P['ckpt_steps']}":
+            0 < card_out["mh resumed from"] < P["ckpt_steps"]
+            and np.array_equal(x_r, x_w) and np.array_equal(acc_r, acc_w),
+        f"NUTS resumed at {P['num_samples'] // 2}": (
+            np.array_equal(s_r, s_c)
+            and all(np.array_equal(info_r[k], info_c[k]) for k in
+                    ("accept_stat", "n_leapfrog", "tree_depth", "divergent", "log_prob_trace"))),
+    }
+    say(f"[phase 3k] resume on the card, bitwise: {resumed}")
+    check(errs["REMAP covparam"] <= TOL_3K["covparam"], "phase 3k REMAP covparam card vs CPU")
+    check(errs["log target"] <= TOL_3K["log_target"], "phase 3k log target card vs CPU")
+    check(np.array_equal(acc_c, acc_h) and burn_c == burn_h, "phase 3k MH accepts card vs CPU")
+    check(errs["MH x"] <= TOL_3K["mh"], "phase 3k MH chains card vs CPU")
+    check(rer_same, "phase 3k NUTS trees card vs CPU")
+    check(errs["NUTS q (rerun)"] <= TOL_3K["nuts"], "phase 3k NUTS samples card vs CPU")
+    check(errs["NUTS accept_stat (rerun)"] <= TOL_3K["accept_stat"],
+          "phase 3k NUTS accept_stat card vs CPU")
+    for key, ok in resumed.items():
+        check(ok, f"phase 3k {key} not bitwise")
+    check(launches["K1"] > 0 and launches["K2"] > 0, f"phase 3k K1/K2 launches {launches}")
+    check(launches["K1d"] == 0 and launches["K1m"] == 0, f"phase 3k K1d/K1m launches {launches}")
+    check(by_stage["MH"]["K1"] > 0 and by_stage["NUTS"]["K2"] > 0,
+          "phase 3k samplers did not launch K1/K2")
+    check(by_stage["MH"]["graph replays"] >= 2 * P["n_steps_total"]
+          and by_stage["NUTS"]["graph replays"] >= leapfrogs,
+          "phase 3k samplers did not replay the log target's CUDA graphs")
+    for name, a in (("MH", card_out["mh_samples"]), ("NUTS", s_c),
+                    ("mixed MH", mixed_out["samples"][0]),
+                    ("mixed NUTS", mixed_out["samples"][1])):
+        check(np.all(np.isfinite(a)), f"phase 3k {name} samples not finite")
+    check(errs["mixed vs f64 log target"] <= TOL_SLICE["reml"],
+          "phase 3k mixed-engine log target vs f64")
+    check(mixed_out["graph replays"] == 0,
+          "phase 3k the mixed engine's log target was replayed from a graph")
+    check(mixed_out["launches"]["K1d"] > 0 and mixed_out["launches"]["K1m"] > 0
+          and sum(mixed_out["launches"][k] for k in ("K3", "K4", "K5", "K6", "K7")) > 0,
+          f"phase 3k mixed engine launches {mixed_out['launches']}")
+    check("jax" not in sys.modules, "jax was imported")
+    return launches, {"card": t_card, "cpu": t_cpu, **card_walls}, errs, rates
 
 
 # ----------------------------------------------------------------------------
@@ -5527,6 +5945,8 @@ def main():
         gp, gnp, gram, distance, mixed, refine, torch, main_data, fit)
     remap_launches, remap_walls, remap_errs, dp_ref = phase_remap(
         gp, gnp, gram, distance, mixed, refine, torch, card)
+    post_launches, post_walls, post_errs, post_rates = phase_posterior(
+        gp, gnp, gram, distance, mixed, refine, torch, card)
     slice_launches, slice_data, t_slice_first, k6 = phase_slice(
         gp, gnp, gram, distance, mixed, refine, torch)
     launches.update(slice_launches)
@@ -5581,6 +6001,8 @@ def main():
         "diagnosis_3i": {"wall_s": diag_walls, "launches": diag_launches,
                          "rel_err_vs_cpu": diag_errs},
         "remap_3j": {"walls": remap_walls, "launches": remap_launches, "errs": remap_errs},
+        "posterior_3k": {"walls": post_walls, "launches": post_launches, "errs": post_errs,
+                         "rates": post_rates},
         "reml_value_grad_evals_per_s": {f"n={n} {k}": v for (n, k), v in rates.items()},
         "noisy_fit_loo_predict_s": {"mixed first": t_slice_first, "mixed warm": t_slice_warm},
         "noisy_reml_value_grad_evals_per_s": {f"n={n} {e}": v for (n, e), v in mrates.items()},

@@ -39,13 +39,14 @@ __all__ = [
     "ops",
     "interop",
     "parallel",
+    "mcmc",
 ]
 
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES: Final[set] = {
     "num", "kernel", "dataloader", "modeldiagnosis", "parameter", "misc", "plot", "ops",
-    "interop", "parallel",
+    "interop", "parallel", "mcmc",
 }
 
 

@@ -13,6 +13,9 @@
   (gpmp_tpu_torch.parallel.streamed): K10b (row-chunk split into the f32
   pair), K10r (factorization residual from the pair or from f64 panels),
   K10m (residual against the pair) and K10t (chunked trace sums).
+- ``capture``: a launch sequence captured once as a CUDA graph and
+  replayed (its launches counted, the cached launch state it points into
+  held).
 - ``_build``: builds ``gpmp_tpu_torch/csrc/*.cu`` with nvcc at first use.
 """
 

@@ -29,11 +29,9 @@ kernel for CUDA tensors (or raises); there is no fallback between them.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from . import _build
+from . import _build, capture
 from .mixed import _check_cuda, _on_card, _square
 
 K9U_LAUNCHES = 0
@@ -63,7 +61,7 @@ def syrk_tiles(n, w0, r0, iend):
     return torch.stack([i0[keep], j0[keep]], 1).to(torch.int32)
 
 
-@functools.lru_cache(maxsize=256)
+@capture.cached(maxsize=256)
 def _tiles_on(device, n, w0, r0, iend):
     return syrk_tiles(n, w0, r0, iend).to(device)
 

@@ -41,7 +41,7 @@ import functools
 import torch
 
 import gpmp_tpu_torch.num as gnp
-from . import _build
+from . import _build, capture
 from .autograd import plain_vjp
 from .mixed import _on_card, _sms_on
 
@@ -160,7 +160,7 @@ def _plan_on(device, n, m, itemsize):
     return distance_plan(n, m, itemsize, _sms_on(device))
 
 
-@functools.lru_cache(maxsize=64)
+@capture.cached(maxsize=64)
 def _pullback_workspace(device, n, m, d, dtype, elementwise):
     """The pullback's per-(device, n, m, d, dtype) workspace: its plan (the
     elementwise one's blocks), and raw pointers to the blocks' partial sums

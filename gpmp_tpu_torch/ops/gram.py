@@ -46,7 +46,7 @@ from functools import partial
 import torch
 
 import gpmp_tpu_torch.num as gnp
-from . import _build, distance
+from . import _build, capture, distance
 from .autograd import plain_vjp
 from .mixed import _on_card, _sms_on
 
@@ -213,7 +213,7 @@ def _plan_on(device, n, m, same, itemsize):
     return gram_plan(n, m, same, itemsize, _sms_on(device))
 
 
-@functools.lru_cache(maxsize=64)
+@capture.cached(maxsize=64)
 def _pullback_workspace(device, n, m, d, dtype, same):
     """K2's per-(device, n, m, d, dtype, same) workspace: its plan, and raw
     pointers to the blocks' partial sums (1 + MAX_D f64 a block) and to the

@@ -74,7 +74,7 @@ import math
 import torch
 
 from .autograd import first_order_only
-from . import _build
+from . import _build, capture
 
 DEFAULT_REFINE_ITERS = 4
 _RIDGE_FACTOR = 10.0
@@ -293,7 +293,7 @@ def _sms_on(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-@functools.lru_cache(maxsize=64)
+@capture.cached(maxsize=64)
 def _residual_workspace(device, rows, n, k):
     """K3's per-(device, rows, n, k) workspace: the chunk width, and raw
     pointers to the chunks' partial sums and the row blocks' pairs (f64)
@@ -377,7 +377,7 @@ def _precond_geometry(lib):
                            f"rows) is {built}, not {want}")
 
 
-@functools.lru_cache(maxsize=64)
+@capture.cached(maxsize=64)
 def _precond_workspace(device, rows, n, k):
     """K6's per-(device, rows, n, k) workspace (k <= 8): the plan's warps and
     height, and raw pointers to y (rows, k), the chunks' partial sums
@@ -515,18 +515,18 @@ def residual_panel_tiles(n, c0, w, tile):
     return _longest_first(i0, j0, torch.minimum(torch.clamp(i0 + tile, max=n) - 1, jlast) + 1)
 
 
-@functools.lru_cache(maxsize=64)
+@capture.cached(maxsize=64)
 def _residual_tiles_on(device, n, tile):
     return residual_tiles(n, tile).to(device)
 
 
-@functools.lru_cache(maxsize=64)
+@capture.cached(maxsize=64)
 def _residual_slab_tiles_on(device, rows, rows_b, off, offs, tile):
     return residual_slab_tiles(rows, rows_b, off, offs, tile).to(device)
 
 
 # one entry per panel of the recompute mode's pass (100 at n = 51200)
-@functools.lru_cache(maxsize=256)
+@capture.cached(maxsize=256)
 def _residual_panel_tiles_on(device, n, c0, w, tile):
     return residual_panel_tiles(n, c0, w, tile).to(device)
 
@@ -613,7 +613,7 @@ def trace_sums_plan(rows, n, sms):
     return max(1, min(-(-groups // per_block), TRACE_SUMS_BLOCKS_PER_SM * sms))
 
 
-@functools.lru_cache(maxsize=64)
+@capture.cached(maxsize=64)
 def _trace_sums_workspace(device, rows, n):
     """K7's per-(device, rows, n) workspace, shared by trace_sums and
     series_sums: the plan's blocks, and raw pointers to the blocks' partial

@@ -61,10 +61,12 @@ JAX's ``jnp.linalg.cholesky`` and ``solve_triangular`` of the f32 panel are
 exception) and ``torch.linalg.solve_triangular``.
 
 On the card an f64 ``refined_cholesky`` replays one captured CUDA graph per
-(device, b, steps, with_inverse, rtol2) (``_PanelGraph``): its ~25 launches
-(cholesky_ex, the f32 inverse, 3 K8r, 8 K8t, the f64 products, the
-guards) cost one replay's host issue instead of each its own.  Each replay
-adds the graph's K8r and K8t launches to the counters.  A capture or replay
+(device, b, steps, with_inverse, rtol2) (``capture.Graph``): its ~25
+launches (cholesky_ex, the f32 inverse, 3 K8r, 8 K8t, the f64 products,
+the guards) cost one replay's host issue instead of each its own.  Each
+replay adds the graph's K8r and K8t launches to the counters, and the
+graph holds K8t's and K8r's cached launch state.  Inside another capture
+the sequence is recorded into that graph instead.  A capture or replay
 error raises; nothing runs the panel eagerly instead.
 """
 
@@ -75,7 +77,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, capture
 from .mixed import (_F32, _check_cuda, _f32_preconditioner, _on_card, _residual_tile,
                     _residual_tiles_on, _square)
 
@@ -247,13 +249,13 @@ def _tri_geometry(lib):
                            f"not {(TRI_TILE, TRI_WARPS, TRI_KS, TRI_PLAN)}")
 
 
-@functools.lru_cache(maxsize=64)
+@capture.cached(maxsize=64)
 def _tri_plan_on(device, b):
     _tri_geometry(_build.load())
     return tri_product_plan(b).to(device)
 
 
-@functools.lru_cache(maxsize=64)
+@capture.cached(maxsize=64)
 def _refine_residual_on(device, b):
     """K8r's launch state per (device, b): the entry, the plan on the card,
     its tile count, and the workspace, the tiles' pairs and the ticket
@@ -315,9 +317,11 @@ def refined_cholesky(A, steps=2, with_inverse=False, rtol2=_FACTOR_RTOL2):
     factorization fails (non-PD) or the final relative factor residual^2
     reaches ``rtol2``: 3 K8r and 2 + 3 steps K8t launches, no host read.
     An f64 panel on the card replays the sequence's captured graph
-    (``_PanelGraph``); other panels run it as it is."""
-    if A.is_cuda and A.dtype == _F64:
-        return _panel_graph(A.device, A.shape[0], steps, with_inverse, rtol2)(A)
+    (``_panel_graph``); other panels, and panels inside another capture,
+    run it as it is."""
+    if A.is_cuda and A.dtype == _F64 and not torch.cuda.is_current_stream_capturing():
+        out = _panel_graph(A.device, A.shape[0], steps, with_inverse, rtol2)(A)
+        return out if with_inverse else out[0]
     return _refined_cholesky_launches(A, steps, with_inverse, rtol2)
 
 
@@ -341,53 +345,6 @@ def _refined_cholesky_launches(A, steps, with_inverse, rtol2):
     return L
 
 
-class _PanelGraph:
-    """``_refined_cholesky_launches`` on a (b, b) f64 panel of one card,
-    captured once as a CUDA graph and replayed per call.
-
-    Before the capture, what must not happen inside it happens once: the
-    library is built and loaded and K8t's and K8r's plans are copied to the
-    card and K8r's workspace is made (each cached per device and b), and
-    the sequence runs once on the capture stream, so that cuBLAS's and
-    cuSOLVER's handles and workspaces for that stream exist (PyTorch's
-    warm-up before capture; its launches count).  The capture records the
-    launches (cholesky_ex included) and their counts; a replay copies A into
-    the graph's input, replays, adds the counts to K8R_LAUNCHES and
-    K8T_LAUNCHES, and clones the outputs out of the graph's memory pool.
-
-    The graph holds the addresses of K8t's plan and of K8r's plan and
-    workspace, so it keeps those tensors itself (``held``): their caches
-    may drop them while the graph lives."""
-
-    def __init__(self, device, b, steps, with_inverse, rtol2):
-        global K8R_LAUNCHES, K8T_LAUNCHES
-        self.held = (_tri_plan_on(device, b), *_refine_residual_on(device, b)[-1])
-        args = (steps, with_inverse, rtol2)
-        self.A = torch.eye(b, dtype=_F64, device=device)
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.no_grad(), torch.cuda.stream(stream):
-            _refined_cholesky_launches(self.A, *args)
-        torch.cuda.current_stream(device).wait_stream(stream)
-        self.graph = torch.cuda.CUDAGraph()
-        counts = K8R_LAUNCHES, K8T_LAUNCHES
-        with torch.no_grad(), torch.cuda.graph(self.graph, stream=stream):
-            out = _refined_cholesky_launches(self.A, *args)
-        self.out = out if with_inverse else (out,)
-        self.k8r, self.k8t = K8R_LAUNCHES - counts[0], K8T_LAUNCHES - counts[1]
-        K8R_LAUNCHES, K8T_LAUNCHES = counts  # they run at each replay
-
-    def __call__(self, A):
-        global K8R_LAUNCHES, K8T_LAUNCHES
-        with torch.no_grad():
-            self.A.copy_(A)
-            self.graph.replay()
-            K8R_LAUNCHES += self.k8r
-            K8T_LAUNCHES += self.k8t
-            out = tuple(t.clone() for t in self.out)
-        return out if len(out) == 2 else out[0]
-
-
 _PANEL_GRAPHS = collections.OrderedDict()
 _PANEL_GRAPHS_KEPT = 8  # a factor meets one or two panel sizes
 
@@ -396,8 +353,10 @@ def _panel_graph(device, b, steps, with_inverse, rtol2):
     key = (device, b, steps, bool(with_inverse), float(rtol2))
     graph = _PANEL_GRAPHS.get(key)
     if graph is None:
-        graph = _PANEL_GRAPHS[key] = _PanelGraph(device, b, steps, bool(with_inverse),
-                                                 float(rtol2))
+        graph = _PANEL_GRAPHS[key] = capture.Graph(
+            functools.partial(_refined_cholesky_launches, steps=steps,
+                              with_inverse=bool(with_inverse), rtol2=float(rtol2)),
+            (torch.eye(b, dtype=_F64, device=device),))
         if len(_PANEL_GRAPHS) > _PANEL_GRAPHS_KEPT:
             _PANEL_GRAPHS.popitem(last=False)
     else:

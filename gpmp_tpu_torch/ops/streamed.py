@@ -34,11 +34,9 @@ count kernel launches; the plain versions count nothing.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from . import _build
+from . import _build, capture
 from .mixed import (MATVEC_MAX_COLS, _F32, _check_cuda, _on_card, _residual_panel_tiles_on,
                     _residual_tile, _residual_tiles_on, _sms_on, _square)
 
@@ -233,7 +231,7 @@ def h_traces_plan(c, n, sms):
     return ta, tm, min(ta * tm, H_TRACES_BLOCKS_PER_SM * sms)
 
 
-@functools.lru_cache(maxsize=64)
+@capture.cached(maxsize=64)
 def _h_traces_workspace(device, c, n):
     """K10t's per-(device, c, n) workspace: the plan's blocks, and raw
     pointers to the blocks' partial sums (4 a block, f64) and to the ticket

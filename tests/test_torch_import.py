@@ -34,6 +34,7 @@ SUBMODULES = (
     "gpmp_tpu_torch.ops.refine",
     "gpmp_tpu_torch.ops.streamed",
     "gpmp_tpu_torch.ops.chol",
+    "gpmp_tpu_torch.ops.capture",
     "gpmp_tpu_torch.kernel",
     "gpmp_tpu_torch.kernel.matern",
     "gpmp_tpu_torch.kernel.exponential",
@@ -78,6 +79,12 @@ SUBMODULES = (
     "gpmp_tpu_torch.parallel.predict",
     "gpmp_tpu_torch.parallel.loo",
     "gpmp_tpu_torch.parallel.batched",
+    "gpmp_tpu_torch.mcmc",
+    "gpmp_tpu_torch.mcmc.checkpoint",
+    "gpmp_tpu_torch.mcmc.knn_cov",
+    "gpmp_tpu_torch.mcmc.mh",
+    "gpmp_tpu_torch.mcmc.nuts",
+    "gpmp_tpu_torch.mcmc.param_posterior",
 )
 
 
@@ -112,6 +119,7 @@ EXAMPLE_TWINS = (
     "examples.gpmp_tpu_torch_example04_nd",
     "examples.gpmp_tpu_torch_example07_nd_regression",
     "examples.gpmp_tpu_torch_example20_1d_interpolation_variation_remap",
+    "examples.gpmp_tpu_torch_example23_1d_interpolation_posterior_sampling",
     "examples.gpmp_tpu_torch_example30_dataloader",
 )
 PLOTTING = ("gpmp_tpu_torch.plot", "gpmp_tpu_torch.plot.plotutils",
@@ -231,3 +239,27 @@ def test_unported_options_raise():
                                               mesh=object())
     with pytest.raises(ValueError, match=r"Provide either \(xi, zi\) or dataloader\.$"):
         gp.kernel.select_parameters_with_reml(model, xi, covparam0=np.zeros(2))
+
+
+def test_mcmc_audit():
+    """gpmp_tpu_torch.mcmc exports the MH and NUTS half of gpmp_tpu.mcmc's
+    names; the SMC and SVGD names are listed as waiting for the population
+    slice (they raise, naming it).  That importing it pulls no JAX is
+    test_import_pulls_no_jax's (its modules are in SUBMODULES)."""
+    import gpmp_tpu_torch.mcmc as tm
+
+    jax_names = ("MHOptions MetropolisHastings sample_multivariate_normal_with_jitter nuts_sample "
+                 "nuts_resume nuts_transition NUTSOptions plot_nuts_diagnostics ParticlesSetConfig "
+                 "SMCConfig ParticlesSet SMC run_smc_sampling log_indicator_density "
+                 "run_subset_simulation sample_from_selection_criterion_mh "
+                 "sample_from_selection_criterion_nuts sample_from_selection_criterion_smc "
+                 "sample_from_selection_criterion_svgd get_log_target_values SVGDOptions "
+                 "rbf_kernel_matrix svgd_step svgd_sample plot_svgd_empirical_distributions "
+                 "estimate_cov_matrix estimate_cov_matrix_knn").split()
+    assert sorted(tm.__all__ + list(tm.NOT_PORTED)) == sorted(jax_names)
+    for name in tm.NOT_PORTED:
+        with pytest.raises(AttributeError, match="10b"):
+            getattr(tm, name)
+    for name in tm.__all__:
+        getattr(tm, name)
+    assert "mcmc" in dir(gpmp_tpu_torch)

@@ -249,20 +249,29 @@ class _FakeGraph:
 def test_panel_graph_holds_what_it_captured(monkeypatch):
     """The panel graph keeps the tensors whose addresses it captured (K8t's
     plan, K8r's plan, pairs and ticket) alive when their caches drop them.
-    The capture is stood in for on the CPU: the launch sequence runs its
-    plain versions, and the stream and graph calls do nothing."""
+    The capture is stood in for on the CPU: the launch sequence fetches
+    the launch state from the caches, as its launches do on the card, and
+    runs its plain versions, and the stream and graph calls do nothing."""
     monkeypatch.setattr(refine._build, "load", lambda: _FakeLib)
     monkeypatch.setattr(torch.cuda, "Stream", lambda device: _FakeStream())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device: _FakeStream())
     monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", lambda g, stream=None: contextlib.nullcontext())
+    plain_sequence = refine._refined_cholesky_launches
+
+    def sequence(A, steps, with_inverse, rtol2):
+        refine._tri_plan_on(A.device, A.shape[0])
+        refine._refine_residual_on(A.device, A.shape[0])
+        return plain_sequence(A, steps, with_inverse, rtol2)
+
+    monkeypatch.setattr(refine, "_refined_cholesky_launches", sequence)
     caches = (refine._tri_plan_on, refine._refine_residual_on)
     dev, b = torch.device("cpu"), 64
     for cache in caches:
         cache.cache_clear()
     try:
-        graph = refine._PanelGraph(dev, b, 2, True, refine._FACTOR_RTOL2)
+        graph = refine._panel_graph(dev, b, 2, True, refine._FACTOR_RTOL2)
         tri_plan = refine._tri_plan_on(dev, b)
         _, plan, _, pairs, ticket, tensors = refine._refine_residual_on(dev, b)
         refs = [weakref.ref(t) for t in (tri_plan, *tensors)]
@@ -278,5 +287,6 @@ def test_panel_graph_holds_what_it_captured(monkeypatch):
         L, M = graph(torch.as_tensor(_spd(b, 2)))
         assert L.shape == M.shape == (b, b)
     finally:
+        refine._PANEL_GRAPHS.clear()
         for cache in caches:
             cache.cache_clear()
