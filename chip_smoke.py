@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of gpmp_tpu_torch on one CUDA card: REML fit + predict, its
 diagnosis, a batched REMAP fit through a DataLoader, MH and NUTS on a REMAP
-posterior, noisy REML fit + LOO +
+posterior, SMC and SVGD on a REMAP posterior through the population form of
+the gram kernels (K1p, K2p), noisy REML fit + LOO +
 predict on the mixed Cholesky engine, conditional sample paths, large-n REML on the streamed engine through a one-card mesh, the
 mesh's resident branch (the blocked Cholesky with refined panels: fit,
 predict, LOO, the sharded mixed engine, n = 51200 parity), the repaired
@@ -242,6 +243,47 @@ non-zero):
    within 1e-6 of the f64 engine's.  Printed beside the card's name and
    power limit: MH steps/s, NUTS transitions/s, ms per value+grad and per
    value, the walls on the card and on the CPU.
+3l. The population samplers (bench_samplers.py's SMC and SVGD budgets,
+   PHASE3L) on K1p and K2p, the population forms of K1 and K2 (B
+   parameter vectors at one x, one launch).  First the kernels at (B, n,
+   d) = (1000, 8, 1) (the SMC population), (32, 8, 1) (SVGD) and (64, 512,
+   6) (a 134 MB f64 stack), p = 3, x is y: K1p bitwise B single K1
+   launches and within 1e-14 of plain; K2p bitwise reproducible, within
+   1e-13 of plain and 1e-14 of B single K2 launches (per member, relative
+   to its largest component); each timed (CUDA events, device time) beside
+   B single launches, its plain version and its byte bound.  Then
+   example23's data at ni = 8 (twobumps, d = 1, Matern p = 3, seed 0), its
+   REMAP fit (the gaussian-logsigma2-and-logrho prior), and with the
+   counters reset after the fit and every plain version raising on CUDA
+   tensors: sample_from_selection_criterion_smc (1000 particles, T 1e6 ->
+   1, 20 MH steps, the ESS ladder) and _svgd (32 particles, 500 steps).
+   Gates: both on the graph route (one CUDA graph a population shape,
+   mcmc.population), K1p launched once a replay in SMC, K1p and K2p in
+   SVGD with one replay a step; the single-theta K1 launched once a
+   sampler (the route probe: one evaluation of the criterion as written),
+   K2, K1d and K1m not.  Card vs CPU: the population criterion and the
+   SVGD log target and its gradient at the MAP's 64 neighbours
+   (|diff| <= 1e-11 max(1, |value|)); each SMC stage run again on the CPU
+   from the card's state before it (SMC.get_state/set_state: the
+   particles, weights and both generators) with the card's tempering
+   parameter: the resampled indices and every sweep's accept flags
+   identical, the particles within 1e-9, for every stage whose particles
+   the two devices' log targets agree on within 1e-9, the last (T = 1)
+   among them (at T >= ~2000 the particles reach near-singular grams,
+   where the devices' criteria part by up to 1e-2: such stages are
+   printed, not held); SVGD whole within 1e-8, or else each of its 500
+   steps again on the CPU from the card's particles before it within
+   1e-11, but for a step whose difference the two devices' gradients at
+   its particles explain (step_size max|dg| / T: the first steps, from the
+   MAP jittered by 1e-3, throw the particles to grams of cond ~1e8).  The
+   entry point's SMC run stopped by its log target just after its first
+   checkpoint, restored and resumed (restore_checkpoint, resume_restart):
+   bitwise the uninterrupted run.  The mixed engine: a population of 32 at n = 256
+   (phase 3b's data and user kernel, REML) goes particle by particle (the
+   route printed; no graph replay; the engine's kernels launched), within
+   1e-9 of the f64 engine member by member.  Printed beside the card's name
+   and power limit: the walls, the stages, the ladder, the ESS and
+   acceptance rates, population evaluations/s and SVGD steps/s.
 4. Times on the card (CUDA events / synchronised host clock): K1 and K2 at
    n = 1000 and 8192 (x is y) and 1000 x 1000 (cross), d = 6, p = 2: events,
    device time warm and with L2 flushed, host issue per call, the byte
@@ -389,6 +431,22 @@ TOL_3K = {"covparam": 1e-10, "log_target": 1e-11, "mh": 1e-9, "nuts": 1e-9,
           # NUTS accept_stat averages exp(-(H1 - H0)) over a tree's leaves:
           # the log target's floor above, summed over up to 2^10 leaves
           "accept_stat": 1e-10}
+# phase 3l: bench_samplers.py's SMC and SVGD budgets on example23's data
+# (ni = 8, seed 0), K1p/K2p's shapes (B, n, d): the SMC population, the
+# SVGD population, a 134 MB f64 stack; the mixed engine's population
+PHASE3L = {"ni": 8, "seed": 0, "smc_particles": 1000, "smc_mh_steps": 20, "T0": 1e6, "T1": 1.0,
+           "svgd_particles": 32, "svgd_steps": 500, "neighbours": 64,
+           "shapes": ((1000, 8, 1), (32, 8, 1), (64, 512, 6)),
+           "mixed_n": 256, "mixed_population": 32}
+# K1p against plain (max|diff| / max|plain|); K2p against plain and against
+# B single K2 launches, per member relative to its largest component (the
+# same terms summed in other orders); the population log target and its
+# gradient card vs CPU, |diff| / max(1, |value|) (phase 3k's f64 floor of
+# the REMAP criterion, TOL_3K); SMC particles after each stage run again on
+# the CPU; SVGD whole (card vs CPU) and step by step; the mixed engine's
+# population values against the f64 engine's
+TOL_3L = {"K1p plain": 1e-14, "K2p plain": 1e-13, "K2p K2": 1e-14, "target": 1e-11,
+          "smc x": 1e-9, "svgd": 1e-8, "svgd step": 1e-11, "mixed": 1e-9}
 DEVICE_MS_ATTEMPTS = 6  # profiler windows _device_ms takes to find a whole one
 DEVICE_MS_PAD = 32      # spin kernels ahead of _device_ms's launches
 L2_FLUSH_BYTES = 64 << 20  # a copy larger than the H100's 50 MB L2, between cold launches
@@ -1549,6 +1607,541 @@ def phase_posterior(gp, gnp, gram, distance, mixed, refine, torch, card):
           f"phase 3k mixed engine launches {mixed_out['launches']}")
     check("jax" not in sys.modules, "jax was imported")
     return launches, {"card": t_card, "cpu": t_cpu, **card_walls}, errs, rates
+
+
+# ----------------------------------------------------------------------------
+# phase 3l: the population samplers (SMC, SVGD) on K1p/K2p
+# ----------------------------------------------------------------------------
+def _population_inputs(torch, B, n, d, seed=19):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.uniform(-1.0, 1.0, size=(n, d)), device=DEVICE)
+    thetas = torch.tensor(np.c_[0.5 * rng.normal(size=B), rng.normal(scale=0.5, size=(B, d))],
+                          device=DEVICE)
+    kbars = torch.tensor(rng.normal(size=(B, n, n)), device=DEVICE)
+    return x, thetas, kbars
+
+
+def _population_bounds(B, n, d):
+    """K1p writes B n^2 f64 entries (reads x and the thetas); K2p reads the B
+    Kbar stacks (and x, the thetas) and writes B (1 + d) f64: bytes."""
+    small = 8 * (n * d + B * (d + 1))
+    return {"K1p": _bound(8 * B * n * n + small, 0, PEAK_F64_FLOPS),
+            "K2p": _bound(8 * B * n * n + small + 8 * B * (d + 1), 0, PEAK_F64_FLOPS)}
+
+
+def _population_kernels(torch, gram):
+    """K1p and K2p at PHASE3L's shapes (x is y, p = 3) against B single K1/K2
+    launches and the plain versions on the same CUDA tensors; their times
+    (CUDA events, profiler device time) beside B single launches and the
+    plain versions, with the byte bound."""
+    res = {}
+    for B, n, d in PHASE3L["shapes"]:
+        x, th, kb = _population_inputs(torch, B, n, d)
+        K = gram.matern_gram_population_cuda(x, x, 3, th, True)
+        Ks = torch.stack([gram.matern_gram_cuda(x, x, 3, th[b], True) for b in range(B)])
+        Kp = gram.matern_gram_population_plain(x, x, 3, th, True)
+        g = gram.matern_gram_population_pullback_cuda(kb, x, x, 3, th, True)
+        g2 = gram.matern_gram_population_pullback_cuda(kb, x, x, 3, th, True)
+        gs = torch.stack([gram.matern_gram_pullback_cuda(kb[b], x, x, 3, th[b], True)
+                          for b in range(B)])
+        gpl = gram.matern_gram_population_pullback_plain(kb, x, x, 3, th, True)
+        torch.cuda.synchronize()
+        scale = gpl.abs().amax(dim=1, keepdim=True)
+        r = {"K1p bitwise K1": bool(torch.equal(K, Ks)),
+             "K1p plain": float((K - Kp).abs().max() / Kp.abs().max()),
+             "K1p abs": float((K - Kp).abs().max()),
+             "K2p reproducible": bool(torch.equal(g, g2)),
+             "K2p plain": float(((g - gpl).abs() / scale).max()),
+             "K2p K2": float(((g - gs).abs() / scale).max()),
+             "K2p abs": float((g - gpl).abs().max())}
+        reps = 20 if B * n * n > 1e6 else 200
+        loops = 3 if B > 100 else 10
+        calls = {"K1p": lambda: gram.matern_gram_population_cuda(x, x, 3, th, True),
+                 "K2p": lambda: gram.matern_gram_population_pullback_cuda(kb, x, x, 3, th, True)}
+        r["ms"] = {k: _time_cuda(torch, fn, reps) for k, fn in calls.items()}
+        r["device ms"] = {k: _device_ms(torch, fn, reps) for k, fn in calls.items()}
+        r["single ms"] = {
+            "K1p": _time_cuda(torch, lambda: [gram.matern_gram_cuda(x, x, 3, th[b], True)
+                                              for b in range(B)], loops),
+            "K2p": _time_cuda(torch, lambda: [gram.matern_gram_pullback_cuda(
+                kb[b], x, x, 3, th[b], True) for b in range(B)], loops)}
+        r["plain ms"] = {
+            "K1p": _time_cuda(torch, lambda: gram.matern_gram_population_plain(x, x, 3, th, True),
+                              loops),
+            "K2p": _time_cuda(torch, lambda: gram.matern_gram_population_pullback_plain(
+                kb, x, x, 3, th, True), loops)}
+        r["bounds"] = _population_bounds(B, n, d)
+        res[(B, n, d)] = r
+        say(f"[phase 3l] K1p/K2p (B, n, d) = ({B}, {n}, {d}), p = 3, x is y: K1p bitwise "
+            f"{B} single K1 launches {r['K1p bitwise K1']}, vs plain {r['K1p plain']:.3e}; K2p "
+            f"reproducible {r['K2p reproducible']}, vs plain {r['K2p plain']:.3e}, vs {B} single "
+            f"K2 {r['K2p K2']:.3e} (per member, relative to its largest component)")
+        for k in ("K1p", "K2p"):
+            b_ms, b_by = r["bounds"][k]
+            say(f"[phase 3l] {k} ({B}, {n}, {d}): kernel {r['ms'][k]:.4f} ms (device "
+                f"{_fmt_ms(r['device ms'][k])}), {B} single {'K1' if k == 'K1p' else 'K2'} "
+                f"launches {r['single ms'][k]:.4f} ms, plain {r['plain ms'][k]:.4f} ms, library "
+                f"none, bound {b_ms * 1e3:.3f} us ({b_by}), share {100 * b_ms / r['ms'][k]:.2f}%")
+        del x, th, kb, K, Ks, Kp
+        torch.cuda.empty_cache()
+    return res
+
+
+class _StageRecorder:
+    """While active, every SMC.step records its stage: the sampler's state
+    before and after (get_state), its tempering parameter, the resampled
+    indices and every sweep's accept flags."""
+
+    def __init__(self, smc_mod):
+        self.mod, self.stages, self.cur = smc_mod, [], None
+
+    def __enter__(self):
+        mod, rec = self.mod, self
+        self.saved = (mod.SMC.step, mod.ParticlesSet._apply_resample_indices,
+                      mod.ParticlesSet._accept)
+        step, resample, accept = self.saved
+
+        def rec_step(smc, fn, param, debug=False, debug_plot=False):
+            rec.cur = {"param": param, "before": smc.get_state(), "idx": [], "accepts": []}
+            step(smc, fn, param, debug, debug_plot)
+            rec.cur["after"] = smc.get_state()
+            rec.stages.append(rec.cur)
+            rec.cur = None
+
+        def rec_resample(ps, idx):
+            if rec.cur is not None:
+                rec.cur["idx"].append(np.asarray(idx))
+            return resample(ps, idx)
+
+        def rec_accept(ps, y, logpy, u):
+            a = accept(ps, y, logpy, u)
+            if rec.cur is not None:
+                rec.cur["accepts"].append(a)
+            return a
+
+        mod.SMC.step = rec_step
+        mod.ParticlesSet._apply_resample_indices = rec_resample
+        mod.ParticlesSet._accept = rec_accept
+        return self
+
+    def __exit__(self, *exc):
+        (self.mod.SMC.step, self.mod.ParticlesSet._apply_resample_indices,
+         self.mod.ParticlesSet._accept) = self.saved
+        for st in self.stages:
+            st["accepts"] = [a.cpu().numpy() for a in st["accepts"]]
+
+
+def _population_fit(gp, gnp):
+    """Example23's data at PHASE3L's width and its REMAP fit (the
+    gaussian-logsigma2-and-logrho prior, as bench_samplers.py): (info, box)."""
+    P = PHASE3L
+
+    def mean(x, param):
+        return gnp.ones((x.shape[0], 1))
+
+    def kernel(x, y, covparam, pairwise=False):
+        return gp.kernel.maternp_covariance(x, y, 3, covparam, pairwise)
+
+    xi = gp.misc.designs.ldrandunif(1, P["ni"], [[-1], [1]], seed=P["seed"])
+    zi = gp.misc.testfunctions.twobumps(xi)
+    _model, info = gp.kernel.select_parameters_with_remap_gaussian_logsigma2_and_logrho_prior(
+        gp.Model(mean, kernel), xi, zi, info=True)
+    return info, [[b[0] for b in info.bounds], [b[1] for b in info.bounds]]
+
+
+def _neighbours(map_p):
+    return np.asarray(map_p) + 0.3 * np.random.default_rng(23).normal(
+        size=(PHASE3L["neighbours"], len(map_p)))
+
+
+def _target_at(gp, gnp, torch, pp, population, info, pts):
+    """The SMC population criterion's values and the SVGD log target's value
+    and gradient (vmap of grad_and_value) at pts, on the configured device."""
+    crit = pp._resolve_selection_criterion(info, None, require_differentiable=False)
+    lp = pp._make_log_prob(pp._resolve_selection_criterion(info, None, require_differentiable=True),
+                           None, None)
+    P = gnp.asarray(pts)
+    with torch.no_grad():
+        vals = population.Criterion(crit)(P)
+        grads, lvals = torch.func.vmap(torch.func.grad_and_value(lp))(P)
+    return gnp.to_np(vals), gnp.to_np(lvals), gnp.to_np(grads)
+
+
+def _svgd_start(map_p):
+    """The entry point's start: the MAP tiled, jittered by 1e-3 normals of the
+    NumPy generator of its seed."""
+    P = PHASE3L
+    x0 = np.tile(np.asarray(map_p, dtype=float), (P["svgd_particles"], 1))
+    return x0 + 1e-3 * np.random.default_rng(P["seed"]).normal(size=x0.shape)
+
+
+def _smc_interrupted(gp, gnp, pp, smc_mod, info, box, tmp):
+    """The entry point's SMC run (its configs, seed and log target) with a
+    checkpoint after every ladder stage, stopped by its log target just after
+    the first one, restored into a new sampler and resumed: (the resumed
+    run's particles, the stage it resumed from)."""
+    P = PHASE3L
+    path = os.path.join(tmp, "smc.npz")
+    lp = pp._tempered_population(pp._resolve_selection_criterion(
+        info, None, require_differentiable=False), None, None)
+
+    def stopping(x, T):
+        if os.path.exists(path):
+            raise _Interrupted(path)
+        return lp(x, T)
+
+    def make():
+        return smc_mod.SMC(box=box, n=P["smc_particles"],
+                           particles_config=smc_mod.ParticlesSetConfig(
+                               resample_scheme="residual", covariance_method="normal"),
+                           smc_config=smc_mod.SMCConfig(
+                               compute_next_logpdf_param_method="ess",
+                               mh_steps=P["smc_mh_steps"], checkpoint_path=path),
+                           rng=np.random.default_rng(P["seed"]))
+
+    try:
+        make().step_with_possible_restart(stopping, P["T0"], P["T1"], 0.5, None)
+        fail("phase 3l: the SMC run was not interrupted at its checkpoint")
+    except _Interrupted:
+        pass
+    smc = make()
+    smc.restore_checkpoint(path)
+    stage = smc.stage, smc._ladder_state["current_logpdf_param"]
+    smc.resume_restart(lp)
+    return gnp.to_np(smc.particles.x), stage
+
+
+def _population_card(gp, gnp, torch, pp, population, counters, tmp):
+    """Phase 3l's flow on the card: the REMAP fit, then (the counters reset)
+    SMC and SVGD through their entry points at bench_samplers.py's budgets,
+    each stage of the SMC recorded; then, off the counted path, the SMC run
+    stopped at its first checkpoint and resumed, and the log target at the
+    MAP's 64 neighbours."""
+    from gpmp_tpu_torch.mcmc import smc as smc_mod
+
+    P = PHASE3L
+    out, walls = {}, {}
+    info, box = _population_fit(gp, gnp)
+    out["map"], out["box"] = np.asarray(gnp.to_np(info["covparam"]), dtype=float), box
+    out["info"] = info
+    _reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _StageRecorder(smc_mod) as rec:
+        x_smc, smc = gp.mcmc.sample_from_selection_criterion_smc(
+            info=info, init_box=box, n_particles=P["smc_particles"],
+            initial_temperature=P["T0"], final_temperature=P["T1"],
+            mh_steps=P["smc_mh_steps"], seed=P["seed"])
+        torch.cuda.synchronize()
+    walls["SMC"] = time.perf_counter() - t0
+    out["launches SMC"] = _read(counters)
+    out["smc"] = (gnp.to_np(x_smc), smc.log, rec.stages, smc.population_route)
+    _reset(counters)
+    t0 = time.perf_counter()
+    x_sv, info_sv = gp.mcmc.sample_from_selection_criterion_svgd(
+        info=info, n_particles=P["svgd_particles"], n_steps=P["svgd_steps"], seed=P["seed"],
+        progress=False, verbose=0, store_particles_history=True)
+    torch.cuda.synchronize()
+    walls["SVGD"] = time.perf_counter() - t0
+    out["launches SVGD"] = _read(counters)
+    out["svgd"] = (gnp.to_np(x_sv), gnp.to_np(info_sv["particles_history"]),
+                   gnp.to_np(info_sv["temperature_trace"]), gnp.to_np(info_sv["bandwidth_trace"]),
+                   info_sv["route"])
+    t0 = time.perf_counter()
+    out["resumed"] = _smc_interrupted(gp, gnp, pp, smc_mod, info, box, tmp)
+    torch.cuda.synchronize()
+    walls["SMC interrupted and resumed"] = time.perf_counter() - t0
+    out["target"] = _target_at(gp, gnp, torch, pp, population, info, _neighbours(out["map"]))
+    _reset(counters)
+    return out, walls
+
+
+def _population_cpu(gp, gnp, torch, pp, population, card):
+    """Phase 3l on the CPU from the card's run: the log target at the card's
+    MAP's neighbours; each SMC stage run again from the card's state before
+    it (set_state: particles, weights, NumPy and torch generators) with the
+    card's tempering parameter, and the CPU's log target at the card's
+    particles after the stage against the card's (``smc conditioning``:
+    where the stage's particles sit at near-singular grams the two devices'
+    criteria part); the SVGD run whole, and each of its steps again from
+    the card's particles before it (``svgd step errs``)."""
+    from gpmp_tpu_torch.mcmc import smc as smc_mod
+    from gpmp_tpu_torch.mcmc import svgd as svgd_mod
+
+    P = PHASE3L
+    out, walls = {}, {}
+    info, box = _population_fit(gp, gnp)
+    out["target"] = _target_at(gp, gnp, torch, pp, population, info, _neighbours(card["map"]))
+    lp_smc = pp._tempered_population(pp._resolve_selection_criterion(
+        info, None, require_differentiable=False), None, None)
+    t0 = time.perf_counter()
+    reruns, conditioning = [], []
+    for st in card["smc"][2]:
+        smc = smc_mod.SMC(box=box, n=P["smc_particles"],
+                          particles_config=smc_mod.ParticlesSetConfig(
+                              resample_scheme="residual", covariance_method="normal"),
+                          smc_config=smc_mod.SMCConfig(compute_next_logpdf_param_method="ess",
+                                                       mh_steps=P["smc_mh_steps"]),
+                          rng=np.random.default_rng(P["seed"]))
+        smc.set_state(*st["before"])
+        with _StageRecorder(smc_mod) as rec:
+            smc.step(lp_smc, st["param"])
+        reruns.append(rec.stages[0])
+        card_lp = st["after"][0]["logpx"]
+        with torch.no_grad():
+            cpu_lp = gnp.to_np(lp_smc(gnp.asarray(st["after"][0]["x"]), st["param"]))
+        fin = np.isfinite(card_lp)
+        conditioning.append(float(np.max(np.abs(cpu_lp - card_lp)[fin]
+                                         / np.maximum(1.0, np.abs(card_lp[fin])))))
+    walls["SMC stages again"] = time.perf_counter() - t0
+    out["smc stages"], out["smc conditioning"] = reruns, conditioning
+    t0 = time.perf_counter()
+    x_sv, _info_sv = gp.mcmc.sample_from_selection_criterion_svgd(
+        info=info, n_particles=P["svgd_particles"], n_steps=P["svgd_steps"], seed=P["seed"],
+        progress=False, verbose=0)
+    walls["SVGD"] = time.perf_counter() - t0
+    out["svgd"] = gnp.to_np(x_sv)
+    # each step again from the card's particles before it
+    lp = pp._make_log_prob(pp._resolve_selection_criterion(
+        info, None, require_differentiable=True), None, None)
+    _x_c, hist, temps, _bw, _route = card["svgd"]
+    prev = _svgd_start(card["map"])
+    step_errs, grads = [], {}
+    t0 = time.perf_counter()
+    for s in range(P["svgd_steps"]):
+        nxt, _ = svgd_mod.svgd_step(lp, gnp.asarray(prev), step_size=1e-2,
+                                    temperature=float(temps[s]))
+        step_errs.append(float(np.max(np.abs(gnp.to_np(nxt) - hist[s]))))
+        if step_errs[-1] > TOL_3L["svgd step"]:  # the CPU's gradients there
+            grads[s] = gnp.to_np(torch.func.vmap(torch.func.grad(lp))(gnp.asarray(prev)))
+        prev = hist[s]
+    walls["SVGD steps again"] = time.perf_counter() - t0
+    out["svgd step errs"], out["svgd step grads"] = np.array(step_errs), grads
+    return out, walls
+
+
+def _svgd_conditioning(gnp, torch, pp, card, cpu):
+    """For each SVGD step s run again past TOL_3L["svgd step"]: the card's
+    gradients of the log target (vmap of grad, eager) at the card's
+    particles before it against the CPU's (``svgd step grads``): (max
+    |g_card - g_cpu|, max |g_card - g_cpu| / max(1, |g_cpu|)).  A step moves
+    each particle by step_size (kernel @ scores) / n + ..., the scores g / T:
+    so the two devices' steps part by at most about step_size max |dg| / T
+    where the criterion's own gradients part (a particle at an
+    ill-conditioned gram)."""
+    lp_card = pp._make_log_prob(pp._resolve_selection_criterion(
+        card["info"], None, require_differentiable=True), None, None)
+    hist = card["svgd"][1]
+    out = {}
+    for s, gh in cpu["svgd step grads"].items():
+        prev = _svgd_start(card["map"]) if s == 0 else hist[s - 1]
+        gc = gnp.to_np(torch.func.vmap(torch.func.grad(lp_card))(
+            torch.tensor(prev, dtype=torch.float64, device=DEVICE)))
+        out[int(s)] = (float(np.max(np.abs(gc - gh))),
+                       float(np.max(np.abs(gc - gh) / np.maximum(1.0, np.abs(gh)))))
+    return out
+
+
+def _population_mixed(gp, gnp, torch, pp, population, counters):
+    """A population of PHASE3L["mixed_population"] at n = PHASE3L["mixed_n"]
+    (>= 192: the mixed engine engages) of phase 3b's data and user kernel
+    (REML) around its p0: under the mixed engine the population criterion
+    must go particle by particle (the engine reads the card back), replay no
+    graph and launch the engine's kernels; its values against the f64
+    engine's, member by member."""
+    P = PHASE3L
+    xi, zi, p0 = _bench_data(P["mixed_n"])
+    crit = gp.kernel.make_selection_criterion_with_gradient(
+        _bench_model(gp, gnp), gp.kernel.negative_log_restricted_likelihood,
+        gnp.asarray(xi), gnp.asarray(zi))[0]
+    single = pp._resolve_selection_criterion(None, crit, require_differentiable=False)
+    pts = gnp.asarray(np.asarray(p0) + 0.1 * np.random.default_rng(29).normal(
+        size=(P["mixed_population"], len(p0))))
+    with torch.no_grad():
+        f64 = np.array([float(single(t)) for t in pts])
+    pc = population.Criterion(single)
+    try:
+        gp.config.set_chol_engine("mixed")
+        replays = population.GRAPH_REPLAYS
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals = gnp.to_np(pc(pts))
+        wall = time.perf_counter() - t0
+        launches = _read(counters)
+    finally:
+        gp.config.set_chol_engine("auto")
+    return {"route": pc.route, "graph replays": population.GRAPH_REPLAYS - replays,
+            "launches": launches, "wall": wall,
+            "err": float(np.max(np.abs(vals - f64) / np.maximum(1.0, np.abs(f64)))),
+            "finite": bool(np.all(np.isfinite(vals)))}
+
+
+def phase_population(gp, gnp, gram, distance, mixed, refine, torch, card):
+    """Phase 3l: K1p and K2p against B single K1/K2 launches and their plain
+    versions, timed; bench_samplers.py's SMC and SVGD on example23's
+    REMAP posterior on the card (the plain versions raising, the counters
+    reset after the fit), held to the CPU stage by stage (SMC) and whole and
+    step by step (SVGD); an SMC run stopped at its first checkpoint and
+    resumed, bitwise; the mixed engine's population particle by particle.
+    Gates at TOL_3L.  Returns (launches, max abs errors, times, bounds)."""
+    import tempfile
+
+    from gpmp_tpu_torch.mcmc import param_posterior as pp
+    from gpmp_tpu_torch.mcmc import population
+
+    P = PHASE3L
+    t_phase = time.perf_counter()
+    kern = _population_kernels(torch, gram)
+    counters = {"K1": (gram, "K1_LAUNCHES"), "K2": (gram, "K2_LAUNCHES"),
+                "K1p": (gram, "K1P_LAUNCHES"), "K2p": (gram, "K2P_LAUNCHES"),
+                "K1d": (distance, "K1D_LAUNCHES"), "K1m": (gram, "K1M_LAUNCHES"),
+                "graph replays": (population, "GRAPH_REPLAYS")}
+    gp.config.set_device(DEVICE)
+    gp.config.set_chol_engine("auto")
+    with tempfile.TemporaryDirectory() as tmp, _PlainGuard(gram, distance, mixed, refine):
+        card_out, card_walls = _population_card(gp, gnp, torch, pp, population, counters, tmp)
+    mixed_counters = {k: v for k, v in _counters(gram, distance, mixed, refine).items()
+                      if k in ("K1d", "K1m", "K3", "K4", "K5", "K6", "K7")}
+    with _PlainGuard(gram, distance, mixed, refine):
+        mixed_out = _population_mixed(gp, gnp, torch, pp, population, mixed_counters)
+    gp.config.set_device("cpu")
+    try:
+        cpu_out, cpu_walls = _population_cpu(gp, gnp, torch, pp, population, card_out)
+    finally:
+        gp.config.set_device(DEVICE)
+
+    l_smc, l_svgd = card_out["launches SMC"], card_out["launches SVGD"]
+    x_smc, log, stages, route_smc = card_out["smc"]
+    x_sv, _hist, _temps, bw, route_sv = card_out["svgd"]
+    ladder = [st["param"] for st in stages]
+    ess = [s["ess"] for s in log if s["ess"] is not None]
+    rates = [r for s in log for r in s["acceptation_rate_sequence"]]
+    evals_smc = l_smc["graph replays"]
+    say(f"[phase 3l] card {card} | example23 ni={P['ni']} d=1 p=3 seed {P['seed']}, REMAP "
+        f"(gaussian logsigma2 + logrho prior) MAP {card_out['map'].tolist()}; SMC "
+        f"{P['smc_particles']} particles, T {P['T0']:g} -> {P['T1']:g}, mh_steps "
+        f"{P['smc_mh_steps']}: route {route_smc}, {len(stages)} stages, ladder {ladder}, ESS "
+        f"{[round(e, 3) for e in ess]}, acceptance rates {[round(r, 3) for r in rates]}; "
+        f"launches {l_smc}")
+    say(f"[phase 3l] card {card} | SVGD {P['svgd_particles']} x {P['svgd_steps']} steps: route "
+        f"{route_sv}, bandwidth first/last {float(bw[0]):.6g}/{float(bw[-1]):.6g}, particle "
+        f"mean {x_sv.mean(axis=0).tolist()}; launches {l_svgd}")
+    rates_out = {"SMC wall s": card_walls["SMC"], "SVGD wall s": card_walls["SVGD"],
+                 "SMC population evaluations/s": evals_smc / card_walls["SMC"],
+                 "SVGD steps/s": P["svgd_steps"] / card_walls["SVGD"],
+                 "CPU SVGD wall s": cpu_walls["SVGD"]}
+    say(f"[phase 3l] card {card} | " + ", ".join(f"{k} {v:.6g}" for k, v in rates_out.items())
+        + "; walls on the card: " + ", ".join(f"{k} {v:.3f} s" for k, v in card_walls.items())
+        + "; on the CPU: " + ", ".join(f"{k} {v:.3f} s" for k, v in cpu_walls.items()))
+
+    # a step run again past TOL_3L["svgd step"] is not held where the two
+    # devices' gradients at its particles explain it (step_size max|dg| / T)
+    step_errs, temps = cpu_out["svgd step errs"], card_out["svgd"][2]
+    grads = _svgd_conditioning(gnp, torch, pp, card_out, cpu_out)
+    excused = {s: step_errs[s] <= 2 * 1e-2 * dg / temps[s] for s, (dg, _rel) in grads.items()}
+    errs = {}
+    (cv, clv, cg), (hv, hlv, hg) = card_out["target"], cpu_out["target"]
+    errs["population criterion"] = float(np.max(np.abs(cv - hv) / np.maximum(1.0, np.abs(hv))))
+    errs["log target"] = float(np.max(np.abs(clv - hlv) / np.maximum(1.0, np.abs(hlv))))
+    errs["log target gradient"] = float(np.max(np.abs(cg - hg) / np.maximum(1.0, np.abs(hg))))
+    # each stage run again: held where the two devices' log targets agree at
+    # its particles (TOL_3L["smc x"]); the others are printed
+    rows, held = [], []
+    for k, (c, h, cond) in enumerate(zip(stages, cpu_out["smc stages"],
+                                         cpu_out["smc conditioning"])):
+        same_idx = len(c["idx"]) == len(h["idx"]) and all(
+            np.array_equal(a, b) for a, b in zip(c["idx"], h["idx"]))
+        flags = sum(np.array_equal(a, b) for a, b in zip(c["accepts"], h["accepts"]))
+        dx = float(np.max(np.abs(c["after"][0]["x"] - h["after"][0]["x"])))
+        rows.append(f"stage {k} T {c['param']:.6g}: log target card vs CPU {cond:.3e}, "
+                    f"resampling identical {same_idx}, accept flags identical {flags}/"
+                    f"{len(c['accepts'])} ({len(h['accepts'])}), x {dx:.3e}")
+        if cond <= TOL_3L["smc x"]:
+            held.append((k, same_idx and flags == len(c["accepts"]) == len(h["accepts"]), dx))
+    errs["SMC x by stage"] = max((dx for _k, _ok, dx in held), default=float("inf"))
+    errs["SVGD whole"] = float(np.max(np.abs(x_sv - cpu_out["svgd"])))
+    errs["SVGD by step"] = max((e for s, e in enumerate(step_errs) if s not in grads),
+                               default=0.0)
+    errs["mixed vs f64"] = mixed_out["err"]
+    resumed_x, resumed_at = card_out["resumed"]
+    resumed = bool(np.array_equal(resumed_x, x_smc))
+    say(f"[phase 3l] card vs CPU: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {TOL_3L})")
+    for row in rows:
+        say(f"[phase 3l] SMC {row}")
+    say(f"[phase 3l] SMC stages held (log target card vs CPU <= {TOL_3L['smc x']:g} at their "
+        f"particles): {[k for k, _ok, _dx in held]}, identical {[ok for _k, ok, _dx in held]}; "
+        f"SVGD steps past {TOL_3L['svgd step']:g} when run again: "
+        + ("none" if not grads else "")
+        + ", ".join(f"step {s} ({step_errs[s]:.3e}; the gradients at its particles card vs "
+                    f"CPU {dg:.3e}, relative {rel:.3e}: step_size max|dg| / T "
+                    f"{1e-2 * dg / temps[s]:.3e}, explained {excused[s]})"
+                    for s, (dg, rel) in grads.items()))
+    say(f"[phase 3l] SMC stopped after its first checkpoint (stage {resumed_at[0]}, T "
+        f"{resumed_at[1]:.6g}) and resumed on the card: bitwise the uninterrupted run {resumed}")
+    say(f"[phase 3l] card {card} | mixed engine n={P['mixed_n']}, population "
+        f"{P['mixed_population']}: route {mixed_out['route']}, graph replays "
+        f"{mixed_out['graph replays']}, launches {mixed_out['launches']}, wall "
+        f"{mixed_out['wall']:.3f} s, vs f64 {mixed_out['err']:.3e}")
+    say(f"[phase 3l] wall {time.perf_counter() - t_phase:.1f} s")
+
+    for (B, n, d), r in kern.items():
+        check(r["K1p bitwise K1"], f"phase 3l K1p ({B}, {n}, {d}) not bitwise K1")
+        check(r["K1p plain"] <= TOL_3L["K1p plain"], f"phase 3l K1p ({B}, {n}, {d}) vs plain")
+        check(r["K2p reproducible"], f"phase 3l K2p ({B}, {n}, {d}) not reproducible")
+        check(r["K2p plain"] <= TOL_3L["K2p plain"], f"phase 3l K2p ({B}, {n}, {d}) vs plain")
+        check(r["K2p K2"] <= TOL_3L["K2p K2"], f"phase 3l K2p ({B}, {n}, {d}) vs K2")
+    check(route_smc == "graph" and route_sv == "graph", "phase 3l samplers not on the graph route")
+    check(l_smc["K1p"] > 0, f"phase 3l SMC did not launch K1p: {l_smc}")
+    check(l_svgd["K1p"] > 0 and l_svgd["K2p"] > 0,
+          f"phase 3l SVGD did not launch K1p/K2p: {l_svgd}")
+    # the single-theta gram runs only in each sampler's route probe (one
+    # evaluation of the criterion as written)
+    for name, lc in (("SMC", l_smc), ("SVGD", l_svgd)):
+        check(lc["K1"] == 1 and lc["K2"] == 0 and lc["K1d"] == 0 and lc["K1m"] == 0,
+              f"phase 3l {name} single-theta launches {lc}")
+        check(lc["graph replays"] > 0, f"phase 3l {name} replayed no graph")
+    # K1p (K2p) runs once a replay, and besides only in the graph's capture
+    # (its warm-up and its host-read probe) and SVGD's final log probabilities
+    check(l_svgd["graph replays"] == P["svgd_steps"], "phase 3l SVGD: not one replay a step")
+    check(l_smc["K1p"] == l_smc["graph replays"] + 2 and l_smc["K2p"] == 0,
+          f"phase 3l SMC: not one K1p launch a replay: {l_smc}")
+    check(l_svgd["K1p"] == l_svgd["graph replays"] + 3
+          and l_svgd["K2p"] == l_svgd["graph replays"] + 2,
+          f"phase 3l SVGD: not one K1p and one K2p launch a replay: {l_svgd}")
+    check(errs["population criterion"] <= TOL_3L["target"]
+          and errs["log target"] <= TOL_3L["target"]
+          and errs["log target gradient"] <= TOL_3L["target"], "phase 3l log target card vs CPU")
+    check(held and held[-1][0] == len(stages) - 1 and all(ok for _k, ok, _dx in held),
+          "phase 3l SMC resampling or accept flags card vs CPU")
+    check(errs["SMC x by stage"] <= TOL_3L["smc x"], "phase 3l SMC particles card vs CPU")
+    check(errs["SVGD whole"] <= TOL_3L["svgd"]
+          or (errs["SVGD by step"] <= TOL_3L["svgd step"] and all(excused.values())),
+          "phase 3l SVGD card vs CPU")
+    check(resumed and 0 < resumed_at[0], "phase 3l SMC resume not bitwise")
+    check(np.all(np.isfinite(x_smc)) and np.all(np.isfinite(x_sv)),
+          "phase 3l samples not finite")
+    check(mixed_out["route"] == "particles" and mixed_out["graph replays"] == 0,
+          f"phase 3l mixed engine route {mixed_out['route']}")
+    check(mixed_out["finite"] and errs["mixed vs f64"] <= TOL_3L["mixed"],
+          "phase 3l mixed-engine population vs f64")
+    check(mixed_out["launches"]["K1d"] > 0 and mixed_out["launches"]["K1m"] > 0
+          and sum(mixed_out["launches"][k] for k in ("K3", "K4", "K5", "K6", "K7")) > 0,
+          f"phase 3l mixed engine launches {mixed_out['launches']}")
+    check("jax" not in sys.modules, "jax was imported")
+
+    smc_shape, svgd_shape = P["shapes"][0], P["shapes"][1]
+    launches = {"K1p": l_smc["K1p"] + l_svgd["K1p"], "K2p": l_svgd["K2p"]}
+    abs_errs = {k: max(r[f"{k} abs"] for r in kern.values()) for k in ("K1p", "K2p")}
+    times = {"K1p": (kern[smc_shape]["ms"]["K1p"], kern[smc_shape]["plain ms"]["K1p"]),
+             "K2p": (kern[svgd_shape]["ms"]["K2p"], kern[svgd_shape]["plain ms"]["K2p"])}
+    bounds = {"K1p": kern[smc_shape]["bounds"]["K1p"], "K2p": kern[svgd_shape]["bounds"]["K2p"]}
+    return launches, abs_errs, times, bounds, {"walls": {**card_walls, **{
+        f"CPU {k}": v for k, v in cpu_walls.items()}}, "errs": errs, "rates": rates_out,
+        "stages": len(stages), "smc held": [k for k, _ok, _dx in held],
+        "svgd steps explained": {s: bool(v) for s, v in excused.items()},
+        "mixed": dict(mixed_out)}
 
 
 # ----------------------------------------------------------------------------
@@ -5947,6 +6540,8 @@ def main():
         gp, gnp, gram, distance, mixed, refine, torch, card)
     post_launches, post_walls, post_errs, post_rates = phase_posterior(
         gp, gnp, gram, distance, mixed, refine, torch, card)
+    pop_launches, pop_abs, pop_times, pop_bounds, pop_summary = phase_population(
+        gp, gnp, gram, distance, mixed, refine, torch, card)
     slice_launches, slice_data, t_slice_first, k6 = phase_slice(
         gp, gnp, gram, distance, mixed, refine, torch)
     launches.update(slice_launches)
@@ -5994,6 +6589,10 @@ def main():
     times.update({k: v[:2] for k, v in grp_times.items()})
     bounds.update(grp_bounds)
     device_ms.update({f"{k} n={RESIDENT_N} R=1": v for k, v in grp_device.items()})
+    launches.update(pop_launches)
+    main_abs.update(pop_abs)
+    times.update(pop_times)
+    bounds.update(pop_bounds)
 
     say(json.dumps({
         "card": card,
@@ -6003,6 +6602,7 @@ def main():
         "remap_3j": {"walls": remap_walls, "launches": remap_launches, "errs": remap_errs},
         "posterior_3k": {"walls": post_walls, "launches": post_launches, "errs": post_errs,
                          "rates": post_rates},
+        "population_3l": pop_summary,
         "reml_value_grad_evals_per_s": {f"n={n} {k}": v for (n, k), v in rates.items()},
         "noisy_fit_loo_predict_s": {"mixed first": t_slice_first, "mixed warm": t_slice_warm},
         "noisy_reml_value_grad_evals_per_s": {f"n={n} {e}": v for (n, e), v in mrates.items()},
@@ -6061,6 +6661,8 @@ def main():
         ("K9s", "slab_update", syrk_src, "gpmp_tpu/parallel/chol.py:270"),
         ("K9s f32", "slab_update f32", syrk32_src, "gpmp_tpu/parallel/chol.py:270"),
         ("K9m", "murray_phi+symmetrize", chol_src, "gpmp_tpu/parallel/chol.py:460"),
+        ("K1p", "matern_gram_population", gram_src, "gpmp_tpu/mcmc/param_posterior.py:399"),
+        ("K2p", "matern_gram_population_pullback", gram_src, "gpmp_tpu/mcmc/svgd.py:166"),
     ]
     say(json.dumps({"kernels": [
         {"name": f"{key} {name}", "route": "cuda", "source": src, "replaces": where,

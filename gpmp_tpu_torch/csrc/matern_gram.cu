@@ -1,7 +1,8 @@
 // gpmp_tpu_torch/csrc/matern_gram.cu
 //
-// K1 (Matern gram forward), K2 (its parameter pullback) and K1m (the
-// Matern polynomial, elementwise) for Hopper, sm_90a, in float and double.
+// K1 (Matern gram forward), K2 (its parameter pullback), their population
+// forms K1p and K2p (B parameter vectors at one x) and K1m (the Matern
+// polynomial, elementwise) for Hopper, sm_90a, in float and double.
 // Plain C entry points, loaded with ctypes by gpmp_tpu_torch/ops/_build.py
 // and wrapped in gpmp_tpu_torch/ops/gram.py.
 //
@@ -112,6 +113,23 @@
 //   output's or Kbar's base) take C scalar stores (K1) or sizeof(T)-byte
 //   copies (K2): the same arithmetic and order of sums.
 // Tensor cores, TMA and wgmma are not used: there is no matrix product.
+//
+// K1p and K2p (the population forms of K1 and K2, for the SMC and SVGD
+// samplers) replace gpmp_tpu/mcmc/param_posterior.py:399 and
+// gpmp_tpu/mcmc/svgd.py:166: jax.vmap of the gram composition (and of its
+// VJP) over B parameter vectors theta_b at one x, which XLA compiles as one
+// batched program.  K1p writes B n m entries, K2p reads as many: bytes
+// bound both (at the samplers' n = 8 a member is 64 entries, and a launch
+// is a few microseconds of fixed cost against ~0.2 us of bytes).  Design:
+// each entry takes K1's (K2's) per-entry arithmetic (gram_value, pull_entry,
+// the scaled coordinates rounded on their own), so member b is bitwise
+// K1(theta_b) and K2p's terms are K2's; many members share a block, since
+// a member is far smaller than K1's 32 x 32 tile: K1p a thread an entry
+// over chunks of whole members, e^l and s2 of the block's members in
+// shared memory; K2p a warp a chunk of one member's entries (x is y: the
+// pairs i <= j weighed by Kbar_ij + Kbar_ji, as K2), the warp's butterfly,
+// then each member's chunks summed in order by its last warp (a ticket a
+// member, as fixed_sum.cuh): bitwise reproducible.  One launch each.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -370,6 +388,18 @@ __device__ __forceinline__ void store_row(T* p, const T (&v)[C], long long col, 
   }
 }
 
+// K1's value of one entry from its d2 = sum_k diff_k^2 (fused
+// multiply-adds in the order of k): s2 k_p(sqrt(d2)), 0 at h = inf; the
+// diagonal of x is y adds the nugget after (K1 and K1p share it)
+template <typename T, bool P3>
+__device__ __forceinline__ T gram_value(T d2, T sigma2, const Coef<T>& cf,
+                                        const double* __restrict__ coef, int p) {
+  const T h = M<T>::sqrt(d2);
+  T kv = M<T>::exp(-cf.c * h) * poly<T, P3>(cf.a, coef + 1, p, cf.twoc * h);
+  if (isinf(h)) kv = T(0);
+  return M<T>::mul(sigma2, kv);
+}
+
 // K1's entries of an item, v[s][q] = K(i0 + r_s, j0 + c0 + q) (0 where
 // not computed); MASK: skip the entries past n or m and, on the diagonal
 // (diag), those below it
@@ -403,10 +433,7 @@ __device__ __forceinline__ void gram_item(T (&v)[Geo<T>::S][Geo<T>::C], const T 
           d2 = M<T>::fma(diff, diff, d2);
         }
       }
-      const T h = M<T>::sqrt(d2);
-      T kv = M<T>::exp(-cf.c * h) * poly<T, P3>(cf.a, coef + 1, p, cf.twoc * h);
-      if (isinf(h)) kv = T(0);
-      T val = M<T>::mul(sigma2, kv);
+      T val = gram_value<T, P3>(d2, sigma2, cf, coef, p);
       if (MASK && diag && r == c) val = M<T>::add(val, nugget);
       v[s][q] = val;
     }
@@ -689,6 +716,159 @@ pullback_kernel(const T* __restrict__ kbar, const T* __restrict__ x, const T* __
   }
 }
 
+// ----------------------------------------------------------------------------
+// K1p and K2p: K1 and K2 for a population of B parameter vectors theta_b at
+// one x and y (ops/gram.py population_plan).  Each entry takes K1's (K2's)
+// arithmetic, so member b's gram is bitwise K1(theta_b) and member b's
+// pullback terms are K2's, summed in another fixed order.  A member's
+// entries are few on the samplers' path (n = 8: 64), so a block takes
+// several members: K1p cuts the stack of B n m entries into POP_CHUNK-entry
+// chunks of whole member groups, K2p gives a warp POP_WARP_ENTRIES entries
+// of one member.  D: POP_EXACT_D (d up to it, the loops unrolled with a
+// guard on k < d) or MAX_D; P3 as K1's.
+// ----------------------------------------------------------------------------
+constexpr int POP_THREADS = 256;         // a block (K1p, K2p)
+constexpr int POP_CHUNK = 512;           // K1p: entries a block
+constexpr int POP_MAX_MEMBERS = 64;      // K1p: members a block
+constexpr int POP_WARP_ENTRIES = 1024;   // K2p: a member's entries a warp
+constexpr int POP_EXACT_D = 8;
+
+// K1p: out[b] = K(x, y; theta_b) (B, n, m).  Block g c takes members
+// [g mb, g mb + mb) (whole members: mb n m <= POP_CHUNK unless mb = 1) and
+// chunk c of their mb n m entries; e^l and s2 of its members in shared
+// memory, then a thread an entry, consecutive threads on consecutive
+// entries (coalesced scalar stores).
+template <typename T, int D, bool P3>
+__global__ void __launch_bounds__(POP_THREADS)
+population_gram_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                       const T* __restrict__ theta, const Coef<T> cf,
+                       const double* __restrict__ coef, T* __restrict__ out, int n, int m, int d,
+                       int p, int same, T eps, int members, int mb, int chunks) {
+  __shared__ T el_s[POP_MAX_MEMBERS][D];
+  __shared__ T s2_s[POP_MAX_MEMBERS];
+  const int g = blockIdx.x / chunks, c = blockIdx.x - g * chunks;
+  const int b0 = g * mb, nb = min(mb, members - b0);
+  for (int e = threadIdx.x; e < nb * (d + 1); e += POP_THREADS) {
+    const int u = e / (d + 1), k = e - u * (d + 1);
+    const T v = M<T>::exp(theta[static_cast<long long>(b0 + u) * (d + 1) + k]);
+    if (k == 0)
+      s2_s[u] = v;
+    else
+      el_s[u][k - 1] = v;
+  }
+  __syncthreads();
+  const long long per = static_cast<long long>(n) * m;
+  const long long end = nb * per;
+  T* const base = out + b0 * per;
+  for (long long e = static_cast<long long>(c) * POP_CHUNK + threadIdx.x;
+       e < end && e < static_cast<long long>(c + 1) * POP_CHUNK; e += POP_THREADS) {
+    const int u = static_cast<int>(e / per);
+    const long long rem = e - u * per;
+    const int i = static_cast<int>(rem / m), j = static_cast<int>(rem - static_cast<long long>(i) * m);
+    const T* xi = x + static_cast<long long>(i) * d;
+    const T* yj = y + static_cast<long long>(j) * d;
+    T d2 = T(0);
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      if (k < d) {
+        const T diff = M<T>::mul(el_s[u][k], __ldg(xi + k)) - M<T>::mul(el_s[u][k], __ldg(yj + k));
+        d2 = M<T>::fma(diff, diff, d2);
+      }
+    }
+    const T sigma2 = s2_s[u];
+    T val = gram_value<T, P3>(d2, sigma2, cf, coef, p);
+    if (same && i == j) val = M<T>::add(val, T(10) * sigma2 * eps);
+    base[e] = val;
+  }
+}
+
+// K2p: out[b] = grad_theta_b <Kbar_b, K(x, y; theta_b)> (B, 1 + d) f64.
+// Warp w takes member w / chunks and entries [c W, c W + W) of its n m
+// (c = w % chunks, W = POP_WARP_ENTRIES), lane l the entries l, l + 32, ...
+// of them: K2's terms (for x is y the pairs i <= j, weighed by Kbar_ij +
+// Kbar_ji off the diagonal), summed per lane in that order, then by the
+// butterfly of fixed_sum.cuh over the warp's lanes.  A member of one chunk
+// is written by its warp; else the chunks' sums go to partial and the last
+// warp of the member to take its ticket sums them in chunk order, writes
+// the 1 + d results and resets the ticket: bitwise reproducible.
+template <typename T, int D, bool P3>
+__global__ void __launch_bounds__(POP_THREADS)
+population_pullback_kernel(const T* __restrict__ kbar, const T* __restrict__ x,
+                           const T* __restrict__ y, const T* __restrict__ theta,
+                           const Coef<T> cf, const double* __restrict__ coef,
+                           double* __restrict__ partial, unsigned int* __restrict__ ticket,
+                           double* __restrict__ out, int n, int m, int d, int p, int same, T eps,
+                           int members, int chunks) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long w = static_cast<long long>(blockIdx.x) * (POP_THREADS / 32) + (threadIdx.x >> 5);
+  if (w >= static_cast<long long>(members) * chunks) return;  // whole warps
+  const int b = static_cast<int>(w / chunks), c = static_cast<int>(w - static_cast<long long>(b) * chunks);
+  const T* th = theta + static_cast<long long>(b) * (d + 1);
+  const T mine = lane < d ? M<T>::exp(th[1 + lane]) : T(0);
+  T el[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) el[k] = __shfl_sync(FULL, mine, k);
+  const T sigma2 = M<T>::exp(th[0]);
+  const T nugget = T(10) * sigma2 * eps;
+  const long long per = static_cast<long long>(n) * m;
+  const T* kb = kbar + static_cast<long long>(b) * per;
+  double acc[1 + D];
+#pragma unroll
+  for (int k = 0; k <= D; ++k) acc[k] = 0.0;
+  const long long e1 = min(per, static_cast<long long>(c + 1) * POP_WARP_ENTRIES);
+  for (long long e = static_cast<long long>(c) * POP_WARP_ENTRIES + lane; e < e1; e += 32) {
+    const int i = static_cast<int>(e / m), j = static_cast<int>(e - static_cast<long long>(i) * m);
+    if (same && i > j) continue;
+    T wkb = kb[e];
+    if (same && i != j) wkb += kb[static_cast<long long>(j) * m + i];
+    const T* xi = x + static_cast<long long>(i) * d;
+    const T* yj = y + static_cast<long long>(j) * d;
+    T sq[D];
+    T d2 = T(0);
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      if (k < d) {
+        const T diff = M<T>::mul(el[k], __ldg(xi + k)) - M<T>::mul(el[k], __ldg(yj + k));
+        sq[k] = M<T>::mul(diff, diff);
+        d2 += sq[k];
+      }
+    }
+    pull_entry<T, P3, true, D>(acc, sq, d, d2, wkb, sigma2, same && i == j ? nugget : T(0), cf,
+                               coef, p);
+  }
+#pragma unroll
+  for (int q = 0; q <= D; ++q)
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) acc[q] += __shfl_xor_sync(FULL, acc[q], s);
+  double* const res = out + static_cast<long long>(b) * (d + 1);
+  if (chunks == 1) {
+    if (lane == 0) {
+#pragma unroll
+      for (int q = 0; q <= D; ++q)
+        if (q <= d) res[q] = acc[q];
+    }
+    return;
+  }
+  double* const part = partial + static_cast<long long>(b) * chunks * (d + 1);
+  unsigned last = 0;
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q <= D; ++q)
+      if (q <= d) part[static_cast<long long>(c) * (d + 1) + q] = acc[q];
+    __threadfence();  // the sums are visible before the ticket counts them
+    last = atomicAdd(ticket + b, 1u) == static_cast<unsigned>(chunks - 1);
+  }
+  if (!__shfl_sync(FULL, last, 0)) return;
+  __threadfence();
+  for (int q = lane; q <= d; q += 32) {
+    double s = 0.0;
+    for (int k = 0; k < chunks; ++k) s += __ldcg(part + static_cast<long long>(k) * (d + 1) + q);
+    res[q] = s;
+  }
+  if (lane == 0) ticket[b] = 0u;
+}
+
 // K1m's Horner: the device coefficients, the run-time degree p
 template <typename T>
 __device__ __forceinline__ T horner(const double* __restrict__ a, int p, T t) {
@@ -823,6 +1003,102 @@ struct Pullback {
   }
 };
 
+// K1p's and K2p's instances: D = POP_EXACT_D (d up to it, p <= FIXED_P),
+// else MAX_D
+template <typename F, typename... A>
+int by_pop_d(int d, int p, A... a) {
+  if (p > FIXED_P) return F::template run<MAX_D, false>(a...);
+  return d <= POP_EXACT_D ? F::template run<POP_EXACT_D, true>(a...)
+                          : F::template run<MAX_D, true>(a...);
+}
+
+// the plans of ops/gram.py population_plan
+long long pop_gram_blocks(long long members, long long n, long long m, long long mb,
+                          long long chunks) {
+  if (n <= 0 || m <= 0 || n > 0x7fffffffLL || m > 0x7fffffffLL) return -1;
+  const long long per = n * m, fit = POP_CHUNK / per;
+  const long long want_mb = fit < 1 ? 1 : (fit < POP_MAX_MEMBERS ? fit : POP_MAX_MEMBERS);
+  if (mb != want_mb || chunks != (mb * per + POP_CHUNK - 1) / POP_CHUNK) return -1;
+  return (members + mb - 1) / mb * chunks;
+}
+
+long long pop_pullback_blocks(long long members, long long n, long long m, long long chunks) {
+  if (n <= 0 || m <= 0 || n > 0x7fffffffLL || m > 0x7fffffffLL) return -1;
+  const long long per = n * m;
+  if (chunks != (per + POP_WARP_ENTRIES - 1) / POP_WARP_ENTRIES) return -1;
+  return (members * chunks + POP_THREADS / 32 - 1) / (POP_THREADS / 32);
+}
+
+bool bad_population(long long members, long long n, long long m, int d, int p, int same,
+                    long long blocks, long long want) {
+  return members <= 0 || members > 0x7fffffffLL || n <= 0 || m <= 0 || n > 0x7fffffffLL ||
+         m > 0x7fffffffLL || d < 1 ||
+         d > MAX_D || p < 0 || (same && n != m) || want <= 0 || blocks != want ||
+         blocks > 0x7fffffffLL;
+}
+
+struct PopGram {
+  template <int D, bool P3, typename T>
+  static int run(const T* x, const T* y, const T* theta, Coef<T> cf, const double* coef, T* out,
+                 long long members, long long n, long long m, int d, int p, int same, T eps,
+                 long long mb, long long chunks, long long blocks, cudaStream_t s) {
+    population_gram_kernel<T, D, P3><<<static_cast<unsigned>(blocks), POP_THREADS, 0, s>>>(
+        x, y, theta, cf, coef, out, static_cast<int>(n), static_cast<int>(m), d, p, same, eps,
+        static_cast<int>(members), static_cast<int>(mb), static_cast<int>(chunks));
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct PopPullback {
+  template <int D, bool P3, typename T>
+  static int run(const T* kbar, const T* x, const T* y, const T* theta, Coef<T> cf,
+                 const double* coef, double* partial, unsigned int* ticket, double* out,
+                 long long members, long long n, long long m, int d, int p, int same, T eps,
+                 long long chunks, long long blocks, cudaStream_t s) {
+    population_pullback_kernel<T, D, P3><<<static_cast<unsigned>(blocks), POP_THREADS, 0, s>>>(
+        kbar, x, y, theta, cf, coef, partial, ticket, out, static_cast<int>(n),
+        static_cast<int>(m), d, p, same, eps, static_cast<int>(members),
+        static_cast<int>(chunks));
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <typename T>
+int launch_population_gram(const void* x, const void* y, const void* theta, const void* hcoef,
+                           const void* coef, void* out, long long members, long long n,
+                           long long m, int d, int p, int same, double eps, long long mb,
+                           long long chunks, long long blocks, void* stream) {
+  if (bad_population(members, n, m, d, p, same, blocks,
+                     pop_gram_blocks(members, n, m, mb, chunks)) ||
+      !x || !y || !theta || !hcoef || !out || (p > FIXED_P && !coef))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return by_pop_d<PopGram>(d, p, static_cast<const T*>(x), static_cast<const T*>(y),
+                           static_cast<const T*>(theta),
+                           coef_of<T>(static_cast<const double*>(hcoef), p),
+                           static_cast<const double*>(coef), static_cast<T*>(out), members, n, m,
+                           d, p, same, static_cast<T>(eps), mb, chunks, blocks,
+                           static_cast<cudaStream_t>(stream));
+}
+
+template <typename T>
+int launch_population_pullback(const void* kbar, const void* x, const void* y, const void* theta,
+                               const void* hcoef, const void* coef, void* partial, void* ticket,
+                               void* out, long long members, long long n, long long m, int d,
+                               int p, int same, double eps, long long chunks, long long blocks,
+                               void* stream) {
+  if (bad_population(members, n, m, d, p, same, blocks,
+                     pop_pullback_blocks(members, n, m, chunks)) ||
+      !kbar || !x || !y || !theta || !hcoef || !partial || !ticket || !out ||
+      (p > FIXED_P && !coef))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return by_pop_d<PopPullback>(
+      d, p, static_cast<const T*>(kbar), static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(theta), coef_of<T>(static_cast<const double*>(hcoef), p),
+      static_cast<const double*>(coef), static_cast<double*>(partial),
+      static_cast<unsigned int*>(ticket), static_cast<double*>(out), members, n, m, d, p, same,
+      static_cast<T>(eps), chunks, blocks, static_cast<cudaStream_t>(stream));
+}
+
 template <typename T>
 int launch_gram(const void* x, const void* y, const void* theta, const void* hcoef,
                 const void* coef, void* out, long long n, long long m, int d, int p, int same,
@@ -885,6 +1161,20 @@ int gpmp_matern_geometry(int what) {
   }
 }
 
+// K1p's and K2p's geometry (ops/gram.py checks it once): threads a block,
+// K1p's entries and members a block, K2p's entries a warp, the largest d
+// of their unrolled instance
+int gpmp_matern_population_geometry(int what) {
+  switch (what) {
+    case 0: return POP_THREADS;
+    case 1: return POP_CHUNK;
+    case 2: return POP_MAX_MEMBERS;
+    case 3: return POP_WARP_ENTRIES;
+    case 4: return POP_EXACT_D;
+    default: return -1;
+  }
+}
+
 // K (n, m) of x (n, d), y (m, d), theta (1 + d): one launch of ``blocks``
 // blocks over the ``items`` tiles of ops/gram.py gram_plan; hcoef the host
 // coefficients [c, a_0..a_p, b_0..b_p], coef the same on the device (read
@@ -924,6 +1214,51 @@ int gpmp_matern_pullback_f32(const void* kbar, const void* x, const void* y, con
                              void* stream) {
   return launch_pullback<float>(kbar, x, y, theta, hcoef, coef, partial, ticket, out, n, m, d, p,
                                 same, eps, tile, items, blocks, stream);
+}
+
+// K1p: out (B, n, m) = K(x, y; theta_b) for theta (B, 1 + d), one launch of
+// ``blocks`` blocks on ops/gram.py population_plan (mb members a block,
+// chunks blocks a member group); coefficients as K1's
+int gpmp_matern_gram_population_f64(const void* x, const void* y, const void* theta,
+                                    const void* hcoef, const void* coef, void* out,
+                                    long long members, long long n, long long m, int d, int p,
+                                    int same, double eps, long long mb, long long chunks,
+                                    long long blocks, void* stream) {
+  return launch_population_gram<double>(x, y, theta, hcoef, coef, out, members, n, m, d, p, same,
+                                        eps, mb, chunks, blocks, stream);
+}
+
+int gpmp_matern_gram_population_f32(const void* x, const void* y, const void* theta,
+                                    const void* hcoef, const void* coef, void* out,
+                                    long long members, long long n, long long m, int d, int p,
+                                    int same, double eps, long long mb, long long chunks,
+                                    long long blocks, void* stream) {
+  return launch_population_gram<float>(x, y, theta, hcoef, coef, out, members, n, m, d, p, same,
+                                       eps, mb, chunks, blocks, stream);
+}
+
+// K2p: out (B, 1 + d) f64 = grad_theta_b <Kbar_b, K(theta_b)> for Kbar (B, n,
+// m); partial (B x chunks x (1 + d) f64) and ticket (B, zero between
+// launches) its workspace
+int gpmp_matern_pullback_population_f64(const void* kbar, const void* x, const void* y,
+                                        const void* theta, const void* hcoef, const void* coef,
+                                        void* partial, void* ticket, void* out, long long members,
+                                        long long n, long long m, int d, int p, int same,
+                                        double eps, long long chunks, long long blocks,
+                                        void* stream) {
+  return launch_population_pullback<double>(kbar, x, y, theta, hcoef, coef, partial, ticket, out,
+                                            members, n, m, d, p, same, eps, chunks, blocks,
+                                            stream);
+}
+
+int gpmp_matern_pullback_population_f32(const void* kbar, const void* x, const void* y,
+                                        const void* theta, const void* hcoef, const void* coef,
+                                        void* partial, void* ticket, void* out, long long members,
+                                        long long n, long long m, int d, int p, int same,
+                                        double eps, long long chunks, long long blocks,
+                                        void* stream) {
+  return launch_population_pullback<float>(kbar, x, y, theta, hcoef, coef, partial, ticket, out,
+                                           members, n, m, d, p, same, eps, chunks, blocks, stream);
 }
 
 int gpmp_maternp_f64(const void* h, const void* coef, void* out, long long count, int p,

@@ -141,14 +141,18 @@ def neglog_f_logrho(logrho, logrho_min, logrho_0, alpha=None):
 
     The support check ``logrho_0 > logrho_min`` runs here on host values
     (NumPy, Python, CPU tensors).  Tensors on the card are not read back,
-    which would cost one synchronisation per criterion evaluation: the REMAP
-    procedures check their bound values once, before the fit.
+    which would cost one synchronisation per criterion evaluation, and
+    nothing is read under a torch.func transform (vmap, grad), whose
+    tensors have no storage to read, as the JAX package skips it for
+    tracers: the REMAP procedures check their bound values once, before the
+    fit.
     """
     (alpha,) = _fill_from_defaults(alpha=alpha)
     if alpha <= 0:
         raise ValueError("alpha must be > 0.")
-    if not any(isinstance(v, torch.Tensor) and v.device.type != "cpu"
-               for v in (logrho_min, logrho_0)):
+    if not (torch._C._are_functorch_transforms_active()
+            or any(isinstance(v, torch.Tensor) and v.device.type != "cpu"
+                   for v in (logrho_min, logrho_0))):
         _check_logrho_support(logrho_min, logrho_0)
     logrho = gnp._tensor(logrho)
     logrho_min = gnp._tensor(logrho_min).to(device=logrho.device, dtype=logrho.dtype)

@@ -37,8 +37,9 @@ from gpmp_tpu_torch.config import get_logger
 
 
 def check_chain_mesh(mesh):
-    """A chain mesh is None, or a port mesh (``parallel.make_mesh``) that
-    spans one device; chains sharded over more devices are not ported."""
+    """A chain (or particle) mesh is None, or a port mesh
+    (``parallel.make_mesh``) that spans one device; chains and particles
+    sharded over more devices are not ported."""
     if mesh is None:
         return
     from gpmp_tpu_torch.parallel.mesh import Mesh
@@ -46,7 +47,7 @@ def check_chain_mesh(mesh):
     if isinstance(mesh, Mesh) and mesh.size == 1:
         return
     raise NotImplementedError(
-        "sharding the chains over a mesh of more than one device is not "
+        "sharding chains or particles over a mesh of more than one device is not "
         "ported (ROADMAP queue 1, item 10c); pass mesh=None or a one-device "
         "gpmp_tpu_torch.parallel.make_mesh() mesh"
     )

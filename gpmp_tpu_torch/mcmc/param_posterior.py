@@ -1,14 +1,18 @@
 # gpmp_tpu_torch/mcmc/param_posterior.py
 """Posterior sampling of GP covariance parameters from selection criteria
-(counterpart of gpmp_tpu/mcmc/param_posterior.py, MH and NUTS).
+(counterpart of gpmp_tpu/mcmc/param_posterior.py).
 
 Bridges a selection criterion J(theta) to log_prob(theta) = -J(theta)/T
 with optional hard sampling_box truncation, and configures each sampler
-(MH Haario target 0.3; NUTS).  When ``info`` is provided, the criterion is
-recovered from the DifferentiableSelectionCriterion wrapper stored by
-parameter selection (its ``crit``, ``x`` and ``z``), so the samplers call
-the tensor criterion directly, on the device of its data, and NUTS
-differentiates it with torch.autograd.  NaN values and points outside the
+(MH Haario target 0.3; NUTS; tempered SMC from T = 1e6 to 1 with the ESS
+rule; annealed SVGD).  SMC and SVGD evaluate the criterion over their
+whole population at once (mcmc.population: ``torch.func.vmap`` of it, one
+CUDA graph a population on the card, K1p/K2p on the gram).  When ``info``
+is provided, the criterion is recovered from the
+DifferentiableSelectionCriterion wrapper stored by parameter selection (its
+``crit``, ``x`` and ``z``), so the samplers call the tensor criterion
+directly, on the device of its data, and NUTS differentiates it with
+torch.autograd.  NaN values and points outside the
 box map to -inf by ``torch.where``.
 
 On the card, such a criterion's log probability and its value+grad each
@@ -30,9 +34,13 @@ import gpmp_tpu_torch.num as gnp
 from gpmp_tpu_torch.config import get_chol_engine
 from gpmp_tpu_torch.misc.designs import randunif
 from gpmp_tpu_torch.ops import capture
+from gpmp_tpu_torch.ops.autograd import functorch_active
 
+from . import population
 from .mh import MHOptions, MetropolisHastings
 from .nuts import NUTSOptions, nuts_sample, plot_nuts_diagnostics
+from .smc import run_smc_sampling
+from .svgd import SVGDOptions, svgd_sample
 
 
 GRAPH_REPLAYS = 0  # replays of the log-probability graphs (value and value+grad)
@@ -44,7 +52,9 @@ GRAPH_REPLAYS = 0  # replays of the log-probability graphs (value and value+grad
 class _WrappedCriterion:
     """theta -> J(theta) of a DifferentiableSelectionCriterion's tensor
     criterion on its data: a function of theta alone, which a CUDA graph
-    can capture."""
+    can capture (alone, or under torch.func.vmap: mcmc.population)."""
+
+    capturable = True
 
     def __init__(self, fn, x, z):
         self.fn, self.x, self.z = fn, x, z
@@ -225,7 +235,8 @@ class _LogProb:
     def __init__(self, criterion_fn, lower_b, upper_b, temperature):
         self.criterion_fn, self.lower_b, self.upper_b = criterion_fn, lower_b, upper_b
         self.temperature = temperature
-        self._graphs = {} if isinstance(criterion_fn, _WrappedCriterion) else None
+        self.capturable = isinstance(criterion_fn, _WrappedCriterion)
+        self._graphs = {} if self.capturable else None
 
     def _value(self, p):
         lp = -self.criterion_fn(p) / self.temperature
@@ -234,6 +245,8 @@ class _LogProb:
             outside = torch.any(p < self.lower_b) | torch.any(p > self.upper_b)
             lp = torch.where(outside, -math.inf, lp)
         return lp
+
+    uncaptured = _value  # the function as written (mcmc.population's route probe)
 
     def _potential_and_grad(self, q):
         with torch.enable_grad():
@@ -261,7 +274,7 @@ class _LogProb:
 
     def __call__(self, p):
         p = gnp.asarray(p)
-        if (self._graphs is not None and p.is_cuda
+        if (self._graphs is not None and p.is_cuda and not functorch_active()
                 and not (torch.is_grad_enabled() and p.requires_grad)):
             out = self._graph("value", p)
             if out is not None:
@@ -438,3 +451,185 @@ def sample_from_selection_criterion_nuts(
                               ma_window=diagnostics_window)
 
     return samples_raw.transpose(0, 1), info_nuts
+
+
+# ---------------------------------------------------------------------
+# SMC
+# ---------------------------------------------------------------------
+def _tempered_population(crit, lower_b, upper_b):
+    """(x (B, d) or (d,), T) -> -J(x_b)/T, -inf on NaN and outside the box:
+    the SMC log target over the particle population (its criterion, a
+    ``population.Criterion``, is the function's ``criterion``)."""
+    vcrit = population.Criterion(crit)
+
+    def logpdf_temp(x, temperature):
+        x = gnp.asarray(x)
+        squeeze = x.ndim == 1
+        if squeeze:
+            x = x.reshape(1, -1)
+        out = -vcrit(x) / temperature
+        out = torch.where(torch.isnan(out), -math.inf, out)
+        if lower_b is not None:
+            in_box = torch.all(x >= lower_b, dim=1) & torch.all(x <= upper_b, dim=1)
+            out = torch.where(in_box, out, -math.inf)
+        return out[0] if squeeze else out
+
+    logpdf_temp.criterion = vcrit
+    return logpdf_temp
+
+
+def sample_from_selection_criterion_smc(
+    info=None, selection_criterion=None, init_box=None, sampling_box=None,
+    n_particles=1000, initial_temperature=1e6, final_temperature=1.0,
+    min_ess_ratio=0.5, mh_steps=20, max_stages=50, debug=False,
+    plot_marginals=False, plot_particles=False, seed=None,
+):
+    """Tempered SMC targeting exp(-J/T) from initial_temperature down to
+    final_temperature with the ESS ladder rule.  Returns (particles,
+    smc_instance), the particles a tensor on the configured device.
+
+    The criterion runs over the whole particle population at once
+    (``mcmc.population.Criterion``); the route it took is
+    ``smc_instance.population_route``.  ``max_stages`` is accepted and
+    unused, as in the JAX package."""
+    crit = _resolve_selection_criterion(info, selection_criterion,
+                                        require_differentiable=False)
+    if init_box is None:
+        raise ValueError("init_box must be provided for SMC.")
+    dim = _infer_dim(info, None, init_box)
+    _normalize_bounds(init_box, dim, box_name="init_box")
+
+    lower_b = upper_b = None
+    if sampling_box is not None:
+        lower_b, upper_b, _, _ = _normalize_bounds(sampling_box, dim,
+                                                   box_name="sampling_box")
+
+    logpdf_temp = _tempered_population(crit, lower_b, upper_b)
+
+    rng = np.random.default_rng(seed) if seed is not None else None
+    particles, smc_instance = run_smc_sampling(
+        logpdf_parameterized_function=logpdf_temp,
+        initial_logpdf_param=initial_temperature,
+        target_logpdf_param=final_temperature,
+        compute_next_logpdf_param_method="ess",
+        min_ess_ratio=min_ess_ratio,
+        init_box=init_box,
+        n_particles=n_particles,
+        mh_steps=mh_steps,
+        debug=debug,
+        plot_empirical_distributions=plot_marginals,
+        rng=rng,
+    )
+    smc_instance.population_route = logpdf_temp.criterion.route
+    return particles, smc_instance
+
+
+# ---------------------------------------------------------------------
+# SVGD
+# ---------------------------------------------------------------------
+def _jittered(particles0, n_particles, init_jitter, rng):
+    if int(n_particles) > 1 and float(init_jitter) > 0.0:
+        particles0 = particles0 + float(init_jitter) * rng.normal(size=particles0.shape)
+    return particles0
+
+
+def sample_from_selection_criterion_svgd(
+    info=None, selection_criterion=None, particles_initial=None,
+    random_init=False, init_box=None, sampling_box=None, n_particles=32,
+    n_steps=500, step_size=1e-2, initial_temperature=10.0,
+    final_temperature=1.0, annealing_schedule="geometric", bandwidth=None,
+    bandwidth_scale=1.0, bandwidth_min=None, preconditioner_diag=None,
+    init_jitter=1e-3, jitter=1e-12, progress=True, verbose=1, log_every=50,
+    store_particles_history=False, options: SVGDOptions = None, seed=None,
+):
+    """Annealed SVGD on exp(-J/T); returns (particles, info_svgd), the
+    particles a tensor on the configured device.  The initial particles
+    come from the NumPy generator seeded by ``seed`` as in the JAX package,
+    so both packages start from the same particles."""
+    crit = _resolve_selection_criterion(info, selection_criterion,
+                                        require_differentiable=True)
+    dim_box = init_box if init_box is not None else sampling_box
+    dim = _infer_dim(info, particles_initial, dim_box)
+
+    lower_b = upper_b = lower_np = upper_np = None
+    if sampling_box is not None:
+        lower_b, upper_b, lower_np, upper_np = _normalize_bounds(
+            sampling_box, dim, box_name="sampling_box")
+
+    rng = np.random.default_rng(seed)
+
+    init_box_eff = None
+    if particles_initial is None:
+        if random_init:
+            if init_box is None:
+                raise ValueError(
+                    "init_box must be provided when random_init is True."
+                )
+            particles0 = None
+            init_box_eff = init_box
+        else:
+            if info is None:
+                raise ValueError(
+                    "particles_initial must be provided when info is None and "
+                    "random_init is False."
+                )
+            x0 = _host(_info_covparam(info)).reshape(-1)
+            if x0.shape[0] != dim:
+                raise ValueError("info.covparam has incompatible dimension.")
+            particles0 = _jittered(np.tile(x0.reshape(1, -1), (int(n_particles), 1)),
+                                   n_particles, init_jitter, rng)
+    else:
+        particles0 = _host(particles_initial)
+        if particles0.ndim == 0:
+            if dim != 1:
+                raise ValueError(
+                    "Scalar particles_initial is only valid when dim == 1."
+                )
+            particles0 = _jittered(np.tile(particles0.reshape(1, 1), (int(n_particles), 1)),
+                                   n_particles, init_jitter, rng)
+        elif particles0.ndim == 1:
+            if particles0.shape[0] != dim:
+                raise ValueError(
+                    "1D particles_initial must have length equal to dim."
+                )
+            particles0 = _jittered(np.tile(particles0.reshape(1, -1), (int(n_particles), 1)),
+                                   n_particles, init_jitter, rng)
+        elif particles0.ndim == 2:
+            if particles0.shape[1] != dim:
+                raise ValueError(
+                    "2D particles_initial must have shape (n_particles, dim)."
+                )
+            if particles0.shape[0] == 1 and int(n_particles) > 1:
+                particles0 = _jittered(np.tile(particles0, (int(n_particles), 1)),
+                                       n_particles, init_jitter, rng)
+        else:
+            raise ValueError("particles_initial must be scalar, 1D, or 2D.")
+
+    if particles0 is not None and lower_b is not None:
+        particles0 = np.clip(particles0, lower_np.reshape(1, -1), upper_np.reshape(1, -1))
+    n_particles_eff = (
+        int(particles0.shape[0]) if particles0 is not None else int(n_particles)
+    )
+
+    log_prob = _make_log_prob(crit, lower_b, upper_b, temperature=1.0)
+
+    if options is None:
+        options = SVGDOptions(
+            n_steps=n_steps, step_size=step_size, bandwidth=bandwidth,
+            bandwidth_scale=bandwidth_scale, bandwidth_min=bandwidth_min,
+            preconditioner_diag=preconditioner_diag,
+            initial_temperature=initial_temperature,
+            final_temperature=final_temperature,
+            annealing_schedule=annealing_schedule, sampling_box=sampling_box,
+            store_particles_history=store_particles_history, verbose=verbose,
+            progress=progress, log_every=log_every, jitter=jitter, seed=seed,
+        )
+
+    return svgd_sample(
+        log_prob,
+        particles_initial=(
+            gnp.asarray(particles0) if particles0 is not None else None
+        ),
+        n_particles=n_particles_eff, dim=dim, init_box=init_box_eff,
+        options=options,
+    )

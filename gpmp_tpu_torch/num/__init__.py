@@ -649,14 +649,19 @@ class _SafeSqrt(torch.autograd.Function):
 
     d/dx sqrt(x) at x=0 is +inf, which poisons autodiff through the gram
     diagonal (coincident points); 0 is the subgradient used there, as in
-    the JAX package's custom_jvp ``_safe_sqrt``.
+    the JAX package's custom_jvp ``_safe_sqrt``.  Plain torch ops, so
+    torch.func transforms generate its vmap rule.
     """
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, d2):
-        y = torch.sqrt(d2)
-        ctx.save_for_backward(y)
-        return y
+    def forward(d2):
+        return torch.sqrt(d2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g):

@@ -120,8 +120,9 @@ def _compile(out_dir: Path) -> Path:
 def _declare(lib):
     vp, ll, i32, f64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
     signatures = {
-        # ops/gram.py: K1's and K2's geometry
+        # ops/gram.py: K1's and K2's geometry, K1p's and K2p's
         "gpmp_matern_geometry": ([i32], i32),
+        "gpmp_matern_population_geometry": ([i32], i32),
         # ops/mixed.py: K6's geometry
         "gpmp_precond_geometry": ([i32], i32),
         # ops/mixed.py: K3
@@ -181,6 +182,10 @@ def _declare(lib):
             [vp, vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, ll, ll, ll, vp], i32)
         signatures[f"gpmp_matern_pullback_{suffix}"] = (
             [vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, i32, i32, f64, ll, ll, ll, vp], i32)
+        signatures[f"gpmp_matern_gram_population_{suffix}"] = (
+            [vp, vp, vp, vp, vp, vp, ll, ll, ll, i32, i32, i32, f64, ll, ll, ll, vp], i32)
+        signatures[f"gpmp_matern_pullback_population_{suffix}"] = (
+            [vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, i32, i32, i32, f64, ll, ll, vp], i32)
         signatures[f"gpmp_residual_{suffix}"] = (
             [vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, i32, ll, vp], i32)
         signatures[f"gpmp_precond_apply_{suffix}"] = (

@@ -50,6 +50,32 @@ def plain_vjp(fn, inputs, need, cot, create_graph=True):
     return res
 
 
+def functorch_active():
+    """True inside a torch.func transform (vmap, grad, ...)."""
+    return torch._C._are_functorch_transforms_active()
+
+
+def plain_vjp_func(fn, inputs, need, cot):
+    """``plain_vjp`` under torch.func transforms: ``torch.func.vjp`` of the
+    plain composition (each slot of an input passed twice gets its own
+    part; autograd adds them)."""
+    if not any(need):
+        return [None] * len(inputs)
+    _, vjp = torch.func.vjp(fn, *inputs)
+    return [g if w else None for g, w in zip(vjp(cot), need)]
+
+
+def refuse_batched(name, *tensors):
+    """Raise NotImplementedError where a kernel of ``name`` is handed a tensor
+    batched by torch.func.vmap (the generated vmap rule of a Function whose
+    kernel has no population form): a raw pointer to a batched tensor is not
+    its batch."""
+    if any(torch._C._functorch.is_batchedtensor(t) for t in tensors):
+        raise NotImplementedError(
+            f"{name} under torch.func.vmap on CUDA tensors: the kernel has no batched "
+            "form (only the Matern gram's theta batch has one, K1p/K2p)")
+
+
 class SecondOrderNotImplemented(RuntimeError):
     """A first-order-only Function was asked for a differentiable gradient."""
 

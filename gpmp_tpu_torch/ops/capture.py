@@ -2,8 +2,9 @@
 """A sequence of the port's launches captured once as a CUDA graph and
 replayed per call (``Graph``).
 
-Two users: ``refine``'s f64 panel factorization, and the samplers' log
-target (gpmp_tpu_torch.mcmc.param_posterior).  ``Graph`` owns what a
+Its users: ``refine``'s f64 panel factorization, the MH and NUTS log
+target (gpmp_tpu_torch.mcmc.param_posterior), and the population samplers'
+criterion and SVGD step (gpmp_tpu_torch.mcmc.population).  ``Graph`` owns what a
 replay needs beside the graph:
 
 - the launch counters: the capture's launches are taken off the ``*_LAUNCHES``
@@ -20,14 +21,17 @@ captured, and a graph of it would freeze its branches.  With
 ``no_host_reads`` the function runs once more before the capture with
 synchronizing calls made errors (``torch.cuda.set_sync_debug_mode``), and
 ``Graph`` raises ``ReadsBack`` if it makes one; the caller runs it as it
-is instead.
+is instead.  ``reads_back`` asks the same of a function on either device
+(such a function cannot run under torch.func.vmap either).
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 _HOLDING = []  # the held lists of the captures in progress
 
@@ -72,6 +76,49 @@ def _counters():
             for a in sorted(vars(m)) if a.endswith("_LAUNCHES")]
 
 
+def _no_sync(fn, inputs):
+    """Run fn(*inputs) with synchronizing calls made errors; ReadsBack if it
+    makes one."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(*inputs)
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        raise ReadsBack(f"{getattr(fn, '__qualname__', fn)} reads the card back: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+class _ScalarReads(TorchDispatchMode):
+    """Raises ReadsBack at a scalar read of a tensor (``.item()``,
+    ``float()``, ``bool()``: aten._local_scalar_dense)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            raise ReadsBack("a tensor value is read to the host")
+        return func(*args, **(kwargs or {}))
+
+
+def reads_back(fn, *inputs):
+    """Whether ``fn(*inputs)`` reads a device value back to the host (the
+    mixed Cholesky engine's convergence tests): on CUDA inputs a
+    synchronizing call (``Graph``'s probe), on CPU inputs a scalar read.  A
+    function that does cannot run under torch.func.vmap nor be captured.
+    Runs ``fn`` once, without autograd."""
+    with torch.no_grad():
+        try:
+            if inputs[0].is_cuda:
+                _no_sync(fn, inputs)
+            else:
+                with _ScalarReads():
+                    fn(*inputs)
+        except ReadsBack:
+            return True
+    return False
+
+
 class Graph:
     """``fn(*inputs)`` (a tensor or a tuple of tensors) captured once at the
     inputs' shapes and replayed per call on new inputs of those shapes.
@@ -100,12 +147,21 @@ class Graph:
         counters = _counters()
         before = [getattr(m, a) for m, a in counters]
         self.graph = torch.cuda.CUDAGraph()
+        # a graph destroyed while another is being captured invalidates the
+        # capture: collect the dead ones (those in reference cycles, which
+        # only the cyclic collector frees) first, and keep the collector off
+        # until the capture ends
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
         _HOLDING.append(self.held)
         try:
             with torch.set_grad_enabled(grad), torch.cuda.graph(self.graph, stream=stream):
                 out = fn(*self.inputs)
         finally:
             _HOLDING.pop()
+            if collecting:
+                gc.enable()
         self.out = out if isinstance(out, tuple) else (out,)
         self.counts = []
         for (m, a), b in zip(counters, before):
@@ -114,16 +170,7 @@ class Graph:
             setattr(m, a, b)  # they run at each replay
 
     def _probe(self, fn):
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            fn(*self.inputs)
-        except RuntimeError as e:
-            if "synchroniz" not in str(e):
-                raise
-            raise ReadsBack(f"{getattr(fn, '__qualname__', fn)} reads the card back: {e}") from e
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
+        _no_sync(fn, self.inputs)
 
     def __call__(self, *inputs):
         with torch.no_grad():

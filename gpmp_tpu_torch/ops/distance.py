@@ -42,7 +42,7 @@ import torch
 
 import gpmp_tpu_torch.num as gnp
 from . import _build, capture
-from .autograd import plain_vjp
+from .autograd import plain_vjp, refuse_batched
 from .mixed import _on_card, _sms_on
 
 K1D_LAUNCHES = 0
@@ -286,16 +286,26 @@ class _ScaledDistance(torch.autograd.Function):
     """D(l; x, y): K1d forward and pullback on CUDA tensors, the plain
     versions on CPU tensors.  The x and y cotangents come from the plain
     composition on either device (off the main path), and so does the whole
-    backward under create_graph, recorded (exact second derivatives)."""
+    backward under create_graph, recorded (exact second derivatives).
+    Under torch.func.vmap the rule is generated from these: on CPU tensors
+    the plain versions batch, on CUDA tensors K1d has no batched form and
+    raises."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, loginvrho, x, y, elementwise):
-        ctx.save_for_backward(loginvrho, x, y)
-        ctx.elementwise = elementwise
+    def forward(loginvrho, x, y, elementwise):
         if _on_card(x):
+            refuse_batched("K1d scaled_distance", loginvrho, x, y)
             fn = scaled_distance_elementwise_cuda if elementwise else scaled_distance_cuda
             return fn(loginvrho.contiguous(), x.contiguous(), y.contiguous())
         return _plain_for(elementwise)(loginvrho, x, y)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        loginvrho, x, y, elementwise = inputs
+        ctx.save_for_backward(loginvrho, x, y)
+        ctx.elementwise = elementwise
 
     @staticmethod
     def backward(ctx, dbar):
@@ -306,6 +316,7 @@ class _ScaledDistance(torch.autograd.Function):
         gl = None
         if ctx.needs_input_grad[0]:
             if _on_card(x):
+                refuse_batched("K1d scaled_distance pullback", dbar, loginvrho, x, y)
                 fn = (scaled_distance_elementwise_pullback_cuda if ctx.elementwise
                       else scaled_distance_pullback_cuda)
                 g = fn(dbar.contiguous(), loginvrho.contiguous(), x.contiguous(), y.contiguous())

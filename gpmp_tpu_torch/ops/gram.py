@@ -28,9 +28,18 @@ such a pair by Kbar_ij + Kbar_ji and is finished by its last block
 (csrc/fixed_sum.cuh) into a workspace cached per shape.  Each is one
 launch.
 
-``K1_LAUNCHES``, ``K2_LAUNCHES``, ``K1M_LAUNCHES`` and
-``K1M_BACKWARD_LAUNCHES`` count kernel launches (one per wrapper call that
-launched); the plain versions count nothing.
+K1p (``matern_gram_population_cuda``) and K2p
+(``matern_gram_population_pullback_cuda``) are K1 and K2 for a population
+of B parameter vectors at one x and y, one launch each on
+``population_plan``'s grid; member b of K1p is bitwise K1(theta_b).  They
+are what ``torch.func.vmap`` of ``matern_gram`` over theta runs on CUDA
+tensors (``MaternGram.vmap`` and ``_GramPullback.vmap``: the SMC and SVGD
+samplers' population criterion, mcmc.population); any other batching of
+CUDA tensors raises NotImplementedError.
+
+``K1_LAUNCHES``, ``K2_LAUNCHES``, ``K1P_LAUNCHES``, ``K2P_LAUNCHES``,
+``K1M_LAUNCHES`` and ``K1M_BACKWARD_LAUNCHES`` count kernel launches (one
+per wrapper call that launched); the plain versions count nothing.
 
 eps in the nugget is the machine epsilon of the tensors' dtype (the
 working dtype when the tensors come from ``gnp``).
@@ -47,11 +56,14 @@ import torch
 
 import gpmp_tpu_torch.num as gnp
 from . import _build, capture, distance
-from .autograd import plain_vjp
+from .autograd import (SecondOrderNotImplemented, functorch_active, plain_vjp, plain_vjp_func,
+                       refuse_batched)
 from .mixed import _on_card, _sms_on
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
+K1P_LAUNCHES = 0
+K2P_LAUNCHES = 0
 K1M_LAUNCHES = 0
 K1M_BACKWARD_LAUNCHES = 0
 
@@ -123,6 +135,19 @@ def matern_gram_plain(x, y, p, theta, same=False):
     return K
 
 
+def matern_gram_population_plain(x, y, p, thetas, same=False):
+    """(B, n, m): K(x, y; theta_b) for the rows theta_b of thetas (B, 1 + d),
+    the single plain version under torch.func.vmap."""
+    return torch.func.vmap(lambda t: matern_gram_plain(x, y, p, t, same))(thetas)
+
+
+def matern_gram_population_pullback_plain(kbars, x, y, p, thetas, same=False):
+    """(B, 1 + d) float64: grad_theta_b <kbars[b], K(x, y; theta_b)>, the single
+    plain version under torch.func.vmap."""
+    return torch.func.vmap(
+        lambda kb, t: matern_gram_pullback_plain(kb, x, y, p, t, same))(kbars, thetas)
+
+
 def matern_gram_pullback_plain(kbar, x, y, p, theta, same=False):
     """grad_theta <kbar, K(x, y; theta)> from torch ops, accumulated in float64.
 
@@ -174,6 +199,11 @@ def matern_gram_pullback_plain(kbar, x, y, p, theta, same=False):
 # 128 registers a thread).
 THREADS, TILE, EXACT_MAX_D, MAX_D, FIXED_P = 128, 32, 8, 32, 3
 BLOCKS_PER_SM = 4
+# K1p's and K2p's (population_plan): blocks of POP_THREADS threads; K1p a
+# thread an entry, POP_CHUNK entries of up to POP_MAX_MEMBERS whole members a
+# block; K2p a warp POP_WARP_ENTRIES entries of one member; an instance
+# unrolled to d <= POP_EXACT_D, else the run-time-d one
+POP_THREADS, POP_CHUNK, POP_MAX_MEMBERS, POP_WARP_ENTRIES, POP_EXACT_D = 256, 512, 64, 1024, 8
 
 
 def gram_plan(n, m, same, itemsize, sms):
@@ -194,6 +224,27 @@ def gram_plan(n, m, same, itemsize, sms):
     return TILE, items, min(items, BLOCKS_PER_SM * sms)
 
 
+def population_plan(members, n, m):
+    """K1p's and K2p's grids for B = ``members`` grams (n, m), on the CPU:
+    ((mb, chunks, blocks), (chunks, blocks)).
+
+    K1p: mb members a block (as many whole members as POP_CHUNK entries
+    hold, at most POP_MAX_MEMBERS; one past POP_CHUNK entries), their
+    mb n m entries cut into ``chunks`` blocks of POP_CHUNK; K2p: a member's
+    n m entries cut into ``chunks`` warps of POP_WARP_ENTRIES, POP_THREADS /
+    32 warps a block.  (B, n) = (1000, 8): K1p 125 blocks of 8 members, K2p
+    1000 warps; (64, 512): K1p 64 x 512 blocks, K2p 64 x 256 warps."""
+    if members <= 0 or n <= 0 or m <= 0:
+        raise ValueError(f"population_plan: members={members}, n={n}, m={m}")
+    per = n * m
+    mb = max(1, min(POP_MAX_MEMBERS, POP_CHUNK // per))
+    chunks = -(-(mb * per) // POP_CHUNK)
+    warps_chunks = -(-per // POP_WARP_ENTRIES)
+    warps = POP_THREADS // 32
+    return ((mb, chunks, -(-members // mb) * chunks),
+            (warps_chunks, -(-(members * warps_chunks) // warps)))
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     """The kernel library, its K1/K2 geometry checked against this module's
@@ -204,6 +255,19 @@ def _library():
     if built != want:
         raise RuntimeError(f"csrc/matern_gram.cu's K1/K2 geometry (threads, tile, exact d, "
                            f"max d, fixed p, blocks an SM) is {built}, not {want}")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _population_library():
+    """The kernel library, its K1p/K2p geometry checked against this
+    module's once."""
+    lib = _library()
+    want = (POP_THREADS, POP_CHUNK, POP_MAX_MEMBERS, POP_WARP_ENTRIES, POP_EXACT_D)
+    built = tuple(lib.gpmp_matern_population_geometry(q) for q in range(len(want)))
+    if built != want:
+        raise RuntimeError(f"csrc/matern_gram.cu's K1p/K2p geometry (threads, chunk, members, "
+                           f"warp entries, exact d) is {built}, not {want}")
     return lib
 
 
@@ -223,6 +287,20 @@ def _pullback_workspace(device, n, m, d, dtype, same):
     part = torch.empty(plan[-1] * (1 + MAX_D), dtype=torch.float64, device=device)
     ticket = torch.zeros(1, dtype=torch.int32, device=device)
     return plan, part.data_ptr(), ticket.data_ptr(), (part, ticket)
+
+
+@capture.cached(maxsize=64)
+def _population_pullback_workspace(device, members, n, m, d):
+    """K2p's per-(device, B, n, m, d) workspace: its chunks and blocks, and raw
+    pointers to the chunks' sums (B x chunks x (1 + d) f64) and to the
+    members' tickets (int32, zero between launches: each launch resets
+    them), beside the tensors that hold them."""
+    _population_library()
+    chunks, blocks = population_plan(members, n, m)[1]
+    part = torch.empty(members * chunks * (d + 1) if chunks > 1 else 1,
+                       dtype=torch.float64, device=device)
+    ticket = torch.zeros(members, dtype=torch.int32, device=device)
+    return chunks, blocks, part.data_ptr(), ticket.data_ptr(), (part, ticket)
 
 
 def _coef_values(p):
@@ -322,6 +400,61 @@ def matern_gram_pullback_cuda(kbar, x, y, p, theta, same=False):
     return out
 
 
+def _check_population_args(x, y, thetas, p, same, kbars=None):
+    """Validate K1p's and K2p's arguments: K1's and K2's for each member,
+    thetas (B, 1 + d) and kbars (B, n, m)."""
+    if thetas.ndim != 2 or thetas.shape[0] < 1:
+        raise ValueError(f"thetas must be (B, 1 + d) with B >= 1; got {tuple(thetas.shape)}")
+    n, m, d = _check_cuda_args(x, y, thetas[0], p, same)
+    for t in (thetas,) if kbars is None else (thetas, kbars):
+        if not t.is_cuda or t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
+            raise ValueError("population gram kernels take contiguous CUDA tensors of x's "
+                             "device and dtype")
+    B = thetas.shape[0]
+    if kbars is not None and kbars.shape != (B, n, m):
+        raise ValueError(f"kbars must be ({B}, {n}, {m}); got {tuple(kbars.shape)}")
+    return B, n, m, d
+
+
+def matern_gram_population_cuda(x, y, p, thetas, same=False):
+    """K1p: the B grams K(x, y; theta_b), (B, n, m), one launch on
+    population_plan's grid; member b bitwise K1(theta_b)."""
+    global K1P_LAUNCHES
+    B, n, m, d = _check_population_args(x, y, thetas, p, same)
+    out = torch.empty((B, n, m), dtype=x.dtype, device=x.device)
+    if n == 0 or m == 0:
+        return out
+    mb, chunks, blocks = population_plan(B, n, m)[0]
+    _build.launch("K1p matern_gram_population",
+                  getattr(_population_library(),
+                          f"gpmp_matern_gram_population_{distance._suffix(x)}"),
+                  x.device, x.data_ptr(), y.data_ptr(), thetas.data_ptr(),
+                  *_coef_args(p, x.device), out.data_ptr(), B, n, m, d, p, int(same),
+                  torch.finfo(x.dtype).eps, mb, chunks, blocks)
+    K1P_LAUNCHES += 1
+    return out
+
+
+def matern_gram_population_pullback_cuda(kbars, x, y, p, thetas, same=False):
+    """K2p: grad_theta_b <kbars[b], K(theta_b)>, (B, 1 + d) float64, one launch
+    on population_plan's grid, each member finished in a fixed order
+    (bitwise reproducible)."""
+    global K2P_LAUNCHES
+    B, n, m, d = _check_population_args(x, y, thetas, p, same, kbars=kbars)
+    if n == 0 or m == 0:
+        return torch.zeros((B, d + 1), dtype=torch.float64, device=x.device)
+    chunks, blocks, part, ticket, _ = _population_pullback_workspace(x.device, B, n, m, d)
+    out = torch.empty((B, d + 1), dtype=torch.float64, device=x.device)
+    _build.launch("K2p matern_gram_population_pullback",
+                  getattr(_population_library(),
+                          f"gpmp_matern_pullback_population_{distance._suffix(x)}"),
+                  x.device, kbars.data_ptr(), x.data_ptr(), y.data_ptr(), thetas.data_ptr(),
+                  *_coef_args(p, x.device), part, ticket, out.data_ptr(), B, n, m, d, p,
+                  int(same), torch.finfo(x.dtype).eps, chunks, blocks)
+    K2P_LAUNCHES += 1
+    return out
+
+
 def _check_maternp_args(p, h, kbar=None):
     for t in (h,) if kbar is None else (h, kbar):
         if not t.is_cuda or t.device != h.device:
@@ -372,15 +505,25 @@ def maternp_kernel_backward_cuda(p, h, kbar):
 class _MaternpKernel(torch.autograd.Function):
     """k_p(h) elementwise: K1m forward and backward on CUDA tensors, the
     plain versions on CPU tensors; under create_graph the backward is the
-    plain composition's, recorded (exact second derivatives)."""
+    plain composition's, recorded (exact second derivatives).  Under
+    torch.func.vmap the rule is generated from these: on CPU tensors the
+    plain versions batch, on CUDA tensors K1m has no population form and
+    raises."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, h, p):
-        ctx.save_for_backward(h)
-        ctx.p = p
+    def forward(h, p):
         if _on_card(h):
+            refuse_batched("K1m maternp_kernel", h)
             return maternp_kernel_cuda(p, h.contiguous())
         return maternp_kernel_plain(p, h)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        h, p = inputs
+        ctx.save_for_backward(h)
+        ctx.p = p
 
     @staticmethod
     def backward(ctx, kbar):
@@ -390,6 +533,7 @@ class _MaternpKernel(torch.autograd.Function):
                                 ctx.needs_input_grad[:1], kbar)
             return hbar, None
         if _on_card(h):
+            refuse_batched("K1m maternp_kernel backward", h, kbar)
             return maternp_kernel_backward_cuda(ctx.p, h.contiguous(), kbar.contiguous()), None
         return maternp_kernel_backward_plain(ctx.p, h, kbar), None
 
@@ -401,25 +545,124 @@ def maternp_kernel(p: int, h):
     return _MaternpKernel.apply(gnp._tensor(h), int(p))
 
 
+def matern_gram_population(x, y, p, thetas, same=False):
+    """(B, n, m): K(x, y; theta_b) for the rows of thetas (B, 1 + d): K1p on
+    CUDA tensors, the plain version on CPU tensors."""
+    if _on_card(thetas):
+        return matern_gram_population_cuda(*_contiguous_pair(x, y), p, thetas.contiguous(), same)
+    return matern_gram_population_plain(x, y, p, thetas, same)
+
+
+def matern_gram_population_pullback(kbars, x, y, p, thetas, same=False):
+    """(B, 1 + d) float64: grad_theta_b <kbars[b], K(x, y; theta_b)>: K2p on
+    CUDA tensors, the plain version on CPU tensors."""
+    if _on_card(thetas):
+        return matern_gram_population_pullback_cuda(kbars.contiguous(), *_contiguous_pair(x, y),
+                                                     p, thetas.contiguous(), same)
+    return matern_gram_population_pullback_plain(kbars, x, y, p, thetas, same)
+
+
+def _population_dims(name, xd, yd, tensors):
+    """The batching of a gram Function under torch.func.vmap: theta batched
+    (or broadcast) and x, y shared is the population form; any other on CUDA
+    tensors raises, naming the case."""
+    if xd is None and yd is None:
+        return True
+    if any(t.is_cuda for t in tensors):
+        raise NotImplementedError(
+            f"{name} under torch.func.vmap on CUDA tensors batches theta only (a population "
+            f"of parameter vectors at one x and y: K1p/K2p); got x batched along {xd}, "
+            f"y along {yd}")
+    return False
+
+
+def _members(t, dim, size):
+    """t with its batch dimension first (dim None: broadcast to size)."""
+    return t.movedim(dim, 0) if dim is not None else t.expand(size, *t.shape)
+
+
+class _GramPullback(torch.autograd.Function):
+    """g = grad_theta <kbar, K(x, y; theta)>, (1 + d) in theta's dtype: the
+    theta pullback of MaternGram under torch.func transforms (K2 on CUDA
+    tensors, the plain version on CPU tensors); its vmap rule, for a batch
+    of (kbar, theta) at one x and y, is K2p.  First-order only."""
+
+    @staticmethod
+    def forward(kbar, x, y, theta, p, same):
+        if kbar.is_cuda:
+            g = matern_gram_pullback_cuda(kbar.contiguous(), *_contiguous_pair(x, y), p,
+                                          theta.contiguous(), same)
+        else:
+            g = matern_gram_pullback_plain(kbar, x, y, p, theta, same)
+        return g.to(theta.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, kbar, x, y, theta, p, same):
+        kd, xd, yd, td = in_dims[:4]
+        if not _population_dims("the gram pullback", xd, yd, (kbar, x, y, theta)):
+            return torch.func.vmap(
+                lambda kb, xx, yy, t: matern_gram_pullback_plain(kb, xx, yy, p, t, same),
+                in_dims=(kd, xd, yd, td), randomness=info.randomness)(
+                    kbar, x, y, theta).to(theta.dtype), 0
+        B = info.batch_size
+        g = matern_gram_population_pullback(_members(kbar, kd, B), x, y, p,
+                                            _members(theta, td, B), same)
+        return g.to(theta.dtype), 0
+
+    @staticmethod
+    def backward(ctx, gbar):
+        raise SecondOrderNotImplemented(
+            "the gram pullback under torch.func transforms: second derivatives are not "
+            "implemented (differentiate MaternGram without torch.func for a Hessian)")
+
+
 class MaternGram(torch.autograd.Function):
     """K(x, y; theta): K1 forward and K2 (the theta pullback) backward on CUDA
     tensors, the plain versions on CPU tensors.  The x and y cotangents come
     from the plain composition on either device (off the main path), and so
     does the whole backward under create_graph, recorded (exact second
-    derivatives)."""
+    derivatives).
+
+    Under torch.func transforms: the vmap rule takes a batch of theta at one
+    x and y to K1p (the population form; the plain versions on CPU tensors),
+    and the backward's theta pullback is ``_GramPullback``, whose vmap rule is
+    K2p, so that ``vmap(grad(criterion))`` launches K1p and K2p once a
+    population.  Other batchings of CUDA tensors raise NotImplementedError."""
 
     @staticmethod
-    def forward(ctx, x, y, theta, p, same):
-        ctx.save_for_backward(x, y, theta)
-        ctx.p, ctx.same = p, same
+    def forward(x, y, theta, p, same):
         if x.is_cuda:
             return matern_gram_cuda(*_contiguous_pair(x, y), p, theta.contiguous(), same)
         return matern_gram_plain(x, y, p, theta, same)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, y, theta, p, same = inputs
+        ctx.save_for_backward(x, y, theta)
+        ctx.p, ctx.same = p, same
+
+    @staticmethod
+    def vmap(info, in_dims, x, y, theta, p, same):
+        xd, yd, td = in_dims[:3]
+        if not _population_dims("MaternGram", xd, yd, (x, y, theta)):
+            return torch.func.vmap(partial(_gram_plain_xyt, p, same), in_dims=(xd, yd, td),
+                                   randomness=info.randomness)(x, y, theta), 0
+        return matern_gram_population(x, y, p, _members(theta, td, info.batch_size), same), 0
+
+    @staticmethod
     def backward(ctx, kbar):
         x, y, theta = ctx.saved_tensors
         plain = partial(_gram_plain_xyt, ctx.p, ctx.same)
+        if functorch_active():
+            gx, gy, _ = plain_vjp_func(plain, (x, y, theta),
+                                       (*ctx.needs_input_grad[:2], False), kbar)
+            g = (_GramPullback.apply(kbar, x, y, theta, ctx.p, ctx.same)
+                 if ctx.needs_input_grad[2] else None)
+            return gx, gy, g, None, None
         if torch.is_grad_enabled():
             return (*plain_vjp(plain, (x, y, theta), ctx.needs_input_grad[:3], kbar), None, None)
         gx = gy = g = None

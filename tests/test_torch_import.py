@@ -85,6 +85,9 @@ SUBMODULES = (
     "gpmp_tpu_torch.mcmc.mh",
     "gpmp_tpu_torch.mcmc.nuts",
     "gpmp_tpu_torch.mcmc.param_posterior",
+    "gpmp_tpu_torch.mcmc.population",
+    "gpmp_tpu_torch.mcmc.smc",
+    "gpmp_tpu_torch.mcmc.svgd",
 )
 
 
@@ -242,9 +245,9 @@ def test_unported_options_raise():
 
 
 def test_mcmc_audit():
-    """gpmp_tpu_torch.mcmc exports the MH and NUTS half of gpmp_tpu.mcmc's
-    names; the SMC and SVGD names are listed as waiting for the population
-    slice (they raise, naming it).  That importing it pulls no JAX is
+    """gpmp_tpu_torch.mcmc exports every name of gpmp_tpu.mcmc's __all__
+    (MH, NUTS, SMC, subset simulation, SVGD and their entry points), and
+    lists none as not ported.  That importing it pulls no JAX is
     test_import_pulls_no_jax's (its modules are in SUBMODULES)."""
     import gpmp_tpu_torch.mcmc as tm
 
@@ -257,9 +260,7 @@ def test_mcmc_audit():
                  "rbf_kernel_matrix svgd_step svgd_sample plot_svgd_empirical_distributions "
                  "estimate_cov_matrix estimate_cov_matrix_knn").split()
     assert sorted(tm.__all__ + list(tm.NOT_PORTED)) == sorted(jax_names)
-    for name in tm.NOT_PORTED:
-        with pytest.raises(AttributeError, match="10b"):
-            getattr(tm, name)
+    assert tm.NOT_PORTED == ()
     for name in tm.__all__:
         getattr(tm, name)
     assert "mcmc" in dir(gpmp_tpu_torch)
